@@ -8,8 +8,8 @@ line) where there is no CUDA device or no checkout around it. Phases, each
 checked, none caught:
 
  1. the card: name and power limit (nvidia-smi), CUDA version;
- 2. build the hand-written kernel from `vod_tpu_torch/csrc/`, with the time
-    taken and the library path;
+ 2. build both hand-written kernels from `vod_tpu_torch/csrc/`, one `nvcc`
+    each, started together, with the time taken, registers and shared memory;
  3. `fused_mips_binned` against its plain PyTorch version on the card at
     N = 2^20, D = 768, bins 512 and 1024, B = 1, 64 and 2048, k = 40: bf16
     scores within twice the f32 sum-order bound and ids equal wherever the
@@ -17,6 +17,13 @@ checked, none caught:
     masking; duplicate rows tie to the lowest id. Then times: kernel, plain
     version, the library yardstick (`torch.topk(q @ Vᵀ, k)` in bf16,
     `torch.topk(torch._int_mm(q, Vᵀ), k)` in int8), and the bound;
+ 3b. `fused_mips_topk` against its plain PyTorch version on the card at
+    N = 2^20, D = 768: bf16 at B = 1, 64 and 2048 with k = 10 and 128, f32 at
+    B = 64 with k = 128. Scores within twice the f32 sum-order bound, ids
+    equal wherever the margin exceeds it; n_real masking at N - 12345;
+    n_real = 3 leaves slots 3-9 at -1/-inf; three equal rows in different
+    splits tie to the lowest id. Then times: kernel, plain version, the
+    library yardstick `torch.topk(q @ Vᵀ, k)`, and the bound;
  4. the serving path, end to end (the main path: launch counts are zeroed just
     before it and read just after): an e5-base-width `VodEncoder` (bf16
     activations, f32 params, seed 0) encodes 64 queries of 64 seeded tokens;
@@ -28,6 +35,13 @@ checked, none caught:
     gold ids with label 1, fewer dispatches than requests, kernel launches,
     recall@10 against exact f32 search, served ids == direct `dense_search`;
     then request latency at one client and under 32 concurrent clients;
+ 4b. the kernel shootout, end to end (the exact kernel's main path: launch
+    counts are zeroed just before it and read just after):
+    `vod_tpu_torch.examples.mips_kernel_bench.main` at 1M x 768 bf16,
+    2048-query blocks, k = 10: the exact scan, `fused_mips_binned` and
+    `fused_mips_topk` timed for QPS, each with recall@10 against exact search.
+    Checked: exact-kernel recall >= 0.999, binned recall >= 0.975, and
+    `fused_mips_topk` launches;
  5. the `kernels` JSON line, the card line, and the last line
     `{"ok": true, "device": {...}}`.
 """
@@ -36,8 +50,8 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import statistics
-import subprocess
 import sys
 import time
 import urllib.request
@@ -48,6 +62,7 @@ D = 768
 N_KERNEL = 1 << 20
 BATCHES = (1, 64, 2048)  # a one-query dispatch, the serving batch, a bulk search
 K_POOL = 40  # min(k_factor * top_k, bins): the kernel's k on the served path
+EXACT_KS = (10, 128)  # the shootout's k, and the exact kernel's widest list
 TOP_K = 10
 N_SERVE = 1_000_000
 N_QUERIES, QUERY_TOKENS = 64, 64
@@ -57,12 +72,18 @@ N_QUERIES, QUERY_TOKENS = 64, 64
 # floor allows 12 misses, far outside that count's binomial spread.
 RECALL_FLOOR = 0.98
 # Published data-sheet peaks per H100 model, dense (no sparsity):
-# (HBM bytes/s, bf16 FLOP/s, int8 OP/s). Matched on nvidia-smi's name, first hit wins.
+# (HBM bytes/s, bf16 FLOP/s, int8 OP/s, f32 FLOP/s outside the tensor cores).
+# Matched on nvidia-smi's name, first hit wins.
 DATASHEETS = (
-    ("PCIe", (2.0e12, 756e12, 1513e12)),
-    ("NVL", (3.9e12, 835e12, 1670e12)),
-    ("H100", (3.35e12, 989e12, 1979e12)),  # H100 SXM5
+    ("PCIe", (2.0e12, 756e12, 1513e12, 51e12)),
+    ("NVL", (3.9e12, 835e12, 1670e12, 60e12)),
+    ("H100", (3.35e12, 989e12, 1979e12, 67e12)),  # H100 SXM5
 )
+SHOOTOUT_ARGS = ["--n", str(1 << 20), "--d", "768", "--blk", "2048", "--nblocks", "8", "--k", "10"]
+EXACT_RECALL_FLOOR = 0.999  # only bf16 near-ties between two f32 sum orders may differ
+# 1 - (k-1)/(2*bins) = 1 - 9/1024 = 0.991 expected at 512 bins; the floor leaves
+# room for the sampling spread of 256 queries
+BINNED_RECALL_FLOOR = 0.975
 
 
 def fail(msg: str) -> None:
@@ -77,14 +98,6 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int) -> float:
@@ -102,6 +115,25 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_against_plain(label: str, ks, ki, rs, ri, qq, vv, tol: float) -> tuple[float, int]:
+    """Kernel (ks, ki) against plain (rs, ri): the same slots are empty (-inf),
+    finite scores agree within `tol`, and an id may differ only where its exact
+    score lies within the band of the plain score. Returns (max error, swaps)."""
+    import torch
+
+    finite = torch.isfinite(rs)
+    check(torch.equal(torch.isfinite(ks), finite), f"{label}: empty slots differ")
+    err = (ks[finite] - rs[finite]).abs().max().item() if finite.any() else 0.0
+    check(err <= tol, f"{label}: max score error {err:.3g} > {tol:.3g}")
+    check(torch.equal(ki[~finite], ri[~finite]), f"{label}: ids of empty slots differ")
+    rows, cols = (ki != ri).nonzero(as_tuple=True)
+    if len(rows):  # a swap is allowed only inside the tolerance band
+        exact = (qq[rows].double() * vv[ki[rows, cols].long()].double()).sum(-1)
+        gap = (exact - rs[rows, cols].double()).abs().max().item()
+        check(gap <= 2 * tol, f"{label}: id swap outside the band ({gap:.3g})")
+    return err, len(rows)
+
+
 def percentile(xs: list[float], p: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
@@ -113,12 +145,19 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on an NVIDIA GPU")
-    if not (ROOT / "vod_tpu_torch" / "csrc" / "fused_mips_binned.cu").is_file():
+    kernel_names = ("fused_mips_binned", "fused_mips_topk")
+    if not all((ROOT / "vod_tpu_torch" / "csrc" / f"{name}.cu").is_file() for name in kernel_names):
         fail(f"no vod_tpu_torch checkout around {ROOT}")
     sys.path.insert(0, str(ROOT))
+    from vod_tpu_torch.examples import mips_kernel_bench
     from vod_tpu_torch.models import TransformerEncoderConfig, VodEncoder, VodPoolerConfig
     from vod_tpu_torch.ops import cuda_build
-    from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.ops.mips import (
+        fused_mips_binned,
+        fused_mips_binned_reference,
+        fused_mips_topk,
+        fused_mips_topk_reference,
+    )
     from vod_tpu_torch.ops.pq import quantize_int8
     from vod_tpu_torch.search import HybridEngines, SearchQueries, build_dense_index, dense_search
     from vod_tpu_torch.search.dense import quantize_queries_int8
@@ -129,17 +168,21 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. the card
-    card = card_line()
+    card = mips_kernel_bench.card_name(dev)
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; devices: {torch.cuda.device_count()}")
     sheet = next((v for key, v in DATASHEETS if key in kind), None)
     check(sheet is not None, f"no data-sheet peaks for {kind!r}")
-    hbm, peak_bf16, peak_int8 = sheet
+    hbm, peak_bf16, peak_int8, peak_f32 = sheet
 
-    # 2. kernel build
-    path, seconds, nvcc_log = cuda_build.build("fused_mips_binned")
-    regs = [ln.split("info    : ")[-1] for ln in nvcc_log.splitlines() if "registers" in ln]
-    log(f"build: fused_mips_binned: nvcc {seconds:.2f} s -> {path.relative_to(ROOT)}; " + " | ".join(regs))
+    # 2. kernel builds, one nvcc per source, all started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kernel_names)) as ex:
+        builds = list(ex.map(cuda_build.build, kernel_names))
+    for name, (path, seconds, nvcc_log) in zip(kernel_names, builds):
+        regs = [ln.split("info    : ")[-1] for ln in nvcc_log.splitlines() if "registers" in ln]
+        log(f"build: {name}: nvcc {seconds:.2f} s -> {path.relative_to(ROOT)}; " + " | ".join(regs))
+    log(f"build: both kernels in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain version at the headline shape
     g = torch.Generator(device=dev).manual_seed(0)
@@ -158,18 +201,15 @@ def main() -> None:
     max_err = 0.0
     for b in BATCHES:
         for bins in (512, 1024):
-            ks, ki = fused_mips_binned(vb, qb[:b], k=K_POOL, bins=bins)
-            rs, ri = fused_mips_binned_reference(vb, qb[:b], k=K_POOL, bins=bins)
-            err = (ks - rs).abs().max().item()
+            err, swaps = check_against_plain(
+                f"bf16 B={b} bins={bins}",
+                *fused_mips_binned(vb, qb[:b], k=K_POOL, bins=bins),
+                *fused_mips_binned_reference(vb, qb[:b], k=K_POOL, bins=bins),
+                qb[:b], vb, tol,
+            )
             max_err = max(max_err, err)
-            check(err <= tol, f"bf16 B={b} bins={bins}: max score error {err:.3g} > {tol:.3g}")
-            diff = ki != ri
-            if diff.any():  # a swap is allowed only inside the tolerance band
-                exact = (qb[:b].double()[:, None, :] * vb[ki.long()].double()).sum(-1)
-                gap = (exact - rs.double()).abs()[diff].max().item()
-                check(gap <= 2 * tol, f"bf16 B={b} bins={bins}: id swap outside the band ({gap:.3g})")
             log(f"check bf16 B={b} bins={bins}: max |kernel - plain| = {err:.3g} (tol {tol:.3g}), "
-                f"{int(diff.sum())} id swaps inside the band")
+                f"{swaps} id swaps inside the band")
             cs, ci = fused_mips_binned(vi8, qi8[:b], k=bins, bins=bins)  # every cell
             cr, cri = fused_mips_binned_reference(vi8, qi8[:b], k=bins, bins=bins)
             check(torch.equal(cs, cr) and torch.equal(ci, cri), f"int8 B={b} bins={bins}: kernel != plain")
@@ -218,7 +258,60 @@ def main() -> None:
                 log(f"time {dtype} B={b} bins={bins}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
                     f"bound {bound:.4f} ms ({shapes[-1]['bound_by']}) [{card}]")
-    del vb, qb, vi8, qi8, q32
+    del vi8, qi8
+
+    # 3b. the exact kernel vs its plain version at the headline shape
+    v32 = vb.float()  # the f32 case: the bf16 corpus widened, summed in full f32
+    exact_cases = [("bfloat16", vb, qb, b, k) for b in BATCHES for k in EXACT_KS] + [("float32", v32, q32, 64, 128)]
+    exact_err = 0.0
+    for dtype, vv, qq, b, k in exact_cases:
+        err, swaps = check_against_plain(
+            f"exact {dtype} B={b} k={k}",
+            *fused_mips_topk(vv, qq[:b], k=k), *fused_mips_topk_reference(vv, qq[:b], k=k),
+            qq[:b].to(vv.dtype), vv, tol,
+        )
+        exact_err = max(exact_err, err)
+        log(f"check exact {dtype} B={b} k={k}: max |kernel - plain| = {err:.3g} (tol {tol:.3g}), "
+            f"{swaps} id swaps inside the band")
+    for n_real, k in ((N_KERNEL - 12345, 10), (3, 10)):
+        ks, ki = fused_mips_topk(vb, qb[:64], k=k, n_real=n_real)
+        check_against_plain(f"exact n_real={n_real}", ks, ki,
+                            *fused_mips_topk_reference(vb, qb[:64], k=k, n_real=n_real), qb[:64], vb, tol)
+        check(ki.max().item() < n_real, f"exact n_real={n_real}: a masked row was returned")
+    check(bool((ki[:, 3:] == -1).all()) and bool(torch.isneginf(ks[:, 3:]).all()),
+          "exact n_real=3: slots 3-9 are not -1/-inf")
+    # equal rows in different splits at B = 64 (~4k rows a split) and B = 2048 (~117k)
+    dups = (7, 7 + 2 * N_KERNEL // 7, 7 + 2 * N_KERNEL // 3)
+    saved = vb[list(dups[1:])].clone()
+    vb[list(dups[1:])] = vb[7].clone()
+    for b in (64, 2048):
+        qdup = qb[:b].clone()
+        qdup[0] = vb[7]
+        ks, ki = fused_mips_topk(vb, qdup, k=10)
+        check_against_plain(f"exact duplicates B={b}", ks, ki, *fused_mips_topk_reference(vb, qdup, k=10), qdup, vb, tol)
+        check(ki[0, :3].tolist() == list(dups), f"exact duplicates B={b}: {ki[0, :3].tolist()} != {list(dups)}")
+    vb[list(dups[1:])] = saved
+    log(f"check exact edges: n_real={N_KERNEL - 12345} masked; n_real=3 leaves slots 3-9 at -1/-inf; "
+        f"rows {dups} tie in that order at B=64 and 2048")
+
+    exact_shapes = []
+    for dtype, vv, qq, b, k in exact_cases:
+        qs = qq[:b].to(vv.dtype)
+        reps = 20 if b <= 64 else 3
+        ms = time_ms(lambda: fused_mips_topk(vv, qs, k=k), reps)
+        plain_ms = time_ms(lambda: fused_mips_topk_reference(vv, qs, k=k), 2)
+        library_ms = time_ms(lambda: torch.topk(qs @ vv.T, k, dim=-1), reps)
+        nbytes = (N_KERNEL + b) * D * vv.element_size() + b * k * 8
+        ops = 2 * b * N_KERNEL * D
+        peak = peak_bf16 if dtype == "bfloat16" else peak_f32
+        bound = max(nbytes / hbm, ops / peak) * 1e3
+        exact_shapes.append(dict(
+            dtype=dtype, B=b, N=N_KERNEL, D=D, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound, bound_by="bytes" if nbytes / hbm >= ops / peak else "operations",
+        ))
+        log(f"time exact {dtype} B={b} k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({exact_shapes[-1]['bound_by']}) [{card}]")
+    del vb, qb, q32, v32
     torch.cuda.empty_cache()
 
     # 4. the serving path (main path)
@@ -338,17 +431,40 @@ def main() -> None:
     log(f"main path: {time.perf_counter() - t_main:.2f} s; fused_mips_binned launches {launches}")
     check(launches > 0, "the main path never launched fused_mips_binned")
 
+    # 4b. the kernel shootout (the exact kernel's main path)
+    fused_mips_binned.launches = 0
+    fused_mips_topk.launches = 0  # main path starts
+    t_main = time.perf_counter()
+    shootout = mips_kernel_bench.main(SHOOTOUT_ARGS)
+    torch.cuda.synchronize()
+    shootout_launches = {"fused_mips_topk": fused_mips_topk.launches, "fused_mips_binned": fused_mips_binned.launches}
+    log(f"main path (shootout): {time.perf_counter() - t_main:.2f} s; launches {shootout_launches}")
+    check(shootout_launches["fused_mips_topk"] > 0, "the shootout never launched fused_mips_topk")
+    check(shootout["exact_kernel_recall"] >= EXACT_RECALL_FLOOR,
+          f"exact kernel recall@10 {shootout['exact_kernel_recall']} < {EXACT_RECALL_FLOOR}")
+    check(shootout["binned_recall"] >= BINNED_RECALL_FLOOR,
+          f"binned recall@10 {shootout['binned_recall']} < {BINNED_RECALL_FLOOR}")
+    check(all(math.isfinite(shootout[f"{r}_qps"]) and shootout[f"{r}_qps"] > 0
+              for r in ("scan", "binned", "exact_kernel")), "a shootout route has no QPS")
+
     # 5. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024)
+    exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10)
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches, max_abs_err=max_err,
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
-        shapes=shapes, serving=results,
+        shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
+    ), dict(
+        name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
+        replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],
+        max_abs_err=exact_err, ms=exact_main["ms"], plain_ms=exact_main["plain_ms"],
+        bound_ms=exact_main["bound_ms"], bound_by=exact_main["bound_by"], library_ms=exact_main["library_ms"],
+        shape=f"bfloat16 B=2048 N={N_KERNEL} D={D} k=10", shapes=exact_shapes, shootout=shootout,
     )]
     log(json.dumps({"kernels": kernels}))
-    log(card_line())
+    log(mips_kernel_bench.card_name(dev))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 

@@ -1,5 +1,5 @@
-"""Tests of the port that need the card: the CUDA kernel against its plain
-version, and the search path on the card against the same path on the CPU.
+"""Tests of the port that need the card: the CUDA kernels against their plain
+versions, and the search path on the card against the same path on the CPU.
 
 They skip where there is no NVIDIA GPU. This file imports no JAX, so it runs
 on a machine that has only PyTorch, without the repository's conftest:
@@ -12,7 +12,12 @@ import pytest
 import torch
 
 from tests.torch_helpers import cuda_device, unit_rows  # noqa: F401  (fixture)
-from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_binned_reference
+from vod_tpu_torch.ops.mips import (
+    fused_mips_binned,
+    fused_mips_binned_reference,
+    fused_mips_topk,
+    fused_mips_topk_reference,
+)
 from vod_tpu_torch.search import SearchQueries, build_dense_index, dense_search
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +59,45 @@ def test_binned_kernel_matches_plain_on_card(cuda_device) -> None:
     assert ki[0, 0].item() == 5
     torch.cuda.synchronize()
     assert fused_mips_binned.launches == before + 8  # 4 float calls, 4 int8 calls
+
+
+def test_topk_kernel_matches_plain_on_card(cuda_device) -> None:
+    """Scores within an f32 sum-order bound and ids equal wherever the margin
+    exceeds it; n_real masking; empty slots -1/-inf; duplicate rows in
+    different splits tie to the lowest id; one launch counted per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n, d, b = 8192, 96, 80
+    v = torch.randn((n, d), generator=g, device=cuda_device)
+    v = v / v.norm(dim=-1, keepdim=True)
+    for j in (1005, 5005):  # 80 queries split the rows 128 ways: 64 rows a split
+        v[j] = v[5]
+    q = torch.randn((b, d), generator=g, device=cuda_device)
+    q = q / q.norm(dim=-1, keepdim=True)
+    q[0] = v[5]
+    tol = 2 * d * 2.0**-24 * 1.01  # twice gamma_D * |q| * |v|; bf16 rounding moves a norm by < 0.5%
+    before = fused_mips_topk.launches
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        vv = v.to(dtype)
+        for k in (10, 128):
+            for n_real in (n, n - 77, 3):
+                ks, ki = fused_mips_topk(vv, q, k=k, n_real=n_real)
+                rs, ri = fused_mips_topk_reference(vv, q, k=k, n_real=n_real)
+                calls += 1
+                finite = torch.isfinite(rs)
+                assert torch.equal(torch.isfinite(ks), finite)
+                assert (ks[finite] - rs[finite]).abs().max().item() <= tol
+                assert ki.max().item() < n_real and torch.equal(ki[~finite], ri[~finite])
+                if n_real == 3:
+                    assert (ki[:, 3:] == -1).all() and torch.isneginf(ks[:, 3:]).all()
+                diff = ki != ri
+                if diff.any():  # a swap is allowed only inside the tolerance band
+                    exact = (q.to(dtype).double()[:, None, :] * vv[ki.long()].double()).sum(-1)
+                    assert ((exact - rs.double()).abs()[diff] <= 2 * tol).all()
+                if n_real > 5005:
+                    assert ki[0, :3].tolist() == [5, 1005, 5005]
+    torch.cuda.synchronize()
+    assert fused_mips_topk.launches == before + calls
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])

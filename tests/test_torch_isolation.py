@@ -48,7 +48,10 @@ def test_no_forbidden_import_in_source(path: Path) -> None:
 
 def test_every_module_imports_with_jax_and_vod_tpu_blocked() -> None:
     modules = _port_modules()
-    assert {"vod_tpu_torch.ops.mips", "vod_tpu_torch.serving", "vod_tpu_torch.models.encoder"} <= set(modules)
+    assert {
+        "vod_tpu_torch.ops.mips", "vod_tpu_torch.serving", "vod_tpu_torch.models.encoder",
+        "vod_tpu_torch.examples.mips_kernel_bench",
+    } <= set(modules)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -73,6 +76,9 @@ def test_entry_points_default_to_cuda() -> None:
 
     for fn in (build_dense_index, VodEncoder, DebugEncoder, SearchServer):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    from vod_tpu_torch.examples import mips_kernel_bench
+
+    assert mips_kernel_bench.parser().parse_args([]).device == "cuda"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path: Path) -> None:

@@ -7,14 +7,15 @@ JAX-free module there is copied here. Every TPU kernel on a ported path is a
 hand-written CUDA kernel under `csrc/`, built at first use; beside each kernel
 sits a plain PyTorch version that the CPU tests run.
 
-Entry points (`build_dense_index`, `VodEncoder`, `SearchServer`) default to
-`device="cuda"`; they run on the CPU only when the caller passes `device="cpu"`.
+Entry points (`build_dense_index`, `VodEncoder`, `SearchServer`, and the
+kernel shootout `python -m vod_tpu_torch.examples.mips_kernel_bench`) default
+to the card; they run on the CPU only when the caller asks for `cpu`.
 """
 
 __version__ = "0.1.0"
 
 # Lazy namespaces: importing the package loads no submodule and builds no kernel.
-_SUBMODULES = ("models", "ops", "search", "serving", "types")
+_SUBMODULES = ("examples", "models", "ops", "search", "serving", "types")
 
 
 def __getattr__(name: str):

@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts
+_build_locks: dict[str, threading.Lock] = {}  # one per source: builds of two sources overlap
 libraries: dict[str, ctypes.CDLL] = {}  # loaded kernels, by source name
 
 
@@ -46,11 +47,14 @@ def _nvcc() -> str:
 def build(name: str) -> tuple[Path, float, str]:
     """Compile `csrc/<name>.cu` unless its library is built already. Returns
     (library path, nvcc seconds or 0.0, nvcc's output with registers, shared
-    memory and spills per kernel). Raises with the compiler's output on failure."""
+    memory and spills per kernel). Raises with the compiler's output on failure.
+    Threads may build different sources at once."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     with _lock:
+        build_lock = _build_locks.setdefault(name, threading.Lock())
+    with build_lock:
         if out.exists():
             return out, 0.0, ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
