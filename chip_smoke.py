@@ -18,12 +18,17 @@ checked, none caught:
     version, the library yardstick (`torch.topk(q @ Vᵀ, k)` in bf16,
     `torch.topk(torch._int_mm(q, Vᵀ), k)` in int8), and the bound;
  3b. `fused_mips_topk` against its plain PyTorch version on the card at
-    N = 2^20, D = 768: bf16 at B = 1, 64 and 2048 with k = 10 and 128, f32 at
-    B = 64 with k = 128. Scores within twice the f32 sum-order bound, ids
-    equal wherever the margin exceeds it; n_real masking at N - 12345;
-    n_real = 3 leaves slots 3-9 at -1/-inf; three equal rows in different
-    splits tie to the lowest id. Then times: kernel, plain version, the
-    library yardstick `torch.topk(q @ Vᵀ, k)`, and the bound;
+    N = 2^20, D = 768: bf16 at B = 1, 64 and 2048 with k = 10 and 128 (the
+    tensor-core body), f32 at B = 64 with k = 128 and bf16 rows 2 bytes off
+    the 16-byte grid at B = 64, k = 10 and B = 2048, k = 128 (the CUDA-core
+    body), each call checked to take the body that `_topk_body` names. One
+    PyTorch read of the corpus is timed beside them. Scores within
+    twice the f32 sum-order bound, ids equal wherever the margin exceeds it;
+    tensor-core edge cases B = 3 and 65 with k = 1 and n_real = N - 77 (a
+    ragged last tile); n_real masking at N - 12345; n_real = 3 leaves slots
+    3-9 at -1/-inf; three equal rows in different splits tie to the lowest
+    id. Then times: kernel, plain version, the library yardstick
+    `torch.topk(q @ Vᵀ, k)`, and the bound;
  4. the serving path, end to end (the main path: launch counts are zeroed just
     before it and read just after): an e5-base-width `VodEncoder` (bf16
     activations, f32 params, seed 0) encodes 64 queries of 64 seeded tokens;
@@ -41,7 +46,7 @@ checked, none caught:
     2048-query blocks, k = 10: the exact scan, `fused_mips_binned` and
     `fused_mips_topk` timed for QPS, each with recall@10 against exact search.
     Checked: exact-kernel recall >= 0.999, binned recall >= 0.975, and
-    `fused_mips_topk` launches;
+    `fused_mips_topk` launches, all on its tensor-core body;
  5. the `kernels` JSON line, the card line, and the last line
     `{"ok": true, "device": {...}}`.
 """
@@ -153,6 +158,7 @@ def main() -> None:
     from vod_tpu_torch.models import TransformerEncoderConfig, VodEncoder, VodPoolerConfig
     from vod_tpu_torch.ops import cuda_build
     from vod_tpu_torch.ops.mips import (
+        _topk_body,
         fused_mips_binned,
         fused_mips_binned_reference,
         fused_mips_topk,
@@ -262,17 +268,38 @@ def main() -> None:
 
     # 3b. the exact kernel vs its plain version at the headline shape
     v32 = vb.float()  # the f32 case: the bf16 corpus widened, summed in full f32
-    exact_cases = [("bfloat16", vb, qb, b, k) for b in BATCHES for k in EXACT_KS] + [("float32", v32, q32, 64, 128)]
+    # the same bf16 rows 2 bytes off the 16-byte grid: the rule sends them to the CUDA-core body
+    vb_odd = torch.empty(N_KERNEL * D + 1, dtype=torch.bfloat16, device=dev)[1:].view(N_KERNEL, D)
+    vb_odd.copy_(vb)
+    exact_cases = [("bfloat16", vb, qb, b, k, "wgmma") for b in BATCHES for k in EXACT_KS] + [
+        ("float32", v32, q32, 64, 128, "fma"),
+        ("bfloat16", vb_odd, qb, 64, 10, "fma"),
+        ("bfloat16", vb_odd, qb, 2048, 128, "fma"),
+    ]
     exact_err = 0.0
-    for dtype, vv, qq, b, k in exact_cases:
+
+    def body_of(vv, qs, expect: str) -> str:
+        """The body a call takes, named by the wrapper's rule and confirmed by
+        the per-body launch count."""
+        body = _topk_body(vv.dtype, D, (vv.data_ptr(), qs.to(vv.dtype).data_ptr()))
+        check(body == expect, f"{vv.dtype} at offset {vv.storage_offset()}: body {body}, not {expect}")
+        return body
+
+    # the tensor-core body's edge cases: a ragged query tile, k = 1, a ragged last row tile
+    edge_cases = [("bfloat16", vb, qb, b, 1, "wgmma", N_KERNEL - 77) for b in (3, 65)]
+    for dtype, vv, qq, b, k, expect, n_real in [c + (N_KERNEL,) for c in exact_cases] + edge_cases:
+        body = body_of(vv, qq[:b], expect)
+        before = fused_mips_topk.body_launches[body]
+        ks, ki = fused_mips_topk(vv, qq[:b], k=k, n_real=n_real)
+        check(fused_mips_topk.body_launches[body] == before + 1, f"exact {dtype} B={b}: not on the {body} body")
         err, swaps = check_against_plain(
-            f"exact {dtype} B={b} k={k}",
-            *fused_mips_topk(vv, qq[:b], k=k), *fused_mips_topk_reference(vv, qq[:b], k=k),
-            qq[:b].to(vv.dtype), vv, tol,
+            f"exact {dtype} B={b} k={k} n_real={n_real}", ks, ki,
+            *fused_mips_topk_reference(vv, qq[:b], k=k, n_real=n_real), qq[:b].to(vv.dtype), vv, tol,
         )
+        check(ki.max().item() < n_real, f"exact {dtype} B={b} n_real={n_real}: a masked row was returned")
         exact_err = max(exact_err, err)
-        log(f"check exact {dtype} B={b} k={k}: max |kernel - plain| = {err:.3g} (tol {tol:.3g}), "
-            f"{swaps} id swaps inside the band")
+        log(f"check exact {dtype} B={b} k={k} n_real={n_real} ({body}): max |kernel - plain| = {err:.3g} "
+            f"(tol {tol:.3g}), {swaps} id swaps inside the band")
     for n_real, k in ((N_KERNEL - 12345, 10), (3, 10)):
         ks, ki = fused_mips_topk(vb, qb[:64], k=k, n_real=n_real)
         check_against_plain(f"exact n_real={n_real}", ks, ki,
@@ -280,7 +307,7 @@ def main() -> None:
         check(ki.max().item() < n_real, f"exact n_real={n_real}: a masked row was returned")
     check(bool((ki[:, 3:] == -1).all()) and bool(torch.isneginf(ks[:, 3:]).all()),
           "exact n_real=3: slots 3-9 are not -1/-inf")
-    # equal rows in different splits at B = 64 (~4k rows a split) and B = 2048 (~117k)
+    # equal rows in different splits at B = 64 (~8k rows a split) and B = 2048 (262,144)
     dups = (7, 7 + 2 * N_KERNEL // 7, 7 + 2 * N_KERNEL // 3)
     saved = vb[list(dups[1:])].clone()
     vb[list(dups[1:])] = vb[7].clone()
@@ -294,9 +321,13 @@ def main() -> None:
     log(f"check exact edges: n_real={N_KERNEL - 12345} masked; n_real=3 leaves slots 3-9 at -1/-inf; "
         f"rows {dups} tie in that order at B=64 and 2048")
 
+    # one PyTorch read of the corpus: the rate at which the card streams these bytes
+    read_ms = time_ms(lambda: vb.sum(dtype=torch.float32), 20)
+    log(f"time corpus read (bf16 {N_KERNEL} x {D}, {vb.numel() * 2 / 1e9:.4f} GB): {read_ms:.4f} ms [{card}]")
     exact_shapes = []
-    for dtype, vv, qq, b, k in exact_cases:
+    for dtype, vv, qq, b, k, expect in exact_cases:
         qs = qq[:b].to(vv.dtype)
+        body = body_of(vv, qs, expect)
         reps = 20 if b <= 64 else 3
         ms = time_ms(lambda: fused_mips_topk(vv, qs, k=k), reps)
         plain_ms = time_ms(lambda: fused_mips_topk_reference(vv, qs, k=k), 2)
@@ -306,12 +337,12 @@ def main() -> None:
         peak = peak_bf16 if dtype == "bfloat16" else peak_f32
         bound = max(nbytes / hbm, ops / peak) * 1e3
         exact_shapes.append(dict(
-            dtype=dtype, B=b, N=N_KERNEL, D=D, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            dtype=dtype, body=body, B=b, N=N_KERNEL, D=D, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound, bound_by="bytes" if nbytes / hbm >= ops / peak else "operations",
         ))
-        log(f"time exact {dtype} B={b} k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"time exact {dtype} B={b} k={k} ({body}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({exact_shapes[-1]['bound_by']}) [{card}]")
-    del vb, qb, q32, v32
+    del vb, vb_odd, qb, q32, v32
     torch.cuda.empty_cache()
 
     # 4. the serving path (main path)
@@ -433,13 +464,18 @@ def main() -> None:
 
     # 4b. the kernel shootout (the exact kernel's main path)
     fused_mips_binned.launches = 0
-    fused_mips_topk.launches = 0  # main path starts
+    fused_mips_topk.launches = 0
+    fused_mips_topk.body_launches.update(wgmma=0, fma=0)  # main path starts
     t_main = time.perf_counter()
     shootout = mips_kernel_bench.main(SHOOTOUT_ARGS)
     torch.cuda.synchronize()
     shootout_launches = {"fused_mips_topk": fused_mips_topk.launches, "fused_mips_binned": fused_mips_binned.launches}
-    log(f"main path (shootout): {time.perf_counter() - t_main:.2f} s; launches {shootout_launches}")
+    body_launches = dict(fused_mips_topk.body_launches)
+    log(f"main path (shootout): {time.perf_counter() - t_main:.2f} s; launches {shootout_launches}, "
+        f"fused_mips_topk by body {body_launches}")
     check(shootout_launches["fused_mips_topk"] > 0, "the shootout never launched fused_mips_topk")
+    check(body_launches == {"wgmma": shootout_launches["fused_mips_topk"], "fma": 0},
+          "the shootout's fused_mips_topk calls did not all take the tensor-core body")
     check(shootout["exact_kernel_recall"] >= EXACT_RECALL_FLOOR,
           f"exact kernel recall@10 {shootout['exact_kernel_recall']} < {EXACT_RECALL_FLOOR}")
     check(shootout["binned_recall"] >= BINNED_RECALL_FLOOR,
@@ -449,7 +485,8 @@ def main() -> None:
 
     # 5. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024)
-    exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10)
+    exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
+                      and s["body"] == "wgmma")
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches, max_abs_err=max_err,
@@ -462,6 +499,9 @@ def main() -> None:
         max_abs_err=exact_err, ms=exact_main["ms"], plain_ms=exact_main["plain_ms"],
         bound_ms=exact_main["bound_ms"], bound_by=exact_main["bound_by"], library_ms=exact_main["library_ms"],
         shape=f"bfloat16 B=2048 N={N_KERNEL} D={D} k=10", shapes=exact_shapes, shootout=shootout,
+        body=exact_main["body"], body_launches=body_launches, corpus_read_ms=read_ms,
+        body_ms={body: {f"{s['dtype']} B={s['B']} k={s['k']}": s["ms"] for s in exact_shapes if s["body"] == body}
+                 for body in ("wgmma", "fma")},
     )]
     log(json.dumps({"kernels": kernels}))
     log(mips_kernel_bench.card_name(dev))

@@ -15,6 +15,7 @@ from tests.torch_helpers import cuda_device, unit_rows  # noqa: F401  (fixture)
 from vod_tpu_torch.ops.mips import (
     fused_mips_binned,
     fused_mips_binned_reference,
+    _topk_body,
     fused_mips_topk,
     fused_mips_topk_reference,
 )
@@ -61,43 +62,59 @@ def test_binned_kernel_matches_plain_on_card(cuda_device) -> None:
     assert fused_mips_binned.launches == before + 8  # 4 float calls, 4 int8 calls
 
 
-def test_topk_kernel_matches_plain_on_card(cuda_device) -> None:
-    """Scores within an f32 sum-order bound and ids equal wherever the margin
-    exceeds it; n_real masking; empty slots -1/-inf; duplicate rows in
-    different splits tie to the lowest id; one launch counted per call."""
+@pytest.mark.parametrize(
+    "dtype, d, body",
+    [
+        ("float32", 96, "fma"),  # f32 stays on CUDA cores
+        ("bfloat16", 64, "wgmma"),  # one 64-wide TMA box of K
+        ("bfloat16", 96, "wgmma"),  # a ragged second box, zero-filled past D
+        ("bfloat16", 36, "fma"),  # D % 8 != 0: no TMA
+    ],
+)
+def test_topk_kernel_matches_plain_on_card(cuda_device, dtype: str, d: int, body: str) -> None:
+    """Each body of the exact kernel against the plain version: scores within
+    an f32 sum-order bound and ids equal wherever the margin exceeds it; n_real
+    masking (a ragged last tile); empty slots -1/-inf; duplicate rows in
+    different splits tie to the lowest id; one launch counted per call, on the
+    body the dispatch rule names."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    n, d, b = 8192, 96, 80
+    n = 8192
     v = torch.randn((n, d), generator=g, device=cuda_device)
     v = v / v.norm(dim=-1, keepdim=True)
-    for j in (1005, 5005):  # 80 queries split the rows 128 ways: 64 rows a split
+    for j in (1005, 5005):  # in different splits at every B: a split holds at most 256 rows here
         v[j] = v[5]
-    q = torch.randn((b, d), generator=g, device=cuda_device)
+    q = torch.randn((130, d), generator=g, device=cuda_device)
     q = q / q.norm(dim=-1, keepdim=True)
     q[0] = v[5]
     tol = 2 * d * 2.0**-24 * 1.01  # twice gamma_D * |q| * |v|; bf16 rounding moves a norm by < 0.5%
-    before = fused_mips_topk.launches
+    vv = v.to(getattr(torch, dtype))
+    assert _topk_body(vv.dtype, d, (vv.data_ptr(), q.to(vv.dtype).data_ptr())) == body
+    before = fused_mips_topk.launches, dict(fused_mips_topk.body_launches)
     calls = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        vv = v.to(dtype)
-        for k in (10, 128):
+    for b in (1, 7, 80, 130):
+        qb = q[:b]
+        for k in (1, 10, 128):
             for n_real in (n, n - 77, 3):
-                ks, ki = fused_mips_topk(vv, q, k=k, n_real=n_real)
-                rs, ri = fused_mips_topk_reference(vv, q, k=k, n_real=n_real)
+                ks, ki = fused_mips_topk(vv, qb, k=k, n_real=n_real)
+                rs, ri = fused_mips_topk_reference(vv, qb, k=k, n_real=n_real)
                 calls += 1
                 finite = torch.isfinite(rs)
                 assert torch.equal(torch.isfinite(ks), finite)
                 assert (ks[finite] - rs[finite]).abs().max().item() <= tol
                 assert ki.max().item() < n_real and torch.equal(ki[~finite], ri[~finite])
-                if n_real == 3:
+                if n_real == 3 and k > 3:
                     assert (ki[:, 3:] == -1).all() and torch.isneginf(ks[:, 3:]).all()
                 diff = ki != ri
                 if diff.any():  # a swap is allowed only inside the tolerance band
-                    exact = (q.to(dtype).double()[:, None, :] * vv[ki.long()].double()).sum(-1)
+                    exact = (qb.to(vv.dtype).double()[:, None, :] * vv[ki.long()].double()).sum(-1)
                     assert ((exact - rs.double()).abs()[diff] <= 2 * tol).all()
                 if n_real > 5005:
-                    assert ki[0, :3].tolist() == [5, 1005, 5005]
+                    assert ki[0, : min(k, 3)].tolist() == [5, 1005, 5005][:k]
     torch.cuda.synchronize()
-    assert fused_mips_topk.launches == before + calls
+    assert fused_mips_topk.launches == before[0] + calls
+    assert fused_mips_topk.body_launches[body] == before[1][body] + calls
+    other = "fma" if body == "wgmma" else "wgmma"
+    assert fused_mips_topk.body_launches[other] == before[1][other]
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])

@@ -16,7 +16,7 @@ import torch
 
 from tests.torch_helpers import np_of
 from vod_tpu.ops.mips_pallas import fused_mips_topk as jax_topk
-from vod_tpu_torch.ops.mips import fused_mips_topk, fused_mips_topk_reference
+from vod_tpu_torch.ops.mips import _topk_body, fused_mips_topk, fused_mips_topk_reference
 
 F32_ATOL = 1e-5
 
@@ -111,3 +111,37 @@ def test_topk_cpu_path_never_counts_a_launch() -> None:
     before = fused_mips_topk.launches
     fused_mips_topk(torch.from_numpy(v), torch.from_numpy(q), k=4, tile=256)
     assert fused_mips_topk.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_cpu_path_never_counts_a_body_launch(dtype: torch.dtype) -> None:
+    v, q = _data(7, n=256, d=16, b=2)
+    before = fused_mips_topk.launches, dict(fused_mips_topk.body_launches)
+    fused_mips_topk(torch.from_numpy(v).to(dtype), torch.from_numpy(q), k=4, tile=256)
+    assert (fused_mips_topk.launches, fused_mips_topk.body_launches) == before
+
+
+def _bf16_rows(n: int, d: int, offset: int = 0) -> torch.Tensor:
+    """[n, d] bf16 rows starting `offset` elements into a fresh buffer."""
+    return torch.zeros(n * d + offset, dtype=torch.bfloat16)[offset:].view(n, d)
+
+
+@pytest.mark.parametrize(
+    "dtype, d, v_offset, q_offset, body",
+    [
+        (torch.bfloat16, 768, 0, 0, "wgmma"),  # the shootout's corpus
+        (torch.bfloat16, 64, 0, 0, "wgmma"),
+        (torch.bfloat16, 896, 0, 0, "wgmma"),  # the widest query tile that fits
+        (torch.float32, 768, 0, 0, "fma"),  # wgmma has no full-f32 mode
+        (torch.bfloat16, 36, 0, 0, "fma"),  # D % 8 != 0: rows are not 16-byte strided
+        (torch.bfloat16, 904, 0, 0, "fma"),  # the query tile would not fit beside k = 128 lists
+        (torch.bfloat16, 64, 1, 0, "fma"),  # a storage_offset off the 16-byte grid
+        (torch.bfloat16, 64, 8, 0, "wgmma"),  # ... and one on it
+        (torch.bfloat16, 64, 0, 4, "fma"),  # the queries' pointer counts too
+    ],
+)
+def test_topk_body_rule(dtype: torch.dtype, d: int, v_offset: int, q_offset: int, body: str) -> None:
+    """The fixed rule that names the exact kernel's body for a CUDA call."""
+    v, q = _bf16_rows(4, d, v_offset).to(dtype), _bf16_rows(2, d, q_offset)
+    assert v.storage_offset() == v_offset
+    assert _topk_body(dtype, d, (v.data_ptr(), q.data_ptr())) == body

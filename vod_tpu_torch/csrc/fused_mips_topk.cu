@@ -9,22 +9,39 @@
 // padding contract; the TPU kernel leaves a stale id there, see
 // `vod_tpu_torch/ops/mips.py`).
 //
-// Types: bf16 x bf16 or f32 x f32, converted to f32 and accumulated in f32
-// with FMAs (no TF32, the accumulator is never rounded to bf16).
-//
 // What bounds it on the H100: the corpus read (N * D * element size bytes over
 // HBM) at serving batch (B <= 64), the 2 * B * N * D operations at B = 2048.
-// This first version does nothing about either beyond the threshold filter
-// below: it runs on CUDA cores, not tensor cores, and stages tiles through
-// shared memory without a pipelined load ring. Tensor-core products (`wgmma`)
-// and a cheaper selection are later work.
 //
-// Design (right and simple first):
+// Two bodies compute the scores of a tile of 64 queries x 64 or 128 rows; the
+// wrapper names the one a call takes by a fixed rule on dtype and shape
+// (`ops/mips.py:_topk_body`):
+//   * "wgmma" (`topk_wgmma_kernel`), a bf16 corpus with D % 8 == 0, D <= 896
+//     and 16-byte-aligned rows: the product runs on the tensor cores
+//     (`wgmma.mma_async` m64n128k16, bf16 in, f32 accumulate, never rounded
+//     to bf16). The block's 64 queries are M and its corpus rows N, 128 a
+//     tile; both operands are K-major as they lie in memory. The query tile is
+//     loaded once (ceil(D / 64) TMA boxes of 64 x 64, 96 KB at D = 768) and
+//     stays resident; the rows stream through a ring of TMA boxes of 128 rows
+//     x 64 bf16 (16 KB, 128-byte swizzle, the layout the `wgmma` descriptors
+//     name), completed on `mbarrier`s, as deep as the rest of shared memory
+//     allows (5 boxes at D = 768, k <= 32; 2 at k = 128). Warpgroup 0
+//     multiplies tile t + 1 while warpgroup 1 selects from tile t. The tensor
+//     maps' zero fill covers the ragged ends of B, N and D.
+//     What the design answers: the operation bound at B = 2048 (tensor cores;
+//     an m64n64k16 reads 4 KB of shared memory per 32 tensor-core cycles, all
+//     the SM's shared-memory bandwidth, an m64n128k16 6 KB per 64, so the
+//     rows are N and 128 wide), and the byte bound at B <= 64 (the loads run
+//     ahead across the product and the selection, so the corpus streams
+//     without stopping).
+//   * "fma" (`topk_float_kernel`), f32 and every other bf16 call: f32 FMAs on
+//     CUDA cores (no TF32: the f32 contract is full f32) with k-slices of both
+//     tiles staged through shared memory, a 4 x 4 micro-tile per thread.
+//
+// Design of the selection, shared by both bodies:
 //   * A block owns 64 queries and one contiguous range of rows (a "split"),
-//     which it walks in tiles of 64 rows in increasing row order. Each tile's
-//     64 x 64 scores are computed as in `fused_mips_binned.cu` (k-slices of the
-//     query and row tiles staged in shared memory, a 4 x 4 micro-tile of FMAs
-//     per thread) and written to a score tile in shared memory.
+//     which it walks in tiles of 64 rows (CUDA cores) or 128 rows (tensor
+//     cores) in increasing row order. Each tile's
+//     scores are written to a score tile S[query][row] in shared memory.
 //   * Each query keeps a list of k (score, id) pairs in dynamic shared memory,
 //     sorted by (score descending, id ascending); one warp serves a query at a
 //     time. A score enters only if it is strictly greater than the list's k-th
@@ -44,6 +61,7 @@
 //     sequential pass over all rows.
 //   * Rows at or past n_real are never read.
 
+#include <cuda.h>  // CUtensorMap and its enums only; the encoder is reached through the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -51,14 +69,24 @@
 
 namespace {
 
+// QT, RT, WRT and MAX_CHUNKS have twins in `ops/mips.py` (_QUERY_TILE,
+// _TOPK_ROW_TILE, _WGMMA_MAX_D): change both sides together.
 constexpr int QT = 64;        // queries per block
-constexpr int RT = 64;        // rows per tile
+constexpr int RT = 64;        // rows per tile of the CUDA-core body
 constexpr int KT = 32;        // reduction slice staged in shared memory (elements)
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each; 8 warps select
+constexpr int THREADS = 256;  // CUDA cores: 16 x 16 threads, 4 x 4 scores each; tensor cores: two warpgroups
 constexpr int WARPS = THREADS / 32;
 constexpr int KMAX = 128;     // the TPU kernel's _K_PAD: the widest list
 constexpr int MERGE_WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
+// tensor-core body
+constexpr int MAX_STAGES = 16;             // cap on the TMA boxes in flight per block
+constexpr int KC = 64;                     // bf16 per TMA box row: 128 bytes, one swizzle span
+constexpr int WRT = 128;                   // corpus rows per tile: the wgmma's N
+constexpr int QBOX_BYTES = QT * KC * 2;    // 8 KB: a box of 64 queries x 64 bf16
+constexpr int BOX_BYTES = WRT * KC * 2;    // 16 KB: a ring box of 128 rows x 64 bf16
+constexpr int SP = WRT + 4;                // score tile row stride: 2-way conflicts on the float2 stores
+constexpr int MAX_CHUNKS = 14;             // D <= 896: the query tile fits beside the k = 128 lists
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -87,6 +115,45 @@ __device__ __forceinline__ void warp_insert(float* ls, int* li, int k, float sc,
   }
   if (lane == 0) { ls[pos] = sc; li[pos] = id; }
   __syncwarp();
+}
+
+// Fold a tile of scores S[query][row] (row stride `sp`, rows r0 .. r0 + ROWS
+// - 1) into the block's running lists: warp w of the `warps` selecting warps
+// serves queries w, w + warps, ... Called by all of them between two barriers.
+template <int ROWS>
+__device__ __forceinline__ void fold_tile(const float* S, int sp, float* Ls, int* Li, int k, int kp,
+                                          int queries, long long r0, int warp, int warps, int lane) {
+  for (int qq = warp; qq < queries; qq += warps) {
+    float* ls = Ls + qq * kp;
+    int* li = Li + qq * kp;
+    float thr = ls[k - 1];
+#pragma unroll
+    for (int part = 0; part < ROWS / 32; ++part) {
+      const float sc = S[qq * sp + part * 32 + lane];
+      unsigned cand = __ballot_sync(FULL, sc > thr);
+      while (cand) {  // in increasing row order
+        const int src = __ffs(cand) - 1;
+        cand &= cand - 1;
+        const float c = __shfl_sync(FULL, sc, src);
+        if (c > thr) {
+          warp_insert(ls, li, k, c, (int)(r0 + part * 32 + src), lane);
+          thr = ls[k - 1];
+        }
+      }
+    }
+  }
+}
+
+// Write the block's lists for its queries to split blockIdx.y of [splits, B, k].
+__device__ __forceinline__ void store_lists(const float* Ls, const int* Li, float* out_s, int* out_i,
+                                            int B, int k, int kp, int q0) {
+  const size_t base = (size_t)blockIdx.y * B * k;
+  for (int e = threadIdx.x; e < QT * k; e += THREADS) {
+    const int qq = e / k, slot = e % k;
+    if (q0 + qq >= B) break;
+    out_s[base + (size_t)(q0 + qq) * k + slot] = Ls[qq * kp + slot];
+    out_i[base + (size_t)(q0 + qq) * k + slot] = Li[qq * kp + slot];
+  }
 }
 
 template <typename T>
@@ -148,37 +215,210 @@ topk_float_kernel(const T* __restrict__ q, const T* __restrict__ v,
       for (int i = 0; i < 4; ++i) S[ty + 16 * i][tx + 16 * j] = real ? acc[i][j] : -INFINITY;
     }
     __syncthreads();
-
-    // fold the tile into the running lists: warp w serves queries w, w + 8, ...
-    for (int qq = warp; qq < QT && q0 + qq < B; qq += WARPS) {
-      float* ls = Ls + qq * kp;
-      int* li = Li + qq * kp;
-      float thr = ls[k - 1];
-#pragma unroll
-      for (int half = 0; half < RT / 32; ++half) {
-        const float sc = S[qq][half * 32 + lane];
-        unsigned cand = __ballot_sync(FULL, sc > thr);
-        while (cand) {  // in increasing row order
-          const int src = __ffs(cand) - 1;
-          cand &= cand - 1;
-          const float c = __shfl_sync(FULL, sc, src);
-          if (c > thr) {
-            warp_insert(ls, li, k, c, (int)(r0 + half * 32 + src), lane);
-            thr = ls[k - 1];
-          }
-        }
-      }
-    }
+    fold_tile<RT>(&S[0][0], RT + 1, Ls, Li, k, kp, min(QT, B - q0), r0, warp, WARPS, lane);
     __syncthreads();
   }
+  store_lists(Ls, Li, out_s, out_i, B, k, kp, q0);
+}
 
-  const size_t base = (size_t)blockIdx.y * B * k;
-  for (int e = threadIdx.x; e < QT * k; e += THREADS) {
-    const int qq = e / k, slot = e % k;
-    if (q0 + qq >= B) break;
-    out_s[base + (size_t)(q0 + qq) * k + slot] = Ls[qq * kp + slot];
-    out_i[base + (size_t)(q0 + qq) * k + slot] = Li[qq * kp + slot];
+// ---- tensor-core body: TMA, mbarriers, wgmma --------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed. A load that
+// never lands (a bad tensor map) traps after about ten seconds instead of
+// hanging the card; the launch then reports an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
   }
+}
+
+// One 64 x 64 box of a 2-D bf16 tensor map at element coordinates (col, row)
+// into shared memory, completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// `wgmma` descriptor of a K-major operand in a 128-byte-swizzled box (rows of
+// 128 bytes, 8-row groups 1024 bytes apart, box 1024-byte aligned). Advancing
+// along K inside the box adds bytes to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4)   // start address, 16-byte units
+         | (1ull << 16)            // leading byte offset (unused by swizzled K-major)
+         | ((1024ull >> 4) << 32)  // stride byte offset: to the next 8-row group
+         | (1ull << 62);           // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory"); }
+
+// Keep the compiler from moving accumulator reads or writes across a wgmma
+// fence or wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, both K-major bf16 in shared
+// memory, f32 accumulate. scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Dynamic shared memory of the tensor-core body: 1 KB to align the boxes,
+// the query tile, the ring, the score tile, the lists, the mbarriers.
+size_t wgmma_smem(int chunks, int kp, int stages) {
+  return 1024 + (size_t)chunks * QBOX_BYTES + (size_t)stages * BOX_BYTES + (size_t)QT * SP * sizeof(float) +
+         (size_t)QT * kp * (sizeof(float) + sizeof(int)) + (stages + 1) * sizeof(uint64_t);
+}
+
+// Named barriers between the two warpgroups (0 is __syncthreads'): the score
+// tile is full (warpgroup 0 stored a tile), the score tile is empty
+// (warpgroup 1 has folded it).
+constexpr int BAR_FULL = 1, BAR_EMPTY = 2;
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory"); }
+
+// Warpgroup 0 (warps 0-3) runs the product, S = Q_tile V_tileᵀ with the 64
+// queries as M and 128 corpus rows as N (`wgmma` m64n128k16: the queries'
+// A operand is read once per 128 rows), and its thread 0 issues every TMA
+// load. Warpgroup 1 (warps 4-7) folds tile t into the lists while warpgroup 0
+// multiplies tile t + 1; the one score tile passes between them on named
+// barriers. Ring box g (g = tile * chunks + chunk) sits in slot g % stages and
+// completes phase g / stages of that slot's barrier; a slot is reloaded once
+// the wgmma that read it has retired. The ring takes the rest of shared
+// memory.
+__global__ void __launch_bounds__(THREADS, 1)
+topk_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_v,
+                  float* __restrict__ out_s, int* __restrict__ out_i,
+                  int B, int chunks, int stages, int k, int kp, int n_real, long long rows_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qtile = base;                                     // [chunks][64 queries][64] bf16
+  unsigned char* ring = qtile + chunks * QBOX_BYTES;               // [stages][128 rows][64] bf16
+  float* S = reinterpret_cast<float*>(ring + stages * BOX_BYTES);  // [QT][SP]
+  float* Ls = S + QT * SP;
+  int* Li = reinterpret_cast<int*>(Ls + QT * kp);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Li + QT * kp);      // [stages], then the query tile's
+  uint64_t* qbar = full + stages;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q0 = blockIdx.x * QT;
+  const long long row_begin = (long long)blockIdx.y * rows_per_split;
+  const long long row_end = min((long long)n_real, row_begin + rows_per_split);
+  const int tiles = row_end > row_begin ? (int)((row_end - row_begin + WRT - 1) / WRT) : 0;
+  const int total = tiles * chunks;  // ring boxes this block loads
+
+  for (int e = tid; e < QT * kp; e += THREADS) { Ls[e] = -INFINITY; Li[e] = -1; }
+  if (tid == 0) {
+    for (int s = 0; s <= stages; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    int issued = 0;  // thread 0's count of ring boxes issued
+    auto issue = [&](int g) {
+      uint64_t* bar = full + g % stages;
+      mbar_expect_tx(bar, BOX_BYTES);
+      tma_load(ring + (g % stages) * BOX_BYTES, &map_v, (g % chunks) * KC, (int)(row_begin + (g / chunks) * WRT), bar);
+    };
+    if (tid == 0 && tiles > 0) {
+      mbar_expect_tx(qbar, chunks * QBOX_BYTES);
+      for (int c = 0; c < chunks; ++c) tma_load(qtile + c * QBOX_BYTES, &map_q, c * KC, q0, qbar);
+      for (; issued < total && issued < stages; ++issued) issue(issued);
+    }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    // with one slot, the box in use must retire before the next can load
+    const int in_flight = stages > 1 ? 1 : 0;
+    for (int t = 0; t < tiles; ++t) {
+      const long long r0 = row_begin + (long long)t * WRT;
+      if (t == 0) mbar_wait(qbar, 0);  // the query tile
+      for (int c = 0; c < chunks; ++c) {
+        const int g = t * chunks + c;
+        const unsigned char* box = ring + (g % stages) * BOX_BYTES;
+        mbar_wait(full + g % stages, (uint32_t)((g / stages) & 1));
+        __syncwarp();  // the wgmma instructions are warp-aligned
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < KC / 16; ++s)  // 16 bf16 = 32 bytes of K per instruction
+          wgmma_m64n128k16(acc, sw128_desc(qtile + c * QBOX_BYTES + 32 * s), sw128_desc(box + 32 * s), (c | s) != 0);
+        wgmma_commit();
+        if (in_flight) wgmma_wait<1>(); else wgmma_wait<0>();
+        if (tid == 0)  // boxes below g + 1 - in_flight have retired: refill their slots
+          for (; issued < total && issued < g + 1 - in_flight + stages; ++issued) issue(issued);
+        __syncwarp();
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (tid == 0)
+        for (; issued < total && issued < (t + 1) * chunks + stages; ++issued) issue(issued);
+      if (t > 0) bar_sync(BAR_EMPTY);  // warpgroup 1 has folded tile t - 1
+      // accumulator fragment i of thread (warp, lane): query 16 warp + lane / 4
+      // + 8 ((i / 2) % 2), corpus row 8 (i / 4) + 2 (lane % 4) + i % 2
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int qq = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+        const int row = 8 * (i / 4) + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(S + qq * SP + row) =
+            make_float2(r0 + row < row_end ? acc[i] : -INFINITY, r0 + row + 1 < row_end ? acc[i + 1] : -INFINITY);
+      }
+      bar_arrive(BAR_FULL);
+    }
+  } else {
+    for (int t = 0; t < tiles; ++t) {
+      bar_sync(BAR_FULL);
+      fold_tile<WRT>(S, SP, Ls, Li, k, kp, min(QT, B - q0), row_begin + (long long)t * WRT, warp - 4, WARPS - 4, lane);
+      if (t + 1 < tiles) bar_arrive(BAR_EMPTY);
+    }
+  }
+  __syncthreads();
+  store_lists(Ls, Li, out_s, out_i, B, k, kp, q0);
 }
 
 // Fold the splits' sorted partial lists [splits, B, k] in increasing split
@@ -223,6 +463,7 @@ merge_splits_kernel(const float* __restrict__ part_s, const int* __restrict__ pa
 }
 
 int list_stride(int k) { return (k + 31) / 32 * 32; }
+int wgmma_chunks(int D) { return (D + KC - 1) / KC; }
 
 // The lists' dynamic shared memory (16-64 KB). With the 33 KB of static tiles
 // every k exceeds the 48 KB a block gets by default, so opt in.
@@ -232,67 +473,155 @@ cudaError_t allow_lists(int k, size_t* dyn) {
   return cudaFuncSetAttribute(topk_float_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*dyn);
 }
 
-template <typename T>
-cudaError_t blocks_per_sm(int k, int* blocks) {
-  size_t dyn;
-  cudaError_t err = allow_lists<T>(k, &dyn);
+// The tensor-core body's ring depth and dynamic shared memory: the query
+// tile, score tile and lists, and as many 16 KB ring boxes as the rest of the
+// card's per-block limit holds, up to MAX_STAGES (at D = 768 on an H100: 5
+// boxes at k <= 32, 2 at k = 128; 226 KB either way). One block per SM.
+cudaError_t allow_wgmma(int D, int k, int* stages, size_t* dyn) {
+  // the refusal twin of `ops/mips.py:_topk_body`'s D rule
+  if (D < 8 || D % 8 != 0 || wgmma_chunks(D) > MAX_CHUNKS) return cudaErrorInvalidValue;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, topk_float_kernel<T>, THREADS, dyn);
+  const size_t fixed = wgmma_smem(wgmma_chunks(D), list_stride(k), 0);
+  *stages = limit > (long long)fixed ? (int)((limit - fixed) / (BOX_BYTES + sizeof(uint64_t))) : 0;
+  *stages = min(*stages, MAX_STAGES);
+  if (*stages < 1) return cudaErrorInvalidValue;
+  *dyn = wgmma_smem(wgmma_chunks(D), list_stride(k), *stages);
+  return cudaFuncSetAttribute(topk_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*dyn);
+}
+
+// Rows of each split: whole tiles of `tile` rows, the last split ragged (or empty).
+long long split_rows(int n_real, int splits, int tile) {
+  const long long tiles = ((long long)n_real + tile - 1) / tile;
+  return (tiles + splits - 1) / splits * tile;
 }
 
 template <typename T>
-cudaError_t launch_topk(const void* q, const void* v, void* part_s, void* part_i,
-                        int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
-  const int kp = list_stride(k);
+cudaError_t launch_fma(const void* q, const void* v, void* part_s, void* part_i,
+                       int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
   size_t dyn;
   cudaError_t err = allow_lists<T>(k, &dyn);
   if (err != cudaSuccess) return err;
-  const long long tiles = ((long long)n_real + RT - 1) / RT;
-  const long long rows_per_split = (tiles + splits - 1) / splits * RT;
-  const dim3 grid((B + QT - 1) / QT, splits);
+  const dim3 grid((B + QT - 1) / QT, splits);  // query tile fastest: the blocks of a split run together
   topk_float_kernel<T><<<grid, THREADS, dyn, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(v),
-      static_cast<float*>(part_s), static_cast<int*>(part_i), B, D, k, kp, n_real, rows_per_split);
+      static_cast<float*>(part_s), static_cast<int*>(part_i), B, D, k, list_stride(k), n_real,
+      split_rows(n_real, splits, RT));
   return cudaGetLastError();
 }
 
-}  // namespace
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime: no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// How many blocks of the selection kernel an SM of the current card holds at
-// this k (the lists' shared memory decides it: 4 at k <= 32, 2 at k = 128), or
-// minus a CUDA error code. The wrapper sizes the splits so that every block is
-// resident at once: a block is latency-bound, and a second wave of a few
-// blocks costs as much as the first.
-extern "C" int vod_fused_mips_topk_blocks_per_sm(int dtype, int k) {
-  if (k < 1 || k > KMAX) return -static_cast<int>(cudaErrorInvalidValue);
-  int blocks = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) err = blocks_per_sm<float>(k, &blocks);
-  if (dtype == 1) err = blocks_per_sm<__nv_bfloat16>(k, &blocks);
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (queries already cast to the corpus type).
-// With splits == 1 the caller passes part == out and no merge runs; otherwise
-// part is [splits, B, k]. The caller makes the card that holds the tensors
-// current; `stream_ptr` is PyTorch's current stream there. Returns the CUDA
-// error code of the launches (0 = success).
-extern "C" int vod_fused_mips_topk(int dtype, const void* q, const void* v,
-                                   void* part_s, void* part_i, void* out_s, void* out_i,
-                                   int B, int D, int k, int n_real, int splits, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (k < 1 || k > KMAX || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_topk<float>(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
-  } else if (dtype == 1) {
-    err = launch_topk<__nv_bfloat16>(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Tensor map of a row-major bf16 [rows, D] array in boxes of `box_rows` rows x
+// 64 columns, 128-byte swizzle; reads outside the array give zeros.
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)(rows > 0 ? rows : 1)};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {KC, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_i,
+                         int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
+  size_t dyn;
+  int stages;
+  cudaError_t err = allow_wgmma(D, k, &stages, &dyn);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_q, map_v;
+  if ((err = bf16_map(&map_q, q, B, D, QT)) != cudaSuccess) return err;
+  if ((err = bf16_map(&map_v, v, n_real, D, WRT)) != cudaSuccess) return err;  // rows past n_real are never read
+  const dim3 grid((B + QT - 1) / QT, splits);  // query tile fastest: the blocks of a split share rows in L2
+  topk_wgmma_kernel<<<grid, THREADS, dyn, stream>>>(
+      map_q, map_v, static_cast<float*>(part_s), static_cast<int*>(part_i), B, wgmma_chunks(D), stages, k,
+      list_stride(k), n_real, split_rows(n_real, splits, WRT));
+  return cudaGetLastError();
+}
+
+int merge(cudaError_t err, void* part_s, void* part_i, void* out_s, void* out_i, int B, int k, int splits,
+          cudaStream_t stream) {
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   merge_splits_kernel<<<(B + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0, stream>>>(
       static_cast<const float*>(part_s), static_cast<const int*>(part_i),
       static_cast<float*>(out_s), static_cast<int*>(out_i), B, k, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// How many blocks of a body (0 = CUDA cores, 1 = tensor cores) an SM of the
+// current card holds at this dtype, D and k (shared memory decides it: the
+// CUDA-core body holds 4 at k <= 32 and 2 at k = 128, the tensor-core body 1),
+// or minus a CUDA error code. The wrapper sizes the splits so that every block
+// is resident at once: a second wave of a few blocks costs as much as the first.
+extern "C" int vod_fused_mips_topk_blocks_per_sm(int body, int dtype, int D, int k) {
+  if (k < 1 || k > KMAX) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0, stages = 0;
+  size_t dyn = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (body == 0 && dtype == 0 && (err = allow_lists<float>(k, &dyn)) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_float_kernel<float>, THREADS, dyn);
+  if (body == 0 && dtype == 1 && (err = allow_lists<__nv_bfloat16>(k, &dyn)) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_float_kernel<__nv_bfloat16>, THREADS, dyn);
+  if (body == 1 && dtype == 1 && (err = allow_wgmma(D, k, &stages, &dyn)) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_wgmma_kernel, THREADS, dyn);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// The CUDA-core body. dtype: 0 = float32, 1 = bfloat16 (queries already cast
+// to the corpus type). With splits == 1 the caller passes part == out and no
+// merge runs; otherwise part is [splits, B, k]. The caller makes the card that
+// holds the tensors current; `stream_ptr` is PyTorch's current stream there.
+// Returns the CUDA error code of the launches (0 = success).
+extern "C" int vod_fused_mips_topk_fma(int dtype, const void* q, const void* v,
+                                       void* part_s, void* part_i, void* out_s, void* out_i,
+                                       int B, int D, int k, int n_real, int splits, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (k < 1 || k > KMAX || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_fma<float>(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
+  } else if (dtype == 1) {
+    err = launch_fma<__nv_bfloat16>(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return merge(err, part_s, part_i, out_s, out_i, B, k, splits, stream);
+}
+
+// The tensor-core body, the same arguments: bf16 only (dtype 1), D % 8 == 0,
+// D <= 896, q and v 16-byte aligned; anything else is refused with
+// cudaErrorInvalidValue, never run on another body.
+extern "C" int vod_fused_mips_topk_wgmma(int dtype, const void* q, const void* v,
+                                         void* part_s, void* part_i, void* out_s, void* out_i,
+                                         int B, int D, int k, int n_real, int splits, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (dtype != 1 || k < 1 || k > KMAX || splits < 1 || reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = launch_wgmma(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
+  return merge(err, part_s, part_i, out_s, out_i, B, k, splits, stream);
 }

@@ -9,7 +9,9 @@ here, in the order `lax.top_k` gives. Expected recall@k is about
 1 - (k-1)/(2*bins).
 
 `fused_mips_topk` (exact): the k highest scores per query, by (score
-descending, row id ascending), from the CUDA kernel `csrc/fused_mips_topk.cu`.
+descending, row id ascending), from the CUDA kernel `csrc/fused_mips_topk.cu`,
+whose tile product runs on the tensor cores or on CUDA cores by a fixed rule
+on dtype and shape (`_topk_body`).
 
 Each wrapper launches its kernel for a CUDA tensor and raises if it cannot; for
 a CPU tensor it runs its `*_reference`, the plain PyTorch version of the same
@@ -30,8 +32,13 @@ _INT32_MIN = -(2**31) + 1  # empty int8 cell (the TPU kernel's sentinel, note th
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _QUERY_TILE = 64  # queries per block in both CUDA kernels
 _BIN_TILE = 64  # bins per block in the binned kernel
-_ROW_TILE = 64  # rows per tile in the exact kernel
 _K_MAX = 128  # widest exact top-k (the TPU kernel's _K_PAD)
+# The next three have twins in `csrc/fused_mips_topk.cu` (MAX_CHUNKS * KC, the
+# body indices of `vod_fused_mips_topk_blocks_per_sm`, RT and WRT): change both
+# sides together. The C side refuses a call outside its own limits.
+_WGMMA_MAX_D = 896  # the tensor-core body's resident query tile fits beside the k = 128 lists
+_TOPK_BODIES = {"fma": 0, "wgmma": 1}
+_TOPK_ROW_TILE = {"fma": 64, "wgmma": 128}  # rows per tile of each body of the exact kernel
 _REF_CHUNK_ELEMS = 1 << 25  # score elements per chunk of the plain versions
 
 
@@ -117,16 +124,18 @@ def _sms(dev: torch.device) -> int:
 
 def _launch(
     wrapper: typ.Callable, vectors: torch.Tensor, queries: torch.Tensor, width: int, n_real: int,
-    score_dtype: torch.dtype, splits: int,
+    score_dtype: torch.dtype, splits: int, body: typ.Optional[str] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel of `wrapper` (C entry `vod_<name>` of `csrc/<name>.cu`)
-    on the current stream with the rows cut into `splits` ranges, count the
-    launch on `wrapper.launches`, and return outputs `[B, width]` (scores,
-    int32 ids). Both kernels take the same C arguments."""
+    """Launch the kernel of `wrapper` (C entry `vod_<name>`, or `vod_<name>_<body>`
+    for a kernel with several bodies, of `csrc/<name>.cu`) on the current stream
+    with the rows cut into `splits` ranges, count the launch on
+    `wrapper.launches` (and on `wrapper.body_launches[body]`), and return
+    outputs `[B, width]` (scores, int32 ids). Every entry takes the same C
+    arguments."""
     from .cuda_build import load_library
 
     name = wrapper.__name__
-    fn = getattr(load_library(name), f"vod_{name}")
+    fn = getattr(load_library(name), f"vod_{name}_{body}" if body else f"vod_{name}")
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     b, d = (int(x) for x in queries.shape)
@@ -150,6 +159,8 @@ def _launch(
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
     with _launch_lock:  # server threads may call concurrently
         wrapper.launches += 1
+        if body:
+            wrapper.body_launches[body] += 1
     return out_s, out_i
 
 
@@ -256,20 +267,32 @@ def _check_topk(
     return int(n_real)
 
 
-def _topk_splits(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int) -> int:
+def _topk_body(dtype: torch.dtype, d: int, ptrs: typ.Iterable[int]) -> str:
+    """The body of the exact kernel that a CUDA call takes, by a fixed rule on
+    dtype and shape: "wgmma" (tensor cores fed by TMA) for a bf16 corpus with
+    D % 8 == 0 (TMA needs 16-byte row strides), D <= 896 (the resident query
+    tile fits in shared memory at every k) and 16-byte-aligned data pointers
+    `ptrs` (corpus and queries); "fma" (f32 FMAs on CUDA cores) for every
+    other call, f32 included (`wgmma` has no full-f32 mode)."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and d <= _WGMMA_MAX_D and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "fma"
+
+
+def _topk_splits(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int, body: str) -> int:
     """Row splits of the exact kernel: as many as keep every block resident in
-    one wave (the kernel's occupancy at this k times the SMs), at most one per
-    64-row tile."""
+    one wave (the body's occupancy at this D and k times the SMs), at most one
+    per row tile."""
     from .cuda_build import load_library
 
     fn = load_library("fused_mips_topk").vod_fused_mips_topk_blocks_per_sm
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
     with torch.cuda.device(vectors.device):
-        per_sm = fn(_DTYPE_CODES[vectors.dtype], k)
+        per_sm = fn(_TOPK_BODIES[body], _DTYPE_CODES[vectors.dtype], int(vectors.shape[1]), k)
     if per_sm <= 0:
         raise RuntimeError(f"fused_mips_topk occupancy query failed with CUDA error {-per_sm}")
     tiles = -(-int(queries.shape[0]) // _QUERY_TILE)
-    return max(1, min(-(-n_real // _ROW_TILE), per_sm * _sms(vectors.device) // tiles, 65535))
+    return max(1, min(-(-n_real // _TOPK_ROW_TILE[body]), per_sm * _sms(vectors.device) // tiles, 65535))
 
 
 def exact_topk_reference(
@@ -306,8 +329,9 @@ def fused_mips_topk(
     """Exact top-k by inner product. Returns (scores f32 [B, k], row ids int32 [B, k]).
 
     `vectors` [N, D] is bf16 or f32; queries are cast to its dtype and products
-    are summed in f32 (f32 runs in full f32, no TF32). Rows at or past `n_real`
-    are masked. The k highest scores come ordered by (score descending, row id
+    are summed in f32 (f32 runs in full f32, no TF32; bf16 products are exact
+    in f32, so the two bodies differ only in the order of the f32 sums). Rows
+    at or past `n_real` are masked. The k highest scores come ordered by (score descending, row id
     ascending); where the score is -inf the id is -1. The TPU kernel leaves a
     stale id in such slots once the rows span more than one tile: the port
     follows the repo's `-1`/`-inf` padding contract instead, and equals the TPU
@@ -316,21 +340,31 @@ def fused_mips_topk(
     == 0), so that a call the TPU refuses is refused here too.
 
     On a CUDA tensor this launches the kernel or raises; on a CPU tensor it
-    runs the plain version. Each call that launches adds one to
-    `fused_mips_topk.launches`, under the module's launch lock: one count is
-    one wrapper call, which covers `topk_float_kernel` and, when the rows are
-    split across the grid, `merge_splits_kernel` after it on the same stream.
-    The plain version never adds to it."""
+    runs the plain version. The kernel's body follows a fixed rule
+    (`_topk_body`): a bf16 corpus with D % 8 == 0, D <= 896 and corpus and
+    (cast) queries on 16-byte-aligned addresses runs its tile product on the
+    tensor cores (`topk_wgmma_kernel`); f32, and any other bf16 call (a
+    misaligned `storage_offset` included), on CUDA cores
+    (`topk_float_kernel`). A call that the rule gives to the tensor cores and
+    that cannot build or launch there raises; it never runs on the other body.
+    Each call that launches adds one to `fused_mips_topk.launches` and to
+    `fused_mips_topk.body_launches[body]`, under the module's launch lock: one
+    count is one wrapper call, which covers the body's kernel and, when the
+    rows are split across the grid, `merge_splits_kernel` after it on the same
+    stream. The plain version never adds to them."""
     n_real = _check_topk(vectors, queries, k, tile, qblock, n_real)
     q = queries.to(vectors.dtype).contiguous()
     if vectors.device.type == "cuda":
-        return _launch(fused_mips_topk, vectors, q, k, n_real, torch.float32, _topk_splits(vectors, q, k, n_real))
+        body = _topk_body(vectors.dtype, int(vectors.shape[1]), (vectors.data_ptr(), q.data_ptr()))
+        splits = _topk_splits(vectors, q, k, n_real, body)
+        return _launch(fused_mips_topk, vectors, q, k, n_real, torch.float32, splits, body)
     if vectors.device.type == "cpu":
         return exact_topk_reference(vectors, q, k, n_real)
     raise ValueError(f"fused_mips_topk runs on cuda or cpu, not {vectors.device}")
 
 
 fused_mips_topk.launches = 0
+fused_mips_topk.body_launches = {body: 0 for body in _TOPK_BODIES}
 
 
 def fused_mips_topk_reference(
