@@ -11,11 +11,16 @@ checked, none caught:
  2. build both hand-written kernels from `vod_tpu_torch/csrc/`, one `nvcc`
     each, started together, with the time taken, registers and shared memory;
  3. `fused_mips_binned` against its plain PyTorch version on the card at
-    N = 2^20, D = 768, bins 512 and 1024, B = 1, 64 and 2048, k = 40: bf16
-    scores within twice the f32 sum-order bound and ids equal wherever the
-    margin exceeds it; int8 ids and scores exactly equal (every cell); n_real
-    masking; duplicate rows tie to the lowest id. Then times: kernel, plain
-    version, the library yardstick (`torch.topk(q @ Vᵀ, k)` in bf16,
+    N = 2^20, D = 768, bins 512 and 1024, B = 1, 64 and 2048, k = 40 (the
+    tensor-core body), and on rows off the 16-byte grid (bf16 2 bytes off at
+    B = 64, 1024 bins and B = 2048, 512 bins; int8 4 bytes off at B = 64,
+    512 bins: the CUDA-core body), each call checked to take the body that
+    `_binned_body` names: bf16 scores within twice the f32 sum-order bound
+    and ids equal wherever the margin exceeds it; int8 ids and scores exactly
+    equal (every cell); tensor-core edge cases B = 3 and 65 with
+    n_real = N - 77 (a ragged last stride); n_real masking; duplicate rows tie
+    to the lowest id. Then times on both bodies: kernel, plain version, the
+    library yardstick (`torch.topk(q @ Vᵀ, k)` in bf16,
     `torch.topk(torch._int_mm(q, Vᵀ), k)` in int8), and the bound;
  3b. `fused_mips_topk` against its plain PyTorch version on the card at
     N = 2^20, D = 768: bf16 at B = 1, 64 and 2048 with k = 10 and 128 (the
@@ -38,7 +43,7 @@ checked, none caught:
     max batch 64) answer concurrent HTTP requests with gold lookups and
     held-out requests (corpus rows + 0.1 noise). Checked: ids in [0, N) or -1,
     gold ids with label 1, fewer dispatches than requests, kernel launches,
-    recall@10 against exact f32 search, served ids == direct `dense_search`;
+    all on the tensor-core body, recall@10 against exact f32 search, served ids == direct `dense_search`;
     then request latency at one client and under 32 concurrent clients;
  4b. the kernel shootout, end to end (the exact kernel's main path: launch
     counts are zeroed just before it and read just after):
@@ -46,7 +51,7 @@ checked, none caught:
     2048-query blocks, k = 10: the exact scan, `fused_mips_binned` and
     `fused_mips_topk` timed for QPS, each with recall@10 against exact search.
     Checked: exact-kernel recall >= 0.999, binned recall >= 0.975, and
-    `fused_mips_topk` launches, all on its tensor-core body;
+    launches of both kernels, all on their tensor-core bodies;
  5. the `kernels` JSON line, the card line, and the last line
     `{"ok": true, "device": {...}}`.
 """
@@ -158,6 +163,7 @@ def main() -> None:
     from vod_tpu_torch.models import TransformerEncoderConfig, VodEncoder, VodPoolerConfig
     from vod_tpu_torch.ops import cuda_build
     from vod_tpu_torch.ops.mips import (
+        _binned_body,
         _topk_body,
         fused_mips_binned,
         fused_mips_binned_reference,
@@ -202,75 +208,113 @@ def main() -> None:
     qi8, _ = quantize_queries_int8(q32, scale)
     del v32
     qb = q32.to(torch.bfloat16)
+    # the same rows off the 16-byte grid (bf16 2 bytes, int8 4 bytes): the body
+    # rules send them to the CUDA-core bodies
+    vb_odd = torch.empty(N_KERNEL * D + 1, dtype=torch.bfloat16, device=dev)[1:].view(N_KERNEL, D)
+    vb_odd.copy_(vb)
+    vi8_odd = torch.empty(N_KERNEL * D + 4, dtype=torch.int8, device=dev)[4:].view(N_KERNEL, D)
+    vi8_odd.copy_(vi8)
     # twice the f32 sum-order bound gamma_D * |q| * |v| for the bf16 inputs
     tol = 2 * D * 2.0**-24 * qb.float().norm(dim=-1).max().item() * vb.float().norm(dim=-1).max().item()
     max_err = 0.0
-    for b in BATCHES:
-        for bins in (512, 1024):
+
+    def binned_body_of(vv, qs, bins: int, expect: str) -> str:
+        """The body a binned call takes, named by the wrapper's rule."""
+        body = _binned_body(vv.dtype, D, bins, (vv.data_ptr(), qs.to(vv.dtype).data_ptr()))
+        check(body == expect, f"binned {vv.dtype} at offset {vv.storage_offset()}: body {body}, not {expect}")
+        return body
+
+    def binned_call(vv, qs, bins: int, expect: str, **kw):
+        """One `fused_mips_binned` call, checked to launch once on the named body."""
+        body = binned_body_of(vv, qs, bins, expect)
+        before = fused_mips_binned.body_launches[body]
+        out = fused_mips_binned(vv, qs, bins=bins, **kw)
+        check(fused_mips_binned.body_launches[body] == before + 1, f"binned {vv.dtype}: not on the {body} body")
+        return out
+
+    # (dtype, corpus, queries, B, bins, body, n_real): the twelve headline
+    # shapes, the CUDA-core body on rows off the grid, the tensor-core edge cases
+    binned_cases = [
+        (dt, vv, qq, b, bins, "wgmma", N_KERNEL)
+        for dt, vv, qq in (("bfloat16", vb, qb), ("int8", vi8, qi8)) for b in BATCHES for bins in (512, 1024)
+    ] + [
+        ("bfloat16", vb_odd, qb, 64, 1024, "fma", N_KERNEL),
+        ("bfloat16", vb_odd, qb, 2048, 512, "fma", N_KERNEL),
+        ("int8", vi8_odd, qi8, 64, 512, "fma", N_KERNEL),
+    ] + [
+        (dt, vv, qq, b, bins, "wgmma", N_KERNEL - 77)
+        for dt, vv, qq, bins in (("bfloat16", vb, qb, 1024), ("int8", vi8, qi8, 512)) for b in (3, 65)
+    ]
+    for dtype, vv, qq, b, bins, expect, n_real in binned_cases:
+        label = f"{dtype} B={b} bins={bins} n_real={n_real} ({expect})"
+        if dtype == "bfloat16":
+            ks, ki = binned_call(vv, qq[:b], bins, expect, k=K_POOL, n_real=n_real)
             err, swaps = check_against_plain(
-                f"bf16 B={b} bins={bins}",
-                *fused_mips_binned(vb, qb[:b], k=K_POOL, bins=bins),
-                *fused_mips_binned_reference(vb, qb[:b], k=K_POOL, bins=bins),
-                qb[:b], vb, tol,
+                label, ks, ki, *fused_mips_binned_reference(vv, qq[:b], k=K_POOL, bins=bins, n_real=n_real),
+                qq[:b], vv, tol,
             )
             max_err = max(max_err, err)
-            log(f"check bf16 B={b} bins={bins}: max |kernel - plain| = {err:.3g} (tol {tol:.3g}), "
-                f"{swaps} id swaps inside the band")
-            cs, ci = fused_mips_binned(vi8, qi8[:b], k=bins, bins=bins)  # every cell
-            cr, cri = fused_mips_binned_reference(vi8, qi8[:b], k=bins, bins=bins)
-            check(torch.equal(cs, cr) and torch.equal(ci, cri), f"int8 B={b} bins={bins}: kernel != plain")
-            log(f"check int8 B={b} bins={bins}: all {b}x{bins} cells equal (ids and int32 scores)")
+            log(f"check {label}: max |kernel - plain| = {err:.3g} (tol {tol:.3g}), {swaps} id swaps inside the band")
+        else:
+            ks, ki = binned_call(vv, qq[:b], bins, expect, k=bins, n_real=n_real)  # every cell
+            rs, ri = fused_mips_binned_reference(vv, qq[:b], k=bins, bins=bins, n_real=n_real)
+            check(torch.equal(ks, rs) and torch.equal(ki, ri), f"{label}: kernel != plain")
+            log(f"check {label}: all {b}x{bins} cells equal (ids and int32 scores)")
+        check(ki.max().item() < n_real, f"{label}: a masked row was returned")
     n_real = N_KERNEL - 12345
     for vv, qq in ((vb, qb[:64]), (vi8, qi8[:64])):
-        ks, ki = fused_mips_binned(vv, qq, k=K_POOL, bins=1024, n_real=n_real)
+        ks, ki = binned_call(vv, qq, 1024, "wgmma", k=K_POOL, n_real=n_real)
         rs, ri = fused_mips_binned_reference(vv, qq, k=K_POOL, bins=1024, n_real=n_real)
-        check(ki.max().item() < n_real and torch.equal(ki, ri), f"n_real masking ({vv.dtype})")
+        check(ki.max().item() < n_real, f"n_real masking ({vv.dtype}): a masked row was returned")
+        if vv.dtype == torch.int8:
+            check(torch.equal(ki, ri) and torch.equal(ks, rs), "n_real masking (int8): kernel != plain")
+        else:  # the two sum orders may swap ids inside the band
+            check_against_plain(f"n_real masking ({vv.dtype})", ks, ki, rs, ri, qq, vv, tol)
     saved = vi8[[7 + 512 * 3, 7 + 512 * 20]].clone()
     vi8[7 + 512 * 3] = vi8[7]
     vi8[7 + 512 * 20] = vi8[7]
     qdup = qi8[:64].clone()
     qdup[0] = vi8[7]
-    ks, ki = fused_mips_binned(vi8, qdup, k=512, bins=512)
+    ks, ki = binned_call(vi8, qdup, 512, "wgmma", k=512)
     rs, ri = fused_mips_binned_reference(vi8, qdup, k=512, bins=512)
     check(ki[0, 0].item() == 7 and torch.equal(ki, ri) and torch.equal(ks, rs), "duplicate rows: tie not to lowest id")
     vi8[[7 + 512 * 3, 7 + 512 * 20]] = saved
     log(f"check edges: n_real={n_real} masked in bf16 and int8; duplicate rows tie to the lowest id")
 
     shapes = []
-    for dtype, vv, qq, peak in (("bfloat16", vb, qb, peak_bf16), ("int8", vi8, qi8, peak_int8)):
-        for b in BATCHES:
-            for bins in (512, 1024):
-                qs = qq[:b]
-                reps = 20 if b <= 64 else 3
-                ms = time_ms(lambda: fused_mips_binned(vv, qs, k=K_POOL, bins=bins), reps)
-                plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qs, k=K_POOL, bins=bins), 2)
-                # the library yardstick: exact top-k over one library product
-                # (cuBLAS bf16 GEMM, or cuBLASLt int8 x int8 -> int32 through
-                # `torch._int_mm`, which takes only more than 16 rows)
-                library_ms = None
-                if dtype == "bfloat16":
-                    library_ms = time_ms(lambda: torch.topk(qs @ vv.T, K_POOL, dim=-1), reps)
-                elif b > 16:
-                    library_ms = time_ms(lambda: torch.topk(torch._int_mm(qs, vv.T), K_POOL, dim=-1), reps)
-                elem = vv.element_size()
-                nbytes = (N_KERNEL + b) * D * elem + b * K_POOL * 8
-                ops = 2 * b * N_KERNEL * D
-                bound = max(nbytes / hbm, ops / peak) * 1e3
-                shapes.append(dict(
-                    dtype=dtype, B=b, N=N_KERNEL, D=D, bins=bins, k=K_POOL, ms=ms, plain_ms=plain_ms,
-                    library_ms=library_ms, bound_ms=bound,
-                    bound_by="bytes" if nbytes / hbm >= ops / peak else "operations",
-                ))
-                log(f"time {dtype} B={b} bins={bins}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-                    f"bound {bound:.4f} ms ({shapes[-1]['bound_by']}) [{card}]")
-    del vi8, qi8
+    for dtype, vv, qq, b, bins, expect, n_real in binned_cases:
+        if n_real != N_KERNEL:
+            continue
+        qs = qq[:b]
+        body = binned_body_of(vv, qs, bins, expect)
+        reps = 20 if b <= 64 else 3
+        ms = time_ms(lambda: fused_mips_binned(vv, qs, k=K_POOL, bins=bins), reps)
+        plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qs, k=K_POOL, bins=bins), 2)
+        # the library yardstick: exact top-k over one library product
+        # (cuBLAS bf16 GEMM, or cuBLASLt int8 x int8 -> int32 through
+        # `torch._int_mm`, which takes only more than 16 rows; it reads the
+        # aligned int8 corpus, since cuBLASLt may refuse rows off the grid)
+        library_ms = None
+        if dtype == "bfloat16":
+            library_ms = time_ms(lambda: torch.topk(qs @ vv.T, K_POOL, dim=-1), reps)
+        elif b > 16:
+            library_ms = time_ms(lambda: torch.topk(torch._int_mm(qs, vi8.T), K_POOL, dim=-1), reps)
+        peak = peak_bf16 if dtype == "bfloat16" else peak_int8
+        nbytes = (N_KERNEL + b) * D * vv.element_size() + b * K_POOL * 8
+        ops = 2 * b * N_KERNEL * D
+        bound = max(nbytes / hbm, ops / peak) * 1e3
+        shapes.append(dict(
+            dtype=dtype, body=body, B=b, N=N_KERNEL, D=D, bins=bins, k=K_POOL, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound,
+            bound_by="bytes" if nbytes / hbm >= ops / peak else "operations",
+        ))
+        log(f"time {dtype} B={b} bins={bins} ({body}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+            f"bound {bound:.4f} ms ({shapes[-1]['bound_by']}) [{card}]")
+    del vi8, qi8, vi8_odd, binned_cases
 
     # 3b. the exact kernel vs its plain version at the headline shape
     v32 = vb.float()  # the f32 case: the bf16 corpus widened, summed in full f32
-    # the same bf16 rows 2 bytes off the 16-byte grid: the rule sends them to the CUDA-core body
-    vb_odd = torch.empty(N_KERNEL * D + 1, dtype=torch.bfloat16, device=dev)[1:].view(N_KERNEL, D)
-    vb_odd.copy_(vb)
     exact_cases = [("bfloat16", vb, qb, b, k, "wgmma") for b in BATCHES for k in EXACT_KS] + [
         ("float32", v32, q32, 64, 128, "fma"),
         ("bfloat16", vb_odd, qb, 64, 10, "fma"),
@@ -390,7 +434,8 @@ def main() -> None:
             outs = list(ex.map(one, payloads))
         return outs, lat
 
-    fused_mips_binned.launches = 0  # main path starts
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
     t_main = time.perf_counter()
     with torch.inference_mode():
         qv = encoder(ids, mask)
@@ -459,11 +504,16 @@ def main() -> None:
                 log(f"latency flat [{card}]: {json.dumps(results['latency'])}")
     torch.cuda.synchronize()
     launches = fused_mips_binned.launches  # main path ends
-    log(f"main path: {time.perf_counter() - t_main:.2f} s; fused_mips_binned launches {launches}")
+    binned_body_launches = dict(fused_mips_binned.body_launches)
+    log(f"main path: {time.perf_counter() - t_main:.2f} s; fused_mips_binned launches {launches}, "
+        f"by body {binned_body_launches}")
     check(launches > 0, "the main path never launched fused_mips_binned")
+    check(binned_body_launches == {"wgmma": launches, "fma": 0},
+          "the serving path's fused_mips_binned calls did not all take the tensor-core body")
 
     # 4b. the kernel shootout (the exact kernel's main path)
     fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)
     fused_mips_topk.launches = 0
     fused_mips_topk.body_launches.update(wgmma=0, fma=0)  # main path starts
     t_main = time.perf_counter()
@@ -471,11 +521,15 @@ def main() -> None:
     torch.cuda.synchronize()
     shootout_launches = {"fused_mips_topk": fused_mips_topk.launches, "fused_mips_binned": fused_mips_binned.launches}
     body_launches = dict(fused_mips_topk.body_launches)
+    shootout_binned_bodies = dict(fused_mips_binned.body_launches)
     log(f"main path (shootout): {time.perf_counter() - t_main:.2f} s; launches {shootout_launches}, "
-        f"fused_mips_topk by body {body_launches}")
+        f"fused_mips_topk by body {body_launches}, fused_mips_binned by body {shootout_binned_bodies}")
     check(shootout_launches["fused_mips_topk"] > 0, "the shootout never launched fused_mips_topk")
     check(body_launches == {"wgmma": shootout_launches["fused_mips_topk"], "fma": 0},
           "the shootout's fused_mips_topk calls did not all take the tensor-core body")
+    check(shootout_launches["fused_mips_binned"] > 0, "the shootout never launched fused_mips_binned")
+    check(shootout_binned_bodies == {"wgmma": shootout_launches["fused_mips_binned"], "fma": 0},
+          "the shootout's fused_mips_binned calls did not all take the tensor-core body")
     check(shootout["exact_kernel_recall"] >= EXACT_RECALL_FLOOR,
           f"exact kernel recall@10 {shootout['exact_kernel_recall']} < {EXACT_RECALL_FLOOR}")
     check(shootout["binned_recall"] >= BINNED_RECALL_FLOOR,
@@ -484,7 +538,8 @@ def main() -> None:
               for r in ("scan", "binned", "exact_kernel")), "a shootout route has no QPS")
 
     # 5. result lines
-    main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024)
+    main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
+                and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
                       and s["body"] == "wgmma")
     kernels = [dict(
@@ -493,6 +548,9 @@ def main() -> None:
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
         shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
+        body=main["body"], body_launches=binned_body_launches, shootout_body_launches=shootout_binned_bodies,
+        body_ms={body: {f"{s['dtype']} B={s['B']} bins={s['bins']}": s["ms"] for s in shapes if s["body"] == body}
+                 for body in ("wgmma", "fma")},
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

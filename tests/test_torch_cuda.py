@@ -13,6 +13,7 @@ import torch
 
 from tests.torch_helpers import cuda_device, unit_rows  # noqa: F401  (fixture)
 from vod_tpu_torch.ops.mips import (
+    _binned_body,
     fused_mips_binned,
     fused_mips_binned_reference,
     _topk_body,
@@ -60,6 +61,69 @@ def test_binned_kernel_matches_plain_on_card(cuda_device) -> None:
     assert ki[0, 0].item() == 5
     torch.cuda.synchronize()
     assert fused_mips_binned.launches == before + 8  # 4 float calls, 4 int8 calls
+
+
+@pytest.mark.parametrize(
+    "dtype, d, bins, body",
+    [(dt, d, bins, "wgmma") for dt in ("bfloat16", "int8") for d in (64, 96) for bins in (128, 512, 1024)]
+    + [
+        ("bfloat16", 36, 512, "fma"),  # D % 8 != 0: no TMA
+        ("bfloat16", 64, 64, "fma"),  # bins % 128 != 0
+        ("float32", 96, 512, "fma"),  # f32 stays on CUDA cores
+        ("int8", 36, 512, "fma"),  # D % 16 != 0: __dp4a
+    ],
+)
+def test_binned_kernel_bodies_match_plain_on_card(cuda_device, dtype: str, d: int, bins: int, body: str) -> None:
+    """Each body of the binned kernel against the plain version, every cell:
+    int8 scores and ids equal; f32/bf16 scores within an f32 sum-order bound
+    and ids equal wherever the margin exceeds it; n_real masking (a ragged last
+    stride, and fewer real rows than bins); equal rows in one bin, in different
+    splits, tie to the lowest id; one launch counted per call, on the body the
+    dispatch rule names."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n = 8192
+    if dtype == "int8":
+        v = torch.randint(-127, 128, (n, d), generator=g, device=cuda_device, dtype=torch.int8)
+        q = torch.randint(-127, 128, (130, d), generator=g, device=cuda_device, dtype=torch.int8)
+    else:
+        v = torch.randn((n, d), generator=g, device=cuda_device)
+        v = (v / v.norm(dim=-1, keepdim=True)).to(getattr(torch, dtype))
+        q = torch.randn((130, d), generator=g, device=cuda_device)
+        q = q / q.norm(dim=-1, keepdim=True)
+    dups = (5, 5 + bins, 5 + 3 * bins)  # one bin, one stride apart and more: different splits at every B
+    v[list(dups[1:])] = v[5].clone()
+    q[0] = v[5].to(q.dtype)  # ... that win bin 5 for query 0
+    tol = 2 * d * 2.0**-24 * 1.01  # twice gamma_D * |q| * |v|; bf16 rounding moves a norm by < 0.5%
+    assert _binned_body(v.dtype, d, bins, (v.data_ptr(), q.to(v.dtype).data_ptr())) == body
+    before = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)
+    calls = 0
+    for b in (1, 7, 80, 130):
+        qb = q[:b]
+        for n_real in (n, n - 77, 3):
+            kw = dict(k=bins, bins=bins, n_real=n_real)  # every cell
+            ks, ki = fused_mips_binned(v, qb, **kw)
+            rs, ri = fused_mips_binned_reference(v, qb, **kw)
+            calls += 1
+            assert ki.max().item() < n_real
+            if dtype == "int8":
+                assert torch.equal(ks, rs) and torch.equal(ki, ri)
+            else:
+                finite = torch.isfinite(rs)
+                assert torch.equal(torch.isfinite(ks), finite) and torch.equal(ki[~finite], ri[~finite])
+                assert (ks[finite] - rs[finite]).abs().max().item() <= tol
+                diff = ki != ri
+                if diff.any():  # a swap is allowed only inside the tolerance band
+                    exact = (qb.to(v.dtype).double()[:, None, :] * v[ki.long()].double()).sum(-1)
+                    assert ((exact - rs.double()).abs()[diff] <= 2 * tol).all()
+            if n_real == 3:
+                assert (ki[:, 3:] == -1).all()
+            if n_real > dups[-1]:
+                assert ki[0, 0].item() == 5
+    torch.cuda.synchronize()
+    assert fused_mips_binned.launches == before[0] + calls
+    assert fused_mips_binned.body_launches[body] == before[1][body] + calls
+    other = "fma" if body == "wgmma" else "wgmma"
+    assert fused_mips_binned.body_launches[other] == before[1][other]
 
 
 @pytest.mark.parametrize(

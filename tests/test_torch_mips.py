@@ -14,7 +14,8 @@ import torch
 
 from tests.torch_helpers import np_of
 from vod_tpu.ops.mips_pallas import fused_mips_binned as jax_binned
-from vod_tpu_torch.ops.mips import fused_mips_binned
+from vod_tpu_torch.ops import cuda_build
+from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned
 
 F32_ATOL = 1e-5
 
@@ -132,3 +133,79 @@ def test_binned_cpu_path_never_counts_a_launch() -> None:
     fused_mips_binned(torch.from_numpy(v), torch.from_numpy(q), k=4, bins=64)
     assert fused_mips_binned.launches == before
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_binned_cpu_path_never_counts_a_body_launch(dtype: torch.dtype) -> None:
+    v, q = _data(10, n=256, d=16, b=2)
+    tv, tq = torch.from_numpy(v), torch.from_numpy(q)
+    if dtype == torch.int8:
+        tv, tq = (t.clamp(-1, 1).mul(100).to(torch.int8) for t in (tv, tq))
+    before = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)
+    fused_mips_binned(tv.to(dtype), tq, k=4, bins=128)
+    assert (fused_mips_binned.launches, fused_mips_binned.body_launches) == before
+
+
+def _rows(dtype: torch.dtype, n: int, d: int, offset: int = 0) -> torch.Tensor:
+    """[n, d] rows of `dtype` starting `offset` elements into a fresh buffer."""
+    return torch.zeros(n * d + offset, dtype=dtype)[offset:].view(n, d)
+
+
+@pytest.mark.parametrize(
+    "dtype, d, bins, v_offset, q_offset, body",
+    [
+        (torch.bfloat16, 768, 1024, 0, 0, "wgmma"),  # the flat serving index
+        (torch.bfloat16, 64, 128, 0, 0, "wgmma"),  # one bin tile
+        (torch.bfloat16, 64, 512, 0, 0, "wgmma"),
+        (torch.bfloat16, 96, 1024, 0, 0, "wgmma"),  # a ragged second box of K
+        (torch.bfloat16, 1536, 512, 0, 0, "wgmma"),  # the widest query tile that fits
+        (torch.bfloat16, 1544, 512, 0, 0, "fma"),  # ... and one box more
+        (torch.bfloat16, 36, 512, 0, 0, "fma"),  # D % 8 != 0: rows are not 16-byte strided
+        (torch.bfloat16, 64, 64, 0, 0, "fma"),  # bins % 128 != 0
+        (torch.bfloat16, 64, 384, 0, 0, "wgmma"),
+        (torch.bfloat16, 64, 192, 0, 0, "fma"),
+        (torch.float32, 96, 512, 0, 0, "fma"),  # wgmma has no full-f32 mode
+        (torch.int8, 768, 512, 0, 0, "wgmma"),  # the int8 serving index
+        (torch.int8, 64, 512, 0, 0, "wgmma"),
+        (torch.int8, 96, 1024, 0, 0, "wgmma"),
+        (torch.int8, 3072, 512, 0, 0, "wgmma"),  # the widest int8 query tile
+        (torch.int8, 3088, 512, 0, 0, "fma"),
+        (torch.int8, 36, 512, 0, 0, "fma"),  # D % 16 != 0 (D % 4 == 0: __dp4a)
+        (torch.int8, 40, 512, 0, 0, "fma"),
+        (torch.bfloat16, 64, 512, 1, 0, "fma"),  # a storage_offset off the 16-byte grid
+        (torch.bfloat16, 64, 512, 8, 0, "wgmma"),  # ... and one on it
+        (torch.bfloat16, 64, 512, 0, 4, "fma"),  # the queries' pointer counts too
+        (torch.int8, 64, 512, 4, 0, "fma"),  # int8 rows 4 bytes off the grid
+        (torch.int8, 64, 512, 16, 0, "wgmma"),
+        (torch.int8, 64, 512, 0, 8, "fma"),
+    ],
+)
+def test_binned_body_rule(dtype: torch.dtype, d: int, bins: int, v_offset: int, q_offset: int, body: str) -> None:
+    """The fixed rule that names the binned kernel's body for a CUDA call."""
+    v, q = _rows(dtype, 4, d, v_offset), _rows(dtype, 2, d, q_offset)
+    assert v.storage_offset() == v_offset and q.storage_offset() == q_offset
+    assert _binned_body(dtype, d, bins, (v.data_ptr(), q.data_ptr())) == body
+
+
+def test_build_digest_follows_included_headers(tmp_path, monkeypatch) -> None:
+    """An edited header that a source includes, directly or through another
+    header, changes that source's build key; an unrelated header does not."""
+    (tmp_path / "kern.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// unrelated\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    assert [p.name for p in cuda_build.sources("kern")] == ["kern.cu", "a.cuh", "b.cuh"]
+    before = cuda_build.source_digest("kern")
+    (tmp_path / "other.cuh").write_text("// unrelated, edited\n")
+    assert cuda_build.source_digest("kern") == before
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    edited = cuda_build.source_digest("kern")
+    assert edited != before
+    (tmp_path / "kern.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint y;\n')
+    assert cuda_build.source_digest("kern") not in (before, edited)
+
+
+@pytest.mark.parametrize("name", ["fused_mips_binned", "fused_mips_topk"])
+def test_both_kernels_build_on_the_sm90_header(name: str) -> None:
+    assert cuda_build.sources(name) == [cuda_build.CSRC / f"{name}.cu", cuda_build.CSRC / "sm90.cuh"]

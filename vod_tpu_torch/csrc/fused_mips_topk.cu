@@ -67,7 +67,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 // QT, RT, WRT and MAX_CHUNKS have twins in `ops/mips.py` (_QUERY_TILE,
 // _TOPK_ROW_TILE, _WGMMA_MAX_D): change both sides together.
@@ -221,92 +225,7 @@ topk_float_kernel(const T* __restrict__ q, const T* __restrict__ v,
   store_lists(Ls, Li, out_s, out_i, B, k, kp, q0);
 }
 
-// ---- tensor-core body: TMA, mbarriers, wgmma --------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed. A load that
-// never lands (a bad tensor map) traps after about ten seconds instead of
-// hanging the card; the launch then reports an error.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// One 64 x 64 box of a 2-D bf16 tensor map at element coordinates (col, row)
-// into shared memory, completing `bytes` on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
-      : "memory");
-}
-
-// `wgmma` descriptor of a K-major operand in a 128-byte-swizzled box (rows of
-// 128 bytes, 8-row groups 1024 bytes apart, box 1024-byte aligned). Advancing
-// along K inside the box adds bytes to the start address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFF) >> 4)   // start address, 16-byte units
-         | (1ull << 16)            // leading byte offset (unused by swizzled K-major)
-         | ((1024ull >> 4) << 32)  // stride byte offset: to the next 8-row group
-         | (1ull << 62);           // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory"); }
-
-// Keep the compiler from moving accumulator reads or writes across a wgmma
-// fence or wait.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, both K-major bf16 in shared
-// memory, f32 accumulate. scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// ---- tensor-core body (TMA, mbarriers and wgmma from sm90.cuh) --------------
 
 // Dynamic shared memory of the tensor-core body: 1 KB to align the boxes,
 // the query tile, the ring, the score tile, the lists, the mbarriers.
@@ -512,39 +431,6 @@ cudaError_t launch_fma(const void* q, const void* v, void* part_s, void* part_i,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda through the runtime: no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor map of a row-major bf16 [rows, D] array in boxes of `box_rows` rows x
-// 64 columns, 128-byte swizzle; reads outside the array give zeros.
-cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)(rows > 0 ? rows : 1)};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {KC, (cuuint32_t)box_rows}, unit[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_i,
                          int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
   size_t dyn;
@@ -552,8 +438,10 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
   cudaError_t err = allow_wgmma(D, k, &stages, &dyn);
   if (err != cudaSuccess) return err;
   CUtensorMap map_q, map_v;
-  if ((err = bf16_map(&map_q, q, B, D, QT)) != cudaSuccess) return err;
-  if ((err = bf16_map(&map_v, v, n_real, D, WRT)) != cudaSuccess) return err;  // rows past n_real are never read
+  // boxes of KC = 64 bf16 (128 bytes)
+  if ((err = sw128_map(&map_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, B, D, QT)) != cudaSuccess) return err;
+  if ((err = sw128_map(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, n_real, D, WRT)) != cudaSuccess)
+    return err;  // rows past n_real are never read
   const dim3 grid((B + QT - 1) / QT, splits);  // query tile fastest: the blocks of a split share rows in L2
   topk_wgmma_kernel<<<grid, THREADS, dyn, stream>>>(
       map_q, map_v, static_cast<float*>(part_s), static_cast<int*>(part_i), B, wgmma_chunks(D), stages, k,

@@ -4,9 +4,10 @@
 running (score, id) cells per query, bin(j) = j mod bins over global row ids,
 with the lowest row id winning a tie. On the card the folding happens inside
 the hand-written CUDA kernel `csrc/fused_mips_binned.cu`, so no `[B, N]` score
-array exists in device memory; `k` of the `[B, bins]` cells are then selected
-here, in the order `lax.top_k` gives. Expected recall@k is about
-1 - (k-1)/(2*bins).
+array exists in device memory; its tile product runs on the tensor cores or on
+CUDA cores by a fixed rule on dtype and shape (`_binned_body`). `k` of the
+`[B, bins]` cells are then selected here, in the order `lax.top_k` gives.
+Expected recall@k is about 1 - (k-1)/(2*bins).
 
 `fused_mips_topk` (exact): the k highest scores per query, by (score
 descending, row id ascending), from the CUDA kernel `csrc/fused_mips_topk.cu`,
@@ -31,14 +32,22 @@ from .numpy_ops import topk_lowest_first
 _INT32_MIN = -(2**31) + 1  # empty int8 cell (the TPU kernel's sentinel, note the +1)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _QUERY_TILE = 64  # queries per block in both CUDA kernels
-_BIN_TILE = 64  # bins per block in the binned kernel
 _K_MAX = 128  # widest exact top-k (the TPU kernel's _K_PAD)
-# The next three have twins in `csrc/fused_mips_topk.cu` (MAX_CHUNKS * KC, the
-# body indices of `vod_fused_mips_topk_blocks_per_sm`, RT and WRT): change both
-# sides together. The C side refuses a call outside its own limits.
+# Body indices of both kernels' `vod_<name>_blocks_per_sm` (twins in each
+# `.cu` file).
+_BODIES = {"fma": 0, "wgmma": 1}
+# The next two have twins in `csrc/fused_mips_topk.cu` (MAX_CHUNKS * KC, RT and
+# WRT): change both sides together. The C side refuses a call outside its own
+# limits.
 _WGMMA_MAX_D = 896  # the tensor-core body's resident query tile fits beside the k = 128 lists
-_TOPK_BODIES = {"fma": 0, "wgmma": 1}
 _TOPK_ROW_TILE = {"fma": 64, "wgmma": 128}  # rows per tile of each body of the exact kernel
+# The next three have twins in `csrc/fused_mips_binned.cu` (BT and WBT,
+# MAX_CHUNKS times each type's KC, MAX_STRIDES): change both sides together.
+# The C side refuses a call outside its own limits.
+_BINNED_BIN_TILE = {"fma": 64, "wgmma": 128}  # bins per block of each body of the binned kernel
+# the tensor-core body's resident query tile: at most 24 boxes of 128 bytes of K
+_BINNED_WGMMA_MAX_D = {torch.bfloat16: 1536, torch.int8: 3072}
+_BINNED_MAX_STRIDES = 65535  # strides per split of the tensor-core body: a cell keeps its winner in 16 bits
 _REF_CHUNK_ELEMS = 1 << 25  # score elements per chunk of the plain versions
 
 
@@ -164,19 +173,70 @@ def _launch(
     return out_s, out_i
 
 
+def _blocks_per_sm(name: str, vectors: torch.Tensor, *args: int) -> int:
+    """How many blocks of one body of kernel `name` an SM of the card holding
+    `vectors` keeps resident (C entry `vod_<name>_blocks_per_sm(*args)`)."""
+    from .cuda_build import load_library
+
+    fn = getattr(load_library(name), f"vod_{name}_blocks_per_sm")
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+    with torch.cuda.device(vectors.device):
+        per_sm = fn(*args)
+    if per_sm <= 0:
+        raise RuntimeError(f"{name} occupancy query failed with CUDA error {-per_sm}")
+    return per_sm
+
+
+def _binned_body(dtype: torch.dtype, d: int, bins: int, ptrs: typ.Iterable[int]) -> str:
+    """The body of the binned kernel that a CUDA call takes, by a fixed rule on
+    dtype and shape: "wgmma" (tensor cores fed by TMA) for bf16 with
+    D % 8 == 0 and D <= 1536, or int8 with D % 16 == 0 and D <= 3072 (TMA
+    needs 16-byte row strides; the resident query tile fits in shared memory),
+    with bins % 128 == 0 (a block owns 128 bins) and 16-byte-aligned data
+    pointers `ptrs` (corpus and queries); "fma" (f32 FMAs, or `__dp4a` for
+    int8, on CUDA cores) for every other call, f32 included (`wgmma` has no
+    full-f32 mode)."""
+    row_elems = {torch.bfloat16: 8, torch.int8: 16}.get(dtype)
+    if (
+        row_elems is not None
+        and d % row_elems == 0
+        and d <= _BINNED_WGMMA_MAX_D[dtype]
+        and bins % _BINNED_BIN_TILE["wgmma"] == 0
+        and all(p % 16 == 0 for p in ptrs)
+    ):
+        return "wgmma"
+    return "fma"
+
+
+def _binned_splits(vectors: torch.Tensor, queries: torch.Tensor, bins: int, n_real: int, body: str) -> int:
+    """Stride splits of the binned kernel: as many as keep every block resident
+    in one wave (the body's occupancy at this dtype and D times the SMs), at
+    most one per stride, and for the tensor-core body enough that no split
+    holds more than 65,535 strides."""
+    per_sm = _blocks_per_sm(
+        "fused_mips_binned", vectors, _BODIES[body], _DTYPE_CODES[vectors.dtype], int(vectors.shape[1])
+    )
+    strides = -(-n_real // bins)
+    tiles = -(-bins // _BINNED_BIN_TILE[body]) * -(-int(queries.shape[0]) // _QUERY_TILE)
+    splits = max(1, min(strides, per_sm * _sms(vectors.device) // max(1, tiles), 65535))
+    if body == "wgmma":
+        splits = max(splits, -(-strides // _BINNED_MAX_STRIDES))
+    return splits
+
+
 def _kernel_cells(
     vectors: torch.Tensor, queries: torch.Tensor, bins: int, n_real: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the binned CUDA kernel; outputs `[B, bins]` cells."""
+    """Launch the binned CUDA kernel on the body `_binned_body` names; outputs
+    `[B, bins]` cells."""
     int8 = vectors.dtype == torch.int8
-    b, d = (int(x) for x in queries.shape)
+    d = int(queries.shape[1])
     if int8 and (d % 4 or vectors.data_ptr() % 4 or queries.data_ptr() % 4):
         raise ValueError("the int8 kernel needs D % 4 == 0 and 4-byte aligned rows")
-    # split the row strides across a third grid dimension until about two
-    # blocks per SM are in flight (serving batch gives only a few tiles)
-    tiles = -(-bins // _BIN_TILE) * -(-b // _QUERY_TILE)
-    splits = max(1, min(-(-n_real // bins), -(-2 * _sms(vectors.device) // tiles), 65535))
-    return _launch(fused_mips_binned, vectors, queries, bins, n_real, torch.int32 if int8 else torch.float32, splits)
+    body = _binned_body(vectors.dtype, d, bins, (vectors.data_ptr(), queries.data_ptr()))
+    splits = _binned_splits(vectors, queries, bins, n_real, body)
+    score_dtype = torch.int32 if int8 else torch.float32
+    return _launch(fused_mips_binned, vectors, queries, bins, n_real, score_dtype, splits, body)
 
 
 def _select(
@@ -208,7 +268,17 @@ def fused_mips_binned(
     the effective bin count is min(bins, tile, N).
 
     On a CUDA tensor this launches the kernel or raises; on a CPU tensor it
-    runs the plain version."""
+    runs the plain version. The kernel's body follows a fixed rule
+    (`_binned_body`): bf16 with D % 8 == 0 and D <= 1536, or int8 with
+    D % 16 == 0 and D <= 3072, at an effective bin count divisible by 128,
+    with corpus and (cast) queries on 16-byte-aligned addresses, runs its tile
+    product on the tensor cores (`binned_wgmma_kernel`); f32, and any other
+    call (a misaligned `storage_offset` included), on CUDA cores
+    (`binned_float_kernel`, `binned_int8_kernel`). A call that the rule gives
+    to the tensor cores and that cannot build or launch there raises; it never
+    runs on the other body. Each call that launches adds one to
+    `fused_mips_binned.launches` and to `fused_mips_binned.body_launches[body]`,
+    under the module's launch lock; the plain version never adds to them."""
     bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
     q = queries if int8 else queries.to(vectors.dtype)
     if vectors.device.type == "cuda":
@@ -220,10 +290,12 @@ def fused_mips_binned(
     return _select(*cells, k, int8)
 
 
-# One count per call that launches the CUDA kernels: `binned_*_kernel`, and
-# after it on the same stream `merge_splits_kernel` when the row strides are
-# split (every call at serving batch). The plain version never adds to it.
+# One count per call that launches the CUDA kernels: the body's
+# `binned_*_kernel`, and after it on the same stream `merge_splits_kernel` when
+# the row strides are split (every call at serving batch). The plain version
+# never adds to them.
 fused_mips_binned.launches = 0
+fused_mips_binned.body_launches = {body: 0 for body in _BODIES}
 _launch_lock = threading.Lock()
 
 
@@ -283,14 +355,9 @@ def _topk_splits(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: i
     """Row splits of the exact kernel: as many as keep every block resident in
     one wave (the body's occupancy at this D and k times the SMs), at most one
     per row tile."""
-    from .cuda_build import load_library
-
-    fn = load_library("fused_mips_topk").vod_fused_mips_topk_blocks_per_sm
-    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
-    with torch.cuda.device(vectors.device):
-        per_sm = fn(_TOPK_BODIES[body], _DTYPE_CODES[vectors.dtype], int(vectors.shape[1]), k)
-    if per_sm <= 0:
-        raise RuntimeError(f"fused_mips_topk occupancy query failed with CUDA error {-per_sm}")
+    per_sm = _blocks_per_sm(
+        "fused_mips_topk", vectors, _BODIES[body], _DTYPE_CODES[vectors.dtype], int(vectors.shape[1]), k
+    )
     tiles = -(-int(queries.shape[0]) // _QUERY_TILE)
     return max(1, min(-(-n_real // _TOPK_ROW_TILE[body]), per_sm * _sms(vectors.device) // tiles, 65535))
 
@@ -364,7 +431,7 @@ def fused_mips_topk(
 
 
 fused_mips_topk.launches = 0
-fused_mips_topk.body_launches = {body: 0 for body in _TOPK_BODIES}
+fused_mips_topk.body_launches = {body: 0 for body in _BODIES}
 
 
 def fused_mips_topk_reference(
