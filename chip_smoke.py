@@ -52,7 +52,31 @@ checked, none caught:
     `fused_mips_topk` timed for QPS, each with recall@10 against exact search.
     Checked: exact-kernel recall >= 0.999, binned recall >= 0.975, and
     launches of both kernels, all on their tensor-core bodies;
- 5. the `kernels` JSON line, the card line, and the last line
+ 5. the train path, end to end (the main path of this slice: launch counts
+    are zeroed just before `training_loop` and read just after
+    `validation_loop`): the REALM configuration of
+    `configs/msmarco_pq_realm.yaml` at full width (a `VodEncoder` of hidden
+    384, 6 layers, 6 heads; a `CausalLM` reader of the same widths, untied
+    head, bf16 activations; `VodGradients(alpha=0.5)`; random weights from a
+    seeded generator) over 2^20 sections of 200 random tokens resident on
+    the card and a flat bf16 index of 2^20 x 384 random unit rows with kernel
+    "fused" at 512 bins (the config's PQ codec is not ported). First one
+    train-path `fused_mips_binned` call (B = 32, D = 384, 512 bins, k = 100)
+    is held against its plain version and timed. Then `training_loop` runs
+    2 warm-up and 10 timed optimizer steps (B = 32 per micro-batch,
+    accumulation 2, prefetch 100, 8 sections, clip 1.0, AdamW lr 5e-5 with
+    the decay mask), and `validation_loop` 2 batches. Checked: every loss
+    and gradient norm finite, every optimizer group updated, exactly two
+    `fused_mips_binned` launches per optimizer step (one a validation
+    batch), all on the tensor-core body. Printed: the median ms per
+    optimizer step (CUDA events), queries and reader sequences per second,
+    peak memory, each step's loss, the monitor's mrr / ndcg_10 / hitrate_3,
+    one micro-batch's time by stage, the f32 reader head's products timed
+    alone, and one optimizer step under `torch.profiler` (device busy share,
+    the kernels that took the most). Last, one more optimizer step runs with
+    every synchronizing CUDA call made an error (checked: the step never
+    waits for the card), timing the host's enqueue beside the card's finish;
+ 6. the `kernels` JSON line, the card line, and the last line
     `{"ok": true, "device": {...}}`.
 """
 
@@ -94,6 +118,14 @@ EXACT_RECALL_FLOOR = 0.999  # only bf16 near-ties between two f32 sum orders may
 # 1 - (k-1)/(2*bins) = 1 - 9/1024 = 0.991 expected at 512 bins; the floor leaves
 # room for the sampling spread of 256 queries
 BINNED_RECALL_FLOOR = 0.975
+
+
+# Phase 5: the REALM train path of configs/msmarco_pq_realm.yaml, cut as the
+# module docstring says (corpus 2^20 sections, Lq 32, La 16, two gold ids).
+TRAIN = dict(
+    n=1 << 20, d=384, layers=6, heads=6, inter=1536, vocab=30522, ls=200, lq=32, la=16, b=32, accum=2,
+    warmup=2, timed=10, val_batches=2, prefetch=100, n_sections=8, max_pos=2, bins=512, lr=5e-5,
+)
 
 
 def fail(msg: str) -> None:
@@ -147,6 +179,236 @@ def check_against_plain(label: str, ks, ki, rs, ri, qq, vv, tol: float) -> tuple
 def percentile(xs: list[float], p: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+
+def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t: dict) -> dict:
+    """Phase 5: the REALM train path at the sizes in `t` (module constant
+    TRAIN). Returns the train-path kernel call's numbers and launches."""
+    import torch
+
+    from vod_tpu_torch.models import (
+        CausalLMConfig, Realm, TransformerEncoderConfig, VodGradients, VodPoolerConfig,
+    )
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.runtime import (
+        ParameterSchedule, QueryBatch, TrainerState, adamw, build_device_corpus, make_train_step,
+        training_loop, validation_loop,
+    )
+    from vod_tpu_torch.runtime.callbacks import Callback
+    from vod_tpu_torch.search import HybridEngines, build_dense_index
+
+    n, d, b = t["n"], t["d"], t["b"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    widths = dict(vocab_size=t["vocab"], hidden_size=d, num_layers=t["layers"], num_heads=t["heads"],
+                  intermediate_size=t["inter"])
+    enc_cfg = TransformerEncoderConfig(  # ModelConfig's pooler defaults: mean, l2, scaler 10, learned
+        max_position_embeddings=512, dtype=torch.bfloat16,
+        pooler=VodPoolerConfig(agg_method="mean", output_norm="l2", scaler=10.0, learn_scaler=True), **widths,
+    )
+    model = Realm(enc_cfg, CausalLMConfig(dtype=torch.bfloat16, **widths),
+                  VodGradients(alpha=0.5, proposal_temperature=1.0), device=dev, generator=g)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def lengths_mask(rows: int, width: int):
+        """Rows of random length, from a third of `width` to all of it."""
+        lengths = torch.randint(max(1, width // 3), width + 1, (rows, 1), generator=g, device=dev)
+        return (torch.arange(width, device=dev)[None] < lengths).to(torch.int32)
+
+    t0 = time.perf_counter()
+    corpus = build_device_corpus(
+        torch.randint(1000, t["vocab"], (n, t["ls"]), generator=g, device=dev, dtype=torch.int32),
+        lengths_mask(n, t["ls"]), device=dev,
+    )
+    vecs = torch.randn((n, d), generator=g, device=dev)
+    index = build_dense_index(vecs / vecs.norm(dim=-1, keepdim=True), dtype="bfloat16", kernel="fused", device=dev)
+    del vecs
+    check(index.fused_bins == t["bins"], "the index does not run the kernel at 512 bins")
+    engines = HybridEngines(dense=index)
+
+    def query_batch() -> QueryBatch:
+        return QueryBatch(
+            input_ids=torch.randint(1000, t["vocab"], (b, t["lq"]), generator=g, device=dev, dtype=torch.int32),
+            attention_mask=lengths_mask(b, t["lq"]),
+            section_ids=torch.randint(0, n, (b, 2), generator=g, device=dev, dtype=torch.int32),
+            answer_ids=torch.randint(1000, t["vocab"], (b, t["la"]), generator=g, device=dev, dtype=torch.int32),
+            answer_mask=lengths_mask(b, t["la"]),
+        )
+
+    steps = t["warmup"] + t["timed"]
+    train_batches = [query_batch() for _ in range(steps * t["accum"])]
+    val_batches = [query_batch() for _ in range(t["val_batches"])]
+    torch.cuda.synchronize()
+    log(f"train setup: Realm {n_params / 1e6:.1f}M params; corpus {n} x {t['ls']} tokens and a flat bf16 "
+        f"{index.vectors.shape[0]} x {d} index (kernel fused, {index.fused_bins} bins) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # one train-path kernel call (the first micro-batch's queries) against its plain version
+    with torch.no_grad():
+        q = model.encode_field(train_batches[0].input_ids, train_batches[0].attention_mask).to(torch.bfloat16)
+    vv, k, bins = index.vectors, min(t["prefetch"], t["bins"]), t["bins"]
+    body = _binned_body(vv.dtype, d, bins, (vv.data_ptr(), q.data_ptr()))
+    check(body == "wgmma", f"the train-path call takes the {body} body, not wgmma")
+    before = fused_mips_binned.body_launches["wgmma"]
+    ks, ki = fused_mips_binned(vv, q, k=k, bins=bins, n_real=index.n_real)
+    check(fused_mips_binned.body_launches["wgmma"] == before + 1, "the train-path call did not launch on wgmma")
+    rs, ri = fused_mips_binned_reference(vv, q, k=k, bins=bins, n_real=index.n_real)
+    tol = 2 * d * 2.0**-24 * q.float().norm(dim=-1).max().item() * vv.float().norm(dim=-1).max().item()
+    err, swaps = check_against_plain(f"train-path binned B={b} D={d}", ks, ki, rs, ri, q, vv, tol)
+    check(ki.max().item() < index.n_real, "train-path binned: a masked row was returned")
+    ms = time_ms(lambda: fused_mips_binned(vv, q, k=k, bins=bins, n_real=index.n_real), 20)
+    plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, q, k=k, bins=bins, n_real=index.n_real), 2)
+    library_ms = time_ms(lambda: torch.topk(q @ vv[: index.n_real].T, k, dim=-1), 20)
+    nbytes = (index.n_real + b) * d * 2 + b * k * 8
+    ops = 2 * b * index.n_real * d
+    bound = max(nbytes / hbm, ops / peak_bf16) * 1e3
+    bound_by = "bytes" if nbytes / hbm >= ops / peak_bf16 else "operations"
+    log(f"check train-path binned bf16 B={b} D={d} bins={bins} k={k} (wgmma): max |kernel - plain| = {err:.3g} "
+        f"(tol {tol:.3g}), {swaps} id swaps inside the band; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
+
+    class StepRecorder(Callback):
+        """CUDA events around each optimizer step, its metrics (tensors on
+        the card, read after the loop) and its kernel launches by body."""
+
+        def __init__(self):
+            self.events, self.metrics, self.launches = [], [], []
+
+        def on_train_batch_start(self, **kw):
+            self.events.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+            self.events[-1][0].record()
+            self._before = dict(fused_mips_binned.body_launches)
+
+        def on_train_batch_end(self, *, metrics, **kw):
+            self.events[-1][1].record()
+            self.metrics.append(metrics)
+            self.launches.append({k: v - self._before[k] for k, v in fused_mips_binned.body_launches.items()})
+
+    optimizer = adamw(model, t["lr"], weight_decay=0.0)  # TrainerConfig's decay, with the decay mask
+    step_fn = make_train_step(
+        model, optimizer, prefetch=t["prefetch"], n_sections=t["n_sections"], max_pos_sections=t["max_pos"],
+        temperature=1.0, with_lm=True, gradient_clip_val=1.0, accumulate_grad_batches=t["accum"],
+    )
+    start_params = [[p.detach().clone() for p in grp["params"]] for grp in optimizer.param_groups]
+    recorder = StepRecorder()
+    state = TrainerState(max_steps=steps, parameters={"dense": ParameterSchedule(value=1.0)})
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+    t_main = time.perf_counter()
+    state, last = training_loop(
+        step_fn=step_fn, engines=engines, corpus=corpus, train_queries=train_batches, state=state, generator=g,
+        log_interval=10**9, callbacks=[recorder],
+    )
+    val = validation_loop(step_fn=step_fn, engines=engines, corpus=corpus, val_queries=val_batches, generator=g,
+                          weights=state.get_parameters())
+    torch.cuda.synchronize()
+    launches = fused_mips_binned.launches  # main path ends
+    body_launches = dict(fused_mips_binned.body_launches)
+    wall = time.perf_counter() - t_main
+    peak_mem = torch.cuda.max_memory_allocated(dev)
+
+    check(state.step == steps and len(recorder.metrics) == steps, f"{state.step} optimizer steps, not {steps}")
+    losses = [float(m["loss"]) for m in recorder.metrics]
+    norms = [float(m["grad_norm"]) for m in recorder.metrics]
+    check(all(math.isfinite(x) for x in losses + norms), f"a loss or gradient norm is not finite: {losses} {norms}")
+    check(all(x == {"wgmma": t["accum"], "fma": 0} for x in recorder.launches),
+          f"an optimizer step did not launch fused_mips_binned once per micro-batch on wgmma: {recorder.launches}")
+    check(body_launches == {"wgmma": steps * t["accum"] + t["val_batches"], "fma": 0} and launches == body_launches["wgmma"],
+          f"train path launches {launches}, by body {body_launches}")
+    for grp, before in zip(optimizer.param_groups, start_params):
+        check(any(not torch.equal(p, p0) for p, p0 in zip(grp["params"], before)), f"group {grp['name']} never moved")
+    check(math.isfinite(val["loss"]), "validation loss is not finite")
+    step_ms = [s.elapsed_time(e) for s, e in recorder.events]
+    timed_ms = step_ms[t["warmup"]:]
+    median_ms = statistics.median(timed_ms)
+    queries_per_s = b * t["accum"] / (median_ms / 1e3)
+    log(f"train loop: {steps} optimizer steps ({t['warmup']} warm-up) + {t['val_batches']} validation batches "
+        f"in {wall:.2f} s; fused_mips_binned launches {launches}, by body {body_launches} (2 per step, 1 per "
+        f"validation batch)")
+    log(f"train step [{card}]: median {median_ms:.4f} ms per optimizer step over {len(timed_ms)} timed steps "
+        f"(min {min(timed_ms):.4f}, max {max(timed_ms):.4f}); {queries_per_s:.4f} queries/s, "
+        f"{queries_per_s * t['n_sections']:.4f} reader sequences/s; peak memory {peak_mem / 2**30:.4f} GiB "
+        f"({base_mem / 2**30:.4f} GiB allocated before the loop)")
+    log(f"train losses: {json.dumps([round(x, 6) for x in losses])}; grad norms: {json.dumps([round(x, 6) for x in norms])}")
+    log(f"train monitor (last step): mrr {last['mrr']:.6f}, ndcg_10 {last['ndcg_10']:.6f}, "
+        f"hitrate_3 {last['hitrate_3']:.6f}; validation: {json.dumps(val)}")
+
+    # one micro-batch by stage, and the reader's f32 head alone (after the main path)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    batch = step_fn.collate(engines, corpus, train_batches[0], g, {"dense": 1.0})
+    ev[1].record()
+    out = model(batch, mode="evaluate")
+    ev[2].record()
+    out.loss.backward()
+    ev[3].record()
+    step_fn.apply_gradients()
+    ev[4].record()
+    torch.cuda.synchronize()
+    stages = dict(zip(("collate", "forward", "backward", "clip_adamw"), (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
+    rows = b * t["n_sections"] * (t["ls"] + t["lq"] + t["la"])
+    h = torch.randn((rows, d), generator=g, device=dev)
+    w = model.lm.lm_head.weight.detach()
+    gl = torch.randn((rows, t["vocab"]), generator=g, device=dev)
+    head_ms = time_ms(lambda: (h @ w.T, gl @ w, gl.T @ h), 3)
+    head_flops = 3 * 2 * rows * d * t["vocab"]
+    del h, gl, batch, out
+    log(f"train micro-batch by stage [{card}]: {json.dumps({k: round(v, 4) for k, v in stages.items()})} ms; "
+        f"f32 reader head (forward + both backward products, {rows} x {d} x {t['vocab']}, TF32 off): "
+        f"{head_ms:.4f} ms = {head_flops / head_ms / 1e9:.2f} TFLOP/s (f32 peak {peak_f32 / 1e12:.0f})")
+    profile = profile_step(step_fn, engines, corpus, train_batches[: t["accum"]], g)
+    log(f"train step profile [{card}]: {json.dumps(profile)}")
+    # the step never waits for the card: one more optimizer step with any
+    # synchronizing call made an error; the host's time to enqueue it beside
+    # the step's time to finish on the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        step_fn.train_step_accum(engines, corpus, train_batches[: t["accum"]], g, {"dense": 1.0})
+        host_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as exc:
+        fail(f"the train step waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t0) * 1e3
+    profile.update(enqueue_ms=host_ms, finish_ms=done_ms)
+    log(f"train step without a sync [{card}]: the host enqueued one optimizer step in {host_ms:.4f} ms; "
+        f"the card finished it {done_ms:.4f} ms after the start")
+    return dict(
+        train_launches=launches, train_body_launches=body_launches, train_max_abs_err=err,
+        train_call=dict(shape=f"bfloat16 B={b} N={index.n_real} D={d} bins={bins} k={k}", ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound, bound_by=bound_by),
+        train_step=dict(median_ms=median_ms, step_ms=step_ms, queries_per_s=queries_per_s, peak_mem_bytes=peak_mem,
+                        losses=losses, grad_norms=norms, stages_ms=stages, head_ms=head_ms, profile=profile),
+    )
+
+
+def profile_step(step_fn, engines, corpus, micro_batches, generator) -> dict:
+    """One optimizer step under `torch.profiler`: the host wall time, the
+    device time its kernels took (their share of the wall is the busy share;
+    the profiler's own host cost makes it a lower bound) and the kernels that
+    took the most, by name. Runs after the main path, so its launches are
+    not counted there."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn.train_step_accum(engines, corpus, micro_batches, generator, {"dense": 1.0})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = {  # the kernels themselves, not the host ops that launched them
+        e.key[:80]: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    }
+    busy = sum(device_ms.values())
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms=wall_ms, device_ms=busy, busy_share=busy / wall_ms if busy else None,
+                top_kernels_ms={k: round(v, 4) for k, v in top})
 
 
 def main() -> None:
@@ -386,7 +648,7 @@ def main() -> None:
         ))
         log(f"time exact {dtype} B={b} k={k} ({body}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({exact_shapes[-1]['bound_by']}) [{card}]")
-    del vb, vb_odd, qb, q32, v32
+    del vb, vb_odd, qb, q32, v32, exact_cases, edge_cases, vv, qq, qs
     torch.cuda.empty_cache()
 
     # 4. the serving path (main path)
@@ -537,18 +799,25 @@ def main() -> None:
     check(all(math.isfinite(shootout[f"{r}_qps"]) and shootout[f"{r}_qps"] > 0
               for r in ("scan", "binned", "exact_kernel")), "a shootout route has no QPS")
 
-    # 5. result lines
+    # 5. the train path (the main path of the REALM train step)
+    del flat, int8, servers, encoder, ix, srv
+    torch.cuda.empty_cache()
+    train = train_phase(dev, card, hbm, peak_bf16, peak_f32, TRAIN)
+
+    # 6. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
                       and s["body"] == "wgmma")
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
-        replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches, max_abs_err=max_err,
+        replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches, max_abs_err=max(max_err, train["train_max_abs_err"]),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
         shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
         body=main["body"], body_launches=binned_body_launches, shootout_body_launches=shootout_binned_bodies,
+        train_launches=train["train_launches"], train_body_launches=train["train_body_launches"],
+        train_max_abs_err=train["train_max_abs_err"], train_call=train["train_call"], train_step=train["train_step"],
         body_ms={body: {f"{s['dtype']} B={s['B']} bins={s['bins']}": s["ms"] for s in shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
     ), dict(

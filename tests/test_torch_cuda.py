@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels against their plain
-versions, and the search path on the card against the same path on the CPU.
+versions, the search path on the card against the same path on the CPU, and
+one small live-retrieval train step on the card.
 
 They skip where there is no NVIDIA GPU. This file imports no JAX, so it runs
 on a machine that has only PyTorch, without the repository's conftest:
@@ -20,7 +21,7 @@ from vod_tpu_torch.ops.mips import (
     fused_mips_topk,
     fused_mips_topk_reference,
 )
-from vod_tpu_torch.search import SearchQueries, build_dense_index, dense_search
+from vod_tpu_torch.search import HybridEngines, SearchQueries, build_dense_index, dense_search
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +196,95 @@ def test_dense_search_on_card_matches_cpu(cuda_device, dtype: str) -> None:
     torch.testing.assert_close(card.scores.cpu(), cpu.scores, atol=1e-5, rtol=0)
     assert torch.equal(card.indices.cpu()[:, 0], cpu.indices[:, 0])
     assert (card.indices.cpu() == cpu.indices).float().mean().item() >= 0.99
+
+
+def _held_against_plain(ks, ki, rs, ri, q, v, tol: float) -> None:
+    """Kernel (ks, ki) against plain (rs, ri): the same empty slots, scores
+    within `tol`, and an id may differ only where its exact score lies within
+    the band of the plain score."""
+    finite = torch.isfinite(rs)
+    assert torch.equal(torch.isfinite(ks), finite) and torch.equal(ki[~finite], ri[~finite])
+    assert (ks[finite] - rs[finite]).abs().max().item() <= tol
+    diff = ki != ri
+    if diff.any():
+        exact = (q.to(v.dtype).double()[:, None, :] * v[ki.long()].double()).sum(-1)
+        assert ((exact - rs.double()).abs()[diff] <= 2 * tol).all()
+
+
+def test_binned_wgmma_at_the_train_path_shape(cuda_device) -> None:
+    """The train path's call: bf16, D = 384, 512 bins, B = 32, k = 100, on the
+    tensor-core body; ids and ties, not only scores: equal rows in one bin
+    and in different splits tie to the lowest id, and rows past n_real stay out."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n, d, b, bins = 1 << 17, 384, 32, 512
+    v = torch.randn((n, d), generator=g, device=cuda_device)
+    v = (v / v.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    dups = (9, 9 + bins, 9 + 100 * bins)
+    v[list(dups[1:])] = v[9].clone()
+    q = torch.randn((b, d), generator=g, device=cuda_device)
+    q = q / q.norm(dim=-1, keepdim=True)
+    q[0] = v[9].float()
+    tol = 2 * d * 2.0**-24 * 1.01
+    assert _binned_body(v.dtype, d, bins, (v.data_ptr(), q.to(v.dtype).data_ptr())) == "wgmma"
+    before = dict(fused_mips_binned.body_launches)
+    for n_real in (n, n - 77):
+        ks, ki = fused_mips_binned(v, q, k=100, bins=bins, n_real=n_real)
+        rs, ri = fused_mips_binned_reference(v, q, k=100, bins=bins, n_real=n_real)
+        _held_against_plain(ks, ki, rs, ri, q, v, tol)
+        assert ki.max().item() < n_real and ki[0, 0].item() == 9
+    assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 2
+    assert fused_mips_binned.body_launches["fma"] == before["fma"]
+
+
+def test_train_step_on_card(cuda_device, monkeypatch) -> None:
+    """One small live-retrieval Realm step on the card (bf16 activations, a
+    bf16 index with kernel "fused" at D = 64): finite loss and gradient norm,
+    the encoder, the reader and each optimizer group moved, and the step's `fused_mips_binned` call launched
+    once on the tensor-core body and held against the plain version."""
+    from vod_tpu_torch.models import CausalLMConfig, Realm, TransformerEncoderConfig, VodGradients, VodPoolerConfig
+    from vod_tpu_torch.runtime import QueryBatch, adamw, build_device_corpus, make_train_step
+    from vod_tpu_torch.search import dense as dense_module
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    sizes = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128)
+    pooler = VodPoolerConfig(agg_method="mean", output_norm="l2", scaler=10.0, learn_scaler=True)
+    model = Realm(TransformerEncoderConfig(pooler=pooler, **sizes), CausalLMConfig(**sizes),
+                  VodGradients(alpha=0.5), device=cuda_device, generator=g)
+    n, b = 4096, 8
+    corpus = build_device_corpus(torch.randint(1, 512, (n, 24), generator=g, device=cuda_device),
+                                 torch.ones((n, 24), dtype=torch.int32, device=cuda_device))
+    emb = torch.randn((n, 64), generator=g, device=cuda_device)
+    index = build_dense_index(emb / emb.norm(dim=-1, keepdim=True), kernel="fused", device=cuda_device)
+    queries = QueryBatch(
+        input_ids=torch.randint(1, 512, (b, 8), generator=g, device=cuda_device),
+        attention_mask=torch.ones((b, 8), dtype=torch.int32, device=cuda_device),
+        section_ids=torch.randint(0, n, (b, 2), generator=g, device=cuda_device, dtype=torch.int32),
+        answer_ids=torch.randint(1, 512, (b, 4), generator=g, device=cuda_device),
+        answer_mask=torch.ones((b, 4), dtype=torch.int32, device=cuda_device),
+    )
+    calls = []
+
+    def recording(vectors, q, **kw):
+        out = fused_mips_binned(vectors, q, **kw)
+        calls.append((vectors, q.clone(), kw, out))
+        return out
+
+    monkeypatch.setattr(dense_module, "fused_mips_binned", recording)
+    step = make_train_step(model, adamw(model, 5e-5, weight_decay=0.0), prefetch=32, n_sections=4,
+                           max_pos_sections=2, with_lm=True, gradient_clip_val=1.0)
+    before_params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    before = dict(fused_mips_binned.body_launches)
+    metrics, rel, scores = step.train_step(HybridEngines(dense=index), corpus, queries, g, {"dense": 1.0})
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert rel.shape == scores.shape == (b, 4)
+    moved = {k for k, p in model.named_parameters() if not torch.equal(p, before_params[k])}
+    assert any(k.startswith("encoder.") for k in moved) and any(k.startswith("lm.") for k in moved)
+    assert all(any(id(p) in map(id, grp["params"]) for k, p in model.named_parameters() if k in moved)
+               for grp in step.optimizer.param_groups)  # every parameter group took a step
+    assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 1
+    assert fused_mips_binned.body_launches["fma"] == before["fma"]
+    (vectors, q, kw, (ks, ki)), = calls
+    rs, ri = fused_mips_binned_reference(vectors, q, **kw)
+    tol = 2 * 64 * 2.0**-24 * q.float().norm(dim=-1).max().item() * 1.01
+    _held_against_plain(ks, ki, rs, ri, q, vectors, tol)

@@ -1,11 +1,18 @@
-"""Carry the weights of the flax `VodEncoder` / `DebugEncoder` over to the port.
+"""Carry flax weights over to the port, and name each port parameter's flax path.
 
 `flax_to_state_dict` takes the flax parameter tree as nested dicts of numpy
 arrays (`jax.device_get(params)` gives that) and returns the `state_dict` of
-`vod_tpu_torch.models.encoder.VodEncoder` (or `DebugEncoder`). flax stores a
-Dense kernel as `[in, out]` and attention kernels as `[H, heads, head_dim]`
-(query/key/value) and `[heads, head_dim, H]` (out); `nn.Linear` wants
-`[out, in]`, so each is flattened and transposed here.
+`vod_tpu_torch.models.encoder.VodEncoder` (or `DebugEncoder`);
+`lm_flax_to_state_dict` does the same for the reader `CausalLM`, and
+`system_flax_to_state_dict` for a whole `Ranker` or `Realm` (the `encoder`
+subtree, plus the `lm` subtree of a `Realm`). flax stores a Dense kernel as
+`[in, out]` and attention kernels as `[H, heads, head_dim]` (query/key/value)
+and `[heads, head_dim, H]` (out); `nn.Linear` wants `[out, in]`, so each is
+flattened and transposed here. The same functions carry a tree of flax
+gradients over, since it has the parameters' structure.
+
+`flax_path` maps a port parameter name back to its flax path, which the
+optimizer's weight-decay groups are chosen by (`runtime/optim.py`).
 """
 
 from __future__ import annotations
@@ -71,3 +78,61 @@ def flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
         _norm(f"{prefix}.output_norm", layer["output_norm"], sd)
         i += 1
     return sd
+
+
+def lm_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
+    """flax params of `CausalLM` -> the port's `CausalLM.state_dict`."""
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {
+        "wte.weight": _t(p["wte"]["embedding"]),
+        "wpe.weight": _t(p["wpe"]["embedding"]),
+    }
+    _norm("ln_f", p["ln_f"], sd)
+    if "lm_head" in p:
+        sd["lm_head.weight"] = _t(np.asarray(p["lm_head"]["kernel"], dtype=np.float32).T)
+    i = 0
+    while f"layer_{i}" in p:
+        layer, prefix = p[f"layer_{i}"], f"layers.{i}"
+        _norm(f"{prefix}.ln1", layer["ln1"], sd)
+        _norm(f"{prefix}.ln2", layer["ln2"], sd)
+        for name in ("query", "key", "value"):
+            _attention_in(f"{prefix}.{name}", layer[name], sd)
+        for name in ("out", "fc_in", "fc_out"):  # out: [heads, head_dim, H] -> [H, H]
+            _dense(f"{prefix}.{name}", layer[name], sd)
+        i += 1
+    return sd
+
+
+def system_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
+    """flax params of `Ranker` or `Realm` -> the port's `state_dict`."""
+    p = params.get("params", params)
+    sd = {f"encoder.{k}": v for k, v in flax_to_state_dict(p["encoder"]).items()}
+    if "lm" in p:
+        sd.update({f"lm.{k}": v for k, v in lm_flax_to_state_dict(p["lm"]).items()})
+    return sd
+
+
+_NORMS = ("LayerNorm", "attention_norm", "output_norm", "ln1", "ln2", "ln_f")
+_EMBEDDINGS = ("word_embeddings", "position_embeddings", "token_type_embeddings", "wte", "wpe")
+
+
+def flax_path(name: str) -> str:
+    """The flax path, as `jax.tree_util.keystr` writes it under `params`, of a
+    port parameter of an encoder, a reader, a `Ranker` or a `Realm`:
+    `layers.3` -> `layer_3`, the encoder's `backbone.layers.3` ->
+    `backbone/layer_3`, and a weight named after its flax leaf (`embedding`,
+    `scale` or `kernel`)."""
+    parts = name.split(".")
+    out: list[str] = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts):
+            out.append(f"layer_{parts[i + 1]}")
+            i += 2
+            continue
+        out.append(parts[i])
+        i += 1
+    if out[-1] == "weight":
+        owner = out[-2] if len(out) > 1 else ""
+        out[-1] = "embedding" if owner in _EMBEDDINGS else "scale" if owner in _NORMS else "kernel"
+    return "".join(f"['{part}']" for part in ["params", *out])

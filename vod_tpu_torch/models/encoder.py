@@ -122,8 +122,10 @@ class _Attention(nn.Module):
         q = _dense(x, self.query, dt).view(b, length, heads, depth)
         k = _dense(x, self.key, dt).view(b, length, heads, depth)
         v = _dense(x, self.value, dt).view(b, length, heads, depth)
-        # the query is scaled by 1/sqrt(head_dim) before the product
-        q = q / torch.tensor(math.sqrt(depth), dtype=dt, device=x.device)
+        # the query is scaled by 1/sqrt(head_dim), rounded to dt, before the
+        # product (`torch.full` fills on the device: a host-made scalar tensor
+        # would be a copy that waits for the card)
+        q = q / torch.full((), math.sqrt(depth), dtype=dt, device=x.device)
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
         # the mask fills with finfo(dtype).min, not -inf
         w = torch.where(mask, w, torch.finfo(dt).min)
@@ -184,7 +186,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 0.02, generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, _LayerNorm):

@@ -1,0 +1,135 @@
+"""VOD systems: `Ranker` (dual encoder) and `Realm` (ranker + reader LM)
+(port of `vod_tpu/models/systems.py`).
+
+`encode` runs query and section tokens through ONE encoder pass (the shorter
+side is padded to the longer) and splits the pooled embeddings; `Realm` adds
+reader logits over the flattened `lm__input_ids`; `evaluate` hands both to
+the gradient estimator. `forward(batch, mode=...)` dispatches like the flax
+`__call__`.
+"""
+
+from __future__ import annotations
+
+import typing as typ
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vod_tpu_torch.types.batch import RealmBatch, RealmOutput
+from .encoder import DebugEncoder, TransformerEncoderConfig, VodEncoder
+from .gradients import Gradients
+from .lm import CausalLM, CausalLMConfig
+
+
+def _pad_to(x: torch.Tensor, length: int) -> torch.Tensor:
+    return x if x.shape[-1] == length else F.pad(x, (0, length - x.shape[-1]))
+
+
+def _fused_encode(encoder: nn.Module, batch: RealmBatch) -> dict[str, torch.Tensor]:
+    """One encoder pass over query + section tokens. With in-batch negatives
+    (`extras["flat_sections"]`) the section pool is shared and its encoding
+    stays [U, H]; otherwise it is [B, D, H]."""
+    q_ids, q_mask = batch.query__input_ids, batch.query__attention_mask
+    s_ids, s_mask = batch.section__input_ids, batch.section__attention_mask
+    b = q_ids.shape[0]
+    length = max(q_ids.shape[-1], s_ids.shape[-1])
+    ids = torch.cat([_pad_to(q_ids, length), _pad_to(s_ids, length)], dim=0)
+    mask = torch.cat([_pad_to(q_mask, length), _pad_to(s_mask, length)], dim=0)
+    pooled = encoder(ids, mask)
+    query_encoding, section_encoding = pooled[:b], pooled[b:]
+    if not batch.extras.get("flat_sections", False):
+        section_encoding = section_encoding.reshape(b, section_encoding.shape[0] // b, -1)
+    return {"query_encoding": query_encoding, "section_encoding": section_encoding}
+
+
+def _encoder(cfg: TransformerEncoderConfig, debug: bool, device: typ.Any, generator: typ.Any) -> nn.Module:
+    return (DebugEncoder if debug else VodEncoder)(cfg, device=device, generator=generator)
+
+
+class Ranker(nn.Module):
+    """Dual-encoder ranker with a shared encoder. Parameters live on `device`
+    (default "cuda"), random-initialised from `generator`."""
+
+    def __init__(
+        self,
+        cfg: TransformerEncoderConfig,
+        gradients: Gradients,
+        *,
+        debug_encoder: bool = False,
+        splade_encoder: bool = False,
+        device: typ.Union[str, torch.device] = "cuda",
+        generator: typ.Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if splade_encoder:
+            raise NotImplementedError("the SPLADE encoder is not ported to vod_tpu_torch yet")
+        self.cfg = cfg
+        self.gradients = gradients
+        self.encoder = _encoder(cfg, debug_encoder, device, generator)
+
+    def encode(self, batch: RealmBatch) -> dict[str, torch.Tensor]:
+        return _fused_encode(self.encoder, batch)
+
+    def encode_field(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Single-field encoding (the query side of live retrieval)."""
+        return self.encoder(input_ids, attention_mask)
+
+    def evaluate(self, batch: RealmBatch) -> RealmOutput:
+        return self.gradients(batch=batch, **self.encode(batch))
+
+    def forward(self, batch: RealmBatch, mode: str = "evaluate") -> typ.Any:
+        if mode == "encode":
+            return self.encode(batch)
+        if mode == "evaluate":
+            return self.evaluate(batch)
+        raise ValueError(f"Unknown mode: {mode}")
+
+
+class Realm(nn.Module):
+    """Ranker + autoregressive reader. The encoder is initialised first, then
+    the reader, both from `generator`, on `device` (default "cuda")."""
+
+    def __init__(
+        self,
+        cfg: TransformerEncoderConfig,
+        lm_cfg: CausalLMConfig,
+        gradients: Gradients,
+        *,
+        debug_encoder: bool = False,
+        device: typ.Union[str, torch.device] = "cuda",
+        generator: typ.Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.cfg = cfg
+        self.lm_cfg = lm_cfg
+        self.gradients = gradients
+        self.encoder = _encoder(cfg, debug_encoder, device, generator)
+        self.lm = CausalLM(lm_cfg, device=device, generator=generator)
+
+    def encode(self, batch: RealmBatch) -> dict[str, torch.Tensor]:
+        return _fused_encode(self.encoder, batch)
+
+    def encode_field(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.encoder(input_ids, attention_mask)
+
+    def forward_lm(self, batch: RealmBatch) -> torch.Tensor:
+        """Reader logits over the `[B*D, L]`-flattened reader inputs."""
+        ids, mask = batch.lm__input_ids, batch.lm__attention_mask
+        return self.lm(ids.reshape(-1, ids.shape[-1]), mask.reshape(-1, mask.shape[-1]))
+
+    def evaluate(self, batch: RealmBatch) -> RealmOutput:
+        enc = self.encode(batch)
+        return self.gradients(batch=batch, lm_logits=self.forward_lm(batch), **enc)
+
+    def generate(self, batch: RealmBatch, max_new_tokens: int = 16) -> torch.Tensor:
+        raise NotImplementedError("Realm.generate (the reader's prefill/decode_step) is not ported to vod_tpu_torch yet")
+
+    def forward(self, batch: RealmBatch, mode: str = "evaluate", **kw: typ.Any) -> typ.Any:
+        if mode == "encode":
+            return self.encode(batch)
+        if mode == "evaluate":
+            return self.evaluate(batch)
+        if mode == "generate":
+            return self.generate(batch, **kw)
+        raise ValueError(f"Unknown mode: {mode}")

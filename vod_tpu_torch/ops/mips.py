@@ -69,17 +69,23 @@ def _check_pair(vectors: torch.Tensor, queries: torch.Tensor) -> None:
 
 def _check(
     vectors: torch.Tensor, queries: torch.Tensor, k: int, bins: int, tile: int, n_real: int
-) -> tuple[int, int, bool]:
-    """Validate the call as the wrapper does; returns (effective bins, n_real, int8)."""
+) -> tuple[torch.Tensor, int, int, bool]:
+    """Validate the call as the wrapper does. Float queries are cast to the
+    corpus dtype and made contiguous first, as the TPU wrapper casts them
+    (`vod_tpu/ops/mips_pallas.py:257`); int8 queries pair only with an int8
+    corpus. Returns (queries as the kernel takes them, effective bins, n_real,
+    int8)."""
     _check_pair(vectors, queries)
+    if vectors.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_mips_binned takes a bfloat16, float32 or int8 corpus, got {vectors.dtype}")
+    if not vectors.is_contiguous():
+        raise ValueError("fused_mips_binned needs contiguous vectors")
     int8 = vectors.dtype == torch.int8
     if int8 != (queries.dtype == torch.int8):
         raise TypeError("an int8 corpus needs int8-quantized queries, and int8 queries an int8 corpus")
-    for t in (vectors, queries):
-        if t.dtype not in _DTYPE_CODES:
-            raise TypeError(f"fused_mips_binned takes bfloat16, float32 or int8, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("fused_mips_binned needs contiguous vectors and queries")
+    if not int8 and not queries.is_floating_point():
+        raise TypeError(f"a float corpus takes float queries, got {queries.dtype}")
+    queries = queries.to(vectors.dtype).contiguous()
     n = int(vectors.shape[0])
     tile = min(tile, n)
     bins_eff = min(bins, tile)  # the TPU kernel's clamp: bins never exceed one tile
@@ -91,7 +97,7 @@ def _check(
         n_real = n
     if n_real > n:
         raise ValueError(f"n_real={n_real} exceeds the {n} rows")
-    return bins_eff, int(n_real), int8
+    return queries, bins_eff, int(n_real), int8
 
 
 def binned_cells_reference(
@@ -261,8 +267,9 @@ def fused_mips_binned(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Approximate top-k by inner product. Returns (scores [B, k], row ids [B, k]).
 
-    `vectors` [N, D] and `queries` [B, D] are bf16/f32 (float queries are cast
-    to the corpus dtype and products are summed in f32), or both int8 (summed
+    `vectors` [N, D] is a contiguous bf16/f32 corpus, with float queries
+    `[B, D]` of any dtype and layout (cast to the corpus dtype and made
+    contiguous; products are summed in f32), or both are int8 (summed
     exactly in int32; the caller applies the query scale afterwards). Rows at or
     past `n_real` are masked. `tile` only clamps the bins, as on the TPU:
     the effective bin count is min(bins, tile, N).
@@ -279,8 +286,7 @@ def fused_mips_binned(
     runs on the other body. Each call that launches adds one to
     `fused_mips_binned.launches` and to `fused_mips_binned.body_launches[body]`,
     under the module's launch lock; the plain version never adds to them."""
-    bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
-    q = queries if int8 else queries.to(vectors.dtype)
+    q, bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
     if vectors.device.type == "cuda":
         cells = _kernel_cells(vectors, q, bins_eff, n_real)
     elif vectors.device.type == "cpu":
@@ -309,8 +315,7 @@ def fused_mips_binned_reference(
     n_real: int = -1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of `fused_mips_binned`, on any device."""
-    bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
-    q = queries if int8 else queries.to(vectors.dtype)
+    q, bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
     return _select(*binned_cells_reference(vectors, q, bins_eff, n_real), k, int8)
 
 

@@ -1,0 +1,330 @@
+"""Training: the live-retrieval train step and the host-side loops (port of
+`vod_tpu/runtime/train.py`).
+
+One optimizer step does, for each micro-batch: encode the queries under
+`torch.no_grad()` with the current (pre-update) weights -> hybrid search over
+the device index (the dense search runs `fused_mips_binned` on the card for
+`kernel="fused"`) -> merge -> labeled priority sampling -> gather section
+tokens -> `model.evaluate` (fused encoder pass, reader, gradient estimator)
+-> `backward()`. The micro-batches' gradients are summed and divided by their
+count, scaled to a global norm of at most `gradient_clip_val`, and the
+optimizer steps.
+
+Where the JAX step passes parameters and optimizer state in and out, here
+they live in the model and the optimizer. The step never waits for the card:
+its metrics stay tensors on the card until the loop logs them.
+
+Not ported yet (each raises `NotImplementedError`): learned-sparse (SPLADE)
+live retrieval, GradCache, a device mesh and profiler traces. kbit has no
+counterpart: the port has no quantized parameter type.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+import typing as typ
+
+import numpy as np
+import torch
+from torch import nn
+
+from vod_tpu_torch.models.monitoring import RetrievalMonitor
+from vod_tpu_torch.search.hybrid import HybridEngines
+from vod_tpu_torch.types.batch import RealmBatch
+from .callbacks import call_callbacks
+from .collate import DeviceCorpus, QueryBatch, device_collate
+from .state import TrainerState
+
+Noise = typ.Optional[tuple[torch.Tensor, torch.Tensor]]
+
+
+def clip_by_global_norm(grads: typ.Sequence[torch.Tensor], max_norm: typ.Optional[float]) -> torch.Tensor:
+    """Scale `grads` in place by min(1, max_norm / max(|g|, 1e-9)), where |g|
+    is their global L2 norm (optax's formula; `clip_grad_norm_` divides by
+    |g| + 1e-6 instead). Returns |g| before scaling, on the card."""
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if max_norm:
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+        for g in grads:
+            g.mul_(scale)
+    return norm
+
+
+class RealmTrainStep:
+    """The train, accumulation and eval steps of a `Ranker` or `Realm` with
+    the optimizer that updates it."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        optimizer: torch.optim.Optimizer,
+        *,
+        prefetch: int = 100,
+        n_sections: int = 8,
+        max_pos_sections: int = 2,
+        temperature: float = 1.0,
+        max_support_size: typ.Optional[int] = None,
+        with_lm: bool = False,
+        gradient_clip_val: typ.Optional[float] = None,
+        in_batch_negatives: bool = False,
+        accumulate_grad_batches: int = 1,
+        splade_query_k: typ.Optional[int] = None,
+        gradcache_chunk_rows: typ.Optional[int] = None,
+    ):
+        if splade_query_k is not None:
+            raise NotImplementedError("learned-sparse live retrieval (splade_query_k) is not ported to vod_tpu_torch yet")
+        if gradcache_chunk_rows is not None:
+            raise NotImplementedError("GradCache (gradcache_chunk_rows) is not ported to vod_tpu_torch yet")
+        self.model = model
+        self.optimizer = optimizer
+        self.prefetch = prefetch
+        self.n_sections = n_sections
+        self.max_pos_sections = max_pos_sections
+        self.temperature = temperature
+        self.max_support_size = max_support_size
+        self.with_lm = with_lm
+        self.gradient_clip_val = gradient_clip_val
+        self.in_batch_negatives = in_batch_negatives
+        self.accumulate_grad_batches = accumulate_grad_batches
+
+    # -- collate + forward -------------------------------------------------
+    def collate(
+        self,
+        engines: HybridEngines,
+        corpus: DeviceCorpus,
+        queries: QueryBatch,
+        generator: torch.Generator,
+        weights: typ.Optional[dict[str, float]],
+        noise: Noise = None,
+    ) -> RealmBatch:
+        """Live retrieval: the queries encoded with the current weights, outside
+        the gradient, then the device collate."""
+        q_vec = None
+        if engines.dense is not None:
+            with torch.no_grad():
+                q_vec = self.model.encode_field(queries.input_ids, queries.attention_mask)
+        batch, _ = device_collate(
+            engines, corpus, queries,
+            generator=generator,
+            query_vectors=q_vec,
+            prefetch=self.prefetch,
+            n_sections=self.n_sections,
+            max_pos_sections=self.max_pos_sections,
+            temperature=self.temperature,
+            max_support_size=self.max_support_size,
+            weights=weights or None,
+            with_lm=self.with_lm,
+            in_batch_negatives=self.in_batch_negatives,
+            noise=noise,
+        )
+        return batch
+
+    def apply_gradients(self) -> torch.Tensor:
+        """Clip the accumulated gradients and step the optimizer; parameters
+        that took no part in the loss get a zero gradient, so decay and the
+        moments move them as optax does. Returns the global gradient norm
+        before clipping."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        norm = clip_by_global_norm([p.grad for p in params], self.gradient_clip_val)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        return norm
+
+    # -- public ------------------------------------------------------------
+    def train_step(
+        self,
+        engines: HybridEngines,
+        corpus: DeviceCorpus,
+        queries: QueryBatch,
+        generator: torch.Generator,
+        weights: typ.Optional[dict[str, float]],
+        *,
+        noise: Noise = None,
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+        """One optimizer step on one batch: `train_step_accum` over one
+        micro-batch. Returns (metrics: loss, grad_norm and the estimator's
+        diagnostics, all tensors on the card; the batch's relevances [B, D];
+        the retriever's scores [B, D])."""
+        return self.train_step_accum(
+            engines, corpus, [queries], generator, weights, noise=None if noise is None else [noise]
+        )
+
+    def train_step_accum(
+        self,
+        engines: HybridEngines,
+        corpus: DeviceCorpus,
+        micro_batches: typ.Sequence[QueryBatch],
+        generator: torch.Generator,
+        weights: typ.Optional[dict[str, float]],
+        *,
+        noise: typ.Optional[typ.Sequence[Noise]] = None,
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+        """One optimizer step over several micro-batches: each is collated and
+        encoded with the pre-update weights, the gradients are summed and
+        divided by their count, the loss is averaged. Returns (metrics,
+        relevances and scores of all micro-batches stacked along rows); over
+        one micro-batch the metrics also hold the estimator's diagnostics, as
+        the JAX `train_step`'s do."""
+        n_micro = len(micro_batches)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss_sum = torch.zeros((), device=micro_batches[0].input_ids.device)
+        rels, scores = [], []
+        for i, q in enumerate(micro_batches):
+            batch = self.collate(engines, corpus, q, generator, weights, None if noise is None else noise[i])
+            out = self.model(batch, mode="evaluate")
+            out.loss.backward()
+            loss_sum = loss_sum + out.loss.detach()
+            rels.append(batch.section__relevance)
+            scores.append(out.retriever_scores.detach())
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(n_micro)
+        norm = self.apply_gradients()
+        metrics = {"loss": loss_sum / n_micro, "grad_norm": norm}
+        if n_micro == 1:
+            metrics.update({k: v.detach() for k, v in out.diagnostics.items()})
+        return metrics, torch.cat(rels), torch.cat(scores)
+
+    @torch.no_grad()
+    def eval_step(
+        self,
+        engines: HybridEngines,
+        corpus: DeviceCorpus,
+        queries: QueryBatch,
+        generator: torch.Generator,
+        weights: typ.Optional[dict[str, float]],
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+        """Collate and evaluate without a gradient. Returns (metrics, relevances, scores)."""
+        batch = self.collate(engines, corpus, queries, generator, weights)
+        out = self.model(batch, mode="evaluate")
+        metrics = {"loss": out.loss, **out.diagnostics}
+        return metrics, batch.section__relevance, out.retriever_scores
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, **kw: typ.Any) -> RealmTrainStep:
+    return RealmTrainStep(model, optimizer, **kw)
+
+
+def training_loop(
+    *,
+    step_fn: RealmTrainStep,
+    engines: HybridEngines,
+    corpus: DeviceCorpus,
+    train_queries: typ.Iterable[QueryBatch],
+    state: TrainerState,
+    generator: torch.Generator,
+    val_queries: typ.Optional[typ.Sequence[QueryBatch]] = None,
+    val_check_interval: typ.Optional[int] = None,
+    log_interval: int = 50,
+    metrics: typ.Sequence[str] = ("mrr", "ndcg_10", "hitrate_3"),
+    on_log: typ.Optional[typ.Callable[[int, dict], None]] = None,
+    on_checkpoint: typ.Optional[typ.Callable[[nn.Module, torch.optim.Optimizer, TrainerState], None]] = None,
+    callbacks: typ.Sequence[typ.Any] = (),
+    prefetch_batches: int = 2,
+    until_step: typ.Optional[int] = None,
+    mesh: typ.Any = None,
+    profile_dir: typ.Optional[str] = None,
+) -> tuple[TrainerState, dict]:
+    """One period of training: until `until_step` (default
+    `state.next_period_start_step`) or until the query iterator is exhausted.
+    With `accumulate_grad_batches` > 1 each optimizer step takes that many
+    batches; a short tail is dropped, never stepped. Metrics stay on the card
+    until a log step (every `log_interval` steps, and the last). Returns
+    (state, the last logged metrics)."""
+    if mesh is not None:
+        raise NotImplementedError("training over a device mesh is not ported to vod_tpu_torch yet")
+    if profile_dir is not None:
+        raise NotImplementedError("profiler traces (profile_dir) are not ported to vod_tpu_torch yet")
+
+    until = until_step if until_step is not None else state.next_period_start_step
+    call_callbacks(callbacks, "on_fit_start", model=step_fn.model, state=state)
+    monitor = RetrievalMonitor(list(metrics))
+    last_logged: dict = {}
+    t0 = time.time()
+    n_done = 0
+    if prefetch_batches > 0:
+        from vod_tpu_torch.dataloaders.prefetch import prefetch_iterator
+
+        train_queries = prefetch_iterator(iter(train_queries), size=prefetch_batches)
+    accum = max(1, int(step_fn.accumulate_grad_batches))
+    train_iter = iter(train_queries)
+    try:
+        for queries in train_iter:
+            if state.step >= until or state.completed:
+                break
+            weights = state.get_parameters()
+            if accum > 1:
+                micro = [queries]
+                for _ in range(accum - 1):
+                    nxt = next(train_iter, None)
+                    if nxt is None:
+                        break
+                    micro.append(nxt)
+                if len(micro) < accum:
+                    # pending gradients at iterator exhaustion are never applied;
+                    # break before on_train_batch_start so start/end hooks pair
+                    break
+                call_callbacks(callbacks, "on_train_batch_start", batch=queries, step=state.step)
+                m, rel, scores = step_fn.train_step_accum(engines, corpus, micro, generator, weights)
+            else:
+                call_callbacks(callbacks, "on_train_batch_start", batch=queries, step=state.step)
+                m, rel, scores = step_fn.train_step(engines, corpus, queries, generator, weights)
+            monitor.update(relevances=rel, scores=scores)
+            call_callbacks(callbacks, "on_train_batch_end", metrics=m, step=state.step)
+            state.step += 1
+            state.update_steps += 1
+            n_done += 1
+            if state.step % log_interval == 0 or state.step >= until:
+                last_logged = {
+                    **{k: float(v) for k, v in m.items()},
+                    **monitor.compute(),
+                    "steps_per_sec": n_done / max(time.time() - t0, 1e-6),
+                    "step": state.step,
+                    **{f"parameters/{k}": v for k, v in weights.items()},
+                }
+                if on_log:
+                    on_log(state.step, last_logged)
+            if val_check_interval and val_queries is not None and state.step % val_check_interval == 0:
+                val_metrics = validation_loop(
+                    step_fn=step_fn, engines=engines, corpus=corpus, val_queries=val_queries,
+                    generator=generator, weights=state.get_parameters(), metrics=metrics,
+                )
+                if on_log:
+                    on_log(state.step, {f"val/{k}": v for k, v in val_metrics.items()})
+                if on_checkpoint:
+                    on_checkpoint(step_fn.model, step_fn.optimizer, state)
+    except KeyboardInterrupt:
+        pass
+    call_callbacks(callbacks, "on_fit_end", model=step_fn.model, state=state)
+    return state, last_logged
+
+
+def validation_loop(
+    *,
+    step_fn: RealmTrainStep,
+    engines: HybridEngines,
+    corpus: DeviceCorpus,
+    val_queries: typ.Sequence[QueryBatch],
+    generator: torch.Generator,
+    weights: typ.Optional[dict[str, float]],
+    metrics: typ.Sequence[str] = ("mrr", "ndcg_10", "hitrate_3"),
+    mesh: typ.Any = None,
+) -> dict[str, float]:
+    """Evaluation without a gradient over the validation queries: the
+    monitor's means and the mean loss."""
+    if mesh is not None:
+        raise NotImplementedError("validation over a device mesh is not ported to vod_tpu_torch yet")
+    monitor = RetrievalMonitor(list(metrics))
+    losses = []
+    for queries in val_queries:
+        m, rel, scores = step_fn.eval_step(engines, corpus, queries, generator, weights)
+        monitor.update(relevances=rel, scores=scores)
+        losses.append(m["loss"])
+    out = monitor.compute()
+    out["loss"] = float(np.mean([float(x) for x in losses])) if losses else math.nan
+    return out

@@ -2,7 +2,7 @@
 
 from .base import SearchQueries, subset_mask
 from .dense import DenseIndex, build_dense_index, dense_search
-from .hybrid import HybridEngines, hybrid_search
+from .hybrid import HybridEngines, hybrid_search, hybrid_search_and_sample
 from .lookup import lookup_search
 
 __all__ = [
@@ -12,6 +12,7 @@ __all__ = [
     "build_dense_index",
     "dense_search",
     "hybrid_search",
+    "hybrid_search_and_sample",
     "lookup_search",
     "subset_mask",
 ]

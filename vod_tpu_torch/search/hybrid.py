@@ -2,8 +2,10 @@
 
 Every named engine searches the query batch; engine scores are min-subtracted
 per row, the gold lookup rides along with score 0 and label 1, and the results
-are merged by weighted score sum. The sparse engine, the compressed dense
-codecs and `hybrid_search_and_sample` wait for later slices of the port.
+are merged by weighted score sum. `hybrid_search_and_sample` adds the
+truncation to the prefetch width and labeled priority sampling: the retrieval
+segment of the training collate. The sparse engine and the compressed dense
+codecs wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from vod_tpu_torch.ops.merge import merge_search_results
 from vod_tpu_torch.ops.numpy_ops import normalize_scores
+from vod_tpu_torch.ops.sample import PrioritySampledSections, sample_search_results
 from vod_tpu_torch.types.retrieval import RetrievalBatch
 from .base import SearchQueries
 from .dense import DenseIndex, dense_search
@@ -63,3 +66,50 @@ def hybrid_search(
     merged, raw = merge_search_results(results, w)
     raw.pop("lookup", None)
     return merged, raw
+
+
+def hybrid_search_and_sample(
+    engines: HybridEngines,
+    queries: SearchQueries,
+    *,
+    prefetch: int = 100,
+    total: int = 8,
+    max_pos_sections: int = 2,
+    temperature: float = 1.0,
+    max_support_size: typ.Optional[int] = None,
+    weights: typ.Optional[dict[str, torch.Tensor | float]] = None,
+    noise: typ.Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: typ.Optional[torch.Generator] = None,
+) -> tuple[PrioritySampledSections, RetrievalBatch]:
+    """search -> normalize -> merge -> truncate to `prefetch` -> labeled
+    priority sampling. Returns (the samples, the truncated merged batch).
+
+    Positives (gold lookup hits, label > 0) survive the truncation even when
+    their combined score (the lookup contributes 0) falls below the engine
+    scores: they sort first by a +1e30 key, in their merged order (a stable
+    sort). `noise` is the sampler's Exp(1) draws, each `[B, min(prefetch,
+    merged width)]`; without it they come from `generator`."""
+    merged, raw = hybrid_search(engines, queries, prefetch, weights)
+    k = min(prefetch, merged.scores.shape[-1])
+    if merged.labels is not None:
+        key = torch.where(merged.labels > 0, merged.scores + 1e30, merged.scores)
+    else:
+        key = merged.scores
+    order = torch.argsort(-key, dim=-1, stable=True)[..., :k]
+    merged = RetrievalBatch(
+        scores=torch.gather(merged.scores, -1, order),
+        indices=torch.gather(merged.indices, -1, order),
+        labels=None if merged.labels is None else torch.gather(merged.labels, -1, order),
+    )
+    raw = {name: torch.gather(v, -1, order) for name, v in raw.items()}
+    sampled = sample_search_results(
+        search_results=merged,
+        raw_scores=raw,
+        total=total,
+        max_pos_sections=max_pos_sections,
+        temperature=temperature,
+        max_support_size=max_support_size,
+        noise=noise,
+        generator=generator,
+    )
+    return sampled, merged
