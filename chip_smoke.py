@@ -76,13 +76,38 @@ checked, none caught:
     the kernels that took the most). Last, one more optimizer step runs with
     every synchronizing CUDA call made an error (checked: the step never
     waits for the card), timing the host's enqueue beside the card's finish;
- 6. the `kernels` JSON line, the card line, and the last line
+ 6. periodic training, end to end (its own main path: launch counts are
+    zeroed just before `periodic_training` and read just after): phase 5's
+    model widths and corpus cut (freed and made anew, seed 3), with the
+    index codec of `configs/msmarco_pq_realm.yaml` exactly (`PERIODIC_DENSE`:
+    4-bit PQ-128, exhaustive ADC, int8 refine over 128 PCA dims, k_factor 32,
+    train_size 1,000,000), 2 periods of 3 optimizer steps: each period
+    re-embeds the 2^20 sections and rebuilds the index. Printed per period:
+    re-embed ms and sections/s, build ms by stage, index bytes, ms per
+    optimizer step; then peak memory. Checked: finite losses; period 1's
+    embeddings differ from period 0's, and so do the codes; `[N, 64]` uint8
+    codes and `[N, 128]` int8 refine rows; no kernel launch (the
+    exhaustive-ADC codec runs none, in JAX either); a direct `pq_search` of
+    one collated batch's query vectors returns the ids and scores the
+    collate retrieved; recall@10 of the last index against an exact f32
+    scan of the same embeddings on 256 held-out queries, above
+    `PERIODIC["recall_floor"]`. Then the PQ coarse route (its own main path:
+    counts zeroed before, read after) on the last period's embeddings: the
+    `pq` preset (OPQ, 32 subquantizers, coarse_dim 64) and the factory
+    default (coarse_dim 32), both `kernel: fused` at 512 bins, searched at
+    B = 32 and 64. Checked: 4 launches, all `wgmma`; each kernel call (int8,
+    D = 32 and 64, k = bins) equal in every cell to its plain version; then
+    timed beside the plain version, `torch.topk(torch._int_mm(q, Vᵀ), k)`
+    and the bound, and split into the host's time to enqueue a call and the
+    device time of its kernels (`torch.profiler`);
+ 7. the `kernels` JSON line, the card line, and the last line
     `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import math
 import statistics
@@ -125,6 +150,33 @@ BINNED_RECALL_FLOOR = 0.975
 TRAIN = dict(
     n=1 << 20, d=384, layers=6, heads=6, inter=1536, vocab=30522, ls=200, lq=32, la=16, b=32, accum=2,
     warmup=2, timed=10, val_batches=2, prefetch=100, n_sections=8, max_pos=2, bins=512, lr=5e-5,
+)
+
+# Phase 6: periodic training with the index codec of configs/msmarco_pq_realm.yaml
+# (`search_defaults.dense`, exactly), at phase 5's widths and corpus cut (2^20
+# sections of 200 random ids; MS MARCO has 8.8M): two periods of `steps`
+# optimizer steps, so the index is built twice from two encoders. Then the PQ
+# coarse route on the last period's embeddings: the `pq` preset
+# (configs/presets/search/pq.yaml) and the factory default (coarse_dim 32),
+# both with `kernel: fused` at 512 bins, searched at B = 32 and 64.
+PERIODIC_DENSE = dict(
+    codec="pq", n_subquantizers=128, code_bits=4, coarse_dim=None, refine="int8", refine_dim=128, k_factor=32,
+    train_size=1_000_000,
+)
+PERIODIC = dict(
+    TRAIN, periods=2, steps=3, held_out=256, dense=PERIODIC_DENSE, coarse_batches=(32, 64),
+    coarse={
+        "pq-preset": dict(codec="pq", n_subquantizers=32, use_opq=True, coarse_dim=64, n_candidates=4096,
+                          kernel="fused", fused_bins=512),
+        "factory-default": dict(codec="pq", kernel="fused", fused_bins=512),
+    },
+    # Recall@10 floor of the last period's index against exact f32 search of
+    # the same embeddings. With random weights the embeddings are nearly
+    # isotropic around their mean, which 4-bit PQ in 3-dim subspaces and an
+    # int8 refine over 128 of 384 PCA dims serve poorly: 0.2328 on the first
+    # card run (256 queries, 2,560 pairs; a binomial spread of ~0.008). A
+    # broken codec, scan or re-rank gives ~0 (10 random ids of 2^20).
+    recall_floor=0.15,
 )
 
 
@@ -181,24 +233,19 @@ def percentile(xs: list[float], p: float) -> float:
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
 
 
-def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t: dict) -> dict:
-    """Phase 5: the REALM train path at the sizes in `t` (module constant
-    TRAIN). Returns the train-path kernel call's numbers and launches."""
+def realm_setup(dev, t: dict, seed: int):
+    """A `Realm` at the widths of `t` (retriever and reader, bf16 activations,
+    random weights from a generator seeded `seed`), a corpus of t["n"]
+    sections of t["ls"] random ids resident on `dev`, and a maker of query
+    batches (t["b"] queries of t["lq"] ids, two gold ids, answers of t["la"]).
+    Returns (model, corpus, query_batch, generator)."""
     import torch
 
-    from vod_tpu_torch.models import (
-        CausalLMConfig, Realm, TransformerEncoderConfig, VodGradients, VodPoolerConfig,
-    )
-    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
-    from vod_tpu_torch.runtime import (
-        ParameterSchedule, QueryBatch, TrainerState, adamw, build_device_corpus, make_train_step,
-        training_loop, validation_loop,
-    )
-    from vod_tpu_torch.runtime.callbacks import Callback
-    from vod_tpu_torch.search import HybridEngines, build_dense_index
+    from vod_tpu_torch.models import CausalLMConfig, Realm, TransformerEncoderConfig, VodGradients, VodPoolerConfig
+    from vod_tpu_torch.runtime import QueryBatch, build_device_corpus
 
     n, d, b = t["n"], t["d"], t["b"]
-    g = torch.Generator(device=dev).manual_seed(2)
+    g = torch.Generator(device=dev).manual_seed(seed)
     widths = dict(vocab_size=t["vocab"], hidden_size=d, num_layers=t["layers"], num_heads=t["heads"],
                   intermediate_size=t["inter"])
     enc_cfg = TransformerEncoderConfig(  # ModelConfig's pooler defaults: mean, l2, scaler 10, learned
@@ -207,23 +254,16 @@ def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t
     )
     model = Realm(enc_cfg, CausalLMConfig(dtype=torch.bfloat16, **widths),
                   VodGradients(alpha=0.5, proposal_temperature=1.0), device=dev, generator=g)
-    n_params = sum(p.numel() for p in model.parameters())
 
     def lengths_mask(rows: int, width: int):
         """Rows of random length, from a third of `width` to all of it."""
         lengths = torch.randint(max(1, width // 3), width + 1, (rows, 1), generator=g, device=dev)
         return (torch.arange(width, device=dev)[None] < lengths).to(torch.int32)
 
-    t0 = time.perf_counter()
     corpus = build_device_corpus(
         torch.randint(1000, t["vocab"], (n, t["ls"]), generator=g, device=dev, dtype=torch.int32),
         lengths_mask(n, t["ls"]), device=dev,
     )
-    vecs = torch.randn((n, d), generator=g, device=dev)
-    index = build_dense_index(vecs / vecs.norm(dim=-1, keepdim=True), dtype="bfloat16", kernel="fused", device=dev)
-    del vecs
-    check(index.fused_bins == t["bins"], "the index does not run the kernel at 512 bins")
-    engines = HybridEngines(dense=index)
 
     def query_batch() -> QueryBatch:
         return QueryBatch(
@@ -233,6 +273,56 @@ def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t
             answer_ids=torch.randint(1000, t["vocab"], (b, t["la"]), generator=g, device=dev, dtype=torch.int32),
             answer_mask=lengths_mask(b, t["la"]),
         )
+
+    return model, corpus, query_batch, g
+
+
+def step_recorder():
+    """A training-loop callback that records CUDA events around each
+    optimizer step, its metrics (tensors on the card, read after the loop)
+    and its `fused_mips_binned` launches by body."""
+    import torch
+
+    from vod_tpu_torch.ops.mips import fused_mips_binned
+    from vod_tpu_torch.runtime.callbacks import Callback
+
+    class StepRecorder(Callback):
+        def __init__(self):
+            self.events, self.metrics, self.launches = [], [], []
+
+        def on_train_batch_start(self, **kw):
+            self.events.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+            self.events[-1][0].record()
+            self._before = dict(fused_mips_binned.body_launches)
+
+        def on_train_batch_end(self, *, metrics, **kw):
+            self.events[-1][1].record()
+            self.metrics.append(metrics)
+            self.launches.append({k: v - self._before[k] for k, v in fused_mips_binned.body_launches.items()})
+
+    return StepRecorder()
+
+
+def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t: dict) -> dict:
+    """Phase 5: the REALM train path at the sizes in `t` (module constant
+    TRAIN). Returns the train-path kernel call's numbers and launches."""
+    import torch
+
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.runtime import (
+        ParameterSchedule, TrainerState, adamw, make_train_step, training_loop, validation_loop,
+    )
+    from vod_tpu_torch.search import HybridEngines, build_dense_index
+
+    n, d, b = t["n"], t["d"], t["b"]
+    t0 = time.perf_counter()
+    model, corpus, query_batch, g = realm_setup(dev, t, seed=2)
+    n_params = sum(p.numel() for p in model.parameters())
+    vecs = torch.randn((n, d), generator=g, device=dev)
+    index = build_dense_index(vecs / vecs.norm(dim=-1, keepdim=True), dtype="bfloat16", kernel="fused", device=dev)
+    del vecs
+    check(index.fused_bins == t["bins"], "the index does not run the kernel at 512 bins")
+    engines = HybridEngines(dense=index)
 
     steps = t["warmup"] + t["timed"]
     train_batches = [query_batch() for _ in range(steps * t["accum"])]
@@ -266,30 +356,13 @@ def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t
         f"(tol {tol:.3g}), {swaps} id swaps inside the band; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
 
-    class StepRecorder(Callback):
-        """CUDA events around each optimizer step, its metrics (tensors on
-        the card, read after the loop) and its kernel launches by body."""
-
-        def __init__(self):
-            self.events, self.metrics, self.launches = [], [], []
-
-        def on_train_batch_start(self, **kw):
-            self.events.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
-            self.events[-1][0].record()
-            self._before = dict(fused_mips_binned.body_launches)
-
-        def on_train_batch_end(self, *, metrics, **kw):
-            self.events[-1][1].record()
-            self.metrics.append(metrics)
-            self.launches.append({k: v - self._before[k] for k, v in fused_mips_binned.body_launches.items()})
-
     optimizer = adamw(model, t["lr"], weight_decay=0.0)  # TrainerConfig's decay, with the decay mask
     step_fn = make_train_step(
         model, optimizer, prefetch=t["prefetch"], n_sections=t["n_sections"], max_pos_sections=t["max_pos"],
         temperature=1.0, with_lm=True, gradient_clip_val=1.0, accumulate_grad_batches=t["accum"],
     )
     start_params = [[p.detach().clone() for p in grp["params"]] for grp in optimizer.param_groups]
-    recorder = StepRecorder()
+    recorder = step_recorder()
     state = TrainerState(max_steps=steps, parameters={"dense": ParameterSchedule(value=1.0)})
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated(dev)
@@ -387,6 +460,32 @@ def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t
     )
 
 
+def host_and_device_ms(fn, reps: int) -> tuple[float, float, dict]:
+    """Per call of `fn`: the host's time to enqueue it (no profiler, no
+    synchronize inside the loop), and the device time of the CUDA kernels it
+    launches from `torch.profiler` over `reps` more calls, in all and by
+    kernel name. When the host's time is the larger, CUDA events around a
+    run of calls measure the host, not the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {e.key[:60]: e.self_device_time_total / 1e3 / reps
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return host_ms, sum(by_name.values()), by_name
+
+
 def profile_step(step_fn, engines, corpus, micro_batches, generator) -> dict:
     """One optimizer step under `torch.profiler`: the host wall time, the
     device time its kernels took (their share of the wall is the busy share;
@@ -409,6 +508,196 @@ def profile_step(step_fn, engines, corpus, micro_batches, generator) -> dict:
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:12]
     return dict(wall_ms=wall_ms, device_ms=busy, busy_share=busy / wall_ms if busy else None,
                 top_kernels_ms={k: round(v, 4) for k, v in top})
+
+
+def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dict:
+    """Phase 6: periodic training over the PQ codec at the sizes in `t`
+    (module constant PERIODIC), then the PQ coarse route (the `pq` preset and
+    the factory default, both `kernel: fused`) on period 1's embeddings.
+    Returns the coarse route's kernel calls and launches, and the periodic
+    run's numbers."""
+    import torch
+
+    from vod_tpu_torch.configs import DenseFactoryConfig
+    from vod_tpu_torch.exps import PeriodicTrainingConfig, periodic_training, recipes
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.runtime import ParameterSchedule, TrainerState, adamw, make_train_step
+    from vod_tpu_torch.search import SearchQueries, build_dense_from_config, dense as dense_module
+    from vod_tpu_torch.search import hybrid as hybrid_module
+    from vod_tpu_torch.search import pq_search
+
+    n, b, periods, steps = t["n"], t["b"], t["periods"], t["steps"]
+    t0 = time.perf_counter()
+    model, corpus, query_batch, g = realm_setup(dev, t, seed=3)
+    batches = [[query_batch() for _ in range(steps * t["accum"])] for _ in range(periods)]
+    held_out = [query_batch() for _ in range(-(-t["held_out"] // b))]
+    torch.cuda.synchronize()
+    log(f"periodic setup: Realm {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params; corpus {n} x "
+        f"{t['ls']} tokens in {time.perf_counter() - t0:.2f} s")
+
+    # what the run builds and retrieves, recorded for the checks after it
+    builds, collate_calls = [], []
+    real_build, real_search = recipes.build_dense_from_config, hybrid_module.pq_search
+
+    def recording_build(cfg, vectors, **kw):
+        index = real_build(cfg, vectors, **kw)
+        # period 0: a row sample (to see the encoder move); the last period: all rows
+        builds.append((vectors if len(builds) == periods - 1 else vectors[:4096].clone(), index))
+        return index
+
+    def recording_search(index, queries, top_k, **kw):
+        out = real_search(index, queries, top_k, **kw)
+        if len(builds) == periods and not collate_calls:  # the last period's first retrieval
+            collate_calls.append((index, queries.vector.clone(), top_k, out.indices.clone(), out.scores.clone()))
+        return out
+
+    recipes.build_dense_from_config, hybrid_module.pq_search = recording_build, recording_search
+    optimizer = adamw(model, t["lr"], weight_decay=0.0)
+    step_fn = make_train_step(
+        model, optimizer, prefetch=t["prefetch"], n_sections=t["n_sections"], max_pos_sections=t["max_pos"],
+        temperature=1.0, with_lm=True, gradient_clip_val=1.0, accumulate_grad_batches=t["accum"],
+    )
+    recorder = step_recorder()
+    state = TrainerState(max_steps=periods * steps, period=steps, parameters={"dense": ParameterSchedule(value=1.0)})
+    config = PeriodicTrainingConfig(dense=DenseFactoryConfig(**t["dense"]), log_interval=steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+    t_main = time.perf_counter()
+    try:
+        state, history = periodic_training(
+            step_fn=step_fn, corpus=corpus, state=state, train_queries_fn=lambda p: batches[p], generator=g,
+            config=config, callbacks=[recorder],
+        )
+    finally:
+        recipes.build_dense_from_config, hybrid_module.pq_search = real_build, real_search
+    torch.cuda.synchronize()
+    periodic_launches = dict(fused_mips_binned.body_launches)  # main path ends
+    wall = time.perf_counter() - t_main
+    peak_mem = torch.cuda.max_memory_allocated(dev)
+
+    check(state.step == periods * steps and len(history) == periods and len(builds) == periods,
+          f"periodic run: {state.step} steps, {len(history)} periods, {len(builds)} builds")
+    losses = [float(m["loss"]) for m in recorder.metrics]
+    check(len(losses) == periods * steps and all(math.isfinite(x) for x in losses), f"periodic losses {losses}")
+    step_ms = [s.elapsed_time(e) for s, e in recorder.events]
+    # the codec of this path (exhaustive ADC) runs no Pallas kernel in JAX and no CUDA kernel here
+    check(periodic_launches == {"wgmma": 0, "fma": 0}, f"the exhaustive-ADC path launched {periodic_launches}")
+    (emb0, index0), (emb1, index1) = builds[0], builds[-1]
+    check(float((emb1[: len(emb0)] - emb0).abs().max()) > 1e-4, "period 1's embeddings equal period 0's")
+    n_pad = -(-n // 8192) * 8192 if n > 131072 else -(-n // 128) * 128
+    m_sub, r_dim = t["dense"]["n_subquantizers"], t["dense"]["refine_dim"]
+    for ix in (index0, index1):
+        check(ix.codes.shape == (n_pad, m_sub // 2) and ix.codes.dtype == torch.uint8, f"codes {ix.codes.shape}")
+        check(ix.refine_codes.shape == (n_pad, r_dim) and ix.refine_codes.dtype == torch.int8,
+              f"refine rows {ix.refine_codes.shape} {ix.refine_codes.dtype}")
+        check(ix.coarse_codes is None and ix.kernel == "scan", "the periodic index is not the exhaustive-ADC codec")
+    check(not torch.equal(index0.codes, index1.codes), "period 1's codes equal period 0's")
+    for p, h in enumerate(history):
+        emb_ms = h["reembed_s"] * 1e3
+        log(f"periodic period {p} [{card}]: re-embed {emb_ms:.4f} ms ({n / h['reembed_s']:.4f} sections/s); build "
+            f"{json.dumps({k: round(v, 4) for k, v in h['build_ms'].items()})} ms; index {h['index_bytes']} bytes; "
+            f"ms per optimizer step {json.dumps([round(x, 4) for x in step_ms[p * steps:(p + 1) * steps]])}; "
+            f"loss {h['train'].get('loss', float('nan')):.6f}")
+    log(f"periodic run: {periods} periods of {steps} optimizer steps in {wall:.2f} s; peak memory "
+        f"{peak_mem / 2**30:.4f} GiB; fused_mips_binned launches {periodic_launches}")
+
+    # the collate's retrieval against a direct pq_search of the same query vectors
+    ix, qv, top_k, ids, scores = collate_calls[0]
+    direct = pq_search(ix, SearchQueries(vector=qv), top_k)
+    check(torch.equal(direct.indices, ids), "a direct pq_search does not return the ids the collate retrieved")
+    check(torch.equal(direct.scores, scores), "a direct pq_search does not return the collate's scores")
+
+    # recall@10 of the last period's index against an exact f32 scan of the same embeddings
+    with torch.no_grad():
+        q_held = torch.cat([model.encode_field(qb.input_ids, qb.attention_mask) for qb in held_out])[: t["held_out"]]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exact = torch.cat([torch.topk(qs @ emb1.T, 10, dim=-1).indices for qs in q_held.split(64)])
+    got = pq_search(index1, SearchQueries(vector=q_held), 10).indices
+
+    def recall(ids_) -> float:
+        ref = exact[: len(ids_)].cpu()
+        return sum(len(set(a.tolist()) & set(e.tolist())) for a, e in zip(ids_.cpu(), ref)) / ref.numel()
+
+    recall10 = recall(got)
+    log(f"periodic recall@10 of period {periods - 1}'s index vs exact f32 search, {len(q_held)} held-out queries: "
+        f"{recall10:.4f} (floor {t['recall_floor']})")
+    check(recall10 >= t["recall_floor"], f"periodic recall@10 {recall10:.4f} < floor {t['recall_floor']}")
+    del builds, index0, emb0, collate_calls, ix, direct, optimizer, step_fn, model, corpus, batches
+    torch.cuda.empty_cache()
+
+    # the PQ coarse route: both coarse configs on the last period's embeddings
+    calls, real_kernel = [], dense_module.fused_mips_binned
+
+    def recording_kernel(vectors, queries, **kw):
+        out = real_kernel(vectors, queries, **kw)
+        calls.append((vectors, queries.clone(), kw, out))
+        return out
+
+    coarse, coarse_recall = {}, {}
+    for name, cfg in t["coarse"].items():
+        t1 = time.perf_counter()
+        coarse[name] = build_dense_from_config(DenseFactoryConfig(**cfg), emb1, generator=g, device=dev)
+        torch.cuda.synchronize()
+        log(f"coarse index {name}: {json.dumps(cfg)} built in {time.perf_counter() - t1:.2f} s; coarse codes "
+            f"{tuple(coarse[name].coarse_codes.shape)}")
+    dense_module.fused_mips_binned = recording_kernel
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path (coarse route) starts
+    try:
+        for name, ix in coarse.items():
+            for bq in t["coarse_batches"]:
+                out = pq_search(ix, SearchQueries(vector=q_held[:bq]), 10)
+                if bq == max(t["coarse_batches"]):
+                    coarse_recall[name] = recall(out.indices)
+    finally:
+        dense_module.fused_mips_binned = real_kernel
+    torch.cuda.synchronize()
+    coarse_launches = fused_mips_binned.launches  # main path ends
+    coarse_bodies = dict(fused_mips_binned.body_launches)
+    n_calls = len(t["coarse"]) * len(t["coarse_batches"])
+    check(len(calls) == n_calls and coarse_launches == n_calls, f"coarse route: {len(calls)} calls, {coarse_launches} launches")
+    check(coarse_bodies == {"wgmma": n_calls, "fma": 0}, f"the coarse route's launches by body: {coarse_bodies}")
+    log(f"coarse route: fused_mips_binned launches {coarse_launches}, by body {coarse_bodies}; recall@10 at "
+        f"B={max(t['coarse_batches'])}: {json.dumps({k: round(v, 4) for k, v in coarse_recall.items()})}")
+
+    # each coarse kernel call against its plain version (int8: every cell bit for bit) and timed
+    shapes = []
+    for vv, qq, kw, (ks, ki) in calls:
+        bq, dc = (int(x) for x in qq.shape)
+        check(_binned_body(vv.dtype, dc, kw["bins"], (vv.data_ptr(), qq.data_ptr())) == "wgmma", "coarse call off wgmma")
+        check(kw["k"] == kw["bins"], f"coarse call k={kw['k']} != bins={kw['bins']}")
+        rs, ri = fused_mips_binned_reference(vv, qq, **kw)
+        check(torch.equal(ks, rs) and torch.equal(ki, ri), f"coarse int8 B={bq} D={dc}: kernel != plain")
+        ms = time_ms(lambda: fused_mips_binned(vv, qq, **kw), 20)
+        host_ms, device_ms, by_kernel = host_and_device_ms(lambda: fused_mips_binned(vv, qq, **kw), 20)
+        binned_ms = sum(v for key, v in by_kernel.items() if "binned_wgmma_kernel" in key)
+        check(binned_ms > 0, f"the profiler saw no binned_wgmma_kernel: {by_kernel}")
+        plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qq, **kw), 2)
+        library_ms = time_ms(lambda: torch.topk(torch._int_mm(qq, vv.T), kw["k"], dim=-1), 20)
+        nbytes = (int(vv.shape[0]) + bq) * dc + bq * kw["k"] * 8
+        ops = 2 * bq * int(vv.shape[0]) * dc
+        bound = max(nbytes / hbm, ops / peak_int8) * 1e3
+        shapes.append(dict(dtype="int8", body="wgmma", B=bq, N=int(vv.shape[0]), D=dc, bins=kw["bins"], k=kw["k"],
+                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                           bound_by="bytes" if nbytes / hbm >= ops / peak_int8 else "operations",
+                           host_ms=host_ms, device_ms=device_ms, binned_kernel_ms=binned_ms, device_by_kernel=by_kernel))
+        log(f"check coarse int8 B={bq} N={vv.shape[0]} D={dc} bins={kw['bins']} k={kw['k']} (wgmma): all cells equal; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({shapes[-1]['bound_by']}) [{card}]")
+        log(f"  split of that call [{card}]: host enqueue {host_ms:.4f} ms, device {device_ms:.4f} ms (profiler), of "
+            f"which binned_wgmma_kernel {binned_ms:.4f} ms; by kernel {json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}")
+    return dict(
+        coarse_launches=coarse_launches, coarse_body_launches=coarse_bodies, coarse_shapes=shapes,
+        coarse_recall_at_10=coarse_recall,
+        periodic=dict(
+            periods=[dict(reembed_ms=h["reembed_s"] * 1e3, sections_per_s=n / h["reembed_s"], build_ms=h["build_ms"],
+                          index_bytes=h["index_bytes"], period_s=h["period_s"]) for h in history],
+            step_ms=step_ms, losses=losses, peak_mem_bytes=peak_mem, recall_at_10=recall10,
+            launches=periodic_launches,
+        ),
+    )
 
 
 def main() -> None:
@@ -804,7 +1093,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     train = train_phase(dev, card, hbm, peak_bf16, peak_f32, TRAIN)
 
-    # 6. result lines
+    # 6. periodic training over the PQ codec, then the PQ coarse route
+    gc.collect()
+    torch.cuda.empty_cache()
+    periodic = periodic_phase(dev, card, hbm, peak_int8, PERIODIC)
+
+    # 7. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -818,6 +1112,9 @@ def main() -> None:
         body=main["body"], body_launches=binned_body_launches, shootout_body_launches=shootout_binned_bodies,
         train_launches=train["train_launches"], train_body_launches=train["train_body_launches"],
         train_max_abs_err=train["train_max_abs_err"], train_call=train["train_call"], train_step=train["train_step"],
+        coarse_launches=periodic["coarse_launches"], coarse_body_launches=periodic["coarse_body_launches"],
+        coarse_shapes=periodic["coarse_shapes"], coarse_recall_at_10=periodic["coarse_recall_at_10"],
+        periodic=periodic["periodic"],
         body_ms={body: {f"{s['dtype']} B={s['B']} bins={s['bins']}": s["ms"] for s in shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
     ), dict(

@@ -288,3 +288,53 @@ def test_train_step_on_card(cuda_device, monkeypatch) -> None:
     rs, ri = fused_mips_binned_reference(vectors, q, **kw)
     tol = 2 * 64 * 2.0**-24 * q.float().norm(dim=-1).max().item() * 1.01
     _held_against_plain(ks, ki, rs, ri, q, vectors, tol)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_binned_int8_wgmma_at_the_pq_coarse_widths(cuda_device, d: int) -> None:
+    """The PQ coarse stage's kernel calls: int8 at D = coarse_dim (32, the
+    factory default, where three quarters of each 128-byte TMA box of K is
+    zero fill; 64, the `pq` preset), k = bins = 512, B = 32 and 64: every cell
+    bit for bit against the plain version, on the tensor-core body, with a
+    ragged last stride and equal rows in different splits."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    n, bins = 1 << 16, 512
+    v = torch.randint(-127, 128, (n, d), generator=g, device=cuda_device, dtype=torch.int8)
+    q = torch.randint(-127, 128, (64, d), generator=g, device=cuda_device, dtype=torch.int8)
+    v[[5 + bins, 5 + 100 * bins]] = v[5].clone()
+    q[0] = v[5]
+    assert _binned_body(torch.int8, d, bins, (v.data_ptr(), q.data_ptr())) == "wgmma"
+    before = dict(fused_mips_binned.body_launches)
+    for b in (32, 64):
+        for n_real in (n, n - 77):
+            kw = dict(k=bins, bins=bins, tile=1024, n_real=n_real)
+            ks, ki = fused_mips_binned(v, q[:b], **kw)
+            rs, ri = fused_mips_binned_reference(v, q[:b], **kw)
+            assert torch.equal(ks, rs) and torch.equal(ki, ri)
+            assert ki[0, 0].item() == 5 and ki.max().item() < n_real
+    assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 4
+    assert fused_mips_binned.body_launches["fma"] == before["fma"]
+
+
+@pytest.mark.parametrize("coarse_dim", [30, 64])
+def test_pq_coarse_search_on_card_matches_cpu(cuda_device, coarse_dim: int) -> None:
+    """A PQ index with a fused coarse stage, built on the CPU and copied to the
+    card: `pq_search` on the card launches `fused_mips_binned` once, on
+    `wgmma` (coarse_dim 30 is padded to 32), and returns the CPU's ids."""
+    import dataclasses
+
+    from vod_tpu_torch.search import build_pq_index, pq_search
+
+    rng = np.random.default_rng(2)
+    v = unit_rows(rng, 8192, 96)
+    q = v[rng.integers(0, 8192, 40)] + 0.1 * unit_rows(rng, 40, 96)
+    ix = build_pq_index(v, n_subquantizers=8, coarse_dim=coarse_dim, n_candidates=512, refine="int8", k_factor=4,
+                        kernel="fused", kmeans_iters=4, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = dataclasses.replace(ix, **{f.name: getattr(ix, f.name).to(cuda_device) for f in dataclasses.fields(ix)
+                                      if isinstance(getattr(ix, f.name), torch.Tensor)})
+    before = dict(fused_mips_binned.body_launches)
+    got = pq_search(card, SearchQueries(vector=torch.from_numpy(q).to(cuda_device)), top_k=10)
+    want = pq_search(ix, SearchQueries(vector=torch.from_numpy(q)), top_k=10)
+    assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 1
+    assert torch.equal(got.indices.cpu(), want.indices)
+    torch.testing.assert_close(got.scores.cpu(), want.scores, atol=1e-5, rtol=1e-5)

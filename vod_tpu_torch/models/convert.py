@@ -13,10 +13,14 @@ gradients over, since it has the parameters' structure.
 
 `flax_path` maps a port parameter name back to its flax path, which the
 optimizer's weight-decay groups are chosen by (`runtime/optim.py`).
+
+`dense_index_from_fields` carries a JAX `PQIndex` or `IVFIndex` over: its
+fields as numpy arrays (`np.asarray` of each array) plus its static fields.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import typing as typ
 
 import numpy as np
@@ -136,3 +140,36 @@ def flax_path(name: str) -> str:
         owner = out[-2] if len(out) > 1 else ""
         out[-1] = "embedding" if owner in _EMBEDDINGS else "scale" if owner in _NORMS else "kernel"
     return "".join(f"['{part}']" for part in ["params", *out])
+
+
+
+def dense_index_from_fields(
+    fields: typ.Mapping[str, typ.Any], *, device: typ.Union[str, torch.device] = "cuda"
+) -> typ.Any:
+    """The port's `PQIndex` (fields with `codebooks`) or `IVFIndex` (with
+    `centroids`) from a JAX index's fields: arrays as numpy (None where the
+    JAX field is None), static fields as they are. The TPU-only
+    `fused_qblock` is dropped, and the coarse int8 codes get the port's zero
+    columns up to a multiple of 16."""
+    from vod_tpu_torch.search import dense
+
+    def tensor(x: typ.Any) -> typ.Optional[torch.Tensor]:
+        if x is None:
+            return None
+        a = np.array(x)
+        if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits over
+            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device).contiguous()
+        return torch.from_numpy(a).to(device).contiguous()
+
+    if "codebooks" in fields:
+        cls = dense.PQIndex
+    elif "centroids" in fields:
+        cls = dense.IVFIndex
+    else:
+        raise ValueError(f"not a PQIndex or IVFIndex: fields {sorted(fields)}")
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {k: (tensor(v) if hasattr(v, "__array__") else v) for k, v in fields.items() if k in names}
+    if kw.get("coarse_codes") is not None:
+        width = -(-int(kw["coarse_codes"].shape[1]) // dense._COARSE_COLS) * dense._COARSE_COLS
+        kw["coarse_codes"] = dense._zero_cols(kw["coarse_codes"], width).contiguous()
+    return cls(**kw)

@@ -1,0 +1,75 @@
+"""Embedding computation: re-embed a tokenized corpus with the current encoder
+(port of `compute_embeddings` and `compute_embeddings_to_host` of
+`vod_tpu/runtime/predict.py`; `cached_embeddings`, the tensorstore cache,
+waits).
+
+`encode_fn(input_ids, attention_mask) -> [b, H]` is typically a system's
+`encode_field`. It runs under `torch.no_grad()`, chunk by chunk; the result
+stays on the corpus's device, in f32 (or `dtype`), and feeds the index build
+directly. Nothing here waits for the device.
+"""
+
+from __future__ import annotations
+
+import typing as typ
+
+import numpy as np
+import torch
+
+from .collate import DeviceCorpus
+
+EncodeFn = typ.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+@torch.no_grad()
+def compute_embeddings(
+    encode_fn: EncodeFn,
+    corpus: DeviceCorpus,
+    *,
+    chunk: int = 512,
+    dtype: torch.dtype = torch.float32,
+    mesh: typ.Any = None,
+) -> torch.Tensor:
+    """Embed every corpus row. Returns [N, H] on the corpus's device."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel re-embedding over a mesh is not ported to vod_tpu_torch yet")
+    out: typ.Optional[torch.Tensor] = None
+    n = corpus.size
+    for s in range(0, n, chunk):
+        vecs = encode_fn(corpus.input_ids[s : s + chunk], corpus.attention_mask[s : s + chunk])
+        if out is None:
+            out = torch.empty((n, int(vecs.shape[-1])), dtype=dtype, device=vecs.device)
+        out[s : s + vecs.shape[0]] = vecs.to(dtype)
+    if out is None:
+        raise ValueError("compute_embeddings needs a non-empty corpus")
+    return out
+
+
+@torch.no_grad()
+def compute_embeddings_to_host(
+    encode_fn: EncodeFn,
+    ids_np: typ.Any,  # numpy [N, L] host token ids
+    mask_np: typ.Optional[typ.Any] = None,  # numpy [N, L]; None = ids != 0
+    *,
+    chunk: int = 512,
+    slab: int = 131_072,
+    out: typ.Optional[np.ndarray] = None,  # preallocated numpy [N, H] to fill
+    out_dtype: typ.Any = None,  # numpy dtype, default float32
+    device: typ.Union[str, torch.device] = "cuda",
+) -> np.ndarray:
+    """Embed a corpus larger than device memory: host token slabs go to
+    `device` one at a time, chunk by chunk through the encoder, and the
+    vectors come back to host RAM. Returns numpy [N, H]."""
+    n = int(ids_np.shape[0])
+    out_np = out
+    for s0 in range(0, n, slab):
+        ids = torch.as_tensor(np.asarray(ids_np[s0 : s0 + slab]), device=device).to(torch.int32)
+        if mask_np is not None:
+            mask = torch.as_tensor(np.asarray(mask_np[s0 : s0 + slab]), device=device).to(torch.int32)
+        else:
+            mask = (ids != 0).to(torch.int32)
+        vecs = torch.cat([encode_fn(ids[c : c + chunk], mask[c : c + chunk]) for c in range(0, ids.shape[0], chunk)])
+        if out_np is None:
+            out_np = np.empty((n, int(vecs.shape[-1])), out_dtype or np.float32)
+        out_np[s0 : s0 + vecs.shape[0]] = vecs.to(torch.float32).cpu().numpy()
+    return out_np

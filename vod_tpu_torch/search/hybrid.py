@@ -4,8 +4,9 @@ Every named engine searches the query batch; engine scores are min-subtracted
 per row, the gold lookup rides along with score 0 and label 1, and the results
 are merged by weighted score sum. `hybrid_search_and_sample` adds the
 truncation to the prefetch width and labeled priority sampling: the retrieval
-segment of the training collate. The sparse engine and the compressed dense
-codecs wait for later slices of the port.
+segment of the training collate. The dense engine is a flat/int8
+`DenseIndex`, a `PQIndex` or an `IVFIndex`; the sparse engine, IVF-PQ and the
+sharded indexes wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -20,20 +21,24 @@ from vod_tpu_torch.ops.numpy_ops import normalize_scores
 from vod_tpu_torch.ops.sample import PrioritySampledSections, sample_search_results
 from vod_tpu_torch.types.retrieval import RetrievalBatch
 from .base import SearchQueries
-from .dense import DenseIndex, dense_search
+from .dense import DenseIndex, IVFIndex, PQIndex, dense_search, ivf_search, pq_search
 from .lookup import lookup_search
 
 
 @dataclasses.dataclass
 class HybridEngines:
-    """Named engine bundle. Only `DenseIndex` is ported; any other engine raises
-    `NotImplementedError` when searched."""
+    """Named engine bundle. The dense engine is a `DenseIndex`, `PQIndex` or
+    `IVFIndex`; any other engine raises `NotImplementedError` when searched."""
 
-    dense: typ.Optional[DenseIndex] = None
+    dense: typ.Optional[typ.Union[DenseIndex, PQIndex, IVFIndex]] = None
     sparse: typ.Any = None
 
 
 def _dense_dispatch(index: typ.Any, queries: SearchQueries, top_k: int) -> RetrievalBatch:
+    if isinstance(index, PQIndex):
+        return pq_search(index, queries, top_k)
+    if isinstance(index, IVFIndex):
+        return ivf_search(index, queries, top_k)
     if isinstance(index, DenseIndex):
         return dense_search(index, queries, top_k)
     raise NotImplementedError(f"{type(index).__name__} is not ported to vod_tpu_torch yet")
