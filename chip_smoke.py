@@ -76,30 +76,54 @@ checked, none caught:
     the kernels that took the most). Last, one more optimizer step runs with
     every synchronizing CUDA call made an error (checked: the step never
     waits for the card), timing the host's enqueue beside the card's finish;
- 6. periodic training, end to end (its own main path: launch counts are
-    zeroed just before `periodic_training` and read just after): phase 5's
-    model widths and corpus cut (freed and made anew, seed 3), with the
-    index codec of `configs/msmarco_pq_realm.yaml` exactly (`PERIODIC_DENSE`:
-    4-bit PQ-128, exhaustive ADC, int8 refine over 128 PCA dims, k_factor 32,
-    train_size 1,000,000), 2 periods of 3 optimizer steps: each period
-    re-embeds the 2^20 sections and rebuilds the index. Printed per period:
+ 6. periodic training with `configs/msmarco_pq_realm.yaml` as a whole, end
+    to end (its own main path: launch counts are zeroed just before
+    `periodic_training` and read just after): phase 5's model widths and
+    corpus cut (freed and made anew, seed 3), the yaml's dense codec exactly
+    (`PERIODIC_DENSE`: 4-bit PQ-128, exhaustive ADC, int8 refine over 128 PCA
+    dims, k_factor 32, train_size 1,000,000), its sparse engine
+    (`PERIODIC_SPARSE`: BM25, max_postings 4096, k1 1.2, b 0.75) and its
+    weight schedules (`PERIODIC_PARAMETERS`: dense linear from 0.0 over
+    20,000 steps, sparse constant 1.0, through `TrainerState.parameters`),
+    2 periods of 3 optimizer steps: each period re-embeds the 2^20 sections
+    and rebuilds the PQ index; the BM25 index is built once before the
+    first period and searched in every one. The text is synthetic, from the
+    seed (`TEXT`: a Zipf vocabulary of 100,000 words, sections of 40-80
+    words, queries of 4-8 words of their first gold section and 0-2 random
+    ones), analyzed by the port's native analyzer as the JAX CLI does
+    (vocabulary 2^18, 512 terms a section, 32 a query); the sections' token
+    ids stay random. Printed: the analyzer's texts/s for sections and
+    queries, the postings build and upload ms, width and bytes; per period
     re-embed ms and sections/s, build ms by stage, index bytes, ms per
-    optimizer step; then peak memory. Checked: finite losses; period 1's
+    optimizer step; then peak memory. Checked: `native_available()`; finite
+    losses; the logged weights (dense < 1e-3, sparse 1.0); period 1's
     embeddings differ from period 0's, and so do the codes; `[N, 64]` uint8
     codes and `[N, 128]` int8 refine rows; no kernel launch (the
-    exhaustive-ADC codec runs none, in JAX either); a direct `pq_search` of
-    one collated batch's query vectors returns the ids and scores the
-    collate retrieved; recall@10 of the last index against an exact f32
-    scan of the same embeddings on 256 held-out queries, above
-    `PERIODIC["recall_floor"]`. Then the PQ coarse route (its own main path:
-    counts zeroed before, read after) on the last period's embeddings: the
-    `pq` preset (OPQ, 32 subquantizers, coarse_dim 64) and the factory
-    default (coarse_dim 32), both `kernel: fused` at 512 bins, searched at
-    B = 32 and 64. Checked: 4 launches, all `wgmma`; each kernel call (int8,
-    D = 32 and 64, k = bins) equal in every cell to its plain version; then
-    timed beside the plain version, `torch.topk(torch._int_mm(q, Vᵀ), k)`
-    and the bound, and split into the host's time to enqueue a call and the
-    device time of its kernels (`torch.profiler`);
+    exhaustive-ADC codec runs none, in JAX either); the collate's in-loop
+    `pq_search` and `sparse_search` against direct calls of the same
+    queries, and one collated batch's `section__sparse` / `section__dense`
+    against direct searches, normalized; recall@10 of each period's index
+    (period 0's taken at its period's start, from the untrained encoder)
+    against an exact f32 scan on 256 held-out queries, above
+    `PERIODIC["recall_floor"]`; the share of those queries whose first gold
+    id is in BM25's top 100, above `PERIODIC["bm25_recall_floor"]`;
+    `sparse_search` on the card against the same call on CPU copies for 64
+    queries (scores within `sparse_tol`, ids equal outside that band), then
+    timed at B = 32 and 64 (CUDA events, and the host/device split); one
+    more hybrid optimizer step with every synchronizing call made an error;
+    a `SearchServer` over the last period's engines (PQ + BM25 + lookup, the
+    yaml's weights) answering 64 held-out requests (vectors, terms, gold
+    ids) at one client and at 32: every answer equal to a direct
+    `hybrid_search` of the request within `serve_tol`, gold ids with label
+    1, p50 and p95. Then the PQ coarse route (its own main path: counts
+    zeroed before, read after) on the last period's embeddings: the `pq`
+    preset (OPQ, 32 subquantizers, coarse_dim 64) and the factory default
+    (coarse_dim 32), both `kernel: fused` at 512 bins, searched at B = 32
+    and 64. Checked: 4 launches, all `wgmma`; each kernel call (int8, D = 32
+    and 64, k = bins) equal in every cell to its plain version; then timed
+    beside the plain version, `torch.topk(torch._int_mm(q, Vᵀ), k)` and the
+    bound, and split into the host's time to enqueue a call and the device
+    time of its kernels (`torch.profiler`);
  7. the `kernels` JSON line, the card line, and the last line
     `{"ok": true, "device": {...}}`.
 """
@@ -163,6 +187,21 @@ PERIODIC_DENSE = dict(
     codec="pq", n_subquantizers=128, code_bits=4, coarse_dim=None, refine="int8", refine_dim=128, k_factor=32,
     train_size=1_000_000,
 )
+# The yaml's `search_defaults.sparse` and `trainer.parameters` (the dense
+# weight ramps from 0.0 over 20,000 steps, so phase 6 runs at dense ~0).
+# Phase 6's text, all from the seed (no download): a vocabulary of 100,000
+# distinct lowercase words of 3-10 letters, drawn by rank from a Zipf law of
+# exponent 1.0; sections of 40-80 words (MS MARCO passages average about 56);
+# queries of 4-8 words of their first gold section and 0-2 random words (MS
+# MARCO queries average about 6). Analyzed as vod_tpu/exps/cli.py does:
+# vocabulary 2^18, 512 terms a section and 32 a query, no language, no stem.
+# The sections' token ids stay random: no tokenizer exists offline.
+TEXT = dict(words=100_000, zipf=1.0, section_words=(40, 80), gold_words=(4, 8), random_words=(0, 2),
+            vocab_size=1 << 18, section_terms=512, query_terms=32)
+PERIODIC_SPARSE = dict(max_postings=4096)
+PERIODIC_PARAMETERS = dict(
+    dense=dict(mode="linear", start=0.0, value=1.0, period=20000), sparse=dict(mode="constant", value=1.0),
+)
 PERIODIC = dict(
     TRAIN, periods=2, steps=3, held_out=256, dense=PERIODIC_DENSE, coarse_batches=(32, 64),
     coarse={
@@ -170,13 +209,29 @@ PERIODIC = dict(
                           kernel="fused", fused_bins=512),
         "factory-default": dict(codec="pq", kernel="fused", fused_bins=512),
     },
-    # Recall@10 floor of the last period's index against exact f32 search of
-    # the same embeddings. With random weights the embeddings are nearly
-    # isotropic around their mean, which 4-bit PQ in 3-dim subspaces and an
-    # int8 refine over 128 of 384 PCA dims serve poorly: 0.2328 on the first
-    # card run (256 queries, 2,560 pairs; a binomial spread of ~0.008). A
-    # broken codec, scan or re-rank gives ~0 (10 random ids of 2^20).
-    recall_floor=0.15,
+    # Recall@10 floor of each period's index against exact f32 search of the
+    # same embeddings. The random-weight encoder's embeddings lie almost on
+    # one direction (mean cosine 0.994 to their mean), which 4-bit PQ in
+    # 3-dim subspaces and an int8 refine over 128 of 384 PCA dims resolve
+    # poorly: 0.1070 (period 0, the untrained encoder) and 0.1039 (period 1,
+    # after three steps at the yaml's weights, dense ~0) on an H100 80GB HBM3
+    # at 700 W (256 queries, 2,560 pairs; a binomial spread of ~0.006). Three steps at dense weight 1.0 gave 0.21-0.25 at period 1.
+    # A broken codec, scan or re-rank gives ~0 (10 random ids of 2^20).
+    recall_floor=0.05,
+    text=TEXT, sparse=PERIODIC_SPARSE, parameters=PERIODIC_PARAMETERS, sparse_batches=(32, 64), serve=64,
+    # BM25 scores on the card and on the CPU, and two calls on the card: a
+    # doc's <= 32 contributions are summed by `scatter_add_` atomics in an
+    # order that changes from run to run, a few ulps (3.8e-6 each below 64)
+    sparse_tol=1e-5,
+    # served vs direct hybrid answers: as sparse_tol, plus the PQ scan's
+    # products at another batch size (weighted by the dense weight, < 1e-3)
+    serve_tol=1e-4,
+    # the share of held-out queries whose first gold id is in BM25's top 100:
+    # 0.7812 on an H100 80GB HBM3 at 700 W (256 queries; a binomial spread
+    # of ~0.026). Queries of mostly common words, and common words' postings
+    # cut to the 4,096 highest impacts, lose the rest; a broken analyzer,
+    # build or scorer finds ~100 / 2^20 of them
+    bm25_recall_floor=0.7,
 )
 
 
@@ -510,23 +565,167 @@ def profile_step(step_fn, engines, corpus, micro_batches, generator) -> dict:
                 top_kernels_ms={k: round(v, 4) for k, v in top})
 
 
-def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dict:
-    """Phase 6: periodic training over the PQ codec at the sizes in `t`
-    (module constant PERIODIC), then the PQ coarse route (the `pq` preset and
-    the factory default, both `kernel: fused`) on period 1's embeddings.
-    Returns the coarse route's kernel calls and launches, and the periodic
-    run's numbers."""
+class SyntheticText:
+    """Phase 6's seeded text (module constant TEXT): every section's words as
+    rank ids into a vocabulary of distinct lowercase words, drawn from a Zipf
+    law, and the section texts cut from one numpy byte buffer (each word
+    padded with spaces to WIDTH bytes, so a section is one slice)."""
+
+    WIDTH = 11  # 10 letters and a space
+
+    def __init__(self, n: int, t: dict, seed: int):
+        import numpy as np
+
+        self.t, self.rng = t, np.random.default_rng(seed)
+        words: list[str] = []
+        seen: set[str] = set()
+        while len(words) < t["words"]:
+            lens = self.rng.integers(3, 11, t["words"])
+            letters = self.rng.integers(ord("a"), ord("z") + 1, (t["words"], 10), dtype=np.uint8)
+            for length, row in zip(lens.tolist(), letters):
+                w = row[:length].tobytes().decode()
+                if w not in seen and len(words) < t["words"]:
+                    seen.add(w)
+                    words.append(w)
+        self.words = words
+        table = np.full((len(words), self.WIDTH), ord(" "), np.uint8)
+        for i, w in enumerate(words):
+            table[i, : len(w)] = np.frombuffer(w.encode(), np.uint8)
+        p = 1.0 / np.arange(1, len(words) + 1) ** t["zipf"]
+        self.cdf = np.cumsum(p) / p.sum()
+        lo, hi = t["section_words"]
+        self.offsets = np.concatenate([[0], np.cumsum(self.rng.integers(lo, hi + 1, n))])
+        self.ids = self.draw(int(self.offsets[-1]))
+        self.buf = table[self.ids].tobytes().decode("ascii")
+
+    def draw(self, size: int):
+        """`size` word ranks from the Zipf law."""
+        import numpy as np
+
+        return np.minimum(np.searchsorted(self.cdf, self.rng.random(size), side="right"), len(self.words) - 1)
+
+    def sections(self) -> list[str]:
+        w, off = self.WIDTH, self.offsets.tolist()
+        return [self.buf[w * a : w * b] for a, b in zip(off[:-1], off[1:])]
+
+    def query(self, gold: int) -> str:
+        """4-8 words of section `gold` (distinct positions) and 0-2 random words."""
+        import numpy as np
+
+        (lo, hi), (rlo, rhi) = self.t["gold_words"], self.t["random_words"]
+        own = self.ids[self.offsets[gold] : self.offsets[gold + 1]]
+        picked = self.rng.choice(own, size=int(self.rng.integers(lo, hi + 1)), replace=False)
+        extra = self.draw(int(self.rng.integers(rlo, rhi + 1)))
+        return " ".join(self.words[i] for i in np.concatenate([picked, extra]).tolist())
+
+
+def check_sparse_close(label: str, got, want, tol: float) -> tuple[float, int]:
+    """Two BM25 results of the same queries: the same empty slots, scores
+    within `tol`, and ids equal wherever the score margin to both neighbours
+    exceeds it (inside that band the atomics' sum order may swap two ids).
+    Returns (max score error, ids that differ inside the band)."""
     import torch
 
-    from vod_tpu_torch.configs import DenseFactoryConfig
+    gs, gi, ws, wi = got.scores.cpu(), got.indices.cpu(), want.scores.cpu(), want.indices.cpu()
+    finite = torch.isfinite(ws)
+    check(torch.equal(torch.isfinite(gs), finite), f"{label}: empty slots differ")
+    err = (gs[finite] - ws[finite]).abs().max().item() if finite.any() else 0.0
+    check(err <= tol, f"{label}: max score error {err:.3g} > {tol:.3g}")
+    inf = torch.full((ws.shape[0], 1), float("inf"))
+    after = torch.cat([ws[:, :-1] - ws[:, 1:], inf], dim=-1)
+    before = torch.cat([inf, after[:, :-1]], dim=-1)
+    clear = (torch.minimum(after, before) > tol) & finite
+    check(torch.equal(gi[clear], wi[clear]) and torch.equal(gi[~finite], wi[~finite]), f"{label}: ids differ")
+    return err, int((gi != wi).sum())
+
+
+def check_collated(label: str, idx, raw, direct, tol: float) -> None:
+    """One collated batch's raw engine scores (`section__<engine>`) against a
+    direct search of the same queries at the prefetch width, normalized: a
+    sampled id the search returned carries its score within `tol`, any other
+    id NaN; only an id within `tol` of the row's last score may sit on
+    either side of the cut."""
+    import torch
+
+    from vod_tpu_torch.ops.numpy_ops import normalize_scores
+
+    ids, s, idx, raw = direct.indices.cpu(), normalize_scores(direct.scores).cpu(), idx.cpu(), raw.cpu()
+    for r in range(idx.shape[0]):
+        pos = {i: c for c, i in enumerate(ids[r].tolist()) if i >= 0}
+        last = float(s[r][torch.isfinite(s[r])].min())
+        for c, sid in enumerate(idx[r].tolist()):
+            v = float(raw[r, c])
+            want = float(s[r, pos[sid]]) if sid in pos else math.nan
+            if sid in pos and not math.isnan(v):
+                check(abs(v - want) <= tol, f"{label}: row {r} id {sid}: {v} != {want}")
+            elif sid in pos:
+                check(want - last <= tol, f"{label}: row {r} id {sid} retrieved, but NaN in the batch")
+            else:
+                check(math.isnan(v) or v - last <= tol, f"{label}: row {r} id {sid} not retrieved, but {v} in the batch")
+
+
+def post_all(client, payloads: list, workers: int, top_k: int = TOP_K) -> tuple[list, list]:
+    """Send every payload through `client` from `workers` threads; returns
+    (answers in order, each request's latency in seconds)."""
+    lat = []
+
+    def one(p):
+        t = time.perf_counter()
+        out = client.search(top_k=top_k, **p)
+        lat.append(time.perf_counter() - t)
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        outs = list(ex.map(one, payloads))
+    return outs, lat
+
+
+def index_recall(index, vectors, queries) -> tuple[float, float]:
+    """Recall@10 of `pq_search` on `index` against an exact f32 scan of the
+    `vectors` it was built from, and the mean cosine of those vectors to
+    their mean direction (how far they are from isotropic)."""
+    import torch
+
+    from vod_tpu_torch.search import SearchQueries, pq_search
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exact = torch.cat([torch.topk(qs @ vectors.T, 10, dim=-1).indices for qs in queries.split(64)]).cpu()
+    got = pq_search(index, SearchQueries(vector=queries), 10).indices.cpu()
+    hits = sum(len(set(a.tolist()) & set(e.tolist())) for a, e in zip(got, exact))
+    mean_dir = torch.nn.functional.normalize(vectors.mean(0), dim=0)
+    spread = (torch.nn.functional.normalize(vectors, dim=-1) @ mean_dir).mean().item()
+    return hits / exact.numel(), spread
+
+
+def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dict:
+    """Phase 6: periodic training with the configuration of
+    `configs/msmarco_pq_realm.yaml` as a whole at the sizes in `t` (module
+    constant PERIODIC): the PQ codec rebuilt every period, the BM25 engine
+    built once before the first period from the synthetic text, the engine
+    weights from the yaml's schedules; then the BM25 checks and timings, a
+    `SearchServer` over the last period's engines, and the PQ coarse route
+    (the `pq` preset and the factory default, both `kernel: fused`) on
+    period 1's embeddings. Returns the coarse route's kernel calls and
+    launches, and the periodic run's numbers."""
+    import dataclasses
+
+    import torch
+
+    from vod_tpu_torch.configs import DenseFactoryConfig, SparseFactoryConfig
     from vod_tpu_torch.exps import PeriodicTrainingConfig, periodic_training, recipes
+    from vod_tpu_torch.native import analyze_texts, native_available
     from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
     from vod_tpu_torch.runtime import ParameterSchedule, TrainerState, adamw, make_train_step
-    from vod_tpu_torch.search import SearchQueries, build_dense_from_config, dense as dense_module
+    from vod_tpu_torch.runtime.callbacks import Callback
+    from vod_tpu_torch.search import (
+        HybridEngines, SearchQueries, SparseIndex, build_dense_from_config, build_sparse_from_config,
+        dense as dense_module, hybrid_search, pq_search, sparse_search,
+    )
     from vod_tpu_torch.search import hybrid as hybrid_module
-    from vod_tpu_torch.search import pq_search
+    from vod_tpu_torch.serving import SearchHttpClient, SearchServer
 
-    n, b, periods, steps = t["n"], t["b"], t["periods"], t["steps"]
+    n, b, periods, steps, tx = t["n"], t["b"], t["periods"], t["steps"], t["text"]
+    check(native_available(), "the port's analyzer did not build with g++: the BM25 build would run the Python loops")
     t0 = time.perf_counter()
     model, corpus, query_batch, g = realm_setup(dev, t, seed=3)
     batches = [[query_batch() for _ in range(steps * t["accum"])] for _ in range(periods)]
@@ -535,14 +734,64 @@ def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dic
     log(f"periodic setup: Realm {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params; corpus {n} x "
         f"{t['ls']} tokens in {time.perf_counter() - t0:.2f} s")
 
+    # the text: sections analyzed as the CLI does, then every query from its first gold section
+    t0 = time.perf_counter()
+    text = SyntheticText(n, tx, seed=4)
+    texts = text.sections()
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sec_terms, sec_counts = analyze_texts(texts, vocab_size=tx["vocab_size"], max_terms=tx["section_terms"])
+    sec_analyze_s = time.perf_counter() - t0
+    del texts
+    every = [qb for per in batches for qb in per] + held_out
+    q_texts = [text.query(gold) for gold in torch.cat([qb.section_ids[:, 0] for qb in every]).tolist()]
+    t0 = time.perf_counter()
+    q_terms, q_counts = analyze_texts(q_texts, vocab_size=tx["vocab_size"], max_terms=tx["query_terms"])
+    q_analyze_s = time.perf_counter() - t0
+    q_terms = torch.from_numpy(q_terms).to(dev).split([qb.input_ids.shape[0] for qb in every])
+    with_terms = iter([dataclasses.replace(qb, terms=terms) for qb, terms in zip(every, q_terms)])
+    batches = [[next(with_terms) for _ in per] for per in batches]
+    held_out = list(with_terms)
+    analyzer = dict(
+        text_s=text_s, sections=n, section_words=int(text.offsets[-1]), section_analyze_s=sec_analyze_s,
+        sections_per_s=n / sec_analyze_s, section_terms_mean=float(sec_counts.mean()), queries=len(q_texts),
+        query_analyze_s=q_analyze_s, queries_per_s=len(q_texts) / q_analyze_s, query_terms_mean=float(q_counts.mean()),
+    )
+    del text, q_texts
+    log(f"periodic text: {n} sections of {analyzer['section_words'] / n:.2f} words and {len(every) * b} queries "
+        f"made in {text_s:.2f} s; analyzed [{card} host]: sections {sec_analyze_s:.4f} s = "
+        f"{analyzer['sections_per_s']:.4f} texts/s ({analyzer['section_terms_mean']:.2f} terms each), queries "
+        f"{q_analyze_s:.4f} s = {analyzer['queries_per_s']:.4f} texts/s "
+        f"({analyzer['query_terms_mean']:.2f} terms each)")
+
+    # the BM25 index, built once before the first period, as the JAX CLI passes it in
+    sparse_cfg = SparseFactoryConfig() + t["sparse"]
+    sparse_build: dict[str, float] = {}
+    t0 = time.perf_counter()
+    doc_terms = [sec_terms[i, :c].tolist() for i, c in enumerate(sec_counts.tolist())]  # as the JAX CLI passes them
+    del sec_terms, sec_counts
+    sparse_build["lists_ms"] = (time.perf_counter() - t0) * 1e3
+    sparse_ix = build_sparse_from_config(sparse_cfg, doc_terms, n_terms=tx["vocab_size"], device=dev,
+                                         timings=sparse_build)
+    sparse_build["total_ms"] = (time.perf_counter() - t0) * 1e3
+    del doc_terms
+    gc.collect()
+    width = int(sparse_ix.postings_docs.shape[1])
+    postings_bytes = sum(x.numel() * x.element_size() for x in (sparse_ix.postings_docs, sparse_ix.postings_impacts))
+    check(isinstance(sparse_ix, SparseIndex) and sparse_ix.postings_docs.shape == (tx["vocab_size"], width)
+          and width <= sparse_cfg.max_postings, f"postings {tuple(sparse_ix.postings_docs.shape)}")
+    log(f"periodic BM25 index [{card}]: postings {tx['vocab_size']} x {width} (max_postings "
+        f"{sparse_cfg.max_postings}), {postings_bytes} bytes on the card; build "
+        f"{json.dumps({k: round(v, 4) for k, v in sparse_build.items()})} ms")
+
     # what the run builds and retrieves, recorded for the checks after it
-    builds, collate_calls = [], []
+    builds, collate_calls, sparse_calls, sparse_periods = [], [], [], []
     real_build, real_search = recipes.build_dense_from_config, hybrid_module.pq_search
+    real_sparse = hybrid_module.sparse_search
 
     def recording_build(cfg, vectors, **kw):
         index = real_build(cfg, vectors, **kw)
-        # period 0: a row sample (to see the encoder move); the last period: all rows
-        builds.append((vectors if len(builds) == periods - 1 else vectors[:4096].clone(), index))
+        builds.append((vectors, index))  # period 0's rows are cut to a sample once its recall is taken
         return index
 
     def recording_search(index, queries, top_k, **kw):
@@ -551,14 +800,37 @@ def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dic
             collate_calls.append((index, queries.vector.clone(), top_k, out.indices.clone(), out.scores.clone()))
         return out
 
+    def recording_sparse(index, queries, top_k):
+        out = real_sparse(index, queries, top_k)
+        sparse_periods.append(len(builds) - 1)
+        if len(builds) == periods and not sparse_calls:
+            sparse_calls.append((queries.terms.clone(), top_k, out))
+        return out
+
     recipes.build_dense_from_config, hybrid_module.pq_search = recording_build, recording_search
+    hybrid_module.sparse_search = recording_sparse
     optimizer = adamw(model, t["lr"], weight_decay=0.0)
     step_fn = make_train_step(
         model, optimizer, prefetch=t["prefetch"], n_sections=t["n_sections"], max_pos_sections=t["max_pos"],
         temperature=1.0, with_lm=True, gradient_clip_val=1.0, accumulate_grad_batches=t["accum"],
     )
     recorder = step_recorder()
-    state = TrainerState(max_steps=periods * steps, period=steps, parameters={"dense": ParameterSchedule(value=1.0)})
+    recalls: dict[int, tuple[float, float]] = {}
+
+    class FirstIndexRecall(Callback):
+        """At the first period's start (after its build, before its steps):
+        recall@10 of the period-0 index, from the untrained encoder, against
+        an exact scan of its embeddings; then only a row sample is kept."""
+
+        def on_fit_start(self, *, model, state, **kw):
+            if state.pidx == 0 and 0 not in recalls:
+                with torch.no_grad():
+                    q0 = torch.cat([model.encode_field(qb.input_ids, qb.attention_mask) for qb in held_out])
+                recalls[0] = index_recall(builds[0][1], builds[0][0], q0[: t["held_out"]])
+                builds[0] = (builds[0][0][:4096].clone(), builds[0][1])
+
+    schedules = {name: ParameterSchedule(**kw) for name, kw in t["parameters"].items()}
+    state = TrainerState(max_steps=periods * steps, period=steps, parameters=schedules)
     config = PeriodicTrainingConfig(dense=DenseFactoryConfig(**t["dense"]), log_interval=steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -568,10 +840,11 @@ def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dic
     try:
         state, history = periodic_training(
             step_fn=step_fn, corpus=corpus, state=state, train_queries_fn=lambda p: batches[p], generator=g,
-            config=config, callbacks=[recorder],
+            sparse_engine=sparse_ix, config=config, callbacks=[recorder, FirstIndexRecall()],
         )
     finally:
         recipes.build_dense_from_config, hybrid_module.pq_search = real_build, real_search
+        hybrid_module.sparse_search = real_sparse
     torch.cuda.synchronize()
     periodic_launches = dict(fused_mips_binned.body_launches)  # main path ends
     wall = time.perf_counter() - t_main
@@ -581,9 +854,14 @@ def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dic
           f"periodic run: {state.step} steps, {len(history)} periods, {len(builds)} builds")
     losses = [float(m["loss"]) for m in recorder.metrics]
     check(len(losses) == periods * steps and all(math.isfinite(x) for x in losses), f"periodic losses {losses}")
+    logged = {k: v for k, v in history[-1]["train"].items() if k.startswith("parameters/")}
+    check(logged.get("parameters/dense", 1.0) < 1e-3 and logged.get("parameters/sparse") == 1.0,
+          f"the yaml's schedules were not followed: {logged}")
     step_ms = [s.elapsed_time(e) for s, e in recorder.events]
     # the codec of this path (exhaustive ADC) runs no Pallas kernel in JAX and no CUDA kernel here
     check(periodic_launches == {"wgmma": 0, "fma": 0}, f"the exhaustive-ADC path launched {periodic_launches}")
+    check(sparse_periods == sorted(list(range(periods)) * (steps * t["accum"])),
+          f"the BM25 index was not searched once a micro-batch in every period: {sparse_periods}")
     (emb0, index0), (emb1, index1) = builds[0], builds[-1]
     check(float((emb1[: len(emb0)] - emb0).abs().max()) > 1e-4, "period 1's embeddings equal period 0's")
     n_pad = -(-n // 8192) * 8192 if n > 131072 else -(-n // 128) * 128
@@ -595,36 +873,140 @@ def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dic
         check(ix.coarse_codes is None and ix.kernel == "scan", "the periodic index is not the exhaustive-ADC codec")
     check(not torch.equal(index0.codes, index1.codes), "period 1's codes equal period 0's")
     for p, h in enumerate(history):
-        emb_ms = h["reembed_s"] * 1e3
+        emb_ms, period_steps = h["reembed_s"] * 1e3, [round(x, 4) for x in step_ms[p * steps:(p + 1) * steps]]
         log(f"periodic period {p} [{card}]: re-embed {emb_ms:.4f} ms ({n / h['reembed_s']:.4f} sections/s); build "
             f"{json.dumps({k: round(v, 4) for k, v in h['build_ms'].items()})} ms; index {h['index_bytes']} bytes; "
-            f"ms per optimizer step {json.dumps([round(x, 4) for x in step_ms[p * steps:(p + 1) * steps]])}; "
-            f"loss {h['train'].get('loss', float('nan')):.6f}")
+            f"ms per optimizer step (dense + BM25) {json.dumps(period_steps)}; loss "
+            f"{h['train'].get('loss', float('nan')):.6f}; weights {json.dumps(logged if p == periods - 1 else None)}")
     log(f"periodic run: {periods} periods of {steps} optimizer steps in {wall:.2f} s; peak memory "
         f"{peak_mem / 2**30:.4f} GiB; fused_mips_binned launches {periodic_launches}")
 
-    # the collate's retrieval against a direct pq_search of the same query vectors
+    # the collate's retrievals against direct searches of the same queries
     ix, qv, top_k, ids, scores = collate_calls[0]
     direct = pq_search(ix, SearchQueries(vector=qv), top_k)
     check(torch.equal(direct.indices, ids), "a direct pq_search does not return the ids the collate retrieved")
     check(torch.equal(direct.scores, scores), "a direct pq_search does not return the collate's scores")
+    terms, top_k, in_loop = sparse_calls[0]
+    sparse_tol = t["sparse_tol"]
+    direct_sparse = sparse_search(sparse_ix, SearchQueries(terms=terms), top_k)
+    check_sparse_close("the collate's sparse_search vs a direct one", direct_sparse, in_loop, sparse_tol)
+    engines = HybridEngines(dense=index1, sparse=sparse_ix)
+    weights = state.get_parameters()
+    qb = held_out[0]
+    batch = step_fn.collate(engines, corpus, qb, g, weights)
+    with torch.no_grad():
+        qv = model.encode_field(qb.input_ids, qb.attention_mask)
+    check_collated("section__sparse", batch.section__idx, batch.section__sparse,
+                   sparse_search(sparse_ix, SearchQueries(terms=qb.terms), t["prefetch"]), sparse_tol)
+    check_collated("section__dense", batch.section__idx, batch.section__dense,
+                   pq_search(index1, SearchQueries(vector=qv), t["prefetch"]), sparse_tol)
+    check(bool(torch.isfinite(batch.section__sparse).any()), "no sampled section carries a BM25 score")
+    del batch
+    log("periodic collate: the in-loop pq_search and sparse_search equal direct calls; one collated batch's "
+        "section__sparse and section__dense equal direct searches, normalized")
 
-    # recall@10 of the last period's index against an exact f32 scan of the same embeddings
+    # recall@10 of each period's index against an exact f32 scan of the same embeddings
     with torch.no_grad():
         q_held = torch.cat([model.encode_field(qb.input_ids, qb.attention_mask) for qb in held_out])[: t["held_out"]]
-    torch.backends.cuda.matmul.allow_tf32 = False
+    recalls[periods - 1] = index_recall(index1, emb1, q_held)
     exact = torch.cat([torch.topk(qs @ emb1.T, 10, dim=-1).indices for qs in q_held.split(64)])
-    got = pq_search(index1, SearchQueries(vector=q_held), 10).indices
 
     def recall(ids_) -> float:
         ref = exact[: len(ids_)].cpu()
         return sum(len(set(a.tolist()) & set(e.tolist())) for a, e in zip(ids_.cpu(), ref)) / ref.numel()
 
-    recall10 = recall(got)
-    log(f"periodic recall@10 of period {periods - 1}'s index vs exact f32 search, {len(q_held)} held-out queries: "
-        f"{recall10:.4f} (floor {t['recall_floor']})")
-    check(recall10 >= t["recall_floor"], f"periodic recall@10 {recall10:.4f} < floor {t['recall_floor']}")
-    del builds, index0, emb0, collate_calls, ix, direct, optimizer, step_fn, model, corpus, batches
+    (recall0, spread0), (recall10, spread1) = recalls[0], recalls[periods - 1]
+    log(f"periodic recall@10 vs exact f32 search, {len(q_held)} held-out queries (floor {t['recall_floor']}): "
+        f"period 0's index (untrained encoder) {recall0:.4f}, period {periods - 1}'s {recall10:.4f}; mean cosine "
+        f"of the embeddings to their mean direction {spread0:.4f} and {spread1:.4f}")
+    for p, r in recalls.items():
+        check(r[0] >= t["recall_floor"], f"period {p}'s recall@10 {r[0]:.4f} < floor {t['recall_floor']}")
+
+    # BM25 alone: recall of the first gold id, the card against the CPU, times
+    held_terms = torch.cat([qb.terms for qb in held_out])[: t["held_out"]]
+    held_gold = torch.cat([qb.section_ids for qb in held_out])[: t["held_out"]]
+    top100 = sparse_search(sparse_ix, SearchQueries(terms=held_terms), 100).indices
+    bm25_recall = (top100 == held_gold[:, :1]).any(-1).float().mean().item()
+    log(f"periodic BM25 recall: the first gold id in BM25's top 100 for {bm25_recall:.4f} of {len(held_terms)} "
+        f"held-out queries (floor {t['bm25_recall_floor']})")
+    check(bm25_recall >= t["bm25_recall_floor"], f"BM25 recall@100 {bm25_recall:.4f} < floor {t['bm25_recall_floor']}")
+    cpu_ix = SparseIndex(sparse_ix.postings_docs.cpu(), sparse_ix.postings_impacts.cpu(), n_docs=sparse_ix.n_docs)
+    q64 = held_terms[:64]
+    sparse_err, sparse_swaps = check_sparse_close(
+        "sparse_search card vs CPU", sparse_search(sparse_ix, SearchQueries(terms=q64), 100),
+        sparse_search(cpu_ix, SearchQueries(terms=q64.cpu()), 100), sparse_tol,
+    )
+    del cpu_ix
+    gc.collect()
+    log(f"check sparse_search card vs CPU, 64 queries, k=100: max |card - CPU| = {sparse_err:.3g} (tol {sparse_tol}), "
+        f"{sparse_swaps} ids swapped inside the band")
+    sparse_times = {}
+    for bq in t["sparse_batches"]:
+        sq = SearchQueries(terms=held_terms[:bq])
+        ms = time_ms(lambda: sparse_search(sparse_ix, sq, t["prefetch"]), 20)
+        host_ms, device_ms, by_kernel = host_and_device_ms(lambda: sparse_search(sparse_ix, sq, t["prefetch"]), 20)
+        top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5])
+        sparse_times[bq] = dict(ms=ms, host_ms=host_ms, device_ms=device_ms, top_kernels_ms=top)
+        log(f"time sparse_search B={bq} L={tx['query_terms']} P={width} k={t['prefetch']} [{card}]: {ms:.4f} ms "
+            f"(CUDA events); host enqueue {host_ms:.4f} ms, device {device_ms:.4f} ms (profiler); top kernels "
+            f"{json.dumps({k: round(v, 4) for k, v in top.items()})}")
+
+    # one more hybrid optimizer step, with any synchronizing call made an error
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        step_fn.train_step_accum(engines, corpus, batches[-1][: t["accum"]], g, weights)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as exc:
+        fail(f"the hybrid train step waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    log(f"hybrid train step without a sync [{card}]: the host enqueued one optimizer step (PQ + BM25) in "
+        f"{enqueue_ms:.4f} ms; the card finished it {finish_ms:.4f} ms after the start")
+
+    # a SearchServer over the last period's engines: held-out vectors, terms and gold lookups
+    n_req = t["serve"]
+    vec, terms_np, gold_np = (x[:n_req].cpu().numpy() for x in (q_held, held_terms, held_gold))
+    payloads = [{"vector": vec[i : i + 1], "terms": terms_np[i : i + 1], "section_ids": gold_np[i : i + 1]}
+                for i in range(n_req)]
+    direct = []
+    for i in range(n_req):
+        sq = SearchQueries(vector=q_held[i : i + 1], terms=held_terms[i : i + 1], section_ids=held_gold[i : i + 1])
+        m, _ = hybrid_search(engines, sq, TOP_K, weights)
+        direct.append(m)
+    serve_err = 0.0
+    with SearchServer(engines, weights=weights, batch_window_ms=2, max_batch=64, device=dev) as srv:
+        srv.warmup(payloads[0], top_k=TOP_K)
+        client = SearchHttpClient(srv.url)
+        one, lat1 = post_all(client, payloads, 1)
+        many, lat32 = post_all(client, payloads * 5, 32)
+    for i, out in enumerate(one + many):
+        want = direct[i % n_req]
+        err, _ = check_sparse_close(f"served request {i % n_req}", want.replace(
+            scores=torch.from_numpy(out.scores), indices=torch.from_numpy(out.indices)), want, t["serve_tol"])
+        serve_err = max(serve_err, err)
+        row = out.indices[0].tolist()
+        for gid in gold_np[i % n_req]:
+            check(gid in row and out.labels[0][row.index(gid)] == 1, f"served request {i % n_req}: gold id {gid} lost")
+    serving = dict(
+        requests=n_req, max_abs_err=serve_err,
+        one_client_ms=dict(n=len(lat1), p50=statistics.median(lat1) * 1e3, p95=percentile(lat1, 95) * 1e3),
+        clients_32_ms=dict(n=len(lat32), p50=statistics.median(lat32) * 1e3, p95=percentile(lat32, 95) * 1e3),
+    )
+    log(f"serve PQ + BM25 + lookup [{card}]: every answer equals a direct hybrid_search (max score diff "
+        f"{serve_err:.3g}, tol {t['serve_tol']}); gold ids with label 1; latency {json.dumps(serving)}")
+    sparse = dict(
+        analyzer=analyzer, build_ms=sparse_build, postings_width=width, postings_bytes=postings_bytes,
+        bm25_recall_at_100=bm25_recall, card_vs_cpu_max_abs_err=sparse_err, card_vs_cpu_swaps=sparse_swaps,
+        search=sparse_times, step_ms_median=statistics.median(step_ms), weights=logged,
+        no_sync_step=dict(enqueue_ms=enqueue_ms, finish_ms=finish_ms), serving=serving,
+    )
+    log(f"periodic sparse summary [{card}]: {json.dumps(sparse)}")
+    del builds, index0, emb0, collate_calls, sparse_calls, ix, direct, optimizer, step_fn, model, corpus, batches
+    del engines, sparse_ix, in_loop, direct_sparse
     torch.cuda.empty_cache()
 
     # the PQ coarse route: both coarse configs on the last period's embeddings
@@ -695,7 +1077,8 @@ def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dic
             periods=[dict(reembed_ms=h["reembed_s"] * 1e3, sections_per_s=n / h["reembed_s"], build_ms=h["build_ms"],
                           index_bytes=h["index_bytes"], period_s=h["period_s"]) for h in history],
             step_ms=step_ms, losses=losses, peak_mem_bytes=peak_mem, recall_at_10=recall10,
-            launches=periodic_launches,
+            recall_at_10_period_0=recall0, mean_cosine_to_mean=[spread0, spread1],
+            launches=periodic_launches, sparse=sparse,
         ),
     )
 
@@ -971,19 +1354,6 @@ def main() -> None:
     for name, ix in (("flat", flat), ("int8", int8)):
         out = dense_search(ix, SearchQueries(vector=held), top_k=TOP_K)
         direct[name] = (out.indices.cpu().numpy(), out.scores.cpu().numpy())
-
-    def post_all(client, payloads, workers):
-        lat = []
-
-        def one(p):
-            t = time.perf_counter()
-            out = client.search(top_k=TOP_K, **p)
-            lat.append(time.perf_counter() - t)
-            return out
-
-        with concurrent.futures.ThreadPoolExecutor(workers) as ex:
-            outs = list(ex.map(one, payloads))
-        return outs, lat
 
     fused_mips_binned.launches = 0
     fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts

@@ -338,3 +338,50 @@ def test_pq_coarse_search_on_card_matches_cpu(cuda_device, coarse_dim: int) -> N
     assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 1
     assert torch.equal(got.indices.cpu(), want.indices)
     torch.testing.assert_close(got.scores.cpu(), want.scores, atol=1e-5, rtol=1e-5)
+
+
+def test_native_analyzer_builds_on_the_card_machine(cuda_device) -> None:
+    """The machine with the card builds the port's analyzer with `g++`, so the
+    BM25 build there never falls back to the Python loops."""
+    from vod_tpu_torch.native import analyze_texts, fnv1a_id, native_available
+
+    assert native_available()
+    ids, counts = analyze_texts(["Hello hello World"], use_stopwords=False)
+    assert counts.tolist() == [3] and ids[0, 0] == ids[0, 1] == fnv1a_id("hello", 1 << 18)
+
+
+def test_sparse_search_on_card_matches_cpu(cuda_device) -> None:
+    """BM25 on the card against the same call on the CPU, on seeded postings
+    (repeated and invalid terms, a subset filter, k above L*P): the same
+    empty slots; scores within 1e-5 (the card's `scatter_add_` sums a doc's
+    <= L contributions in atomics' order, a few ulps of scores below 40);
+    ids equal wherever the margin to the next score exceeds that."""
+    from vod_tpu_torch.search import build_sparse_index_native, sparse_search
+
+    rng = np.random.default_rng(4)
+    n, n_terms = 5000, 512
+    p = 1.0 / np.arange(1, n_terms + 1)
+    docs = [rng.choice(n_terms, size=int(rng.integers(10, 60)), p=p / p.sum()).tolist() for _ in range(n)]
+    subsets = (np.arange(n) % 5).astype(np.int32)
+    terms = rng.choice(n_terms, size=(48, 8), p=p / p.sum()).astype(np.int32)
+    terms[0, 1] = terms[0, 0]
+    terms[1, 3:] = -1
+    terms[2, 0] = n_terms + 7
+    allowed = np.full((48, 2), -1, np.int32)
+    allowed[::3, 0] = 2
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ix = build_sparse_index_native(docs, n_terms=n_terms, max_postings=256, subset_ids=subsets, device=dev)
+        for k in (100, 8 * 256 + 5):
+            q = SearchQueries(terms=torch.from_numpy(terms).to(dev), subset_ids=torch.from_numpy(allowed).to(dev))
+            out[str(dev), k] = sparse_search(ix, q, k)
+    for k in (100, 8 * 256 + 5):
+        cpu, card = out["cpu", k], out[str(cuda_device), k]
+        finite = torch.isfinite(cpu.scores)
+        assert torch.equal(torch.isfinite(card.scores.cpu()), finite)
+        assert (card.scores.cpu()[finite] - cpu.scores[finite]).abs().max().item() <= 1e-5
+        margin = torch.cat([cpu.scores[:, :-1] - cpu.scores[:, 1:], torch.full((48, 1), float("inf"))], dim=-1)
+        gap_before = torch.cat([torch.full((48, 1), float("inf")), margin[:, :-1]], dim=-1)
+        clear = (torch.minimum(margin, gap_before) > 1e-5) & finite
+        assert torch.equal(card.indices.cpu()[clear], cpu.indices[clear])
+        assert torch.equal(card.indices.cpu()[~finite], cpu.indices[~finite])

@@ -1,11 +1,12 @@
-"""The dense-index factory config (own copy of `DenseFactoryConfig` from
+"""The search factory configs (own copies of `DenseFactoryConfig`,
+`SparseFactoryConfig` and `HybridSearchFactoryConfig` from
 `vod_tpu/configs/search.py`, which the port does not import).
 
-The JAX package's config is a frozen, extra-forbidding pydantic model; this
-one is a frozen dataclass with the same fields, defaults and allowed values,
-checked at construction, and the same `from_faiss_factory` translation and
-`config + diff` override. It imports no pydantic: the card's machine has
-only PyTorch and numpy.
+The JAX package's configs are frozen, extra-forbidding pydantic models; these
+are frozen dataclasses with the same fields, defaults and allowed values,
+checked at construction, the same `from_faiss_factory` translation, and the
+`config + diff` override on the engine configs. They import no pydantic: the
+card's machine has only PyTorch and numpy.
 """
 
 from __future__ import annotations
@@ -127,3 +128,39 @@ class DenseFactoryConfig:
         if diff is None:
             return self
         return dataclasses.replace(self, **{k: v for k, v in dict(diff).items() if v is not None})
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseFactoryConfig:
+    """Sparse BM25 factory (BM25 parameters, the impact-postings width and the
+    analyzer's options). Field comments follow the JAX package's."""
+
+    k1: float = 1.2
+    b: float = 0.75
+    max_postings: int = 2048
+    language: typ.Optional[str] = None  # analyzer language (stopwords + stemmer)
+    lowercase: bool = True
+    min_token_len: int = 2
+    # stem tokens after the stopword filter, at index and at query time: Porter
+    # for English, Snowball for de/es/fr/ru/it/nl/pt/sv/no/da, others unstemmed
+    stem: bool = False
+    max_vocab: typ.Optional[int] = None
+    section_template: str = "{{ title }} {{ content }}"
+    # doc-shard the postings over a mesh axis
+    sharded: bool = False
+    shard_axis: str = "shard"
+
+    def __add__(self, diff: typ.Optional[typ.Mapping[str, typ.Any]]) -> "SparseFactoryConfig":
+        """`config + diff`: the diff's non-None values override; an unknown
+        field raises `TypeError`."""
+        if diff is None:
+            return self
+        return dataclasses.replace(self, **{k: v for k, v in dict(diff).items() if v is not None})
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridSearchFactoryConfig:
+    """Named engine bundle: a dense and a sparse engine config, each optional."""
+
+    dense: typ.Optional[DenseFactoryConfig] = None
+    sparse: typ.Optional[SparseFactoryConfig] = None

@@ -15,7 +15,8 @@ gradients over, since it has the parameters' structure.
 optimizer's weight-decay groups are chosen by (`runtime/optim.py`).
 
 `dense_index_from_fields` carries a JAX `PQIndex` or `IVFIndex` over: its
-fields as numpy arrays (`np.asarray` of each array) plus its static fields.
+fields as numpy arrays (`np.asarray` of each array) plus its static fields;
+`sparse_index_from_fields` does the same for a JAX BM25 `SparseIndex`.
 """
 
 from __future__ import annotations
@@ -173,3 +174,23 @@ def dense_index_from_fields(
         width = -(-int(kw["coarse_codes"].shape[1]) // dense._COARSE_COLS) * dense._COARSE_COLS
         kw["coarse_codes"] = dense._zero_cols(kw["coarse_codes"], width).contiguous()
     return cls(**kw)
+
+
+def sparse_index_from_fields(
+    fields: typ.Mapping[str, typ.Any], *, device: typ.Union[str, torch.device] = "cuda"
+) -> typ.Any:
+    """The port's `SparseIndex` from a JAX `SparseIndex`'s fields: the int32
+    postings doc ids, the f32 impacts and the optional subset ids as numpy
+    (None where the JAX field is None), `n_docs` and `offset` as they are."""
+    from vod_tpu_torch.search.sparse import SparseIndex
+
+    def tensor(x: typ.Any) -> typ.Optional[torch.Tensor]:
+        return None if x is None else torch.from_numpy(np.array(x)).to(device).contiguous()
+
+    return SparseIndex(
+        postings_docs=tensor(fields["postings_docs"]),
+        postings_impacts=tensor(fields["postings_impacts"]),
+        subset_ids=tensor(fields.get("subset_ids")),
+        n_docs=int(fields.get("n_docs", 0)),
+        offset=int(fields.get("offset", 0)),
+    )

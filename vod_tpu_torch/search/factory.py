@@ -1,10 +1,12 @@
-"""Dense-index builds from a `DenseFactoryConfig` (port of
-`vod_tpu/search/factory.py:build_dense_from_config`).
+"""Index builds from the factory configs (port of `vod_tpu/search/factory.py`:
+`build_dense_from_config`, `build_sparse_from_config`, `build_hybrid_engines`).
 
-Codecs flat, int8, pq and ivf are built on the device. Not ported yet, each
-raising `NotImplementedError`: the ivfpq codec, sharding over a mesh
-(`sharded`, `mesh`), the fingerprint-keyed index cache (`cache_dir`) and the
-host-slab build `build_dense_from_host`.
+Dense codecs flat, int8, pq and ivf are built on the device; the BM25 index
+is built on the host by the native postings builder and moved to the device.
+Not ported yet, each raising `NotImplementedError`: the ivfpq codec,
+sharding over a mesh (`sharded`, `mesh`, for both engines), the
+fingerprint-keyed index cache (`cache_dir`) and the host-slab build
+`build_dense_from_host`.
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ import typing as typ
 import numpy as np
 import torch
 
-from vod_tpu_torch.configs.search import DenseFactoryConfig
+from vod_tpu_torch.configs.search import DenseFactoryConfig, HybridSearchFactoryConfig, SparseFactoryConfig
 from .dense import build_dense_index, build_ivf_index, build_pq_index
+from .hybrid import HybridEngines
+from .sparse import SparseIndex, build_sparse_index_native
 
 
 def build_dense_from_config(
@@ -85,3 +89,58 @@ def build_dense_from_config(
 def build_dense_from_host(cfg: DenseFactoryConfig, vectors_np: typ.Any, **kw: typ.Any) -> typ.Any:
     """The host-slab build for corpora larger than device memory: not ported yet."""
     raise NotImplementedError("build_dense_from_host (the host-slab builders) is not ported to vod_tpu_torch yet")
+
+
+def build_sparse_from_config(
+    cfg: SparseFactoryConfig,
+    doc_terms: typ.Sequence[typ.Sequence[int]],
+    *,
+    n_terms: int = 1 << 18,
+    subset_ids: typ.Union[torch.Tensor, np.ndarray, None] = None,
+    mesh: typ.Any = None,
+    shard_axis: str = "shard",
+    device: typ.Union[str, torch.device] = "cuda",
+    timings: typ.Optional[dict] = None,
+) -> SparseIndex:
+    """Config-driven BM25 build through the O(tokens) C++ postings builder
+    (python fallback inside), moved to `device`; `timings` receives the
+    build's wall ms by stage (`build_sparse_index_native`)."""
+    del shard_axis  # names the mesh axis, which is not ported
+    if mesh is not None:
+        raise NotImplementedError("the sharded sparse index (mesh) is not ported to vod_tpu_torch yet")
+    return build_sparse_index_native(
+        doc_terms, n_terms=n_terms, max_postings=cfg.max_postings, k1=cfg.k1, b=cfg.b,
+        subset_ids=subset_ids, device=device, timings=timings,
+    )
+
+
+def build_hybrid_engines(
+    config: HybridSearchFactoryConfig,
+    *,
+    vectors: typ.Union[torch.Tensor, np.ndarray, None] = None,
+    doc_terms: typ.Optional[typ.Sequence[typ.Sequence[int]]] = None,
+    generator: typ.Optional[torch.Generator] = None,
+    subset_ids: typ.Union[torch.Tensor, np.ndarray, None] = None,
+    cache_dir: typ.Optional[str] = None,
+    data_fingerprint: typ.Optional[str] = None,
+    mesh: typ.Any = None,
+    device: typ.Union[str, torch.device] = "cuda",
+) -> HybridEngines:
+    """Assemble the hybrid bundle: each engine the config names and the
+    inputs feed (dense from `vectors`, sparse from `doc_terms`), both with
+    the corpus's `subset_ids`."""
+    if cache_dir is not None:
+        raise NotImplementedError("the index cache (cache_dir) is not ported to vod_tpu_torch yet")
+    if mesh is not None:
+        raise NotImplementedError("sharded engines (mesh) are not ported to vod_tpu_torch yet")
+    dense = None
+    if config.dense is not None and vectors is not None:
+        dense = build_dense_from_config(
+            config.dense, vectors, generator=generator, subset_ids=subset_ids,
+            data_fingerprint=data_fingerprint, device=device,
+        )
+    sparse = None
+    if config.sparse is not None and doc_terms is not None:
+        # as in JAX, `sparse.sharded` shards only when a mesh is given
+        sparse = build_sparse_from_config(config.sparse, doc_terms, subset_ids=subset_ids, device=device)
+    return HybridEngines(dense=dense, sparse=sparse)

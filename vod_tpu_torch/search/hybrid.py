@@ -1,12 +1,13 @@
-"""Hybrid engine composition (port of `vod_tpu/search/hybrid.py`, dense and lookup branches).
+"""Hybrid engine composition (port of `vod_tpu/search/hybrid.py`: dense, sparse and lookup).
 
 Every named engine searches the query batch; engine scores are min-subtracted
 per row, the gold lookup rides along with score 0 and label 1, and the results
 are merged by weighted score sum. `hybrid_search_and_sample` adds the
 truncation to the prefetch width and labeled priority sampling: the retrieval
 segment of the training collate. The dense engine is a flat/int8
-`DenseIndex`, a `PQIndex` or an `IVFIndex`; the sparse engine, IVF-PQ and the
-sharded indexes wait for later slices of the port.
+`DenseIndex`, a `PQIndex` or an `IVFIndex`; the sparse engine is a BM25
+`SparseIndex`. IVF-PQ and the sharded indexes (dense and sparse) wait for
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -23,15 +24,17 @@ from vod_tpu_torch.types.retrieval import RetrievalBatch
 from .base import SearchQueries
 from .dense import DenseIndex, IVFIndex, PQIndex, dense_search, ivf_search, pq_search
 from .lookup import lookup_search
+from .sparse import SparseIndex, sparse_search
 
 
 @dataclasses.dataclass
 class HybridEngines:
     """Named engine bundle. The dense engine is a `DenseIndex`, `PQIndex` or
-    `IVFIndex`; any other engine raises `NotImplementedError` when searched."""
+    `IVFIndex`, the sparse engine a `SparseIndex`; any other engine raises
+    `NotImplementedError` when searched."""
 
     dense: typ.Optional[typ.Union[DenseIndex, PQIndex, IVFIndex]] = None
-    sparse: typ.Any = None
+    sparse: typ.Optional[SparseIndex] = None
 
 
 def _dense_dispatch(index: typ.Any, queries: SearchQueries, top_k: int) -> RetrievalBatch:
@@ -61,7 +64,12 @@ def hybrid_search(
         r = _dense_dispatch(engines.dense, queries, top_k)
         results["dense"] = r.replace(scores=normalize_scores(r.scores))
     if engines.sparse is not None and queries.terms is not None:
-        raise NotImplementedError("the sparse engine is not ported to vod_tpu_torch yet")
+        if not isinstance(engines.sparse, SparseIndex):
+            raise NotImplementedError(
+                f"the sparse engine {type(engines.sparse).__name__} is not ported to vod_tpu_torch yet"
+            )
+        r = sparse_search(engines.sparse, queries, top_k)
+        results["sparse"] = r.replace(scores=normalize_scores(r.scores))
     if not results:
         raise ValueError("No engine matched the provided queries")
 

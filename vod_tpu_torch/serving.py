@@ -239,10 +239,11 @@ class SearchServer:
         device: typ.Union[str, torch.device] = "cuda",
     ):
         self.device = torch.device(device)
-        if engines.dense is not None and engines.dense.vectors.device.type != self.device.type:
-            raise ValueError(
-                f"engines live on {engines.dense.vectors.device}, but the server was asked for {self.device}"
-            )
+        for engine in (e for e in (engines.dense, engines.sparse) if e is not None):
+            # each index's tensor fields (a PQIndex or SparseIndex has no `vectors`)
+            where = [v.device for v in vars(engine).values() if isinstance(v, torch.Tensor)]
+            if where and where[0].type != self.device.type:
+                raise ValueError(f"engines live on {where[0]}, but the server was asked for {self.device}")
         self.engines = engines
         self.weights = weights
         self.host = host
