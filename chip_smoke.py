@@ -124,8 +124,45 @@ checked, none caught:
     beside the plain version, `torch.topk(torch._int_mm(q, Vᵀ), k)` and the
     bound, and split into the host's time to enqueue a call and the device
     time of its kernels (`torch.profiler`);
- 7. the `kernels` JSON line, the card line, and the last line
-    `{"ok": true, "device": {...}}`.
+ 7a. the causal reader's generation (its own main path: counts zeroed
+    before, read after; run right after phase 5, on its trained `Realm`, flat
+    bf16 index and 2 validation batches of B = 32, D = 8): each batch
+    collated with live retrieval, each row's reader tokens compacted to a
+    right-padded prompt (up to 248 tokens), and `Realm.generate` of 16
+    tokens over its 256 rows. Checked: one `fused_mips_binned` launch per
+    batch, all on the tensor-core body; every token in [0, V); on 16 rows of
+    different prompt lengths, each step's logits (prefill, then each decode
+    step) within GENERATION["tol"] of the teacher-forced forward over prompt
+    + generated tokens, and each token its argmax wherever the top-2 margin
+    exceeds that; the same steps with write positions one too far read
+    above that tolerance (the check can see a fault); one decode step with
+    every synchronizing call made an error. Printed: `Realm.generate` ms and
+    new tokens/s, prefill ms, the median decode step (CUDA events), one
+    step's host enqueue beside its kernels' device time (`torch.profiler`),
+    peak memory;
+ 7b. the seq2seq REALM of BASELINE config #5 (`SEQ2SEQ`; the retriever and
+    reader of `vod_tpu_torch.examples.seq2seq_realm_bench`: hidden 384, 6
+    layers, 6 heads, 1536, vocab 30,522, bf16 activations; VOD alpha 0.5),
+    after phase 6: 2^20 sections of 64 random ids and an int8 index with
+    kernel "fused" at 512 bins; the first step's kernel call (int8, k = 64)
+    against its plain version, cell for cell, and timed beside
+    `torch.topk(torch._int_mm(q, Vᵀ), k)` and the bound; then 3 warm-up and
+    10 timed train steps (B = 32, D = 8, queries of 24, answers of 12,
+    prefetch 64, AdamW 5e-5, clip 1.0) as one main path, then as another: 2
+    batches collated, `evaluate_generation` (16 greedy tokens) and
+    `realm_beam_generate` (4 beams, 16 tokens) over the first 8 queries x 8
+    sections. Checked: finite losses and gradient norms, the optimizer group
+    moved, one `fused_mips_binned` launch per train step and per collated
+    batch, all on the tensor-core body; EM and F1 in [0, 1]; greedy
+    decode-step logits within SEQ2SEQ["tol"] of the teacher-forced
+    `Seq2SeqLM.forward` and tokens its argmax outside the margin, and above
+    that tolerance with decode positions one too far; the beam winners'
+    scores equal their recomputed mean log-probs within SEQ2SEQ["beam_tol"];
+    one decode step with every synchronizing call made an error. Printed:
+    median ms per step, queries/s, params, peak memory, greedy and beam ms
+    and tokens/s;
+ 8. the script's wall time, the `kernels` JSON line, the card line, and
+    the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -233,6 +270,30 @@ PERIODIC = dict(
     # build or scorer finds ~100 / 2^20 of them
     bm25_recall_floor=0.7,
 )
+
+# Phase 7a: the causal reader's generation at phase 5's widths, from phase 5's
+# trained Realm: its 2 validation micro-batches (B = 32, D = 8) collated with
+# live retrieval, each row's reader tokens compacted to a right-padded prompt,
+# then `Realm.generate` of 16 tokens over the 256 rows of each batch. `tol`:
+# the bound on |decode-step logits - teacher-forced logits|, near exact: on an
+# H100 the two paths read 0 in every run (random weights give logits of ~0.4).
+GENERATION = dict(max_new_tokens=16, check_rows=16, tol=1e-3, step_reps=20)
+
+# Phase 7b: BASELINE config #5 (bench.py's `bench_realm`: examples/seq2seq_realm_bench.py
+# --corpus 1048576 --index_dtype int8): an e5-small-shaped retriever and a
+# t5-small-shaped reader (`vod_tpu_torch.examples.seq2seq_realm_bench`),
+# 2^20 sections of 64 random ids, queries of 24, answers of 12, B = 32, D = 8,
+# prefetch 64, AdamW 5e-5 (decay 1e-4, no mask), clip 1.0. Cut: the index
+# runs `kernel="fused"` at 512 bins (the JAX script leaves the scan), 3 + 10
+# steps (the bench runs 50), no reindex (phase 6 holds the re-embed). Then
+# greedy generation over 2 collated batches and a beam search over the first
+# 8 queries x 8 sections. `tol`: the bound on |decode-step logits -
+# teacher-forced logits| of the T5 reader (bf16: the two paths multiply at
+# other shapes; an H100 reads 0.0119); `beam_tol`: on |beam winner's score -
+# its recomputed mean log-prob| (read 0.0003, and 0.0007 on weights trained
+# otherwise). Each is about three times the larger reading.
+SEQ2SEQ = dict(n=1 << 20, ls=64, lq=24, b=32, d=8, bins=512, lr=5e-5, warmup=3, timed=10, gen_batches=2,
+               max_new_tokens=16, num_beams=4, beam_queries=8, tol=0.035, beam_tol=2e-3)
 
 
 def fail(msg: str) -> None:
@@ -358,9 +419,11 @@ def step_recorder():
     return StepRecorder()
 
 
-def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t: dict) -> dict:
+def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t: dict) -> tuple[dict, dict]:
     """Phase 5: the REALM train path at the sizes in `t` (module constant
-    TRAIN). Returns the train-path kernel call's numbers and launches."""
+    TRAIN). Returns the train-path kernel call's numbers and launches, and
+    the trained system with its index, corpus, validation queries and
+    generator (phase 7a's setup)."""
     import torch
 
     from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
@@ -506,13 +569,16 @@ def train_phase(dev, card: str, hbm: float, peak_bf16: float, peak_f32: float, t
     profile.update(enqueue_ms=host_ms, finish_ms=done_ms)
     log(f"train step without a sync [{card}]: the host enqueued one optimizer step in {host_ms:.4f} ms; "
         f"the card finished it {done_ms:.4f} ms after the start")
-    return dict(
+    result = dict(
         train_launches=launches, train_body_launches=body_launches, train_max_abs_err=err,
         train_call=dict(shape=f"bfloat16 B={b} N={index.n_real} D={d} bins={bins} k={k}", ms=ms, plain_ms=plain_ms,
                         library_ms=library_ms, bound_ms=bound, bound_by=bound_by),
         train_step=dict(median_ms=median_ms, step_ms=step_ms, queries_per_s=queries_per_s, peak_mem_bytes=peak_mem,
                         losses=losses, grad_norms=norms, stages_ms=stages, head_ms=head_ms, profile=profile),
     )
+    # phase 7a generates from this trained system
+    context = dict(model=model, step_fn=step_fn, engines=engines, corpus=corpus, queries=val_batches, generator=g)
+    return result, context
 
 
 def host_and_device_ms(fn, reps: int) -> tuple[float, float, dict]:
@@ -1083,7 +1149,363 @@ def periodic_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dic
     )
 
 
+def compact_prompts(batch):
+    """`batch` with each row's valid reader tokens moved to its front, in
+    order: the collate concatenates padded [context; question; answer]
+    segments, and the causal reader continues a right-padded prompt after its
+    valid prefix (`lm_generate`)."""
+    import dataclasses
+
+    import torch
+
+    order = torch.argsort((batch.lm__attention_mask == 0).to(torch.int32), dim=-1, stable=True)
+    take = lambda x: torch.gather(x, -1, order)
+    mask = take(batch.lm__attention_mask)
+    return dataclasses.replace(batch, lm__input_ids=take(batch.lm__input_ids) * mask, lm__attention_mask=mask,
+                               lm__token_type_ids=take(batch.lm__token_type_ids))
+
+
+def check_against_forced(label: str, steps, forced, toks, live, tol: float) -> tuple[float, int]:
+    """Decode-step logits `steps` [R, T, V] within `tol` of the teacher-forced
+    logits `forced` (same shape), and each live token of `toks` [R, T] the
+    argmax of `forced` wherever its top-2 margin exceeds `tol`. Returns (max
+    error, tokens compared)."""
+    err = (steps - forced).abs().max().item()
+    check(err <= tol, f"{label}: max |decode step - teacher-forced| logits {err:.4g} > {tol}")
+    top2 = forced.topk(2, dim=-1)
+    clear = ((top2.values[..., 0] - top2.values[..., 1]) > tol) & live
+    bad = (toks.long() != top2.indices[..., 0]) & clear
+    check(not bad.any().item(), f"{label}: {int(bad.sum())} tokens differ from the teacher-forced argmax")
+    return err, int(clear.sum())
+
+
+def causal_generation_phase(dev, card: str, t: dict, *, model, step_fn, engines, corpus, queries, generator) -> dict:
+    """Phase 7a: the causal reader's generation (module constant GENERATION)
+    on phase 5's trained `Realm`, its index and its validation queries. Main
+    path (counts zeroed before, read after): each batch collated with live
+    retrieval (one `fused_mips_binned` call), its reader tokens compacted,
+    `Realm.generate` over every row. Then, on the first batch: prefill and
+    each decode step timed, the steps' logits held against the teacher-forced
+    forward on rows of different prompt lengths, one step under sync-debug
+    "error", and one step's host enqueue beside its device time."""
+    import torch
+
+    from vod_tpu_torch.ops.mips import fused_mips_binned
+
+    n_new, vocab, lm = t["max_new_tokens"], model.lm_cfg.vocab_size, model.lm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+    t0 = time.perf_counter()
+    batches, tokens = [], []
+    for q in queries:
+        batches.append(compact_prompts(step_fn.collate(engines, corpus, q, generator, {"dense": 1.0})))
+        tokens.append(model(batches[-1], mode="generate", max_new_tokens=n_new))
+    torch.cuda.synchronize()
+    launches, body_launches = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(body_launches == {"wgmma": len(queries), "fma": 0} and launches == len(queries),
+          f"7a: fused_mips_binned launches {launches}, by body {body_launches}; want one wgmma launch a batch")
+    for batch, toks in zip(batches, tokens):
+        rows = batch.lm__input_ids.shape[0] * batch.lm__input_ids.shape[1]
+        check(tuple(toks.shape) == (rows, n_new) and toks.dtype == torch.int32, f"7a: tokens {tuple(toks.shape)}")
+        check(((toks >= 0) & (toks < vocab)).all().item(), "7a: a generated token lies outside [0, V)")
+
+    batch, toks = batches[0], tokens[0]
+    ids = batch.lm__input_ids.reshape(-1, batch.lm__input_ids.shape[-1])
+    mask = batch.lm__attention_mask.reshape(ids.shape)
+    n, length = ids.shape
+    lengths = mask.sum(-1)
+    first_row_of: dict = {}
+    for r, size in enumerate(lengths.tolist()):
+        first_row_of.setdefault(size, r)
+    check(len(first_row_of) >= t["check_rows"], f"7a: only {len(first_row_of)} distinct prompt lengths")
+    rows = torch.tensor(sorted(first_row_of.values())[: t["check_rows"]], device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_new + 3)]
+    with torch.no_grad():
+        ev[0].record()
+        model(batch, mode="generate", max_new_tokens=n_new)
+        ev[1].record()
+        logits, cache = lm.prefill(ids, mask, length + n_new, last_only=True)
+        ev[2].record()
+        steps = [logits[rows, 0]]
+        for i in range(n_new - 1):
+            logits, cache = lm.decode_step(toks[:, i], cache)
+            ev[i + 3].record()
+            steps.append(logits[rows])
+        torch.cuda.synchronize()
+        generate_ms, prefill_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        step_ms = [ev[i + 2].elapsed_time(ev[i + 3]) for i in range(n_new - 1)]
+        # the teacher-forced forward over each checked row's prompt + its generated tokens
+        rl = lengths[rows]
+        r_idx = torch.arange(len(rows), device=dev)[:, None]
+        at = rl[:, None] + torch.arange(n_new, device=dev)[None]
+        full = torch.zeros((len(rows), length + n_new), dtype=ids.dtype, device=dev)
+        full[:, :length] = ids[rows]
+        full[r_idx, at] = toks[rows].to(ids.dtype)
+        full_mask = (torch.arange(length + n_new, device=dev)[None] < (rl + n_new)[:, None]).to(torch.int32)
+        forced = lm(full, full_mask)[r_idx, at - 1]
+        err, compared = check_against_forced("7a causal reader", torch.stack(steps, dim=1), forced, toks[rows],
+                                             torch.ones_like(toks[rows], dtype=torch.bool), t["tol"])
+        # the check's control: the same steps with each row's write position one too far (K/V, mask and
+        # position embedding at pos + 1) must read above `tol`
+        _, cache_off = lm.prefill(ids, mask, length + n_new + 1, last_only=True)
+        cache_off["pos"] = cache_off["pos"] + 1
+        off = [steps[0]]
+        for i in range(n_new - 1):
+            logits, cache_off = lm.decode_step(toks[:, i], cache_off)
+            off.append(logits[rows])
+        fault_err = (torch.stack(off, dim=1) - forced).abs().max().item()
+        check(fault_err > t["tol"], f"7a: write positions off by one read {fault_err:.4g}, within tol {t['tol']}")
+        del forced, full, cache_off, off
+        # one decode step never waits for the card; then its host enqueue beside its device time
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lm.decode_step(toks[:, -1], cache)
+        except RuntimeError as exc:
+            fail(f"7a: a decode step waits for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        enqueue_ms, device_ms, by_name = host_and_device_ms(lambda: lm.decode_step(toks[:, -1], cache), t["step_reps"])
+    median_step = statistics.median(step_ms)
+    out = dict(
+        launches=launches, body_launches=body_launches, batches=len(queries), rows=n, prompt_tokens=length,
+        max_new_tokens=n_new, main_path_s=wall, generate_ms=generate_ms, new_tokens_per_s=n * n_new / generate_ms * 1e3,
+        prefill_ms=prefill_ms, decode_step_ms=dict(median=median_step, min=min(step_ms), max=max(step_ms)),
+        step_enqueue_ms=enqueue_ms, step_device_ms=device_ms,
+        step_top_kernels_ms={k: round(v, 4) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]},
+        peak_mem_bytes=peak, max_logit_err=err, tol=t["tol"], rows_checked=len(rows), tokens_compared=compared,
+        fault_logit_err=fault_err,
+    )
+    log(f"7a causal generation [{card}]: {len(queries)} batches x {n} rows (prompts of up to {length} tokens, "
+        f"{len(first_row_of)} distinct lengths) in {wall:.2f} s; fused_mips_binned launches {launches}, by body "
+        f"{body_launches}; Realm.generate of {n_new} tokens {generate_ms:.4f} ms = {out['new_tokens_per_s']:.1f} "
+        f"new tokens/s; prefill {prefill_ms:.4f} ms; decode step median {median_step:.4f} ms (min {min(step_ms):.4f}, "
+        f"max {max(step_ms):.4f}); one step enqueued in {enqueue_ms:.4f} ms on the host against {device_ms:.4f} ms "
+        f"of kernels; peak {peak / 2**30:.4f} GiB")
+    log(f"7a checks: decode-step logits within {err:.4g} of the teacher-forced forward (tol {t['tol']}) on "
+        f"{len(rows)} rows of different prompt lengths; {compared} tokens clear of the margin, all equal to its "
+        f"argmax; write positions off by one read {fault_err:.4g}; a decode step made no synchronizing call; "
+        f"top kernels of a step: "
+        f"{json.dumps(out['step_top_kernels_ms'])}")
+    return out
+
+
+def seq2seq_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dict:
+    """Phase 7b: the seq2seq REALM of BASELINE config #5 at the sizes in `t`
+    (module constant SEQ2SEQ). Main path of the train step (counts zeroed
+    before, read after): warm-up and timed optimizer steps on an int8 fused
+    index. Main path of generation (counts zeroed again): collate the
+    generation batches, `evaluate_generation`, and `realm_beam_generate`
+    over the first queries. Then greedy decoding held against the
+    teacher-forced reader, the beam winner's score recomputed, one decode
+    step under sync-debug "error", and greedy and beam timed. Before the
+    train path, the kernel call of its first step (int8, B = 32, D = 384,
+    512 bins, k = 64) is held cell for cell against the plain version and
+    timed beside the library call and the bound."""
+    import dataclasses
+
+    import torch
+
+    from vod_tpu_torch.examples import seq2seq_realm_bench as config5
+    from vod_tpu_torch.models import realm_beam_generate, realm_generate
+    from vod_tpu_torch.models.seq2seq import _reader_inputs
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.runtime import adamw, evaluate_generation, make_train_step
+    from vod_tpu_torch.search import HybridEngines, build_dense_index
+    from vod_tpu_torch.search.dense import quantize_queries_int8
+
+    n, b, d, n_new, eos = t["n"], t["b"], t["d"], t["max_new_tokens"], 1
+    t0 = time.perf_counter()
+    model = config5.make_model(dev, torch.Generator(device=dev).manual_seed(5))
+    n_params = sum(p.numel() for p in model.parameters())
+    corpus = config5.make_corpus(n, t["ls"], dev)
+    index = build_dense_index(config5.make_embeddings(n, dev), dtype="int8", kernel="fused", device=dev)
+    check(index.fused_bins == t["bins"] and index.vectors.dtype == torch.int8, "7b: not an int8 index at 512 bins")
+    engines = HybridEngines(dense=index)
+    optimizer = adamw(model, t["lr"], weight_decay=1e-4, mask=False)  # optax.adamw(5e-5)
+    step_fn = make_train_step(model, optimizer, n_sections=d, **config5.STEP)
+    g = torch.Generator(device=dev).manual_seed(6)
+    steps = t["warmup"] + t["timed"]
+    train_q = [config5.make_queries(2 + i, n, b, t["lq"], dev) for i in range(steps)]
+    gen_q = [config5.make_queries(1000 + i, n, b, t["lq"], dev) for i in range(t["gen_batches"])]
+    start = [[p.detach().clone() for p in grp["params"]] for grp in optimizer.param_groups]
+    torch.cuda.synchronize()
+    log(f"7b setup: Seq2SeqRealm {n_params / 1e6:.1f}M params; corpus {n} x {t['ls']} tokens and an int8 "
+        f"{index.vectors.shape[0]} x {index.vectors.shape[1]} index (kernel fused, {index.fused_bins} bins) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # one train-path kernel call (the first step's queries, encoded and quantized as the int8 index does) against
+    # its plain version: int8 sums are exact, so every cell must be equal
+    with torch.no_grad():
+        q_f = model.encode_field(train_q[0].input_ids, train_q[0].attention_mask)
+    qq, _ = quantize_queries_int8(q_f, index.scale)
+    vv, bins, dim = index.vectors, t["bins"], int(index.vectors.shape[1])
+    k = min(config5.STEP["prefetch"], bins)  # dense_search's k at top_k = prefetch
+    kw = dict(k=k, bins=bins, n_real=index.n_real)
+    check(_binned_body(vv.dtype, dim, bins, (vv.data_ptr(), qq.data_ptr())) == "wgmma", "7b: the call is off wgmma")
+    before = fused_mips_binned.body_launches["wgmma"]
+    ks, ki = fused_mips_binned(vv, qq, **kw)
+    check(fused_mips_binned.body_launches["wgmma"] == before + 1, "7b: the train-path call did not launch on wgmma")
+    rs, ri = fused_mips_binned_reference(vv, qq, **kw)
+    check(torch.equal(ks, rs) and torch.equal(ki, ri), f"7b train-path int8 B={b} D={dim}: kernel != plain")
+    check(bool((ki >= 0).all()) and ki.max().item() < index.n_real, "7b train-path int8: an empty slot or masked row")
+    err = (ks.double() - rs.double()).abs().max().item()
+    ms = time_ms(lambda: fused_mips_binned(vv, qq, **kw), 20)
+    plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qq, **kw), 2)
+    library_ms = time_ms(lambda: torch.topk(torch._int_mm(qq, vv[: index.n_real].T), k, dim=-1), 20)
+    nbytes = (index.n_real + b) * dim + b * k * 8
+    ops = 2 * b * index.n_real * dim
+    bound = max(nbytes / hbm, ops / peak_int8) * 1e3
+    bound_by = "bytes" if nbytes / hbm >= ops / peak_int8 else "operations"
+    call = dict(shape=f"int8 B={b} N={index.n_real} D={dim} bins={bins} k={k}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
+    del q_f, qq, ks, ki, rs, ri
+    log(f"check 7b train-path binned int8 B={b} D={dim} bins={bins} k={k} (wgmma): all cells equal (max |kernel - "
+        f"plain| = {err:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({bound_by}) [{card}]")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path (train) starts
+    events, metrics, per_step = [], [], []
+    t0 = time.perf_counter()
+    for q in train_q:
+        before = dict(fused_mips_binned.body_launches)
+        events.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        events[-1][0].record()
+        m, _, _ = step_fn.train_step(engines, corpus, q, g, {"dense": 1.0})
+        events[-1][1].record()
+        metrics.append(m)
+        per_step.append({k: v - before[k] for k, v in fused_mips_binned.body_launches.items()})
+    torch.cuda.synchronize()
+    train_launches, train_body = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # ends
+    train_wall = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(math.isfinite(x) for x in losses + norms), f"7b: a loss or gradient norm is not finite: {losses} {norms}")
+    check(all(x == {"wgmma": 1, "fma": 0} for x in per_step), f"7b: launches per step {per_step}")
+    check(train_launches == steps and train_body == {"wgmma": steps, "fma": 0},
+          f"7b: train path launches {train_launches}, by body {train_body}")
+    for grp, before in zip(optimizer.param_groups, start):
+        check(any(not torch.equal(p, p0) for p, p0 in zip(grp["params"], before)),
+              f"7b: group {grp['name']} never moved")
+    del start
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    median_ms = statistics.median(step_ms[t["warmup"]:])
+    log(f"7b train [{card}]: {steps} steps ({t['warmup']} warm-up) in {train_wall:.2f} s; median {median_ms:.4f} ms "
+        f"per step over {t['timed']} (min {min(step_ms[t['warmup']:]):.4f}, max {max(step_ms[t['warmup']:]):.4f}); "
+        f"{b / median_ms * 1e3:.4f} queries/s; peak {train_peak / 2**30:.4f} GiB; fused_mips_binned launches "
+        f"{train_launches}, by body {train_body}; losses {json.dumps([round(x, 6) for x in losses])}")
+
+    optimizer.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path (generation) starts
+    t0 = time.perf_counter()
+    batches = [step_fn.collate(engines, corpus, q, g, {"dense": 1.0}) for q in gen_q]
+    gen_metrics = evaluate_generation(model, batches, max_new_tokens=n_new, eos_id=eos)
+    bq = t["beam_queries"]
+    beam_batch = dataclasses.replace(batches[0], **{f"lm__{k}": getattr(batches[0], f"lm__{k}")[:bq]
+                                                    for k in ("input_ids", "attention_mask", "token_type_ids")})
+    beam_toks, beam_scores = realm_beam_generate(model, beam_batch, num_beams=t["num_beams"], max_new_tokens=n_new,
+                                                 eos_id=eos)
+    torch.cuda.synchronize()
+    gen_launches, gen_body = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # ends
+    gen_wall = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated(dev)
+    check(gen_launches == len(gen_q) and gen_body == {"wgmma": len(gen_q), "fma": 0},
+          f"7b: generation path launches {gen_launches}, by body {gen_body}")
+    check(all(0.0 <= v <= 1.0 for v in gen_metrics.values()) and len(gen_metrics) == 2, f"7b: metrics {gen_metrics}")
+    check(tuple(beam_toks.shape) == (bq * d, n_new) and bool(torch.isfinite(beam_scores).all()), "7b: beam output")
+
+    # greedy decoding against the teacher-forced reader; the beam winner's score recomputed
+    reader = model.reader
+    enc_ids, enc_mask = _reader_inputs(batches[0])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.no_grad():
+        ev[0].record()
+        toks = realm_generate(model, batches[0], max_new_tokens=n_new, eos_id=eos)
+        ev[1].record()
+        realm_beam_generate(model, beam_batch, num_beams=t["num_beams"], max_new_tokens=n_new, eos_id=eos)
+        ev[2].record()
+        torch.cuda.synchronize()
+        greedy_ms, beam_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        cache = reader.init_cache(reader.encode(enc_ids, enc_mask), n_new)
+        prev = torch.zeros_like(toks[:, 0])
+        steps_logits = []
+        for i in range(n_new):
+            logits, cache = reader.decode_step(prev, i, enc_mask, cache)
+            steps_logits.append(logits)
+            prev = toks[:, i]
+        dec_in = torch.cat([torch.zeros_like(toks[:, :1]), toks[:, :-1]], dim=1)
+        forced = reader(enc_ids, enc_mask, dec_in, torch.ones_like(dec_in))
+        hit = (toks == eos).to(torch.int32)
+        live = (torch.cumsum(hit, dim=1) - hit) == 0  # up to and including each row's first EOS
+        err, compared = check_against_forced("7b greedy", torch.stack(steps_logits, dim=1), forced, toks, live,
+                                             t["tol"])
+        # the check's control: the same steps one position too far (the self-attention slot and the
+        # relative-bias row of pos + 1; slot 0 left unwritten) must read above `tol`
+        cache_off = reader.init_cache(reader.encode(enc_ids, enc_mask), n_new + 1)
+        tok, off = torch.zeros_like(toks[:, 0]), []
+        for i in range(n_new):
+            logits, cache_off = reader.decode_step(tok, i + 1, enc_mask, cache_off)
+            off.append(logits)
+            tok = toks[:, i]
+        fault_err = (torch.stack(off, dim=1) - forced).abs().max().item()
+        check(fault_err > t["tol"], f"7b: decode positions off by one read {fault_err:.4g}, within tol {t['tol']}")
+        del forced, steps_logits, cache_off, off
+        b_ids, b_mask = _reader_inputs(beam_batch)
+        b_dec = torch.cat([torch.zeros_like(beam_toks[:, :1]), beam_toks[:, :-1]], dim=1)
+        logp = torch.log_softmax(reader(b_ids, b_mask, b_dec, torch.ones_like(b_dec)), dim=-1)
+        tok_logp = torch.gather(logp, -1, beam_toks.long()[..., None])[..., 0]
+        b_hit = beam_toks == eos
+        b_len = torch.where(b_hit.any(-1), b_hit.to(torch.int32).argmax(-1) + 1, n_new)
+        valid = torch.arange(n_new, device=dev)[None] < b_len[:, None]
+        recomputed = (tok_logp * valid).sum(-1) / b_len.to(torch.float32)  # length_penalty 1.0
+        beam_err = (recomputed - beam_scores).abs().max().item()
+        check(beam_err <= t["beam_tol"],
+              f"7b: beam winners' scores differ from their recomputed log-probs by {beam_err:.4g}")
+        del logp
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            reader.decode_step(prev, n_new - 1, enc_mask, cache)
+        except RuntimeError as exc:
+            fail(f"7b: a decode step waits for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rows = enc_ids.shape[0]
+    out = dict(
+        launches=dict(train=train_launches, generation=gen_launches),
+        body_launches=dict(train=train_body, generation=gen_body),
+        params_m=n_params / 1e6, median_step_ms=median_ms, step_ms=step_ms, queries_per_s=b / median_ms * 1e3,
+        losses=losses, grad_norms=norms, train_peak_mem_bytes=train_peak, generation_peak_mem_bytes=gen_peak,
+        generation_metrics=gen_metrics, generation_path_s=gen_wall,
+        greedy=dict(rows=rows, ms=greedy_ms, new_tokens_per_s=rows * n_new / greedy_ms * 1e3, max_logit_err=err,
+                    tokens_compared=compared, fault_logit_err=fault_err),
+        beam=dict(rows=bq * d, beams=t["num_beams"], ms=beam_ms, new_tokens_per_s=bq * d * n_new / beam_ms * 1e3,
+                  score_err=beam_err),
+        tol=t["tol"], beam_tol=t["beam_tol"], train_call=call,
+    )
+    log(f"7b generation [{card}]: {len(gen_q)} batches collated + evaluate_generation + beam search in "
+        f"{gen_wall:.2f} s; fused_mips_binned launches {gen_launches}, by body {gen_body}; {json.dumps(gen_metrics)}; "
+        f"greedy {rows} rows x {n_new} tokens {greedy_ms:.4f} ms = {out['greedy']['new_tokens_per_s']:.1f} tokens/s; "
+        f"beam ({t['num_beams']} beams) {bq * d} rows {beam_ms:.4f} ms = {out['beam']['new_tokens_per_s']:.1f} "
+        f"tokens/s; peak {gen_peak / 2**30:.4f} GiB")
+    log(f"7b checks: greedy decode-step logits within {err:.4g} of the teacher-forced reader (tol {t['tol']}), "
+        f"{compared} tokens clear of the margin all equal to its argmax; decode positions off by one read "
+        f"{fault_err:.4g}; beam winners' scores within {beam_err:.4g} "
+        f"of their recomputed mean log-probs (tol {t['beam_tol']}); a decode step made no synchronizing call")
+    return out
+
+
 def main() -> None:
+    started = time.perf_counter()
     import numpy as np
     import torch
 
@@ -1461,21 +1883,31 @@ def main() -> None:
     # 5. the train path (the main path of the REALM train step)
     del flat, int8, servers, encoder, ix, srv
     torch.cuda.empty_cache()
-    train = train_phase(dev, card, hbm, peak_bf16, peak_f32, TRAIN)
+    train, trained = train_phase(dev, card, hbm, peak_bf16, peak_f32, TRAIN)
+
+    # 7a. the causal reader's generation, from phase 5's trained system (run before phase 6 frees it)
+    generation = causal_generation_phase(dev, card, GENERATION, **trained)
+    del trained
 
     # 6. periodic training over the PQ codec, then the PQ coarse route
     gc.collect()
     torch.cuda.empty_cache()
     periodic = periodic_phase(dev, card, hbm, peak_int8, PERIODIC)
 
-    # 7. result lines
+    # 7b. the seq2seq REALM of BASELINE config #5: train steps, greedy and beam generation
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq2seq = seq2seq_phase(dev, card, hbm, peak_int8, SEQ2SEQ)
+
+    # 8. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
                       and s["body"] == "wgmma")
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
-        replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches, max_abs_err=max(max_err, train["train_max_abs_err"]),
+        replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches,
+        max_abs_err=max(max_err, train["train_max_abs_err"], seq2seq["train_call"]["max_abs_err"]),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
         shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
@@ -1485,6 +1917,9 @@ def main() -> None:
         coarse_launches=periodic["coarse_launches"], coarse_body_launches=periodic["coarse_body_launches"],
         coarse_shapes=periodic["coarse_shapes"], coarse_recall_at_10=periodic["coarse_recall_at_10"],
         periodic=periodic["periodic"],
+        generation_launches=generation["launches"], generation_body_launches=generation["body_launches"],
+        generation=generation, seq2seq_launches=seq2seq["launches"],
+        seq2seq_body_launches=seq2seq["body_launches"], seq2seq_call=seq2seq["train_call"], seq2seq=seq2seq,
         body_ms={body: {f"{s['dtype']} B={s['B']} bins={s['bins']}": s["ms"] for s in shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
     ), dict(
@@ -1497,6 +1932,7 @@ def main() -> None:
         body_ms={body: {f"{s['dtype']} B={s['B']} k={s['k']}": s["ms"] for s in exact_shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
     )]
+    log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s, the kernels' build included")
     log(json.dumps({"kernels": kernels}))
     log(mips_kernel_bench.card_name(dev))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -385,3 +385,140 @@ def test_sparse_search_on_card_matches_cpu(cuda_device) -> None:
         clear = (torch.minimum(margin, gap_before) > 1e-5) & finite
         assert torch.equal(card.indices.cpu()[clear], cpu.indices[clear])
         assert torch.equal(card.indices.cpu()[~finite], cpu.indices[~finite])
+
+
+# ---- the readers' generation on the card ------------------------------------------
+
+
+def _margin_equal(got: torch.Tensor, want: torch.Tensor, scores: torch.Tensor, tol: float) -> int:
+    """Tokens equal per row up to the first step whose top-2 margin of
+    `scores` [B, T, V] is under `tol`; returns the number compared."""
+    top2 = scores.float().topk(2, dim=-1).values
+    close = (top2[..., 0] - top2[..., 1]) < tol
+    compared = 0
+    for r in range(got.shape[0]):
+        n = int(close[r].nonzero()[0, 0]) if close[r].any() else got.shape[1]
+        assert torch.equal(got[r, :n].cpu(), want[r, :n].cpu()), r
+        compared += n
+    return compared
+
+
+def _causal_lm(device, dtype=torch.float32):
+    from vod_tpu_torch.models import CausalLM, CausalLMConfig
+
+    cfg = CausalLMConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4, intermediate_size=256,
+                         max_position_embeddings=128, dtype=dtype)
+    return CausalLM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+
+
+def _seq2seq_lm(device, dtype=torch.float32):
+    from vod_tpu_torch.models import Seq2SeqLM, T5EncoderConfig
+
+    cfg = T5EncoderConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4, head_dim=32,
+                          intermediate_size=256, dtype=dtype)
+    return Seq2SeqLM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+
+
+def _prompts(device, b: int = 6, length: int = 40):
+    g = torch.Generator(device=device).manual_seed(1)
+    ids = torch.randint(2, 512, (b, length), generator=g, device=device, dtype=torch.int32)
+    lengths = torch.tensor([40, 33, 5, 17, 40, 26], device=device)[:b]
+    mask = (torch.arange(length, device=device)[None] < lengths[:, None]).to(torch.int32)
+    return ids * mask, mask
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.1)])
+def test_causal_prefill_decode_matches_teacher_forced_on_card(cuda_device, dtype, tol: float) -> None:
+    """`lm_generate` on the card over right-padded prompts: each step's logits
+    (from prefill, then each decode step) within `tol` of the teacher-forced
+    forward over prompt + generated tokens (f32: sum order; bf16: a few ulps
+    of the hidden states through the f32 head), and each token the argmax of
+    those logits wherever their top-2 margin exceeds `tol`."""
+    from vod_tpu_torch.models import lm_generate
+
+    model = _causal_lm(cuda_device, dtype)
+    ids, mask = _prompts(cuda_device)
+    t = 12
+    toks = lm_generate(model, ids, mask, max_new_tokens=t)
+    with torch.no_grad():
+        logits, cache = model.prefill(ids, mask, ids.shape[1] + t, last_only=True)
+        steps = [logits[:, 0]]
+        for i in range(t - 1):
+            logits, cache = model.decode_step(toks[:, i], cache)
+            steps.append(logits)
+        steps = torch.stack(steps, dim=1)
+        lengths = mask.sum(-1)
+        full = torch.zeros((ids.shape[0], ids.shape[1] + t), dtype=torch.int32, device=cuda_device)
+        full[:, : ids.shape[1]] = ids
+        rows = torch.arange(ids.shape[0], device=cuda_device)[:, None]
+        at = lengths[:, None] + torch.arange(t, device=cuda_device)[None]
+        full[rows, at] = toks
+        full_mask = (torch.arange(full.shape[1], device=cuda_device)[None] < (lengths + t)[:, None]).to(torch.int32)
+        forced = model(full, full_mask)[rows, at - 1]  # the logits before each generated token
+    assert (steps - forced).abs().max().item() <= tol
+    assert _margin_equal(toks, forced.argmax(-1), forced, tol) > 0
+
+
+def test_seq2seq_decode_matches_teacher_forced_on_card(cuda_device) -> None:
+    """Greedy `generate` on the card: each cached step's logits within 1e-4
+    (f32) of the teacher-forced `Seq2SeqLM.forward` over BOS + the tokens."""
+    from vod_tpu_torch.models import generate
+
+    model = _seq2seq_lm(cuda_device)
+    ids, mask = _prompts(cuda_device)
+    t = 12
+    toks = generate(model, ids, mask, max_new_tokens=t, eos_id=-1)
+    with torch.no_grad():
+        mem = model.encode(ids, mask)
+        cache = model.init_cache(mem, t)
+        prev = torch.zeros(ids.shape[0], dtype=torch.int32, device=cuda_device)
+        steps = []
+        for i in range(t):
+            logits, cache = model.decode_step(prev, i, mask, cache)
+            steps.append(logits)
+            prev = toks[:, i]
+        dec_in = torch.cat([torch.zeros_like(toks[:, :1]), toks[:, :-1]], dim=1)
+        forced = model(ids, mask, dec_in, torch.ones_like(dec_in))
+    assert (torch.stack(steps, dim=1) - forced).abs().max().item() <= 1e-4
+    assert _margin_equal(toks, forced.argmax(-1), forced, 1e-4) > 0
+
+
+def test_decode_steps_never_wait_for_the_card(cuda_device) -> None:
+    """One decode step of each reader with every synchronizing CUDA call made
+    an error (after a first step, which builds the T5 bucket tables)."""
+    from vod_tpu_torch.models import lm_generate
+
+    causal, s2s = _causal_lm(cuda_device, torch.bfloat16), _seq2seq_lm(cuda_device, torch.bfloat16)
+    ids, mask = _prompts(cuda_device)
+    with torch.no_grad():
+        logits, cache = causal.prefill(ids, mask, ids.shape[1] + 4, last_only=True)
+        tok = logits[:, 0].argmax(-1).to(torch.int32)
+        cache = causal.decode_step(tok, cache)[1]
+        mem = s2s.encode(ids, mask)
+        s2s_cache = s2s.init_cache(mem, 4)
+        s2s_cache = s2s.decode_step(tok, 0, mask, s2s_cache)[1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            causal.decode_step(tok, cache)
+            s2s.decode_step(tok, 1, mask, s2s_cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert lm_generate(causal, ids, mask, max_new_tokens=3).shape == (ids.shape[0], 3)
+
+
+def test_beam_search_on_card_matches_cpu(cuda_device) -> None:
+    """`beam_generate` (4 beams, an EOS the beams reach) on the card against
+    the same call on the CPU at f32: tokens equal, scores within 1e-4."""
+    from vod_tpu_torch.models import beam_generate
+
+    cpu = _seq2seq_lm("cpu")
+    card = _seq2seq_lm(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    ids, mask = _prompts("cpu")
+    kw = dict(num_beams=4, max_new_tokens=10, eos_id=7)
+    want_t, want_s = beam_generate(cpu, ids, mask, **kw)
+    got_t, got_s = beam_generate(card, ids.to(cuda_device), mask.to(cuda_device), **kw)
+    assert torch.equal(got_t.cpu(), want_t)
+    assert (got_s.cpu() - want_s).abs().max().item() <= 1e-4

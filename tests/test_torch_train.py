@@ -414,8 +414,6 @@ def test_unported_options_raise() -> None:
     with pytest.raises(NotImplementedError, match="mesh"):
         training_loop(step_fn=make_train_step(tmodel, opt), engines=teng, corpus=tcorpus, train_queries=[],
                       state=TrainerState(), generator=torch.Generator(), mesh=object())
-    with pytest.raises(NotImplementedError, match="generate"):
-        tmodel(None, mode="generate")
     with pytest.raises(NotImplementedError, match="SPLADE"):
         Ranker(TransformerEncoderConfig(**ENC), RetrievalGradients(), splade_encoder=True, device=CPU)
 

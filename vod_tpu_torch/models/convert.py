@@ -3,9 +3,11 @@
 `flax_to_state_dict` takes the flax parameter tree as nested dicts of numpy
 arrays (`jax.device_get(params)` gives that) and returns the `state_dict` of
 `vod_tpu_torch.models.encoder.VodEncoder` (or `DebugEncoder`);
-`lm_flax_to_state_dict` does the same for the reader `CausalLM`, and
-`system_flax_to_state_dict` for a whole `Ranker` or `Realm` (the `encoder`
-subtree, plus the `lm` subtree of a `Realm`). flax stores a Dense kernel as
+`lm_flax_to_state_dict` does the same for the reader `CausalLM`,
+`t5_flax_to_state_dict` for a `T5Encoder` or `VodT5Encoder`,
+`seq2seq_flax_to_state_dict` for the seq2seq reader `Seq2SeqLM`, and
+`system_flax_to_state_dict` for a whole `Ranker`, `Realm` or `Seq2SeqRealm`
+(the `encoder` subtree, plus the `lm` or `reader` subtree). flax stores a Dense kernel as
 `[in, out]` and attention kernels as `[H, heads, head_dim]` (query/key/value)
 and `[heads, head_dim, H]` (out); `nn.Linear` wants `[out, in]`, so each is
 flattened and transposed here. The same functions carry a tree of flax
@@ -108,37 +110,97 @@ def lm_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _kernel(prefix: str, p: typ.Mapping, sd: dict[str, torch.Tensor]) -> None:
+    """A bias-free flax Dense ([in, out]) -> an `nn.Linear` weight ([out, in])."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"], dtype=np.float32).T)
+
+
+def _t5_block_common(prefix: str, blk: typ.Mapping, sd: dict[str, torch.Tensor]) -> None:
+    for name in ("ln0", "ln1", "ln2"):
+        if name in blk:  # T5's RMSNorm keeps its flax name, `weight`
+            sd[f"{prefix}.{name}.weight"] = _t(blk[name]["weight"])
+    for name in ("wi", "wo"):
+        _kernel(f"{prefix}.{name}", blk[name], sd)
+
+
+def t5_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
+    """flax params of `T5Encoder` or `VodT5Encoder` -> the port's `state_dict`."""
+    p = params.get("params", params)
+    if "backbone" in p:  # VodT5Encoder
+        sd = {f"backbone.{k}": v for k, v in t5_flax_to_state_dict(p["backbone"]).items()}
+        _pooler(p.get("vod_pooler", {}), sd)
+        return sd
+    sd = {"shared.weight": _t(p["shared"]["embedding"]), "final_norm.weight": _t(p["final_norm"]["weight"])}
+    i = 0
+    while f"block_{i}" in p:
+        blk, prefix = p[f"block_{i}"], f"blocks.{i}"
+        _t5_block_common(prefix, blk, sd)
+        attn = blk["attention"]
+        for name in ("q", "k", "v", "o"):
+            _kernel(f"{prefix}.attention.{name}", attn[name], sd)
+        if "relative_attention_bias" in attn:
+            sd[f"{prefix}.attention.relative_attention_bias"] = _t(attn["relative_attention_bias"])
+        i += 1
+    return sd
+
+
+def seq2seq_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
+    """flax params of `Seq2SeqLM` -> the port's `Seq2SeqLM.state_dict`."""
+    p = params.get("params", params)
+    sd = {f"encoder.{k}": v for k, v in t5_flax_to_state_dict(p["encoder"]).items()}
+    sd["dec_embed.weight"] = _t(p["dec_embed"]["embedding"])
+    sd["final_norm.weight"] = _t(p["final_norm"]["weight"])
+    _kernel("lm_head", p["lm_head"], sd)
+    i = 0
+    while f"block_{i}" in p:
+        blk, prefix = p[f"block_{i}"], f"blocks.{i}"
+        _t5_block_common(prefix, blk, sd)
+        for name in ("self_q", "self_k", "self_v", "self_o"):
+            _kernel(f"{prefix}.{name}", blk[name], sd)
+        for name in ("q", "k", "v", "o"):
+            _kernel(f"{prefix}.cross_attention.{name}", blk["cross_attention"][name], sd)
+        if "relative_attention_bias" in blk:
+            sd[f"{prefix}.relative_attention_bias"] = _t(blk["relative_attention_bias"])
+        i += 1
+    return sd
+
+
 def system_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
-    """flax params of `Ranker` or `Realm` -> the port's `state_dict`."""
+    """flax params of `Ranker`, `Realm` or `Seq2SeqRealm` -> the port's `state_dict`."""
     p = params.get("params", params)
     sd = {f"encoder.{k}": v for k, v in flax_to_state_dict(p["encoder"]).items()}
     if "lm" in p:
         sd.update({f"lm.{k}": v for k, v in lm_flax_to_state_dict(p["lm"]).items()})
+    if "reader" in p:
+        sd.update({f"reader.{k}": v for k, v in seq2seq_flax_to_state_dict(p["reader"]).items()})
     return sd
 
 
 _NORMS = ("LayerNorm", "attention_norm", "output_norm", "ln1", "ln2", "ln_f")
-_EMBEDDINGS = ("word_embeddings", "position_embeddings", "token_type_embeddings", "wte", "wpe")
+_EMBEDDINGS = ("word_embeddings", "position_embeddings", "token_type_embeddings", "wte", "wpe", "shared", "dec_embed")
+_T5_NORMS = ("ln0", "ln1", "ln2", "final_norm")
 
 
 def flax_path(name: str) -> str:
     """The flax path, as `jax.tree_util.keystr` writes it under `params`, of a
-    port parameter of an encoder, a reader, a `Ranker` or a `Realm`:
-    `layers.3` -> `layer_3`, the encoder's `backbone.layers.3` ->
-    `backbone/layer_3`, and a weight named after its flax leaf (`embedding`,
-    `scale` or `kernel`)."""
+    port parameter of an encoder, a reader, a `Ranker`, a `Realm` or a
+    `Seq2SeqRealm`: `layers.3` -> `layer_3`, `blocks.3` -> `block_3`, the
+    encoder's `backbone.layers.3` -> `backbone/layer_3`, and a weight named
+    after its flax leaf (`embedding`, `scale` or `kernel`; a T5 RMSNorm's
+    stays `weight`)."""
     parts = name.split(".")
     out: list[str] = []
     i = 0
     while i < len(parts):
-        if parts[i] == "layers" and i + 1 < len(parts):
-            out.append(f"layer_{parts[i + 1]}")
+        if parts[i] in ("layers", "blocks") and i + 1 < len(parts):
+            out.append(f"{parts[i][:-1]}_{parts[i + 1]}")
             i += 2
             continue
         out.append(parts[i])
         i += 1
-    if out[-1] == "weight":
-        owner = out[-2] if len(out) > 1 else ""
+    owner = out[-2] if len(out) > 1 else ""
+    t5_norm = owner in _T5_NORMS and (owner == "final_norm" or any(part.startswith("block_") for part in out))
+    if out[-1] == "weight" and not t5_norm:
         out[-1] = "embedding" if owner in _EMBEDDINGS else "scale" if owner in _NORMS else "kernel"
     return "".join(f"['{part}']" for part in ["params", *out])
 

@@ -4,8 +4,8 @@
 `encode` runs query and section tokens through ONE encoder pass (the shorter
 side is padded to the longer) and splits the pooled embeddings; `Realm` adds
 reader logits over the flattened `lm__input_ids`; `evaluate` hands both to
-the gradient estimator. `forward(batch, mode=...)` dispatches like the flax
-`__call__`.
+the gradient estimator; `Realm.generate` decodes greedily from the reader.
+`forward(batch, mode=...)` dispatches like the flax `__call__`.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from torch import nn
 from vod_tpu_torch.types.batch import RealmBatch, RealmOutput
 from .encoder import DebugEncoder, TransformerEncoderConfig, VodEncoder
 from .gradients import Gradients
-from .lm import CausalLM, CausalLMConfig
+from .lm import CausalLM, CausalLMConfig, lm_generate
 
 
 def _pad_to(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -123,7 +123,12 @@ class Realm(nn.Module):
         return self.gradients(batch=batch, lm_logits=self.forward_lm(batch), **enc)
 
     def generate(self, batch: RealmBatch, max_new_tokens: int = 16) -> torch.Tensor:
-        raise NotImplementedError("Realm.generate (the reader's prefill/decode_step) is not ported to vod_tpu_torch yet")
+        """Greedy KV-cached decoding from the reader over the flattened
+        [context; question] prompts: [B*D, max_new_tokens] int32. Like the
+        flax `generate`, it has no EOS handling."""
+        ids, mask = batch.lm__input_ids, batch.lm__attention_mask
+        return lm_generate(self.lm, ids.reshape(-1, ids.shape[-1]), mask.reshape(-1, mask.shape[-1]),
+                           max_new_tokens=max_new_tokens)
 
     def forward(self, batch: RealmBatch, mode: str = "evaluate", **kw: typ.Any) -> typ.Any:
         if mode == "encode":
