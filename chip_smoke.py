@@ -161,7 +161,41 @@ checked, none caught:
     one decode step with every synchronizing call made an error. Printed:
     median ms per step, queries/s, params, peak memory, greedy and beam ms
     and tokens/s;
- 8. the script's wall time, the `kernels` JSON line, the card line, and
+ 8a. IVF-PQ serving at full width (`IVFPQ_SERVE`): 2^20 x 768 unit rows
+    around 4,096 seeded centres and 256 held-out queries, made on the card;
+    the `ivfpq` preset (int8 refine rows at 128 PCA dims scored directly,
+    nprobe 32, no codes) and `from_faiss_factory("OPQ32_512,IVFauto,PQ32x8")`
+    (the ADC path), each built through `build_dense_from_config` with its
+    build time by stage; the preset through `cache_dir`, then built again
+    and loaded from the cache (checked: every field `torch.equal`, the same
+    answers; build and load times). Checked: every cell probed with f32
+    rows gives the exact top-10 wherever the margin exceeds the f32 bound;
+    recall@10 at the configs' nprobe above `recall_floor` and
+    `adc_recall_floor`; the card's answers equal the CPU path's on the same
+    index within `cpu_tol`; `ivfpq_search` under sync-debug "error". Timed
+    at B = 32 and 64 (CUDA events, and the host's enqueue beside the device
+    time). A `SearchServer` over the preset answers encoded queries with
+    gold lookups (phase 4's encoder) and held-out vectors: gold ids with
+    label 1, served ids equal to direct `ivfpq_search` calls; p50 at one
+    client and QPS at 32, beside phase 4's flat server. Autotuning:
+    `autotune_after_build` on the preset (recall only; the Pareto front
+    printed); then the default grid of the PQ direct serving codec
+    (coarse_dim 64, int8 refine at 128 dims, no codes) swept with timing,
+    its own main path (counts zeroed before the sweep, read after): its 3
+    fused points launch `fused_mips_binned` at int8, D = 64, 2048 bins,
+    tile 16384, 4 times each, all `wgmma`; one call is held against the
+    plain version in every cell and timed beside `topk(_int_mm)` and the
+    bound at B = 64 and 256;
+ 8b. periodic training over the preset from host slabs (`IVFPQ_PERIODIC`,
+    its own main path): phase 5's model widths over 2^18 sections,
+    `embed_hbm_budget_bytes` half the embeddings, `autotune_target_recall`
+    0.9, 2 periods of 3 steps. Checked: every period embeds into host RAM,
+    builds through `build_dense_from_host` and records `autotune`; finite
+    losses and gradient norms; no kernel launch (the IVF-PQ path runs none,
+    in JAX either); one more optimizer step under sync-debug "error".
+    Printed: per-period re-embed, build ms by stage, autotune summary, ms
+    per step, the step median and peak memory; then phase 8's wall time;
+ 9. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -294,6 +328,39 @@ GENERATION = dict(max_new_tokens=16, check_rows=16, tol=1e-3, step_reps=20)
 # otherwise). Each is about three times the larger reading.
 SEQ2SEQ = dict(n=1 << 20, ls=64, lq=24, b=32, d=8, bins=512, lr=5e-5, warmup=3, timed=10, gen_batches=2,
                max_new_tokens=16, num_beams=4, beam_queries=8, tol=0.035, beam_tol=2e-3)
+
+
+# Phase 8a: IVF-PQ serving at full width. The corpus: 2^20 unit rows of 768
+# around 4,096 seeded unit centres (MS MARCO has 8.8M passages; cut to what
+# builds in seconds), each centre plus noise 0.1 in a space whose scale decays
+# as exp(-i / 64) (98% of the variance in the top 128 dims, as embedding
+# spectra concentrate), rotated at random. Two indexes through the factory:
+# the `ivfpq` preset (configs/presets/search/ivfpq.yaml: refine rows scored
+# directly) and the reference's default factory string (OPQ + IVFauto + ADC
+# codes). Then the default grid of the PQ direct serving codec (coarse_dim 64,
+# int8 refine at 128 PCA dims, keep_codes False), whose fused points launch
+# `fused_mips_binned` at int8, 2048 bins, tile 16384.
+IVFPQ_PRESET = dict(codec="ivfpq", nprobe=32, refine="int8", refine_dim=128, keep_codes=False)
+IVFPQ_SERVE = dict(
+    n=1 << 20, centres=4096, noise=0.1, decay=64.0, held_out=256, batches=(32, 64), preset=IVFPQ_PRESET,
+    factory="OPQ32_512,IVFauto,PQ32x8", target_recall=0.9,
+    pq_direct=dict(coarse_dim=64, refine="int8", refine_dim=128, keep_codes=False),
+    # card vs CPU: twice the f32 sum-order bound 2 * gamma_D of unit vectors
+    # (D = 768: 9.2e-5); the int8 sums are exact on both sides
+    cpu_tol=2e-4,
+    # recall@10 floors against exact f32 search (256 queries, 2,560 pairs; a
+    # binomial spread of ~0.01): the preset read 0.9254 at nprobe 32 and the
+    # faiss default 0.3660 at nprobe 8 (32 subquantizers of 24 dims each) on
+    # an H100 80GB HBM3 at 700 W. A broken layout, probe list or product
+    # finds ~0 (10 random ids of 2^20)
+    recall_floor=0.85, adc_recall_floor=0.25,
+)
+# Phase 8b: periodic training over the `ivfpq` preset from host slabs at phase
+# 5's model widths: 2^18 sections of 200 random ids (phase 6 holds the 2^20
+# re-embed), `embed_hbm_budget_bytes` half the [N, 384] f32 embeddings, so the
+# host-slab branch builds every period, and the knobs re-tuned each period
+# against a recall target of 0.9; 2 periods of 3 optimizer steps.
+IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRESET, autotune_target_recall=0.9))
 
 
 def fail(msg: str) -> None:
@@ -1504,6 +1571,417 @@ def seq2seq_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dict
     return out
 
 
+def clustered_corpus(n: int, d: int, t: dict, g, dev):
+    """Phase 8's corpus: n unit rows, each one of t["centres"] seeded unit
+    centres plus noise, in a space whose per-dimension scale decays as
+    exp(-i / t["decay"]) (embedding spectra concentrate; a 128-dim PCA keeps
+    most of the variance), then rotated at random. Also a maker of held-out
+    queries drawn the same way. Made on the card from `g`."""
+    import torch
+
+    scale = torch.exp(-torch.arange(d, device=dev, dtype=torch.float32) / t["decay"])
+    rot, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev))
+    centres = torch.nn.functional.normalize(torch.randn((t["centres"], d), generator=g, device=dev) * scale, dim=-1)
+
+    def draw(rows: int):
+        which = torch.randint(0, t["centres"], (rows,), generator=g, device=dev)
+        x = centres[which] + t["noise"] * torch.randn((rows, d), generator=g, device=dev) * scale
+        return torch.nn.functional.normalize(x, dim=-1) @ rot
+
+    corpus = torch.empty((n, d), device=dev)
+    for s in range(0, n, 1 << 17):
+        corpus[s : s + (1 << 17)] = draw(min(1 << 17, n - s))
+    return corpus, draw
+
+
+def exact_ids(queries, corpus, k: int):
+    """Exact f32 top-k ids (TF32 off) and the sorted f32 scores, by chunks of 64 queries."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs = [torch.topk(qs @ corpus.T, k + 1, dim=-1) for qs in queries.split(64)]
+    return torch.cat([o.indices for o in outs]), torch.cat([o.values for o in outs])
+
+
+def recall_at(got, want, k: int = TOP_K) -> float:
+    got, want = got[:, :k].cpu(), want[:, :k].cpu()
+    return sum(len(set(a.tolist()) & set(e.tolist())) for a, e in zip(got, want)) / want.numel()
+
+
+def ivfpq_serving_phase(dev, card: str, hbm: float, peak_int8: float, t: dict, flat_latency: dict) -> dict:
+    """Phase 8a: IVF-PQ serving at full width (module constant IVFPQ_SERVE):
+    phase 4's e5-base-width encoder, a clustered 2^20 x 768 corpus, the
+    `ivfpq` preset and the reference's default factory string built through
+    `build_dense_from_config` (the preset through the index cache, then
+    loaded from it), their checks, a `SearchServer`, and autotuning: the
+    preset's operating points, then the default grid of the PQ direct serving
+    codec, whose fused points launch `fused_mips_binned` at int8, 2048 bins,
+    tile 16384 (their own main path: counts zeroed before the sweep, read
+    after); one such call is held cell for cell against the plain version
+    and timed. Returns the numbers."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vod_tpu_torch.configs import DenseFactoryConfig
+    from vod_tpu_torch.models import TransformerEncoderConfig, VodEncoder, VodPoolerConfig
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.search import (
+        HybridEngines, IVFPQIndex, SearchQueries, build_dense_from_config, build_pq_index, dense as dense_module,
+        ivfpq_search,
+    )
+    from vod_tpu_torch.search.autotune import autotune, autotune_after_build, default_grid
+    from vod_tpu_torch.serving import SearchHttpClient, SearchServer
+
+    n, d = t["n"], D
+    g = torch.Generator(device=dev).manual_seed(8)
+    t0 = time.perf_counter()
+    corpus, draw = clustered_corpus(n, d, t, g, dev)
+    held = draw(t["held_out"])
+    exact, exact_s = exact_ids(held, corpus, TOP_K)
+    torch.cuda.synchronize()
+    log(f"8a corpus: {n} x {d} unit rows around {t['centres']} centres (noise {t['noise']}, spectrum decay "
+        f"{t['decay']}), {t['held_out']} held-out queries and their exact top-10, in {time.perf_counter() - t0:.2f} s")
+
+    # the two indexes, each through the factory; the preset through the cache
+    cache = tempfile.TemporaryDirectory(prefix="vod-ivfpq-cache-")
+    configs = {
+        "preset": DenseFactoryConfig(**t["preset"]),
+        "faiss-default": DenseFactoryConfig.from_faiss_factory(t["factory"]),
+    }
+    indexes, build_ms = {}, {}
+    for name, cfg in configs.items():
+        build_ms[name] = {}
+        kw = dict(cache_dir=cache.name, data_fingerprint="phase-8a") if name == "preset" else {}
+        t1 = time.perf_counter()
+        indexes[name] = build_dense_from_config(cfg, corpus, generator=g, device=dev, timings=build_ms[name], **kw)
+        torch.cuda.synchronize()
+        build_ms[name]["total_ms"] = (time.perf_counter() - t1) * 1e3
+        ix = indexes[name]
+        check(isinstance(ix, IVFPQIndex), f"{name}: built {type(ix).__name__}, not IVFPQIndex")
+        log(f"8a index {name} [{card}]: {json.dumps(dataclasses.asdict(cfg))}; {ix.centroids.shape[0]} cells, "
+            f"{ix.row_ids.shape[0]} slots, max_windows {ix.max_windows}, codes "
+            f"{None if ix.codes is None else tuple(ix.codes.shape)}, refine "
+            f"{None if ix.refine_codes is None else tuple(ix.refine_codes.shape)}; build ms by stage "
+            f"{json.dumps({k: round(v, 4) for k, v in build_ms[name].items()})}")
+    preset, adc = indexes["preset"], indexes["faiss-default"]
+    check(preset.codes is None and preset.refine_codes.dtype == torch.int8 and preset.refine_codes.shape[1] == 128,
+          "the preset is not IVF + int8 refine rows at 128 PCA dims")
+    check(adc.codes is not None and adc.refine_codes is None and adc.rotation is not None,
+          "the factory default is not OPQ + IVF + ADC codes")
+    check(preset.centroids.shape[0] == adc.centroids.shape[0] == round(n**0.5), "IVFauto did not give sqrt(N) cells")
+
+    # the cache: a second build loads the first
+    load_ms: dict[str, float] = {}
+    t1 = time.perf_counter()
+    loaded = build_dense_from_config(configs["preset"], corpus, generator=g, cache_dir=cache.name,
+                                     data_fingerprint="phase-8a", device=dev, timings=load_ms)
+    torch.cuda.synchronize()
+    load_total = (time.perf_counter() - t1) * 1e3
+    check(set(load_ms) == {"load_ms"}, f"the second build did not load the cache: {load_ms}")
+    for f in dataclasses.fields(IVFPQIndex):
+        a, b = getattr(preset, f.name), getattr(loaded, f.name)
+        same = torch.equal(a, b) and a.device == b.device if isinstance(a, torch.Tensor) else a == b
+        check(same, f"the cached index's field {f.name} differs")
+    cache_bytes = sum(p.stat().st_size for p in Path(cache.name).rglob("*") if p.is_file())
+    q64 = SearchQueries(vector=held[:64])
+    a, b = ivfpq_search(preset, q64, TOP_K), ivfpq_search(loaded, q64, TOP_K)
+    check(torch.equal(a.indices, b.indices) and torch.equal(a.scores, b.scores), "the cached index answers otherwise")
+    del loaded
+    cache.cleanup()
+    log(f"8a cache [{card}]: build {build_ms['preset']['total_ms']:.4f} ms (saving included), load "
+        f"{load_total:.4f} ms ({cache_bytes} bytes on disk); every field torch.equal, answers identical")
+
+    # exact with every cell probed and f32 refine rows (the preset's layout, f32 rows)
+    f32_rows = torch.where((preset.row_ids >= 0)[:, None], corpus[preset.row_ids.clamp(min=0).long()], 0.0)
+    full = preset.replace(refine_codes=f32_rows, refine_scale=None, refine_proj=None,
+                          nprobe=int(preset.centroids.shape[0]), max_windows=0)
+    got = ivfpq_search(full, q64, TOP_K).indices
+    bound = 2 * d * 2.0**-24  # twice gamma_D for unit rows and queries
+    gap = (exact_s[:64, :TOP_K] - exact_s[:64, 1 : TOP_K + 1]) > bound  # slot j clear of slot j + 1
+    margin = gap.clone()
+    margin[:, 1:] &= gap[:, :-1]  # ... and of slot j - 1
+    check(bool((got[margin] == exact[:64, :TOP_K][margin]).all()), "full probe with f32 rows is not exact")
+    log(f"8a full probe, f32 rows: exact top-10 ids at {int(margin.sum())} of {margin.numel()} slots whose margin "
+        f"exceeds the f32 bound {bound:.3g}")
+    del f32_rows, full
+
+    # recall at the configs' nprobe; the card against the CPU; no host sync
+    recalls, cpu_err, search_ms = {}, {}, {}
+    for name, ix in indexes.items():
+        got = ivfpq_search(ix, SearchQueries(vector=held), TOP_K)
+        recalls[name] = recall_at(got.indices, exact)
+        cpu_ix = dataclasses.replace(ix, **{f.name: getattr(ix, f.name).cpu() for f in dataclasses.fields(ix)
+                                            if isinstance(getattr(ix, f.name), torch.Tensor)})
+        want = ivfpq_search(cpu_ix, SearchQueries(vector=held[:64].cpu()), TOP_K)
+        card_out = ivfpq_search(ix, q64, TOP_K)
+        cpu_err[name], swaps = check_sparse_close(f"8a {name} card vs CPU", card_out, want, t["cpu_tol"])
+        del cpu_ix
+        ivfpq_search(ix, q64, TOP_K)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ivfpq_search(ix, q64, TOP_K)
+        except RuntimeError as exc:
+            fail(f"8a {name}: ivfpq_search waits for the card: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        search_ms[name] = {}
+        for bq in t["batches"]:
+            sq = SearchQueries(vector=held[:bq])
+            ms = time_ms(lambda: ivfpq_search(ix, sq, TOP_K), 10)
+            host_ms, device_ms, by_kernel = host_and_device_ms(lambda: ivfpq_search(ix, sq, TOP_K), 10)
+            top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5])
+            search_ms[name][bq] = dict(ms=ms, host_ms=host_ms, device_ms=device_ms, top_kernels_ms=top)
+            log(f"time 8a ivfpq_search {name} B={bq} nprobe={ix.nprobe} [{card}]: {ms:.4f} ms (CUDA events); host "
+                f"enqueue {host_ms:.4f} ms, device {device_ms:.4f} ms (profiler); top kernels "
+                f"{json.dumps({k: round(v, 4) for k, v in top.items()})}")
+        log(f"8a {name}: recall@10 {recalls[name]:.4f} at nprobe {ix.nprobe} ({t['held_out']} held-out queries); card "
+            f"vs CPU at B=64: max |diff| {cpu_err[name]:.3g} (tol {t['cpu_tol']}), {swaps} ids swapped inside the "
+            f"band; no host sync under sync-debug \"error\"")
+    check(recalls["preset"] >= t["recall_floor"], f"8a preset recall@10 {recalls['preset']:.4f} < {t['recall_floor']}")
+    check(recalls["faiss-default"] >= t["adc_recall_floor"],
+          f"8a faiss-default recall@10 {recalls['faiss-default']:.4f} < {t['adc_recall_floor']}")
+
+    # a SearchServer over the preset: encoded queries with gold lookups, held-out vectors
+    cfg = TransformerEncoderConfig(  # phase 4's encoder
+        vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072,
+        max_position_embeddings=512, dtype=torch.bfloat16,
+        pooler=VodPoolerConfig(agg_method="mean", output_norm="l2", scaler=10.0, learn_scaler=True),
+    )
+    encoder = VodEncoder(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    ids = torch.randint(1000, cfg.vocab_size, (N_QUERIES, QUERY_TOKENS), generator=g, device=dev)
+    with torch.inference_mode():
+        qv = encoder(ids, torch.ones_like(ids, dtype=torch.int32)).float().cpu().numpy()
+    del encoder
+    gold = torch.randint(0, n, (N_QUERIES, 1), generator=g, device=dev).to(torch.int32).cpu().numpy()
+    held_np = held[:N_QUERIES].cpu().numpy()
+    direct = ivfpq_search(preset, SearchQueries(vector=held[:N_QUERIES]), TOP_K)
+    direct_ids, direct_s = direct.indices.cpu().numpy(), direct.scores.cpu().numpy()
+    with SearchServer(HybridEngines(dense=preset), batch_window_ms=2, max_batch=64, device=dev) as srv:
+        srv.warmup({"vector": qv[:1], "section_ids": gold[:1]}, top_k=TOP_K)
+        srv.warmup({"vector": held_np[:1]}, top_k=TOP_K)
+        client = SearchHttpClient(srv.url)
+        enc_out, _ = post_all(client, [{"vector": qv[i : i + 4], "section_ids": gold[i : i + 4]}
+                                       for i in range(0, N_QUERIES, 4)], 16)
+        held_out, _ = post_all(client, [{"vector": held_np[i : i + 4]} for i in range(0, N_QUERIES, 4)], 16)
+        single = [{"vector": held_np[i % N_QUERIES : i % N_QUERIES + 1]} for i in range(100)]
+        _, lat1 = post_all(client, single, 1)
+        many = [{"vector": held_np[i % N_QUERIES : i % N_QUERIES + 1]} for i in range(320)]
+        t1 = time.perf_counter()
+        _, lat32 = post_all(client, many, 32)
+        wall = time.perf_counter() - t1
+    for i, out in enumerate(enc_out):
+        for r in range(out.indices.shape[0]):
+            row = out.indices[r].tolist()
+            g_id = int(gold[4 * i + r, 0])
+            check(g_id in row and out.labels[r][row.index(g_id)] == 1, "8a serve: gold id lost")
+    served = np.concatenate([o.indices for o in held_out], axis=0)
+    for r, c in zip(*(served != direct_ids).nonzero()):  # only equal (int8) scores may swap two ids
+        pos = direct_ids[r].tolist().index(served[r, c]) if served[r, c] in direct_ids[r] else None
+        check(pos is not None and abs(direct_s[r, pos] - direct_s[r, c]) < 1e-5,
+              f"8a serve: served ids != direct ivfpq_search ids (row {r})")
+    latency = dict(
+        one_client_ms=dict(n=100, p50=statistics.median(lat1) * 1e3, p90=percentile(lat1, 90) * 1e3),
+        clients_32_ms=dict(n=320, p50=statistics.median(lat32) * 1e3, p95=percentile(lat32, 95) * 1e3),
+        clients_32_qps=320 / wall,
+    )
+    log(f"8a serve ivfpq preset [{card}]: served ids == direct ivfpq_search; gold ids with label 1; latency "
+        f"{json.dumps(latency)}; phase 4's flat server {json.dumps(flat_latency)}")
+
+    # autotuning: the preset's operating points (recall only), on the corpus rows
+    t1 = time.perf_counter()
+    tune_cfg = dataclasses.replace(configs["preset"], autotune_target_recall=t["target_recall"])
+    tuned, info = autotune_after_build(preset, tune_cfg, corpus, generator=g)
+    log(f"8a autotune preset [{card}]: {time.perf_counter() - t1:.2f} s; chosen {json.dumps(info['params'])} at "
+        f"recall {info['recall']} (target {info['target']}); front {json.dumps(info['front'])}")
+    check(info["front"] and tuned.nprobe == info["params"]["nprobe"], "8a autotune: no front or no knob applied")
+    del indexes, adc, tuned
+    torch.cuda.empty_cache()
+
+    # the PQ direct serving codec's default grid (its own main path)
+    t1 = time.perf_counter()
+    pq = build_pq_index(corpus, **t["pq_direct"], generator=g, device=dev)
+    torch.cuda.synchronize()
+    pq_build_s = time.perf_counter() - t1
+    grid = default_grid(pq)
+    fused_points = [p for p in grid if p.get("fused")]
+    check(len(fused_points) == 3 and all(p["fused_bins"] == 2048 and p["fused_tile"] == 16384 for p in fused_points)
+          and pq.coarse_codes.shape[0] % 16384 == 0, f"the direct codec's grid {grid}")
+    calls, real_kernel = [], dense_module.fused_mips_binned
+
+    def recording_kernel(vectors, queries, **kw):
+        out = real_kernel(vectors, queries, **kw)
+        calls.append((vectors, queries.clone(), kw, out))
+        return out
+
+    dense_module.fused_mips_binned = recording_kernel
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path (the autotune sweep) starts
+    try:
+        _, chosen, front = autotune(pq, held, exact[:, :TOP_K].cpu().numpy(), target_recall=t["target_recall"],
+                                    top_k=TOP_K, measure_time=True)
+    finally:
+        dense_module.fused_mips_binned = real_kernel
+    torch.cuda.synchronize()
+    sweep_launches = fused_mips_binned.launches  # main path ends
+    sweep_bodies = dict(fused_mips_binned.body_launches)
+    per_point = 1 + 3  # the recall call and three timed repeats
+    check(sweep_launches == len(calls) == per_point * len(fused_points),
+          f"the sweep launched fused_mips_binned {sweep_launches} times ({len(calls)} calls)")
+    check(sweep_bodies == {"wgmma": sweep_launches, "fma": 0}, f"the sweep's launches by body: {sweep_bodies}")
+    front_rows = [dict(params=p.params, recall=p.recall, qps=p.qps) for p in front]
+    log(f"8a autotune PQ direct codec [{card}]: built in {pq_build_s:.2f} s; {len(grid)} points, fused_mips_binned "
+        f"launches {sweep_launches} by body {sweep_bodies}; chosen {json.dumps(chosen.params)} at recall "
+        f"{chosen.recall:.4f}; front {json.dumps(front_rows)}")
+
+    # one fused call of the sweep against its plain version, cell for cell, and timed
+    vv, qq, kw, (ks, ki) = calls[0]
+    check(kw["bins"] == 2048 and kw["tile"] == 16384 and vv.dtype == torch.int8, f"the fused call's knobs {kw}")
+    rs, ri = fused_mips_binned_reference(vv, qq, **kw)
+    check(torch.equal(ks, rs) and torch.equal(ki, ri), "8a fused call: kernel != plain")
+    every = dict(kw, k=kw["bins"])
+    ks, ki = fused_mips_binned(vv, qq, **every)
+    rs, ri = fused_mips_binned_reference(vv, qq, **every)
+    check(torch.equal(ks, rs) and torch.equal(ki, ri), "8a fused call, every cell: kernel != plain")
+    shapes = []
+    for bq in (64, int(qq.shape[0])):
+        qs = qq[:bq]
+        dc = int(qs.shape[1])
+        check(_binned_body(vv.dtype, dc, kw["bins"], (vv.data_ptr(), qs.data_ptr())) == "wgmma", "8a call off wgmma")
+        ms = time_ms(lambda: fused_mips_binned(vv, qs, **kw), 20)
+        host_ms, device_ms, by_kernel = host_and_device_ms(lambda: fused_mips_binned(vv, qs, **kw), 20)
+        binned_ms = sum(v for key, v in by_kernel.items() if "binned_wgmma_kernel" in key)
+        check(binned_ms > 0, f"the profiler saw no binned_wgmma_kernel: {by_kernel}")
+        plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qs, **kw), 2)
+        library_ms = time_ms(lambda: torch.topk(torch._int_mm(qs, vv.T), kw["k"], dim=-1), 20)
+        nbytes = (int(vv.shape[0]) + bq) * dc + bq * kw["k"] * 8
+        ops = 2 * bq * int(vv.shape[0]) * dc
+        bound = max(nbytes / hbm, ops / peak_int8) * 1e3
+        shapes.append(dict(dtype="int8", body="wgmma", B=bq, N=int(vv.shape[0]), D=dc, bins=kw["bins"],
+                           tile=kw["tile"], k=kw["k"], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound, bound_by="bytes" if nbytes / hbm >= ops / peak_int8 else "operations",
+                           host_ms=host_ms, device_ms=device_ms, binned_kernel_ms=binned_ms))
+        log(f"check 8a fused int8 B={bq} N={vv.shape[0]} D={dc} bins=2048 tile=16384 k={kw['k']} (wgmma): every cell "
+            f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({shapes[-1]['bound_by']}); host enqueue {host_ms:.4f} ms, device {device_ms:.4f} ms, of which "
+            f"binned_wgmma_kernel {binned_ms:.4f} ms [{card}]")
+    del calls, pq, corpus, held, exact
+    torch.cuda.empty_cache()
+    return dict(
+        build_ms=build_ms, cache=dict(load_ms=load_total, bytes=cache_bytes), recall_at_10=recalls,
+        card_vs_cpu_max_abs_err=cpu_err, search=search_ms, serving=latency, flat_serving=flat_latency,
+        autotune_preset=info, autotune_pq=dict(chosen=chosen.params, recall=chosen.recall, front=front_rows),
+        autotune_launches=sweep_launches, autotune_body_launches=sweep_bodies, autotune_shapes=shapes,
+    )
+
+
+def ivfpq_periodic_phase(dev, card: str, t: dict) -> dict:
+    """Phase 8b: periodic training over the `ivfpq` preset from host slabs
+    (module constant IVFPQ_PERIODIC): phase 5's model at full width over
+    t["n"] sections, `embed_hbm_budget_bytes` under the [N, H] f32
+    embeddings, `autotune_target_recall` set, its own main path (counts
+    zeroed before `periodic_training`, read after; the IVF-PQ path launches
+    no kernel, in JAX either). Then one optimizer step under sync-debug
+    "error". Returns the numbers."""
+    import torch
+
+    from vod_tpu_torch.configs import DenseFactoryConfig
+    from vod_tpu_torch.exps import PeriodicTrainingConfig, periodic_training, recipes
+    from vod_tpu_torch.ops.mips import fused_mips_binned
+    from vod_tpu_torch.runtime import TrainerState, adamw, make_train_step
+    from vod_tpu_torch.search import HybridEngines, IVFPQIndex
+    from vod_tpu_torch.search.autotune import apply_runtime_params
+
+    n, periods, steps = t["n"], t["periods"], t["steps"]
+    t0 = time.perf_counter()
+    model, corpus, query_batch, g = realm_setup(dev, t, seed=9)
+    batches = [[query_batch() for _ in range(steps * t["accum"])] for _ in range(periods)]
+    emb_bytes = n * t["d"] * 4
+    dense = DenseFactoryConfig(**t["dense"])
+    config = PeriodicTrainingConfig(dense=dense, embed_hbm_budget_bytes=emb_bytes // 2, log_interval=steps)
+    torch.cuda.synchronize()
+    log(f"8b setup: corpus {n} x {t['ls']} tokens, embeddings {emb_bytes} bytes over the budget "
+        f"{config.embed_hbm_budget_bytes}; {time.perf_counter() - t0:.2f} s")
+    builds, real_build = [], recipes.build_dense_from_host
+
+    def recording_build(cfg, vectors_np, **kw):
+        index = real_build(cfg, vectors_np, **kw)
+        builds.append(index)
+        return index
+
+    recipes.build_dense_from_host = recording_build
+    optimizer = adamw(model, t["lr"], weight_decay=0.0)
+    step_fn = make_train_step(
+        model, optimizer, prefetch=t["prefetch"], n_sections=t["n_sections"], max_pos_sections=t["max_pos"],
+        temperature=1.0, with_lm=True, gradient_clip_val=1.0, accumulate_grad_batches=t["accum"],
+    )
+    recorder = step_recorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+    t_main = time.perf_counter()
+    try:
+        state, history = periodic_training(
+            step_fn=step_fn, corpus=corpus, state=TrainerState(max_steps=periods * steps, period=steps),
+            train_queries_fn=lambda p: batches[p], generator=g, config=config, callbacks=[recorder],
+        )
+    finally:
+        recipes.build_dense_from_host = real_build
+    torch.cuda.synchronize()
+    launches = dict(fused_mips_binned.body_launches)  # main path ends
+    wall = time.perf_counter() - t_main
+    peak_mem = torch.cuda.max_memory_allocated(dev)
+    check(launches == {"wgmma": 0, "fma": 0}, f"the IVF-PQ periodic path launched {launches}")
+    check(state.step == periods * steps and len(history) == periods == len(builds),
+          f"8b: {state.step} steps, {len(history)} periods, {len(builds)} host builds")
+    check(all(isinstance(ix, IVFPQIndex) and ix.codes is None for ix in builds), "8b: not the ivfpq preset")
+    losses = [float(m["loss"]) for m in recorder.metrics]
+    norms = [float(m["grad_norm"]) for m in recorder.metrics]
+    check(len(losses) == periods * steps and all(math.isfinite(x) for x in losses + norms),
+          f"8b losses {losses}, gradient norms {norms}")
+    check(all(h["host_build"] and "autotune" in h for h in history), "8b: a period did not build from host slabs "
+          "or did not autotune")
+    check(not torch.equal(builds[0].refine_codes, builds[1].refine_codes), "8b: period 1's rows equal period 0's")
+    step_ms = [s.elapsed_time(e) for s, e in recorder.events]
+    for p, h in enumerate(history):
+        log(f"8b period {p} [{card}]: re-embed to host {h['reembed_s'] * 1e3:.4f} ms ({n / h['reembed_s']:.4f} "
+            f"sections/s); host-slab build {json.dumps({k: round(v, 4) for k, v in h['build_ms'].items()})} ms; "
+            f"index {h['index_bytes']} bytes; autotune {json.dumps(h['autotune'])}; ms per optimizer step "
+            f"{json.dumps([round(x, 4) for x in step_ms[p * steps:(p + 1) * steps]])}")
+    log(f"8b run: {periods} periods of {steps} steps in {wall:.2f} s; step median {statistics.median(step_ms):.4f} ms; "
+        f"peak memory {peak_mem / 2**30:.4f} GiB; losses {json.dumps([round(x, 6) for x in losses])}")
+
+    # one more optimizer step over the last period's tuned index, never waiting for the card
+    tuned = apply_runtime_params(builds[-1], history[-1]["autotune"]["params"])
+    engines = HybridEngines(dense=tuned)
+    step_fn.train_step_accum(engines, corpus, batches[-1][: t["accum"]], g, {"dense": 1.0})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t1 = time.perf_counter()
+        step_fn.train_step_accum(engines, corpus, batches[-1][: t["accum"]], g, {"dense": 1.0})
+        enqueue_ms = (time.perf_counter() - t1) * 1e3
+    except RuntimeError as exc:
+        fail(f"the IVF-PQ train step waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finish_ms = (time.perf_counter() - t1) * 1e3
+    log(f"8b train step without a sync [{card}]: enqueued in {enqueue_ms:.4f} ms, finished {finish_ms:.4f} ms after "
+        f"the start (nprobe {tuned.nprobe})")
+    del builds, engines, tuned, model, corpus, step_fn, optimizer
+    return dict(
+        periods=[dict(reembed_ms=h["reembed_s"] * 1e3, build_ms=h["build_ms"], index_bytes=h["index_bytes"],
+                      autotune=h["autotune"], period_s=h["period_s"]) for h in history],
+        step_ms=step_ms, step_median_ms=statistics.median(step_ms), losses=losses, grad_norms=norms,
+        peak_mem_bytes=peak_mem, launches=launches, no_sync_step=dict(enqueue_ms=enqueue_ms, finish_ms=finish_ms),
+    )
+
+
 def main() -> None:
     started = time.perf_counter()
     import numpy as np
@@ -1899,7 +2377,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     seq2seq = seq2seq_phase(dev, card, hbm, peak_int8, SEQ2SEQ)
 
-    # 8. result lines
+    # 8. IVF-PQ: serving at full width (8a), periodic training from host slabs (8b)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    ivfpq = ivfpq_serving_phase(dev, card, hbm, peak_int8, IVFPQ_SERVE, results["latency"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ivfpq["periodic"] = ivfpq_periodic_phase(dev, card, IVFPQ_PERIODIC)
+    ivfpq["wall_s"] = time.perf_counter() - t8
+    log(f"phase 8 wall time: {ivfpq['wall_s']:.1f} s")
+
+    # 9. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -1922,6 +2411,8 @@ def main() -> None:
         seq2seq_body_launches=seq2seq["body_launches"], seq2seq_call=seq2seq["train_call"], seq2seq=seq2seq,
         body_ms={body: {f"{s['dtype']} B={s['B']} bins={s['bins']}": s["ms"] for s in shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
+        autotune_launches=ivfpq["autotune_launches"], autotune_body_launches=ivfpq["autotune_body_launches"],
+        autotune_shapes=ivfpq["autotune_shapes"], ivfpq=ivfpq,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

@@ -522,3 +522,90 @@ def test_beam_search_on_card_matches_cpu(cuda_device) -> None:
     got_t, got_s = beam_generate(card, ids.to(cuda_device), mask.to(cuda_device), **kw)
     assert torch.equal(got_t.cpu(), want_t)
     assert (got_s.cpu() - want_s).abs().max().item() <= 1e-4
+
+
+def _ivfpq_cpu_and_card(cuda_device, **kw):
+    """An IVF-PQ index built on the CPU (2^14 x 64 rows around 64 centres),
+    and the same tensors copied to the card."""
+    import dataclasses
+
+    from vod_tpu_torch.search import build_ivfpq_index
+
+    rng = np.random.default_rng(4)
+    centres = unit_rows(rng, 64, 64)
+    v = centres[rng.integers(0, 64, 1 << 14)] + 0.3 * unit_rows(rng, 1 << 14, 64)
+    v = (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+    q = v[rng.integers(0, 1 << 14, 70)] + 0.1 * unit_rows(rng, 70, 64)
+    ix = build_ivfpq_index(v, n_clusters=64, nprobe=8, window=128, kmeans_iters=4,
+                           generator=torch.Generator().manual_seed(0), device="cpu", **kw)
+    card = dataclasses.replace(ix, **{f.name: getattr(ix, f.name).to(cuda_device) for f in dataclasses.fields(ix)
+                                      if isinstance(getattr(ix, f.name), torch.Tensor)})
+    return ix, card, torch.from_numpy(q.astype(np.float32))
+
+
+IVFPQ_CARD_MODES = {
+    "serving-int8-pca": dict(refine="int8", refine_dim=32, keep_codes=False),
+    "adc8": dict(n_subquantizers=16),
+    "spilled-adc4-rerank": dict(n_subquantizers=16, code_bits=4, spill=True, rerank="int8", k_factor=4),
+}
+
+
+@pytest.mark.parametrize("mode", list(IVFPQ_CARD_MODES))
+def test_ivfpq_search_on_card_matches_cpu(cuda_device, mode: str) -> None:
+    """`ivfpq_search` on the card returns the CPU path's answers: int8
+    products exact on both, bf16 ADC decode products summed in f32 in another
+    order (scores within 1e-5; ids equal wherever the margin exceeds that)."""
+    from vod_tpu_torch.search import SearchQueries, ivfpq_search
+
+    ix, card, q = _ivfpq_cpu_and_card(cuda_device, **IVFPQ_CARD_MODES[mode])
+    for b in (1, 64, 70):
+        want = ivfpq_search(ix, SearchQueries(vector=q[:b]), 10)
+        got = ivfpq_search(card, SearchQueries(vector=q[:b].to(cuda_device)), 10)
+        torch.testing.assert_close(got.scores.cpu(), want.scores, atol=1e-5, rtol=0)
+        gi, wi, ws = got.indices.cpu(), want.indices, want.scores
+        for r, c in (gi != wi).nonzero().tolist():
+            where = (wi[r] == gi[r, c]).nonzero()
+            other = ws[r, where[0, 0]] if len(where) else ws[r, -1]
+            assert abs(other - ws[r, c]).item() <= 2e-5
+
+
+@pytest.mark.parametrize("mode", ["serving-int8-pca", "adc8"])
+def test_ivfpq_search_never_waits_for_the_card(cuda_device, mode: str) -> None:
+    """The collate calls `ivfpq_search` inside the train step: with every
+    synchronizing CUDA call an error, a search (after a warm-up) runs."""
+    from vod_tpu_torch.search import SearchQueries, ivfpq_search
+
+    _, card, q = _ivfpq_cpu_and_card(cuda_device, **IVFPQ_CARD_MODES[mode])
+    qs = SearchQueries(vector=q[:64].to(cuda_device))
+    ivfpq_search(card, qs, 10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ivfpq_search(card, qs, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out.indices.shape == (64, 10) and bool((out.indices >= 0).all())
+
+
+def test_binned_int8_wgmma_at_2048_bins(cuda_device) -> None:
+    """The autotune grid's fused point on the PQ serving codec: int8 coarse
+    codes at D = 64, bins 2048, tile 16384, B = 64, k = 80 (k_factor 8 x 10)
+    and every cell (k = bins), bit for bit against the plain version, on the
+    tensor-core body, with a ragged last stride and equal rows in one bin."""
+    g = torch.Generator(device=cuda_device).manual_seed(2048)
+    n, d, bins = 1 << 17, 64, 2048
+    v = torch.randint(-127, 128, (n, d), generator=g, device=cuda_device, dtype=torch.int8)
+    q = torch.randint(-127, 128, (64, d), generator=g, device=cuda_device, dtype=torch.int8)
+    v[[11 + bins, 11 + 40 * bins]] = v[11].clone()
+    q[0] = v[11]
+    assert _binned_body(torch.int8, d, bins, (v.data_ptr(), q.data_ptr())) == "wgmma"
+    before = dict(fused_mips_binned.body_launches)
+    for k, n_real in ((80, n), (bins, n), (bins, n - 77)):
+        kw = dict(k=k, bins=bins, tile=16384, n_real=n_real)
+        ks, ki = fused_mips_binned(v, q, **kw)
+        rs, ri = fused_mips_binned_reference(v, q, **kw)
+        assert torch.equal(ks, rs) and torch.equal(ki, ri)
+        assert ki[0, 0].item() == 11 and ki.max().item() < n_real
+    assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 3
+    assert fused_mips_binned.body_launches["fma"] == before["fma"]

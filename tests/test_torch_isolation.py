@@ -52,6 +52,7 @@ def test_every_module_imports_with_jax_and_vod_tpu_blocked() -> None:
         "vod_tpu_torch.ops.mips", "vod_tpu_torch.serving", "vod_tpu_torch.models.encoder",
         "vod_tpu_torch.examples.mips_kernel_bench", "vod_tpu_torch.models.seq2seq", "vod_tpu_torch.models.t5_encoder",
         "vod_tpu_torch.runtime.generation", "vod_tpu_torch.examples.seq2seq_realm_bench",
+        "vod_tpu_torch.search.ivfpq", "vod_tpu_torch.search.autotune", "vod_tpu_torch.utils.fingerprint",
     } <= set(modules)
     code = (
         "import sys, importlib\n"

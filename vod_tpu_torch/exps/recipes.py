@@ -3,23 +3,27 @@
 
 While training is not done: re-embed the corpus with the current encoder ->
 rebuild the dense index through the factory (`PeriodicTrainingConfig.dense`
-names any ported codec: flat, int8, pq, ivf) -> optionally benchmark -> train
-one period with live retrieval (`runtime/train.py:training_loop` until the
-period's end) -> checkpoint.
+names any ported codec: flat, int8, pq, ivf, ivfpq) -> optionally re-tune its
+runtime knobs (`dense.autotune_target_recall`) -> optionally benchmark ->
+train one period with live retrieval (`runtime/train.py:training_loop` until
+the period's end) -> checkpoint.
 
-Random draws: where the JAX version splits its key into a build key and a
-loop key each period, the port draws both from the one `torch.Generator` it
-is given, in that order. Not ported yet, each raising `NotImplementedError`:
-SPLADE reindexing (`splade_doc_k`), a device mesh (`mesh`, `dp_axis`),
-autotuning (`dense.autotune_target_recall`), profiler traces
-(`profile_dir`), and the host-slab branch, taken when the `[N, H]` f32
-embeddings would exceed `embed_hbm_budget_bytes` under the pq/int8/ivfpq
-codecs.
+When the `[N, H]` f32 embeddings would exceed `embed_hbm_budget_bytes` under
+the pq, int8 or ivfpq codecs, the corpus is embedded into host RAM
+(`compute_embeddings_to_host`) and the index built from host slabs
+(`build_dense_from_host`); only the codes land on the device.
 
-Each period's summary holds, beside JAX's `period`, `embed_s` (re-embed and
-build) and `period_s`: `reembed_s`, `build_ms` by stage (`build_pq_index`'s
-stages for pq), `index_bytes` and `train`, the loop's last logged metrics.
-The device is synchronized at those boundaries, once a period.
+Random draws: where the JAX version splits its key into a build key, a tune
+key and a loop key each period, the port draws all three from the one
+`torch.Generator` it is given, in that order. Not ported yet, each raising
+`NotImplementedError`: SPLADE reindexing (`splade_doc_k`), a device mesh
+(`mesh`, `dp_axis`) and profiler traces (`profile_dir`).
+
+Each period's summary holds, beside JAX's `period`, `embed_s` (re-embed,
+build and tuning), `autotune` (when tuned) and `period_s`: `reembed_s`,
+`build_ms` by stage (the build's stages), `host_build` (whether the
+host-slab branch ran), `index_bytes` and `train`, the loop's last logged
+metrics. The device is synchronized at those boundaries, once a period.
 """
 
 from __future__ import annotations
@@ -35,19 +39,20 @@ from vod_tpu_torch.configs.search import DenseFactoryConfig
 from vod_tpu_torch.runtime.benchmark import benchmark_retrieval
 from vod_tpu_torch.runtime.checkpoint import save_checkpoint
 from vod_tpu_torch.runtime.collate import DeviceCorpus, QueryBatch
-from vod_tpu_torch.runtime.predict import compute_embeddings
+from vod_tpu_torch.runtime.predict import compute_embeddings, compute_embeddings_to_host
 from vod_tpu_torch.runtime.state import TrainerState
 from vod_tpu_torch.runtime.train import RealmTrainStep, training_loop
 from vod_tpu_torch.search.dense import index_nbytes
-from vod_tpu_torch.search.factory import build_dense_from_config
+from vod_tpu_torch.search.autotune import autotune_after_build
+from vod_tpu_torch.search.factory import build_dense_from_config, build_dense_from_host
 from vod_tpu_torch.search.hybrid import HybridEngines
 
 
 @dataclasses.dataclass
 class PeriodicTrainingConfig:
     embed_chunk: int = 512
-    # above this many bytes of [N, H] f32 embeddings the JAX recipe streams
-    # them to host RAM and builds from host slabs (not ported: raises)
+    # above this many bytes of [N, H] f32 embeddings (pq/int8/ivfpq codecs)
+    # the corpus is embedded into host RAM and the index built from host slabs
     embed_hbm_budget_bytes: int = 8 << 30
     # the dense-index factory config rebuilt every period; None disables the
     # dense engine
@@ -71,8 +76,6 @@ def _check_ported(cfg: PeriodicTrainingConfig) -> None:
         raise NotImplementedError("SPLADE periodic reindexing (splade_doc_k) is not ported to vod_tpu_torch yet")
     if cfg.mesh is not None or cfg.dp_axis is not None:
         raise NotImplementedError("training over a device mesh (mesh, dp_axis) is not ported to vod_tpu_torch yet")
-    if cfg.dense is not None and cfg.dense.autotune_target_recall is not None:
-        raise NotImplementedError("index autotuning (autotune_target_recall) is not ported to vod_tpu_torch yet")
     if cfg.profile_dir is not None:
         raise NotImplementedError("profiler traces (profile_dir) are not ported to vod_tpu_torch yet")
 
@@ -119,23 +122,30 @@ def periodic_training(
         else:
             with torch.no_grad():
                 dim = int(model.encode_field(corpus.input_ids[:1], corpus.attention_mask[:1]).shape[-1])
-            if corpus.size * dim * 4 > cfg.embed_hbm_budget_bytes and cfg.dense.codec in ("pq", "int8", "ivfpq"):
-                raise NotImplementedError(
-                    "the host-slab re-embed and build (embeddings over embed_hbm_budget_bytes) is not ported "
-                    "to vod_tpu_torch yet"
+            host = corpus.size * dim * 4 > cfg.embed_hbm_budget_bytes and cfg.dense.codec in ("pq", "int8", "ivfpq")
+            if host:
+                emb: typ.Any = compute_embeddings_to_host(
+                    model.encode_field, corpus.input_ids.cpu().numpy(), corpus.attention_mask.cpu().numpy(),
+                    chunk=cfg.embed_chunk, device=device,
                 )
-            emb = compute_embeddings(model.encode_field, corpus, chunk=cfg.embed_chunk)
+            else:
+                emb = compute_embeddings(model.encode_field, corpus, chunk=cfg.embed_chunk)
             _sync(device)
             summary["reembed_s"] = time.perf_counter() - t0
             build_ms: dict[str, float] = {}
             t1 = time.perf_counter()
-            dense = build_dense_from_config(
-                cfg.dense, emb, generator=generator, subset_ids=corpus.subset_ids, device=device, timings=build_ms,
-            )
-            del emb
+            build = build_dense_from_host if host else build_dense_from_config
+            dense = build(cfg.dense, emb, generator=generator, subset_ids=corpus.subset_ids, device=device,
+                          timings=build_ms)
             _sync(device)
             build_ms["total_ms"] = (time.perf_counter() - t1) * 1e3
-            summary.update(build_ms=build_ms, index_bytes=index_nbytes(dense))
+            summary.update(build_ms=build_ms, host_build=host, index_bytes=index_nbytes(dense))
+            if cfg.dense.autotune_target_recall is not None:
+                # re-tune the runtime knobs against this period's embeddings
+                dense, tune_info = autotune_after_build(dense, cfg.dense, emb, generator=generator)
+                if tune_info is not None:
+                    summary["autotune"] = tune_info
+            del emb
             engines = HybridEngines(dense=dense, sparse=sparse_engine)
         summary["embed_s"] = time.perf_counter() - t0
 

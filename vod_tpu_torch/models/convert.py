@@ -18,7 +18,8 @@ optimizer's weight-decay groups are chosen by (`runtime/optim.py`).
 
 `dense_index_from_fields` carries a JAX `PQIndex` or `IVFIndex` over: its
 fields as numpy arrays (`np.asarray` of each array) plus its static fields;
-`sparse_index_from_fields` does the same for a JAX BM25 `SparseIndex`.
+`ivfpq_index_from_fields` does the same for a JAX `IVFPQIndex` and
+`sparse_index_from_fields` for a JAX BM25 `SparseIndex`.
 """
 
 from __future__ import annotations
@@ -206,6 +207,35 @@ def flax_path(name: str) -> str:
 
 
 
+def _field_tensor(x: typ.Any, device: typ.Union[str, torch.device]) -> typ.Optional[torch.Tensor]:
+    """A numpy field as a tensor on `device`, None as None; bf16 arrays
+    (ml_dtypes) come over by their bits."""
+    if x is None:
+        return None
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device).contiguous()
+    return torch.from_numpy(a).to(device).contiguous()
+
+
+def ivfpq_index_from_fields(
+    fields: typ.Mapping[str, typ.Any], *, device: typ.Union[str, torch.device] = "cuda"
+) -> typ.Any:
+    """The port's `IVFPQIndex` from a JAX `IVFPQIndex`'s fields: arrays as
+    numpy (None where the JAX field is None), the static metadata (`n_real`,
+    `offset`, `window`, `nprobe`, `max_windows`, `k_factor`, `code_bits`,
+    `approx_recall`, `spilled`) as they are."""
+    from vod_tpu_torch.search.ivfpq import IVFPQIndex
+
+    names = {f.name for f in dataclasses.fields(IVFPQIndex)}
+    if not {"centroids", "win_start", "win_count"} <= set(fields):
+        raise ValueError(f"not an IVFPQIndex: fields {sorted(fields)}")
+    return IVFPQIndex(**{
+        k: (_field_tensor(v, device) if v is None or hasattr(v, "__array__") else v)
+        for k, v in fields.items() if k in names
+    })
+
+
 def dense_index_from_fields(
     fields: typ.Mapping[str, typ.Any], *, device: typ.Union[str, torch.device] = "cuda"
 ) -> typ.Any:
@@ -217,12 +247,7 @@ def dense_index_from_fields(
     from vod_tpu_torch.search import dense
 
     def tensor(x: typ.Any) -> typ.Optional[torch.Tensor]:
-        if x is None:
-            return None
-        a = np.array(x)
-        if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits over
-            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device).contiguous()
-        return torch.from_numpy(a).to(device).contiguous()
+        return _field_tensor(x, device)
 
     if "codebooks" in fields:
         cls = dense.PQIndex

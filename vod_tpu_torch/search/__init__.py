@@ -1,5 +1,6 @@
-"""Search engines (port of `vod_tpu/search/`: flat/int8, PQ and IVF dense indexes, the
-BM25 sparse index, lookup, hybrid, and the config-driven factory)."""
+"""Search engines (port of `vod_tpu/search/`: flat/int8, PQ, IVF and IVF-PQ dense
+indexes, the BM25 sparse index, lookup, hybrid, the config-driven factory with
+its index cache and host-slab builds, and operating-point autotuning)."""
 
 from .base import SearchQueries, subset_mask
 from .dense import (
@@ -9,12 +10,15 @@ from .dense import (
     build_dense_index,
     build_ivf_index,
     build_pq_index,
+    build_pq_index_from_host,
     dense_search,
     ivf_search,
     pq_search,
 )
-from .factory import build_dense_from_config, build_hybrid_engines, build_sparse_from_config
+from .autotune import OperatingPoint, autotune, autotune_after_build
+from .factory import build_dense_from_config, build_dense_from_host, build_hybrid_engines, build_sparse_from_config
 from .hybrid import HybridEngines, hybrid_search, hybrid_search_and_sample
+from .ivfpq import IVFPQIndex, build_ivfpq_index, ivfpq_search
 from .lookup import lookup_search
 from .sparse import (
     SparseIndex,
@@ -29,16 +33,23 @@ __all__ = [
     "DenseIndex",
     "HybridEngines",
     "IVFIndex",
+    "IVFPQIndex",
+    "OperatingPoint",
     "PQIndex",
     "SearchQueries",
     "SparseIndex",
+    "autotune",
+    "autotune_after_build",
     "bm25_topk",
     "build_dense_from_config",
+    "build_dense_from_host",
     "build_dense_index",
     "build_hybrid_engines",
     "build_impact_index",
     "build_ivf_index",
+    "build_ivfpq_index",
     "build_pq_index",
+    "build_pq_index_from_host",
     "build_sparse_from_config",
     "build_sparse_index",
     "build_sparse_index_native",
@@ -46,6 +57,7 @@ __all__ = [
     "hybrid_search",
     "hybrid_search_and_sample",
     "ivf_search",
+    "ivfpq_search",
     "lookup_search",
     "pq_search",
     "sparse_search",

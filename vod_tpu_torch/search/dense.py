@@ -10,8 +10,9 @@
 
 `kernel="fused"` routes the flat/int8 scan, and the PQ coarse stage, through
 the hand-written `fused_mips_binned` CUDA kernel (`ops/mips.py`), as
-`kernel: fused` routes them through the Pallas kernel in the JAX package. The
-host-slab builders (`build_*_from_host`) are not ported yet.
+`kernel: fused` routes them through the Pallas kernel in the JAX package.
+`build_pq_index_from_host` builds a PQ index from host slabs for corpora
+whose embeddings do not fit on the device.
 
 On the card every scan is exact: chunked products plus a stable top-k, which
 is what the JAX package's `approx_max_k` does on the CPU. Float32 products run
@@ -879,3 +880,130 @@ def ivf_search(index: IVFIndex, queries: SearchQueries, top_k: int) -> Retrieval
     top_i = torch.gather(all_i, -1, pos)
     ok = torch.isfinite(top_s)
     return RetrievalBatch(scores=top_s, indices=torch.where(ok, top_i + index.offset, -1))
+
+
+# ---- host slabs -------------------------------------------------------------------
+
+
+def _slab_on(vectors_np: typ.Any, s0: int, slab: int, device: torch.device) -> torch.Tensor:
+    """Rows [s0, s0 + slab) of a host matrix as f32 on `device`."""
+    return torch.as_tensor(np.ascontiguousarray(vectors_np[s0 : s0 + slab]), device=device).to(torch.float32)
+
+
+def build_pq_index_from_host(
+    vectors_np: typ.Any,  # numpy [N, D] in host RAM; may exceed device memory
+    *,
+    n_subquantizers: int = 32,
+    coarse_dim: typ.Optional[int] = 32,
+    n_candidates: int = 1024,
+    train_size: int = 500_000,
+    kmeans_iters: int = 10,
+    use_opq: bool = False,
+    refine: str = "none",
+    refine_dim: typ.Optional[int] = None,
+    k_factor: int = 4,
+    slab: int = 1_000_000,
+    subset_ids: typ.Union[torch.Tensor, np.ndarray, None] = None,
+    offset: int = 0,
+    approx_recall: typ.Optional[float] = 0.95,
+    code_bits: int = 8,
+    aniso_eta: pq_ops.AnisoEta = None,
+    keep_codes: bool = True,
+    kernel: str = "scan",
+    fused_bins: int = 512,
+    fused_tile: int = 0,
+    generator: typ.Optional[torch.Generator] = None,
+    device: typ.Union[str, torch.device] = "cuda",
+    timings: typ.Optional[dict] = None,
+) -> PQIndex:
+    """PQ build for corpora larger than device memory (faiss's chunked
+    train + add): train on the first `train_size` rows, then encode host
+    slabs on `device` one at a time. Only the codes (M [+ the coarse width]
+    [+ R for int8 refine] bytes a row) accumulate on the device, written in
+    place slab by slab.
+
+    refine='int8' stores int8 re-rank rows (D, or refine_dim in the
+    truncated-PCA space), their scale and projection taken from the training
+    sample; bf16/f32 refine is refused. `keep_codes=False` (needs coarse_dim
+    and refine) builds the serving codec: coarse scan -> direct refine.
+    Draws come from `generator` (default: seed 0 on the device). With
+    `timings`, the wall ms of "train_ms" and "encode_ms" are added to it."""
+    if refine not in ("none", "int8"):
+        raise ValueError(f"host-slab PQ build supports refine none|int8, got {refine!r}")
+    if code_bits not in (8, 4):
+        raise ValueError(f"code_bits must be 8 or 4, got {code_bits}")
+    if code_bits == 4 and n_subquantizers % 2:
+        raise ValueError("code_bits=4 requires an even n_subquantizers (nibble packing)")
+    if not keep_codes and (coarse_dim is None or refine == "none"):
+        raise ValueError("keep_codes=False requires coarse_dim and a refine store")
+    if kernel not in ("scan", "fused"):
+        raise ValueError(f"kernel must be 'scan' or 'fused', got {kernel!r}")
+    dev = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    clock = _StageClock(timings, dev)
+    n_real, d = (int(s) for s in vectors_np.shape)
+
+    with clock("train_ms"):
+        train = _slab_on(vectors_np, 0, train_size, dev)
+        if keep_codes:
+            rotation, codebooks, aniso_resolved = pq_ops.train_pq_codebooks(
+                train, n_subquantizers, n_codes=1 << code_bits, kmeans_iters=kmeans_iters, use_opq=use_opq,
+                opq_iters=4, aniso_eta=aniso_eta, generator=generator,
+            )
+        else:
+            rotation, codebooks, aniso_resolved = None, torch.zeros((1, 1, 1), device=dev), None
+        set_full_f32_matmul()
+        train_rot = train if rotation is None else train @ rotation
+        proj = coarse_scale = None
+        if coarse_dim is not None:
+            proj, _mean = pq_ops.train_projection(train_rot, coarse_dim)
+            _, coarse_scale = pq_ops.quantize_int8(train_rot @ proj, dim=0)
+        refine_scale = refine_proj = None
+        if refine == "int8":
+            ref_sample = train
+            if refine_dim is not None and refine_dim < d:
+                refine_proj, _mean = pq_ops.train_projection(train, refine_dim)
+                ref_sample = train @ refine_proj
+            _, refine_scale = pq_ops.quantize_int8(ref_sample, dim=0)
+            del ref_sample
+        del train, train_rot
+
+    pad_multiple = _auto_pad_multiple(n_real, None)
+    n_pad = -(-n_real // pad_multiple) * pad_multiple
+    code_cols = n_subquantizers // 2 if code_bits == 4 else n_subquantizers
+    codes = torch.zeros((n_pad, code_cols), dtype=torch.uint8, device=dev) if keep_codes else None
+    coarse_codes = None
+    if coarse_dim is not None:
+        width = -(-coarse_dim // _COARSE_COLS) * _COARSE_COLS  # zero columns up to the tensor-core width
+        coarse_codes = torch.zeros((n_pad, width), dtype=torch.int8, device=dev)
+    r_dim = d if refine_dim is None else min(refine_dim, d)
+    refine_codes = torch.zeros((n_pad, r_dim), dtype=torch.int8, device=dev) if refine == "int8" else None
+
+    def int8_rows(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+    with clock("encode_ms"):
+        for s0 in range(0, n_real, slab):
+            x = _slab_on(vectors_np, s0, slab, dev)
+            s1 = s0 + int(x.shape[0])
+            set_full_f32_matmul()
+            xr = x if rotation is None else x @ rotation
+            if codes is not None:
+                c = pq_ops.encode_pq_auto(codebooks, xr, eta=aniso_resolved)
+                codes[s0:s1] = _pack_codes4(c) if code_bits == 4 else c
+            if coarse_codes is not None:
+                coarse_codes[s0:s1, :coarse_dim] = int8_rows(xr @ proj, coarse_scale)
+            if refine_codes is not None:
+                refine_codes[s0:s1] = int8_rows(x if refine_proj is None else x @ refine_proj, refine_scale)
+            del x, xr
+
+    if subset_ids is not None:
+        subset_ids = _pad_rows(torch.as_tensor(subset_ids, device=dev).to(torch.int32), pad_multiple)
+    return PQIndex(
+        codebooks=codebooks, codes=codes, coarse_codes=coarse_codes, coarse_scale=coarse_scale, proj=proj,
+        rotation=rotation, subset_ids=subset_ids, refine_codes=refine_codes, refine_scale=refine_scale,
+        refine_proj=refine_proj, n_real=n_real, offset=offset, n_candidates=n_candidates,
+        approx_recall=approx_recall, k_factor=k_factor, code_bits=code_bits, kernel=kernel,
+        fused_bins=fused_bins, fused_tile=fused_tile,
+    )

@@ -5,9 +5,9 @@ per row, the gold lookup rides along with score 0 and label 1, and the results
 are merged by weighted score sum. `hybrid_search_and_sample` adds the
 truncation to the prefetch width and labeled priority sampling: the retrieval
 segment of the training collate. The dense engine is a flat/int8
-`DenseIndex`, a `PQIndex` or an `IVFIndex`; the sparse engine is a BM25
-`SparseIndex`. IVF-PQ and the sharded indexes (dense and sparse) wait for
-later slices of the port.
+`DenseIndex`, a `PQIndex`, an `IVFIndex` or an `IVFPQIndex`; the sparse
+engine is a BM25 `SparseIndex`. The sharded indexes (dense and sparse) wait
+for later slices of the port.
 """
 
 from __future__ import annotations
@@ -23,21 +23,24 @@ from vod_tpu_torch.ops.sample import PrioritySampledSections, sample_search_resu
 from vod_tpu_torch.types.retrieval import RetrievalBatch
 from .base import SearchQueries
 from .dense import DenseIndex, IVFIndex, PQIndex, dense_search, ivf_search, pq_search
+from .ivfpq import IVFPQIndex, ivfpq_search
 from .lookup import lookup_search
 from .sparse import SparseIndex, sparse_search
 
 
 @dataclasses.dataclass
 class HybridEngines:
-    """Named engine bundle. The dense engine is a `DenseIndex`, `PQIndex` or
-    `IVFIndex`, the sparse engine a `SparseIndex`; any other engine raises
-    `NotImplementedError` when searched."""
+    """Named engine bundle. The dense engine is a `DenseIndex`, `PQIndex`,
+    `IVFIndex` or `IVFPQIndex`, the sparse engine a `SparseIndex`; any other
+    engine raises `NotImplementedError` when searched."""
 
-    dense: typ.Optional[typ.Union[DenseIndex, PQIndex, IVFIndex]] = None
+    dense: typ.Optional[typ.Union[DenseIndex, PQIndex, IVFIndex, IVFPQIndex]] = None
     sparse: typ.Optional[SparseIndex] = None
 
 
 def _dense_dispatch(index: typ.Any, queries: SearchQueries, top_k: int) -> RetrievalBatch:
+    if isinstance(index, IVFPQIndex):
+        return ivfpq_search(index, queries, top_k)
     if isinstance(index, PQIndex):
         return pq_search(index, queries, top_k)
     if isinstance(index, IVFIndex):
