@@ -195,7 +195,26 @@ checked, none caught:
     in JAX either); one more optimizer step under sync-debug "error".
     Printed: per-period re-embed, build ms by stage, autotune summary, ms
     per step, the step median and peak memory; then phase 8's wall time;
- 9. the script's wall time, the `kernels` JSON line, the card line, and
+ 9. the experiment CLI from text to a train step (`CLI`), in process
+    through `vod_tpu_torch.exps.cli.main`, each `main` its own main path
+    (counts zeroed before, read after): 2^18 passages harvested from the
+    interpreter's site-packages, 8,192 generated queries and a 30,522-entry
+    vocab.txt written as a BeIR directory, and a YAML extending
+    `configs/msmarco_pq_realm.yaml` (flat bf16 `kernel: fused` at 512 bins,
+    6 steps, period 3); `main(["--config", yaml])`, then
+    `main(["--resume_from", run, "--max_steps", "9"])`. Checked: the parsed
+    `Experiment` and `config.json` equal the yaml with the overrides; no
+    section tokenizes to all `[UNK]`; finite losses; the logged weights
+    follow the yaml's schedules; period 1's index differs from period 0's;
+    2 `fused_mips_binned` launches a step, all `wgmma`; one CLI-loop call
+    (B = 32, D = 384, N = 2^18, 512 bins, k = 100) against its plain
+    version; BM25's top 100 holds the gold passage for at least
+    `CLI["bm25_recall_floor"]` of 256 held-out queries; the resume starts at
+    step 6 and ends at 9; one optimizer step with its dataloader batches
+    under sync-debug "error". Printed: harvest s, tokenizer and analyzer
+    sections/s, BM25 build ms, per period re-embed s, index build ms, step
+    median and the dataloader's wait share, peak memory, the phase's wall;
+10. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -361,6 +380,34 @@ IVFPQ_SERVE = dict(
 # host-slab branch builds every period, and the knobs re-tuned each period
 # against a recall target of 0.9; 2 periods of 3 optimizer steps.
 IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRESET, autotune_target_recall=0.9))
+
+# Phase 9: the experiment CLI from text to a train step. Everything comes
+# from the card machine's own files, nothing downloaded: 2^18 passages of 48
+# words harvested from the running interpreter's site-packages (stride 48,
+# windows that do not overlap), 8,192 train queries of 6-10 consecutive
+# words of one seeded passage each (that passage their qrel) and 256 more
+# held out for BM25, a vocab.txt of 30,522 entries (the five specials, a-z
+# and 0-9 with their ## forms, ASCII punctuation, then the corpus's most
+# frequent lower-cased words), and a YAML that extends
+# configs/msmarco_pq_realm.yaml by its path and overrides only
+# `datasets`, `tokenizer.name_or_path`, `tokenizer.max_length`,
+# `search_defaults.dense` (flat bf16, kernel fused at 512 bins; the yaml's
+# PQ-only keys stay and the flat codec ignores them), `trainer` (6 steps,
+# period 3, log every step, a checkpoint path) and `sys.mesh_shape` ([1]).
+# `tokenizer.max_length` 200 -> 96: the CLI pads sections and queries to
+# it, so at 200 the reader's rows hold 200 + 200 + 64 tokens and its f32
+# logits [256, 463, 30522] (14.5 GB a copy) ran the card out of memory in
+# the first step; at 96 the rows hold 256 tokens, phase 5's 248. Harvested
+# passages of 48 words average about 74 tokens, so few are truncated (the
+# phase prints the share).
+CLI = dict(
+    n=1 << 18, passage_words=48, stride=48, queries=8192, held_out=256, query_words=(6, 10), vocab=30522,
+    max_length=96, max_steps=6, period=3, resume_steps=9, bins=512, seed=11,
+    # the share of held-out queries whose gold passage is in BM25's top 100:
+    # 0.9453 on an H100 80GB HBM3 at 700 W (256 literal spans; a binomial
+    # spread of ~0.014). A broken analyzer, build or scorer finds ~100 / 2^18
+    bm25_recall_floor=0.85,
+)
 
 
 def fail(msg: str) -> None:
@@ -1982,6 +2029,439 @@ def ivfpq_periodic_phase(dev, card: str, t: dict) -> dict:
     )
 
 
+def cli_inputs(root: Path, t: dict) -> dict:
+    """Phase 9's inputs under `root` (module constant CLI): a BeIR-format
+    directory of harvested passages and generated queries, a vocab
+    directory and the YAML. Returns the paths, the held-out queries (text,
+    gold passage id), the expected overrides and the harvest's numbers."""
+    import collections
+    import re
+    import sysconfig
+
+    import numpy as np
+
+    from vod_tpu_torch.data.loaders import local_text
+
+    files = [0]
+    real_iter = local_text._iter_files
+
+    def counting_iter(*args, **kw):
+        for path in real_iter(*args, **kw):
+            files[0] += 1
+            yield path
+
+    local_text._iter_files = counting_iter
+    try:
+        t0 = time.perf_counter()
+        rows = local_text.harvest_text_passages(
+            t["n"], roots=[sysconfig.get_paths()["purelib"]], passage_words=t["passage_words"], stride=t["stride"],
+        )
+        harvest_s = time.perf_counter() - t0
+    finally:
+        local_text._iter_files = real_iter
+    check(len(rows) == t["n"] and len({r["id"] for r in rows}) == t["n"],
+          f"harvested {len(rows)} passages with distinct ids, not {t['n']}")
+
+    rng = np.random.default_rng(t["seed"])
+    lo, hi = t["query_words"]
+    queries = []
+    for j, i in enumerate(rng.choice(t["n"], size=t["queries"] + t["held_out"], replace=False).tolist()):
+        words = rows[i]["content"].split(" ")
+        length = int(rng.integers(lo, hi + 1))
+        start = int(rng.integers(0, len(words) - length + 1))
+        queries.append((f"q{j}", " ".join(words[start : start + length]), rows[i]["id"]))
+    train, held = queries[: t["queries"]], queries[t["queries"]:]
+
+    beir = root / "beir"
+    (beir / "qrels").mkdir(parents=True)
+    with open(beir / "corpus.jsonl", "w") as f:
+        f.writelines(json.dumps({"_id": r["id"], "title": r["title"], "text": r["content"]}) + "\n" for r in rows)
+    with open(beir / "queries.jsonl", "w") as f:
+        f.writelines(json.dumps({"_id": qid, "text": text}) + "\n" for qid, text, _ in train)
+    with open(beir / "qrels" / "train.tsv", "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n")
+        f.writelines(f"{qid}\t{gold}\t1\n" for qid, _, gold in train)
+
+    # vocab.txt: every word decomposes into the single characters, and the
+    # most frequent lower-cased words (as the tokenizer splits them) are whole
+    chars = "abcdefghijklmnopqrstuvwxyz0123456789"
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *chars, *("##" + c for c in chars),
+             *"!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~"]
+    counts: collections.Counter = collections.Counter()
+    word = re.compile(r"[a-z0-9]+")
+    for r in rows:
+        counts.update(word.findall(f"{r['title']} {r['content']}".lower()))
+    seen = set(vocab)
+    for w, _ in counts.most_common():
+        if len(vocab) >= t["vocab"]:
+            break
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    vocab_dir = root / "vocab"
+    vocab_dir.mkdir()
+    (vocab_dir / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    check(len(vocab) == t["vocab"], f"vocab.txt has {len(vocab)} entries, not {t['vocab']}")
+
+    run = root / "run"
+    base = ROOT / "configs" / "msmarco_pq_realm.yaml"
+    datasets = {
+        "queries": [{"identifier": "harvest-train", "name_or_path": "beir", "subsets": [str(beir)], "split": "train",
+                     "link": "harvest-corpus"}],
+        "sections": [{"identifier": "harvest-corpus", "name_or_path": "beir", "subsets": [str(beir)]}],
+    }
+    dense = dict(codec="flat", dtype="bfloat16", kernel="fused", fused_bins=t["bins"])
+    trainer = dict(max_steps=t["max_steps"], period=t["period"], log_interval=1, checkpoint_path=str(run))
+    yaml_path = root / "exp.yaml"
+    yaml_path.write_text(
+        f"extends: ['{base}']\n"
+        "datasets:\n"
+        "  queries:\n"
+        f"    - {{identifier: harvest-train, name_or_path: beir, subsets: ['{beir}'], split: train, "
+        "link: harvest-corpus}\n"
+        "  sections:\n"
+        f"    - {{identifier: harvest-corpus, name_or_path: beir, subsets: ['{beir}']}}\n"
+        f"tokenizer: {{name_or_path: '{vocab_dir}', max_length: {t['max_length']}}}\n"
+        "search_defaults:\n"
+        f"  dense: {{codec: flat, dtype: bfloat16, kernel: fused, fused_bins: {t['bins']}}}\n"
+        f"trainer: {{max_steps: {t['max_steps']}, period: {t['period']}, log_interval: 1, checkpoint_path: '{run}'}}\n"
+        "sys: {mesh_shape: [1]}\n"
+    )
+    return dict(yaml=yaml_path, run=run, base=base, held=held, harvest_s=harvest_s, files=files[0],
+                overrides=dict(datasets=datasets, dense=dense, trainer=trainer, sys={"mesh_shape": [1]},
+                               tokenizer={"name_or_path": str(vocab_dir), "max_length": t["max_length"]}))
+
+
+def cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
+    """Phase 9: the experiment CLI on the card (module constant CLI), in
+    process through `vod_tpu_torch.exps.cli.main`, the function `python -m
+    vod_tpu_torch.exps.cli` runs: `main(["--config", yaml])` (2 periods of 3
+    optimizer steps, each period re-embedding the 2^18 sections), then
+    `main(["--resume_from", run, "--max_steps", "9"])` (one more period).
+    Each `main` is a main path of its own: launch counts are zeroed just
+    before it and read just after. The runner's stages are timed by
+    wrapping the functions it calls (restored after). Returns the numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import vod_tpu_torch.native as native
+    from vod_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from vod_tpu_torch.dataloaders import prefetch
+    from vod_tpu_torch.exps import cli, recipes
+    from vod_tpu_torch.exps.structconf import DatasetsConfig, Experiment
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+    from vod_tpu_torch.search import SearchQueries, factory, sparse_search
+    from vod_tpu_torch.search import dense as dense_mod
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    inputs = cli_inputs(root, t)
+    log(f"9 inputs: {t['n']} passages of <= {t['passage_words']} words harvested from {inputs['files']} files in "
+        f"{inputs['harvest_s']:.2f} s; {t['queries']} train queries and {t['held_out']} held out of "
+        f"{t['query_words'][0]}-{t['query_words'][1]} words; vocab.txt of {t['vocab']} entries; "
+        f"{time.perf_counter() - started:.2f} s in all")
+
+    # the parsed config: the yaml with exactly these overrides
+    exp = Experiment.from_file(str(inputs["yaml"]))
+    want = Experiment.from_file(str(inputs["base"])).to_dict()
+    o = inputs["overrides"]
+    want["datasets"] = DatasetsConfig.parse(o["datasets"]).to_dict()
+    want["tokenizer"].update(o["tokenizer"])
+    want["search_defaults"]["dense"].update(o["dense"])
+    want["trainer"].update(o["trainer"])
+    want["sys"].update(o["sys"])
+    check(exp.to_dict() == want, "the parsed Experiment is not the yaml with the phase's overrides")
+    m, tr, col = exp.model, exp.trainer, exp.collate
+    check((m.kind, m.gradients, m.vod_alpha, m.hidden_size, m.num_layers, m.num_heads, m.intermediate_size,
+           m.lm_hidden_size, m.lm_num_layers, m.vocab_size) == ("realm", "vod", 0.5, 384, 6, 6, 1536, 384, 6, 30522)
+          and (exp.dataloader.batch_size, tr.accumulate_grad_batches, col.prefetch_n_sections, col.n_sections,
+               tr.gradient_clip_val, tr.learning_rate, exp.search_defaults.sparse.max_postings)
+          == (32, 2, 100, 8, 1.0, 5e-5, 4096) and exp.tokenizer.max_length == t["max_length"],
+          "the parsed Experiment lost a width of configs/msmarco_pq_realm.yaml")
+
+    # instrumentation: each wrapper records and calls the real function
+    rec: dict = dict(logs=[], steps=[], waits=[], loops=[], builds=[], tok=[], ana=[], loaders=[], call=None)
+    real = dict(
+        run=cli.run_experiment, tokenize_corpus=cli.tokenize_corpus, corpus=cli.build_device_corpus,
+        loader=cli.RealmDataloader, tok=WordPieceTokenizer.__call__, ana=native.analyze_texts,
+        sparse=factory.build_sparse_from_config, dense=recipes.build_dense_from_config,
+        loop=recipes.training_loop, prefetch=prefetch.prefetch_iterator, step=RealmTrainStep.train_step_accum,
+        kernel=dense_mod.fused_mips_binned,
+    )
+
+    def run_experiment(exp_, *, on_log=None, **kw):
+        def both(step, metrics):
+            rec["logs"].append((step, dict(metrics)))
+            on_log(step, metrics)
+
+        return real["run"](exp_, on_log=both, **kw)
+
+    def tokenize_corpus(*args, **kw):
+        rec["enc"] = real["tokenize_corpus"](*args, **kw)
+        return rec["enc"]
+
+    def build_device_corpus(*args, **kw):
+        rec["corpus"] = real["corpus"](*args, **kw)
+        return rec["corpus"]
+
+    def realm_dataloader(*args, **kw):
+        rec["loaders"].append(real["loader"](*args, **kw))
+        return rec["loaders"][-1]
+
+    def tok_call(self, text, **kw):
+        t0 = time.perf_counter()
+        out = real["tok"](self, text, **kw)
+        if not isinstance(text, str) and len(text) > 1000:
+            rec["tok"].append((len(text), time.perf_counter() - t0))
+        return out
+
+    def analyze(texts, **kw):
+        t0 = time.perf_counter()
+        out = real["ana"](texts, **kw)
+        if len(texts) > 1000:
+            rec["ana"].append((len(texts), time.perf_counter() - t0))
+        return out
+
+    def build_sparse(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["sparse"] = real["sparse"](*args, **kw)
+        torch.cuda.synchronize()
+        rec["sparse_ms"] = (time.perf_counter() - t0) * 1e3
+        return rec["sparse"]
+
+    def build_dense(cfg, emb, **kw):
+        index = real["dense"](cfg, emb, **kw)
+        rec["builds"].append(index.vectors[:4096].float().cpu())
+        return index
+
+    def loop(**kw):
+        rec["engines"], rec["generator"] = kw["engines"], kw["generator"]
+        t0 = time.perf_counter()
+        out = real["loop"](**kw)
+        rec["loops"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_prefetch(it, size=2):
+        inner = real["prefetch"](it, size)
+        waits = []
+        rec["waits"].append(waits)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(inner)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t0)
+            yield item
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        events = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+        before = dict(fused_mips_binned.body_launches)
+        events[0].record()
+        out = real["step"](self, engines, corpus, micro, generator, weights, **kw)
+        events[1].record()
+        rec["steps"].append((events, {k: v - before[k] for k, v in fused_mips_binned.body_launches.items()},
+                             int(micro[0].input_ids.shape[0])))
+        return out
+
+    def kernel(vectors, queries, **kw):
+        if rec["call"] is None:
+            rec["call"] = (vectors, queries.detach().clone(), dict(kw))
+        return real["kernel"](vectors, queries, **kw)
+
+    patches = [
+        (cli, "run_experiment", run_experiment), (cli, "tokenize_corpus", tokenize_corpus),
+        (cli, "build_device_corpus", build_device_corpus), (cli, "RealmDataloader", realm_dataloader),
+        (WordPieceTokenizer, "__call__", tok_call), (native, "analyze_texts", analyze),
+        (factory, "build_sparse_from_config", build_sparse), (recipes, "build_dense_from_config", build_dense),
+        (recipes, "training_loop", loop), (prefetch, "prefetch_iterator", timed_prefetch),
+        (RealmTrainStep, "train_step_accum", step), (dense_mod, "fused_mips_binned", kernel),
+    ]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        # run 1: the config file, 2 periods of 3 steps (main path)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out1 = cli.main(["--config", str(inputs["yaml"])])
+        torch.cuda.synchronize()
+        launches1, bodies1 = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        run1_s = time.perf_counter() - t_run
+        peak1 = torch.cuda.max_memory_allocated(dev)
+        logs1, steps1, waits1, loops1 = rec["logs"], rec["steps"], rec["waits"], rec["loops"]
+        hist1, state1 = out1["history"], out1["state"]
+        enc, sparse_ix, call, builds = rec["enc"], rec["sparse"], rec["call"], rec["builds"]
+        tok_rate = [n / s for n, s in rec["tok"]]
+        ana_rate = [n / s for n, s in rec["ana"]]
+        sparse_ms = rec["sparse_ms"]
+        saved_cfg = json.loads((inputs["run"] / "config.json").read_text())
+        del out1
+        rec.update(logs=[], steps=[], waits=[], loops=[], builds=[], tok=[], ana=[], loaders=[], engines=None,
+                   corpus=None, enc=None, sparse=None)
+
+        # run 2: resume from the run directory to step 9 (main path)
+        torch.cuda.synchronize()
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out2 = cli.main(["--resume_from", str(inputs["run"]), "--max_steps", str(t["resume_steps"])])
+        torch.cuda.synchronize()
+        launches2, bodies2 = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        run2_s = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+    # run 1: the corpus, the logs, the launches, the index
+    ids = enc["input_ids"]
+    inner = ids > 3  # neither [PAD] [UNK] [CLS] nor [SEP]
+    check(bool((inner.any(1)).all()), "a tokenized section is all [UNK]")
+    unk_share = float((ids == 1).sum() / max(1, int((ids > 3).sum() + (ids == 1).sum())))
+    truncated = float((enc["attention_mask"].sum(1) == t["max_length"]).mean())
+    mean_tokens = float(enc["attention_mask"].sum(1).mean())
+    check(state1.step == t["max_steps"] and [h["period"] for h in hist1] == [0, 1],
+          f"run 1 ended at step {state1.step}, periods {[h['period'] for h in hist1]}")
+    check([s for s, _ in logs1] == list(range(1, t["max_steps"] + 1)), f"run 1 logged steps {[s for s, _ in logs1]}")
+    dense_sched = exp.trainer.parameters["dense"].instantiate()
+    for s, metrics in logs1:
+        check(math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"]), f"step {s}: loss not finite")
+        check(metrics["parameters/dense"] == dense_sched(s - 1) and metrics["parameters/sparse"] == 1.0,
+              f"step {s}: logged weights {metrics['parameters/dense']}, {metrics['parameters/sparse']} are not the "
+              "yaml's schedules")
+    check(len(builds) == 2 and not torch.equal(builds[0], builds[1]), "period 1's index equals period 0's")
+    check(bodies1 == {"wgmma": 2 * t["max_steps"], "fma": 0} and launches1 == 2 * t["max_steps"],
+          f"run 1 launched fused_mips_binned {launches1} times, by body {bodies1}, not twice a step on wgmma")
+    check(all(b == {"wgmma": 2, "fma": 0} for _, b, _ in steps1), "an optimizer step did not launch twice on wgmma")
+
+    # one CLI-loop call (the first micro-batch's) against the plain version
+    vv, q, kw = call
+    b, d = q.shape
+    k, bins, n_real = kw["k"], kw["bins"], kw["n_real"]
+    check((b, d, vv.shape[0], bins, k) == (32, 384, t["n"], t["bins"], 100),
+          f"the CLI-loop call is B={b} D={d} N={vv.shape[0]} bins={bins} k={k}")
+    body = _binned_body(vv.dtype, d, bins, (vv.data_ptr(), q.data_ptr()))
+    check(body == "wgmma", f"the CLI-loop call takes the {body} body")
+    ks, ki = fused_mips_binned(vv, q, **kw)
+    rs, ri = fused_mips_binned_reference(vv, q, **kw)
+    tol = 2 * d * 2.0**-24 * q.float().norm(dim=-1).max().item() * vv.float().norm(dim=-1).max().item()
+    err, swaps = check_against_plain(f"CLI-loop binned B={b} D={d}", ks, ki, rs, ri, q, vv, tol)
+    ms = time_ms(lambda: fused_mips_binned(vv, q, **kw), 20)
+    plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, q, **kw), 2)
+    library_ms = time_ms(lambda: torch.topk(q @ vv[:n_real].T, k, dim=-1), 20)
+    nbytes, ops = (n_real + b) * d * 2 + b * k * 8, 2 * b * n_real * d
+    bound = max(nbytes / hbm, ops / peak_bf16) * 1e3
+    bound_by = "bytes" if nbytes / hbm >= ops / peak_bf16 else "operations"
+    log(f"check CLI-loop binned bf16 B={b} D={d} N={n_real} bins={bins} k={k} ({body}): max |kernel - plain| = "
+        f"{err:.3g} (tol {tol:.3g}), {swaps} id swaps inside the band; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
+    del call, vv, q, ks, ki, rs, ri
+
+    # BM25 over the held-out queries: their gold passage in the top 100
+    held_terms, _ = native.analyze_texts([text for _, text, _ in inputs["held"]], vocab_size=1 << 18, max_terms=32)
+    gold = torch.tensor([enc["id_map"][g] for _, _, g in inputs["held"]], device=dev)
+    top100 = sparse_search(sparse_ix, SearchQueries(terms=torch.as_tensor(held_terms, device=dev)), 100).indices
+    bm25_recall = (top100 == gold[:, None]).any(-1).float().mean().item()
+    log(f"9 BM25: the gold passage in the top 100 for {bm25_recall:.4f} of {len(gold)} held-out queries "
+        f"(floor {t['bm25_recall_floor']})")
+    check(bm25_recall >= t["bm25_recall_floor"], f"BM25 recall@100 {bm25_recall:.4f} < {t['bm25_recall_floor']}")
+    del sparse_ix, top100, enc
+
+    # run 2: resumed at step 6, ended at 9, one period
+    state2, hist2, logs2, steps2 = out2["state"], out2["history"], rec["logs"], rec["steps"]
+    waits2, loops2 = rec["waits"], rec["loops"]
+    last_ckpt = inputs["run"] / f"period-{t['max_steps'] // t['period'] - 1}"
+    saved_state = json.loads((last_ckpt / "trainer_state.json").read_text())
+    check(saved_state["step"] == t["max_steps"], f"the checkpoint holds step {saved_state['step']}")
+    check(state2.step == t["resume_steps"] and [h["period"] for h in hist2] == [t["max_steps"] // t["period"]]
+          and [s for s, _ in logs2] == list(range(t["max_steps"] + 1, t["resume_steps"] + 1)),
+          f"the resume logged steps {[s for s, _ in logs2]} and ended at {state2.step}")
+    check(all(math.isfinite(mm["loss"]) for _, mm in logs2), "a resumed loss is not finite")
+    check(bodies2 == {"wgmma": 2 * len(logs2), "fma": 0} and launches2 == 2 * len(logs2),
+          f"run 2 launched fused_mips_binned {launches2} times, by body {bodies2}")
+    check(saved_cfg == json.loads(json.dumps(want)), "run 1's config.json is not the parsed Experiment")
+    resumed_cfg = json.loads((inputs["run"] / "config.json").read_text())
+    want["trainer"]["max_steps"] = t["resume_steps"]
+    check(resumed_cfg == json.loads(json.dumps(want)), "the resume's config.json is not run 1's with max_steps 9")
+    resumed_batch = rec["loaders"][0].config.batch_size
+
+    # one optimizer step, its dataloader batches included, with every
+    # synchronizing CUDA call made an error
+    step_fn, loader = out2["step_fn"], rec["loaders"][0]
+    weights = state2.get_parameters()
+    batches = loader.epoch(seed=12345)
+    step_fn.train_step_accum(rec["engines"], rec["corpus"], [next(batches), next(batches)], rec["generator"], weights)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        micro = [next(batches), next(batches)]
+        step_fn.train_step_accum(rec["engines"], rec["corpus"], micro, rec["generator"], weights)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as exc:
+        fail(f"the CLI's step or its dataloader waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    del out2, step_fn, loader, rec, micro, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+
+    def period_numbers(hist, steps, waits, loops):
+        out = []
+        for p, h in enumerate(hist):
+            ms_ = [s_.elapsed_time(e_) for (s_, e_), _, _ in steps[p * t["period"] : (p + 1) * t["period"]]]
+            out.append(dict(
+                period=h["period"], reembed_s=h["reembed_s"], build_ms=h["build_ms"]["total_ms"], step_ms=ms_,
+                median_step_ms=statistics.median(ms_), loop_s=loops[p], first_wait_s=waits[p][0],
+                loader_wait_share=sum(waits[p]) / loops[p], steady_wait_share=sum(waits[p][1:]) / loops[p],
+            ))
+        return out
+
+    periods = period_numbers(hist1, steps1, waits1, loops1) + period_numbers(hist2, steps2, waits2, loops2)
+    wall = time.perf_counter() - started
+    result = dict(
+        harvest_s=inputs["harvest_s"], harvest_files=inputs["files"], tokenizer_sections_per_s=tok_rate,
+        analyzer_sections_per_s=ana_rate, unk_share=unk_share, truncated_share=truncated, mean_tokens=mean_tokens,
+        bm25_build_ms=sparse_ms, bm25_recall_at_100=bm25_recall,
+        run1_s=run1_s, run2_s=run2_s, periods=periods, peak_mem_bytes=peak, run1_peak_mem_bytes=peak1,
+        losses=[mm["loss"] for _, mm in logs1 + logs2], resumed_batch=resumed_batch,
+        launches=launches1, body_launches=bodies1, resume_launches=launches2, resume_body_launches=bodies2,
+        max_abs_err=err, call=dict(shape=f"bfloat16 B={b} N={n_real} D={d} bins={bins} k={k}", ms=ms,
+                                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by),
+        sync_free_step=dict(enqueue_ms=enqueue_ms, finish_ms=finish_ms), wall_s=wall,
+    )
+    log(f"9 host stages [{card}]: harvest {inputs['harvest_s']:.2f} s; tokenizer "
+        f"{', '.join(f'{r:.1f}' for r in tok_rate)} sections/s (the corpus in each run); analyzer "
+        f"{', '.join(f'{r:.1f}' for r in ana_rate)} sections/s; [UNK] share {unk_share:.6f}; sections of "
+        f"{mean_tokens:.2f} tokens on average, {truncated:.4f} of them cut at {t['max_length']}; BM25 build "
+        f"{sparse_ms:.1f} ms")
+    for p in periods:
+        log(f"9 period {p['period']} [{card}]: re-embed {p['reembed_s']:.2f} s, index build {p['build_ms']:.2f} ms, "
+            f"steps {json.dumps([round(x, 4) for x in p['step_ms']])} ms (median {p['median_step_ms']:.4f}), "
+            f"dataloader wait {p['loader_wait_share']:.4f} of the loop's {p['loop_s']:.2f} s "
+            f"({p['steady_wait_share']:.4f} after the first batch's {p['first_wait_s']:.3f} s)")
+    log(f"9 runs [{card}]: run 1 {run1_s:.2f} s ({launches1} fused_mips_binned launches, by body {bodies1}); resume "
+        f"{run2_s:.2f} s ({launches2}, by body {bodies2}; loader batch {resumed_batch}: config.json names "
+        f"trainer.batch_size's fields, so per_device drives the loader, as in JAX); losses "
+        f"{json.dumps([round(x, 6) for x in result['losses']])}; peak memory {peak / 2**30:.4f} GiB")
+    log(f"9 step without a sync [{card}]: two dataloader batches and one optimizer step enqueued in "
+        f"{enqueue_ms:.2f} ms, finished {finish_ms:.2f} ms after the start")
+    log(f"phase 9 wall time: {wall:.1f} s")
+    return result
+
+
 def main() -> None:
     started = time.perf_counter()
     import numpy as np
@@ -2388,7 +2868,12 @@ def main() -> None:
     ivfpq["wall_s"] = time.perf_counter() - t8
     log(f"phase 8 wall time: {ivfpq['wall_s']:.1f} s")
 
-    # 9. result lines
+    # 9. the experiment CLI from text to a train step (its own main paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = cli_phase(dev, card, hbm, peak_bf16, CLI)
+
+    # 10. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -2396,7 +2881,7 @@ def main() -> None:
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches,
-        max_abs_err=max(max_err, train["train_max_abs_err"], seq2seq["train_call"]["max_abs_err"]),
+        max_abs_err=max(max_err, train["train_max_abs_err"], seq2seq["train_call"]["max_abs_err"], cli["max_abs_err"]),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
         shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
@@ -2413,6 +2898,9 @@ def main() -> None:
                  for body in ("wgmma", "fma")},
         autotune_launches=ivfpq["autotune_launches"], autotune_body_launches=ivfpq["autotune_body_launches"],
         autotune_shapes=ivfpq["autotune_shapes"], ivfpq=ivfpq,
+        cli_launches=cli["launches"], cli_body_launches=cli["body_launches"],
+        cli_resume_launches=cli["resume_launches"], cli_resume_body_launches=cli["resume_body_launches"],
+        cli_call=cli["call"], cli=cli,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

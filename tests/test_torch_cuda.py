@@ -609,3 +609,48 @@ def test_binned_int8_wgmma_at_2048_bins(cuda_device) -> None:
         assert ki[0, 0].item() == 11 and ki.max().item() < n_real
     assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 3
     assert fused_mips_binned.body_launches["fma"] == before["fma"]
+
+
+def test_cli_main_on_card_launches_the_kernel_each_micro_batch(cuda_device, tmp_path) -> None:
+    """The experiment CLI on the card at toy widths: `main` over a BeIR
+    directory of 4,096 generated sections with a flat bf16 `kernel: fused`
+    index: finite losses, and `fused_mips_binned` launched once per
+    micro-batch (2 per optimizer step), all on the tensor-core body."""
+    import json
+
+    from vod_tpu_torch.exps import cli
+
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(500)]
+    beir = tmp_path / "beir"
+    (beir / "qrels").mkdir(parents=True)
+    texts = [" ".join(rng.choice(words, size=24)) for _ in range(4096)]
+    (beir / "corpus.jsonl").write_text("".join(json.dumps({"_id": f"d{i}", "title": "t", "text": x}) + "\n"
+                                               for i, x in enumerate(texts)))
+    (beir / "queries.jsonl").write_text("".join(json.dumps({"_id": f"q{i}", "text": texts[i][:40]}) + "\n"
+                                                for i in range(64)))
+    (beir / "qrels" / "train.tsv").write_text("".join(f"q{i}\td{i}\t1\n" for i in range(64)))
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "t", *words]
+    (tmp_path / "vocab").mkdir()
+    (tmp_path / "vocab" / "vocab.txt").write_text("\n".join(vocab))
+    cfg = tmp_path / "exp.yaml"
+    cfg.write_text(f"""\
+extends: [model/realm-vod]
+model: {{vocab_size: {len(vocab)}, hidden_size: 64, num_layers: 1, num_heads: 2, intermediate_size: 128,
+        lm_hidden_size: 64, lm_num_layers: 1}}
+tokenizer: {{name_or_path: '{tmp_path / "vocab"}', max_length: 32}}
+collate: {{prefetch_n_sections: 16, n_sections: 4, max_pos_sections: 1}}
+dataloader: {{batch_size: 8}}
+search_defaults: {{dense: {{codec: flat, dtype: bfloat16, kernel: fused}}}}
+trainer: {{max_steps: 2, period: 1, log_interval: 1, accumulate_grad_batches: 2}}
+datasets:
+  queries: [{{identifier: q, name_or_path: beir, subsets: ['{beir}'], split: train, link: s}}]
+  sections: [{{identifier: s, name_or_path: beir, subsets: ['{beir}']}}]
+""")
+    before = dict(fused_mips_binned.body_launches)
+    out = cli.main(["--config", str(cfg)])
+    torch.cuda.synchronize()
+    after = dict(fused_mips_binned.body_launches)
+    assert out["state"].step == 2 and next(out["model"].parameters()).is_cuda
+    assert all(np.isfinite(h["train"]["loss"]) for h in out["history"])
+    assert after["wgmma"] - before["wgmma"] == 2 * 2 and after["fma"] == before["fma"]

@@ -53,6 +53,13 @@ def test_every_module_imports_with_jax_and_vod_tpu_blocked() -> None:
         "vod_tpu_torch.examples.mips_kernel_bench", "vod_tpu_torch.models.seq2seq", "vod_tpu_torch.models.t5_encoder",
         "vod_tpu_torch.runtime.generation", "vod_tpu_torch.examples.seq2seq_realm_bench",
         "vod_tpu_torch.search.ivfpq", "vod_tpu_torch.search.autotune", "vod_tpu_torch.utils.fingerprint",
+        "vod_tpu_torch.exps.cli", "vod_tpu_torch.exps.structconf", "vod_tpu_torch.utils.yaml",
+        "vod_tpu_torch.utils.template", "vod_tpu_torch.configs.base", "vod_tpu_torch.configs.trainer",
+        "vod_tpu_torch.configs.dataloaders", "vod_tpu_torch.configs.datasets", "vod_tpu_torch.configs.support",
+        "vod_tpu_torch.data.tokenizer", "vod_tpu_torch.data.corpus", "vod_tpu_torch.data.interface",
+        "vod_tpu_torch.data.rosetta.adapters", "vod_tpu_torch.data.loaders.beir",
+        "vod_tpu_torch.data.loaders.local_text", "vod_tpu_torch.dataloaders.realm_dataloader",
+        "vod_tpu_torch.dataloaders.samplers", "vod_tpu_torch.dataloaders.tokenizer_collate",
     } <= set(modules)
     code = (
         "import sys, importlib\n"

@@ -1,12 +1,15 @@
 """The search factory configs (own copies of `DenseFactoryConfig`,
-`SparseFactoryConfig` and `HybridSearchFactoryConfig` from
-`vod_tpu/configs/search.py`, which the port does not import).
+`SparseFactoryConfig`, `HybridSearchFactoryConfig` and
+`SearchFactoryDefaults` from `vod_tpu/configs/search.py`, which the port
+does not import).
 
 The JAX package's configs are frozen, extra-forbidding pydantic models; these
 are frozen dataclasses with the same fields, defaults and allowed values,
 checked at construction, the same `from_faiss_factory` translation, and the
 `config + diff` override on the engine configs. They import no pydantic: the
-card's machine has only PyTorch and numpy.
+card's machine has only PyTorch and numpy. `SearchFactoryDefaults`, a field
+of the experiment config, is a `StrictModel` (`configs/base.py`), which
+validates the engine configs from mappings as pydantic does.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import re
 import typing as typ
+
+from .base import StrictModel
 
 DenseCodec = typ.Literal["flat", "int8", "pq", "ivf", "ivfpq"]
 DenseDtype = typ.Literal["float32", "bfloat16", "int8"]
@@ -164,3 +169,22 @@ class HybridSearchFactoryConfig:
 
     dense: typ.Optional[DenseFactoryConfig] = None
     sparse: typ.Optional[SparseFactoryConfig] = None
+
+
+class SearchFactoryDefaults(StrictModel):
+    """Per-backend defaults + per-dataset diffs."""
+
+    dense: DenseFactoryConfig = dataclasses.field(default_factory=DenseFactoryConfig)
+    sparse: SparseFactoryConfig = dataclasses.field(default_factory=SparseFactoryConfig)
+
+    def realize(self, diff: typ.Optional[typ.Mapping[str, typ.Any]] = None) -> HybridSearchFactoryConfig:
+        """The hybrid config: the defaults merged with a per-dataset diff,
+        e.g. {"dense": {"codec": "pq"}, "sparse": None} (None disables)."""
+        diff = dict(diff or {})
+        engines: dict[str, typ.Any] = {}
+        for name, default in (("dense", self.dense), ("sparse", self.sparse)):
+            if name in diff and diff[name] is None:
+                engines[name] = None
+            else:
+                engines[name] = default + diff.get(name)
+        return HybridSearchFactoryConfig(**engines)

@@ -1,0 +1,334 @@
+"""A BERT WordPiece tokenizer read from `vocab.txt`, giving the ids, masks and
+offsets that `transformers.BertTokenizerFast` gives for the same vocabulary
+(lower-cased, accents stripped). The card's machine has no `transformers`
+and no `tokenizers`.
+
+The pipeline is the fast tokenizer's:
+ 1. the special tokens (`[PAD] [UNK] [CLS] [SEP] [MASK]`) are matched in the
+    raw text first and kept whole;
+ 2. normalization: NUL, U+FFFD and control or other `C*` characters (but
+    tab, newline and carriage return) are dropped, whitespace becomes a
+    space, each CJK ideograph is set apart by spaces, accents are stripped
+    (NFD, then nonspacing marks `Mn` dropped), and each character is
+    lower-cased on its own;
+ 3. pre-tokenization: split on whitespace, each punctuation character
+    (ASCII punctuation or Unicode `P*`) a word of its own;
+ 4. WordPiece: the longest vocabulary prefix first, then `##` pieces; a
+    word of more than 100 characters, or one that does not decompose, is
+    `[UNK]` as a whole;
+ 5. `[CLS] ... [SEP]`, truncation to `max_length`, padding with `[PAD]`.
+
+Offsets are character offsets into the input text, as the fast tokenizer
+gives them; `[CLS]`, `[SEP]` and padding have (0, 0). Text that is ASCII
+with no control character and no `[` takes a faster route (a regular
+expression and a per-word cache) to the same result.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import typing as typ
+import unicodedata
+from itertools import chain
+
+import numpy as np
+
+_SPECIAL_ATTRS = ("unk_token", "sep_token", "pad_token", "cls_token", "mask_token")
+# White_Space characters (Rust's `char::is_whitespace`), which normalization
+# maps to a space (the `C*` ones among them are dropped first)
+_WHITESPACE = frozenset(
+    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004\u2005\u2006\u2007\u2008\u2009\u200a"
+    "\u2028\u2029\u202f\u205f\u3000"
+)
+_CJK = (
+    (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F), (0x2B740, 0x2B81F),
+    (0x2B920, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F),
+)
+_ASCII_PUNCT = frozenset("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+_ASCII_CONTROL = re.compile(r"[\x00-\x08\x0b\x0c\x0e-\x1f\x7f\[]")
+_ASCII_WORD = re.compile(r"[a-z0-9]+|[!-/:-@\[-`{-~]")
+
+
+def _is_control(c: str) -> bool:
+    return c not in "\t\n\r" and unicodedata.category(c)[0] == "C"
+
+
+def _is_cjk(c: str) -> bool:
+    o = ord(c)
+    return any(lo <= o <= hi for lo, hi in _CJK)
+
+
+def _is_punct(c: str) -> bool:
+    return c in _ASCII_PUNCT or unicodedata.category(c)[0] == "P"
+
+
+class WordPieceTokenizer:
+    """The tokenizer of a BERT `vocab.txt` (uncased). `__call__` follows the
+    `transformers` calling convention for the arguments the port uses."""
+
+    def __init__(
+        self,
+        vocab: typ.Union[typ.Mapping[str, int], typ.Sequence[str]],
+        *,
+        unk_token: str = "[UNK]",
+        sep_token: str = "[SEP]",
+        pad_token: str = "[PAD]",
+        cls_token: str = "[CLS]",
+        mask_token: str = "[MASK]",
+        max_input_chars_per_word: int = 100,
+    ):
+        if not isinstance(vocab, typ.Mapping):
+            vocab = {tok: i for i, tok in enumerate(vocab)}  # a repeated token keeps its last line
+        self.vocab: dict[str, int] = dict(vocab)
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        self.unk_token, self.sep_token, self.pad_token = unk_token, sep_token, pad_token
+        self.cls_token, self.mask_token = cls_token, mask_token
+        self.max_input_chars_per_word = max_input_chars_per_word
+        for attr in _SPECIAL_ATTRS:
+            if getattr(self, attr) not in self.vocab:
+                raise ValueError(f"the vocabulary has no {attr} {getattr(self, attr)!r}")
+        self.unk_token_id = self.vocab[unk_token]
+        self.sep_token_id = self.vocab[sep_token]
+        self.pad_token_id = self.vocab[pad_token]
+        self.cls_token_id = self.vocab[cls_token]
+        self.mask_token_id = self.vocab[mask_token]
+        specials = sorted({getattr(self, a) for a in _SPECIAL_ATTRS}, key=len, reverse=True)
+        self._special_re = re.compile("|".join(re.escape(s) for s in specials))
+        self._word_cache: dict[str, tuple[list[int], list[int]]] = {}
+        self._ids_cache: dict[str, list[int]] = {}  # the ids of `_word_cache`, for the fast route
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_vocab_file(cls, path: typ.Union[str, pathlib.Path], **kw: typ.Any) -> "WordPieceTokenizer":
+        """One token per line, its id the line's number (a line keeps any
+        trailing spaces; only its newline is removed)."""
+        with open(path, encoding="utf-8") as f:
+            tokens = [line.rstrip("\n") for line in f.readlines()]
+        return cls(tokens, **kw)
+
+    @classmethod
+    def from_pretrained(cls, name_or_path: typ.Union[str, pathlib.Path], **kw: typ.Any) -> "WordPieceTokenizer":
+        """From a local directory holding `vocab.txt`, or a `vocab.txt` path.
+        A hub name is not looked up: nothing is downloaded."""
+        p = pathlib.Path(name_or_path)
+        vocab = p / "vocab.txt" if p.is_dir() else p
+        if not vocab.is_file():
+            raise FileNotFoundError(
+                f"no vocab.txt at {str(name_or_path)!r}: the tokenizer reads a local directory holding "
+                "vocab.txt and uses no network, so a hub name needs its files on disk"
+            )
+        return cls.from_vocab_file(vocab, **kw)
+
+    # -- vocabulary ----------------------------------------------------------
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def get_vocab(self) -> dict[str, int]:
+        return dict(self.vocab)
+
+    @property
+    def special_tokens_map(self) -> dict[str, str]:
+        return {attr: getattr(self, attr) for attr in _SPECIAL_ATTRS}
+
+    def convert_tokens_to_ids(self, tokens: typ.Union[str, typ.Sequence[str]]) -> typ.Union[int, list[int]]:
+        if isinstance(tokens, str):
+            return self.vocab.get(tokens, self.unk_token_id)
+        return [self.vocab.get(t, self.unk_token_id) for t in tokens]
+
+    def convert_ids_to_tokens(self, ids: typ.Union[int, typ.Sequence[int]]) -> typ.Union[str, list[str]]:
+        if isinstance(ids, (int, np.integer)):
+            return self.ids_to_tokens.get(int(ids), self.unk_token)
+        return [self.ids_to_tokens.get(int(i), self.unk_token) for i in ids]
+
+    # -- the pipeline ----------------------------------------------------------
+    def _wordpiece(self, word: str) -> tuple[list[int], list[int]]:
+        """(ids, piece end positions in `word`) of one pre-tokenized word."""
+        hit = self._word_cache.get(word)
+        if hit is not None:
+            return hit
+        n = len(word)
+        if n > self.max_input_chars_per_word:
+            out = ([self.unk_token_id], [n])
+        else:
+            ids, ends, start = [], [], 0
+            while start < n:
+                end = n
+                while start < end:
+                    piece = word[start:end] if start == 0 else "##" + word[start:end]
+                    tid = self.vocab.get(piece)
+                    if tid is not None:
+                        break
+                    end -= 1
+                else:
+                    ids, ends = [self.unk_token_id], [n]
+                    break
+                ids.append(tid)
+                ends.append(end)
+                start = end
+            out = (ids, ends)
+        self._word_cache[word] = out
+        self._ids_cache[word] = out[0]
+        return out
+
+    def _words(self, text: str, base: int) -> typ.Iterator[tuple[str, list[int]]]:
+        """Normalized, pre-tokenized words of a text with no special token,
+        each with the original offset (from `base`) of every character."""
+        chars: list[str] = []
+        where: list[int] = []
+        for j, c in enumerate(text):
+            if c == "\0" or c == "\ufffd" or _is_control(c):
+                continue
+            if c in _WHITESPACE:
+                chars.append(" ")
+                where.append(base + j)
+                continue
+            if _is_cjk(c):
+                chars += [" ", c, " "]
+                where += [base + j] * 3
+                continue
+            for d in unicodedata.normalize("NFD", c):
+                if unicodedata.category(d) == "Mn":
+                    continue
+                for low in d.lower():
+                    chars.append(low)
+                    where.append(base + j)
+        word: list[str] = []
+        pos: list[int] = []
+        for c, w in zip(chars, where):
+            if c == " " or c in _WHITESPACE:
+                if word:
+                    yield "".join(word), pos
+                word, pos = [], []
+            elif _is_punct(c):
+                if word:
+                    yield "".join(word), pos
+                word, pos = [], []
+                yield c, [w]
+            else:
+                word.append(c)
+                pos.append(w)
+        if word:
+            yield "".join(word), pos
+
+    def _encode(self, text: str, with_offsets: bool) -> tuple[list[int], list[tuple[int, int]]]:
+        """Token ids (and offsets) of one text, without special tokens."""
+        if text.isascii() and not _ASCII_CONTROL.search(text):
+            ids: list[int] = []
+            offsets: list[tuple[int, int]] = []
+            if not with_offsets:
+                words = _ASCII_WORD.findall(text.lower())
+                try:
+                    return list(chain.from_iterable(map(self._ids_cache.__getitem__, words))), offsets
+                except KeyError:
+                    for w in words:
+                        self._wordpiece(w)
+                    return list(chain.from_iterable(map(self._ids_cache.__getitem__, words))), offsets
+            for m in _ASCII_WORD.finditer(text.lower()):
+                wids, ends = self._wordpiece(m.group())
+                ids += wids
+                s0 = m.start()
+                offsets += [(s0 + (0 if i == 0 else ends[i - 1]), s0 + e) for i, e in enumerate(ends)]
+            return ids, offsets
+        ids, offsets = [], []
+        segments: list[tuple[int, int, typ.Optional[str]]] = []
+        last = 0
+        for m in self._special_re.finditer(text):
+            segments.append((last, m.start(), None))
+            segments.append((m.start(), m.end(), m.group()))
+            last = m.end()
+        segments.append((last, len(text), None))
+        for s0, s1, special in segments:
+            if special is not None:
+                ids.append(self.vocab[special])
+                offsets.append((s0, s1))
+                continue
+            for word, pos in self._words(text[s0:s1], s0):
+                wids, ends = self._wordpiece(word)
+                ids += wids
+                if with_offsets:
+                    starts = [0] + ends[:-1]
+                    offsets += [(pos[a], pos[b - 1] + 1) for a, b in zip(starts, ends)]
+        return ids, offsets
+
+    def tokenize(self, text: str) -> list[str]:
+        return self.convert_ids_to_tokens(self._encode(text, False)[0])
+
+    def __call__(
+        self,
+        text: typ.Union[str, typ.Sequence[str]],
+        *,
+        max_length: typ.Optional[int] = None,
+        truncation: typ.Union[bool, str] = False,
+        padding: typ.Union[bool, str] = False,
+        add_special_tokens: bool = True,
+        return_offsets_mapping: bool = False,
+        return_tensors: typ.Optional[str] = None,
+    ) -> dict[str, typ.Any]:
+        """Encode one text or a list of texts: `input_ids`, `token_type_ids`,
+        `attention_mask` (and `offset_mapping`), as lists, or as int64
+        arrays (`return_tensors="np"`) or tensors (`"pt"`)."""
+        single = isinstance(text, str)
+        texts = [text] if single else list(text)
+        if truncation not in (False, True, "longest_first", "do_not_truncate"):
+            raise ValueError(f"unsupported truncation {truncation!r}")
+        if padding not in (False, True, "longest", "max_length", "do_not_pad"):
+            raise ValueError(f"unsupported padding {padding!r}")
+        truncate = truncation not in (False, "do_not_truncate") and max_length is not None
+        n_special = 2 if add_special_tokens else 0
+        keep = max(0, max_length - n_special) if truncate else None
+        rows, offs = [], []
+        for t in texts:
+            ids, offsets = self._encode(t, return_offsets_mapping)
+            rows.append(ids[:keep])
+            offs.append(offsets[:keep])
+        lengths = np.fromiter((len(r) + n_special for r in rows), dtype=np.int64, count=len(rows))
+        if padding in (True, "longest") or (padding == "max_length" and max_length is None):
+            width = int(lengths.max(initial=0))
+        elif padding == "max_length":
+            width = max_length
+        else:
+            width = None
+        if width is None:
+            if return_tensors is not None and len(set(lengths.tolist())) > 1:
+                raise ValueError("rows of different lengths need padding to become a tensor")
+            if return_tensors is None:
+                cls, sep = ([self.cls_token_id], [self.sep_token_id]) if add_special_tokens else ([], [])
+                edge = [(0, 0)] if add_special_tokens else []
+                out: dict[str, typ.Any] = {
+                    "input_ids": [cls + r + sep for r in rows],
+                    "token_type_ids": [[0] * int(n) for n in lengths],
+                    "attention_mask": [[1] * int(n) for n in lengths],
+                }
+                if return_offsets_mapping:
+                    out["offset_mapping"] = [edge + o + edge for o in offs]
+                return {k: v[0] for k, v in out.items()} if single else out
+            width = int(lengths.max(initial=0))
+        ids_arr = np.full((len(rows), width), self.pad_token_id, dtype=np.int64)
+        start = 1 if add_special_tokens else 0
+        for i, r in enumerate(rows):
+            ids_arr[i, start : start + len(r)] = r
+        if add_special_tokens:
+            ids_arr[:, 0] = self.cls_token_id
+            ids_arr[np.arange(len(rows)), lengths - 1] = self.sep_token_id
+        mask = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int64)
+        out = {"input_ids": ids_arr, "token_type_ids": np.zeros_like(ids_arr), "attention_mask": mask}
+        if return_offsets_mapping:
+            om = np.zeros((len(rows), width, 2), dtype=np.int64)
+            for i, o in enumerate(offs):
+                if o:
+                    om[i, start : start + len(o)] = o
+            out["offset_mapping"] = om
+        if return_tensors is None:
+            lists = {k: v.tolist() for k, v in out.items()}
+            if return_offsets_mapping:
+                lists["offset_mapping"] = [[tuple(p) for p in row] for row in lists["offset_mapping"]]
+            return {k: v[0] for k, v in lists.items()} if single else lists
+        if return_tensors == "pt":
+            import torch
+
+            return {k: torch.from_numpy(v) for k, v in out.items()}
+        if return_tensors != "np":
+            raise ValueError(f"unsupported return_tensors {return_tensors!r}")
+        return out

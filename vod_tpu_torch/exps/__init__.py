@@ -1,5 +1,6 @@
-"""Experiment recipes (port of `vod_tpu/exps/recipes.py`; the CLI and its
-config schema are not ported yet)."""
+"""Experiments (port of `vod_tpu/exps/`): the periodic-training recipe, the
+config schema (`structconf`) and the experiment runner and CLI (`cli`,
+`python -m vod_tpu_torch.exps.cli`)."""
 
 from .recipes import PeriodicTrainingConfig, periodic_training
 
