@@ -197,7 +197,7 @@ checked, none caught:
     per step, the step median and peak memory; then phase 8's wall time;
  9. the experiment CLI from text to a train step (`CLI`), in process
     through `vod_tpu_torch.exps.cli.main`, each `main` its own main path
-    (counts zeroed before, read after): 2^18 passages harvested from the
+    (counts zeroed before, read after): 2^17 passages harvested from the
     interpreter's site-packages, 8,192 generated queries and a 30,522-entry
     vocab.txt written as a BeIR directory, and a YAML extending
     `configs/msmarco_pq_realm.yaml` (flat bf16 `kernel: fused` at 512 bins,
@@ -207,14 +207,38 @@ checked, none caught:
     section tokenizes to all `[UNK]`; finite losses; the logged weights
     follow the yaml's schedules; period 1's index differs from period 0's;
     2 `fused_mips_binned` launches a step, all `wgmma`; one CLI-loop call
-    (B = 32, D = 384, N = 2^18, 512 bins, k = 100) against its plain
+    (B = 32, D = 384, N = 2^17, 512 bins, k = 100) against its plain
     version; BM25's top 100 holds the gold passage for at least
     `CLI["bm25_recall_floor"]` of 256 held-out queries; the resume starts at
     step 6 and ends at 9; one optimizer step with its dataloader batches
     under sync-debug "error". Printed: harvest s, tokenizer and analyzer
     sections/s, BM25 build ms, per period re-embed s, index build ms, step
     median and the dataloader's wait share, peak memory, the phase's wall;
-10. the script's wall time, the `kernels` JSON line, the card line, and
+10. the large-encoder path of the CLI (`LARGE`), in process through
+    `vod_tpu_torch.exps.cli.main`, its own main path (counts zeroed before,
+    read after): `configs/scifact_ranker.yaml`'s body under `extends:
+    [arch/v5e-1-large-qlora, optimizer/adafactor]` (e5-large at hidden 1024,
+    24 layers, 16 heads, FFN 4096; LoRA r 8 over an int8-frozen base;
+    remat; GradCache at 128 rows; B = 32 as 8 micro-batches of 4;
+    Adafactor), `model.name_or_path` a directory the phase writes
+    (e5-large-v2's config.json beside 1.34 GB of seeded random f32 weights
+    in `model.safetensors`; `hf_fallback: error`), over 2^15 harvested
+    passages (a flat bf16 `kernel: fused` index at D = 1024; 6 steps, a
+    period every 3). Checked: the parsed config; the written tensors load
+    bit for bit; at step 0 the LoRA encoder's pooled output equals the same
+    checkpoint's without adapters; finite losses; 8 `fused_mips_binned`
+    launches a step, all `wgmma`; after training every int8 code unchanged
+    (and equal to the written tensor's quantization) and every LoRA and
+    pooler leaf moved; one D = 1024 call against its plain version; on one
+    micro-batch GradCache's gradients (at 128 and 8 rows a chunk) within
+    `LARGE["grad_rel_limit"]` (relative L2) of the monolithic backward's,
+    with a control (another micro-batch) far above it; one Adafactor update
+    on the card against the same update on the CPU; one optimizer step with
+    its dataloader batches under sync-debug "error". Printed: the
+    `kbit_memory_bytes` split, peak memory of the run, of the monolithic
+    backward and of GradCache, re-embed s per period, the step median, the
+    phase's wall;
+11. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -382,7 +406,7 @@ IVFPQ_SERVE = dict(
 IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRESET, autotune_target_recall=0.9))
 
 # Phase 9: the experiment CLI from text to a train step. Everything comes
-# from the card machine's own files, nothing downloaded: 2^18 passages of 48
+# from the card machine's own files, nothing downloaded: 2^17 passages of 48
 # words harvested from the running interpreter's site-packages (stride 48,
 # windows that do not overlap), 8,192 train queries of 6-10 consecutive
 # words of one seeded passage each (that passage their qrel) and 256 more
@@ -401,12 +425,39 @@ IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRE
 # passages of 48 words average about 74 tokens, so few are truncated (the
 # phase prints the share).
 CLI = dict(
-    n=1 << 18, passage_words=48, stride=48, queries=8192, held_out=256, query_words=(6, 10), vocab=30522,
+    n=1 << 17, passage_words=48, stride=48, queries=8192, held_out=256, query_words=(6, 10), vocab=30522,
     max_length=96, max_steps=6, period=3, resume_steps=9, bins=512, seed=11,
     # the share of held-out queries whose gold passage is in BM25's top 100:
     # 0.9453 on an H100 80GB HBM3 at 700 W (256 literal spans; a binomial
-    # spread of ~0.014). A broken analyzer, build or scorer finds ~100 / 2^18
+    # spread of ~0.014; at 2^18 passages, before phase 10 took the time that
+    # halved the corpus). A broken analyzer, build or scorer finds ~100 / 2^17
     bm25_recall_floor=0.85,
+)
+
+# Phase 10: `configs/scifact_ranker.yaml`'s body extended by the qlora arch
+# preset and the Adafactor preset (`extends: [scifact_ranker,
+# arch/v5e-1-large-qlora, optimizer/adafactor]`): e5-large at hidden 1024,
+# 24 layers, 16 heads, FFN 4096 (the preset's widths; `hf` below is
+# e5-large-v2's published config.json, which the phase writes beside seeded
+# random weights, since no pretrained weights are in the repository), LoRA
+# r 8 and alpha 16 over an int8-frozen base, remat, GradCache at 128 rows,
+# a batch of 32 as 8 micro-batches of 4, Adafactor. Cuts, each an override
+# in the phase's YAML: `search_defaults.dense` gains `kernel: fused`;
+# `trainer` runs 6 steps, a period every 3; the corpus is 2^15 harvested
+# passages (SciFact's is 5,183, FiQA's 57,638).
+LARGE = dict(
+    n=1 << 15, passage_words=48, stride=48, queries=2048, held_out=0, query_words=(6, 10), vocab=30522,
+    max_steps=6, period=3, bins=512, seed=13, max_length=200, micro_batch=4, accumulate=8, chunk_rows=128,
+    lora_rank=8, probe_rows=8, gradcache_probe_chunk=8, model_overrides={},
+    hf=dict(architectures=["BertModel"], model_type="bert", vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+            num_attention_heads=16, intermediate_size=4096, max_position_embeddings=512, type_vocab_size=2,
+            layer_norm_eps=1e-12, hidden_act="gelu", hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+            initializer_range=0.02, pad_token_id=0, position_embedding_type="absolute", torch_dtype="float32"),
+    # GradCache against the monolithic backward on one micro-batch, relative
+    # L2 of the trainable gradients: 0 at 128 rows a chunk (one chunk: the
+    # same products) and 0.00645 at 8 rows on an H100 80GB HBM3 at 700 W,
+    # the control (another micro-batch's gradients) 1.23
+    grad_rel_limit=0.025,
 )
 
 
@@ -2029,11 +2080,11 @@ def ivfpq_periodic_phase(dev, card: str, t: dict) -> dict:
     )
 
 
-def cli_inputs(root: Path, t: dict) -> dict:
-    """Phase 9's inputs under `root` (module constant CLI): a BeIR-format
-    directory of harvested passages and generated queries, a vocab
-    directory and the YAML. Returns the paths, the held-out queries (text,
-    gold passage id), the expected overrides and the harvest's numbers."""
+def harvest_beir(root: Path, t: dict) -> dict:
+    """A BeIR-format directory of t["n"] harvested passages and generated
+    literal-span queries under `root`, and a vocab directory (phases 9 and
+    10). Returns the paths, the held-out queries (text, gold passage id) and
+    the harvest's numbers."""
     import collections
     import re
     import sysconfig
@@ -2098,11 +2149,21 @@ def cli_inputs(root: Path, t: dict) -> dict:
         if w not in seen:
             seen.add(w)
             vocab.append(w)
+    # a small corpus has fewer distinct words: BERT's own filler entries fill the rest
+    vocab += [f"[unused{i}]" for i in range(t["vocab"] - len(vocab))]
     vocab_dir = root / "vocab"
     vocab_dir.mkdir()
     (vocab_dir / "vocab.txt").write_text("\n".join(vocab) + "\n")
     check(len(vocab) == t["vocab"], f"vocab.txt has {len(vocab)} entries, not {t['vocab']}")
+    return dict(beir=beir, vocab_dir=vocab_dir, held=held, harvest_s=harvest_s, files=files[0])
 
+
+def cli_inputs(root: Path, t: dict) -> dict:
+    """Phase 9's inputs under `root` (module constant CLI): `harvest_beir`'s
+    directories and the YAML. Returns the paths, the held-out queries (text,
+    gold passage id), the expected overrides and the harvest's numbers."""
+    h = harvest_beir(root, t)
+    beir, vocab_dir = h["beir"], h["vocab_dir"]
     run = root / "run"
     base = ROOT / "configs" / "msmarco_pq_realm.yaml"
     datasets = {
@@ -2127,7 +2188,7 @@ def cli_inputs(root: Path, t: dict) -> dict:
         f"trainer: {{max_steps: {t['max_steps']}, period: {t['period']}, log_interval: 1, checkpoint_path: '{run}'}}\n"
         "sys: {mesh_shape: [1]}\n"
     )
-    return dict(yaml=yaml_path, run=run, base=base, held=held, harvest_s=harvest_s, files=files[0],
+    return dict(yaml=yaml_path, run=run, base=base, held=h["held"], harvest_s=h["harvest_s"], files=h["files"],
                 overrides=dict(datasets=datasets, dense=dense, trainer=trainer, sys={"mesh_shape": [1]},
                                tokenizer={"name_or_path": str(vocab_dir), "max_length": t["max_length"]}))
 
@@ -2136,7 +2197,7 @@ def cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
     """Phase 9: the experiment CLI on the card (module constant CLI), in
     process through `vod_tpu_torch.exps.cli.main`, the function `python -m
     vod_tpu_torch.exps.cli` runs: `main(["--config", yaml])` (2 periods of 3
-    optimizer steps, each period re-embedding the 2^18 sections), then
+    optimizer steps, each period re-embedding the 2^17 sections), then
     `main(["--resume_from", run, "--max_steps", "9"])` (one more period).
     Each `main` is a main path of its own: launch counts are zeroed just
     before it and read just after. The runner's stages are timed by
@@ -2459,6 +2520,373 @@ def cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
     log(f"9 step without a sync [{card}]: two dataloader batches and one optimizer step enqueued in "
         f"{enqueue_ms:.2f} ms, finished {finish_ms:.2f} ms after the start")
     log(f"phase 9 wall time: {wall:.1f} s")
+    return result
+
+
+def write_hf_checkpoint(directory: Path, t: dict, dev) -> dict:
+    """Phase 10's checkpoint: `config.json` with t["hf"] (e5-large-v2's
+    published architecture) and `model.safetensors` of seeded random f32
+    weights in `BertModel`'s key layout, drawn on the card, written by the
+    port's own writer. Returns the CPU copies of the tensors the load checks
+    read."""
+    import torch
+
+    from vod_tpu_torch.models.hf_import import write_safetensors
+
+    hf = t["hf"]
+    h, inter = hf["hidden_size"], hf["intermediate_size"]
+    g = torch.Generator(device=dev).manual_seed(t["seed"])
+
+    def rnd(*shape, mean: float = 0.0):
+        return (mean + 0.02 * torch.randn(shape, generator=g, device=dev)).cpu()
+
+    tensors = {
+        "embeddings.word_embeddings.weight": rnd(hf["vocab_size"], h),
+        "embeddings.position_embeddings.weight": rnd(hf["max_position_embeddings"], h),
+        "embeddings.token_type_embeddings.weight": rnd(hf["type_vocab_size"], h),
+        "embeddings.LayerNorm.weight": rnd(h, mean=1.0),
+        "embeddings.LayerNorm.bias": rnd(h),
+    }
+    for i in range(hf["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name, (out_f, in_f) in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                                    ("attention.self.value", (h, h)), ("attention.output.dense", (h, h)),
+                                    ("intermediate.dense", (inter, h)), ("output.dense", (h, inter))):
+            tensors[p + name + ".weight"] = rnd(out_f, in_f)
+            tensors[p + name + ".bias"] = rnd(out_f)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            tensors[p + name + ".weight"] = rnd(h, mean=1.0)
+            tensors[p + name + ".bias"] = rnd(h)
+    tensors["pooler.dense.weight"] = rnd(h, h)
+    tensors["pooler.dense.bias"] = rnd(h)
+    directory.mkdir(parents=True)
+    (directory / "config.json").write_text(json.dumps(hf, indent=2))
+    write_safetensors(directory / "model.safetensors", tensors)
+    last = hf["num_hidden_layers"] - 1
+    keep = ("embeddings.word_embeddings.weight", "encoder.layer.0.attention.output.LayerNorm.weight",
+            f"encoder.layer.{last}.attention.self.query.weight", f"encoder.layer.{last}.attention.self.query.bias",
+            "encoder.layer.1.intermediate.dense.bias", "encoder.layer.2.output.dense.weight")
+    return {k: tensors[k] for k in keep}
+
+
+def large_cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
+    """Phase 10: the large-encoder training path of the experiment CLI
+    (module constant LARGE), in process through `vod_tpu_torch.exps.cli.main`
+    as phase 9: e5-large's widths loaded from a local HF checkpoint that the
+    phase writes, LoRA over an int8-frozen base with remat, GradCache,
+    Adafactor, live dense ∥ BM25 retrieval whose dense side runs
+    `fused_mips_binned` at D = 1024, and a re-embed through the kbit view
+    each period. `main` is its main path: launch counts are zeroed just
+    before it and read just after. Returns the numbers."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.exps import cli, recipes
+    from vod_tpu_torch.exps.structconf import Experiment
+    from vod_tpu_torch.models import QuantizedLeaf, flax_layout, kbit_memory_bytes, kbit_params, quantize_leaf
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.runtime import Adafactor, gradcache_backward
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+    from vod_tpu_torch.search import dense as dense_mod
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    h = harvest_beir(root, t)
+    t0 = time.perf_counter()
+    written = write_hf_checkpoint(root / "e5-large", t, dev)
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = (root / "e5-large" / "model.safetensors").stat().st_size
+    hf = t["hf"]
+    model_over = "".join(f", {k}: {v}" for k, v in t["model_overrides"].items())
+    yaml_path = root / "exp.yaml"
+    yaml_path.write_text(
+        f"extends: ['{ROOT / 'configs' / 'scifact_ranker.yaml'}', arch/v5e-1-large-qlora, optimizer/adafactor]\n"
+        f"model: {{name_or_path: '{root / 'e5-large'}'{model_over}}}\n"
+        f"tokenizer: {{name_or_path: '{h['vocab_dir']}'}}\n"
+        "search_defaults:\n"
+        f"  dense: {{codec: flat, dtype: bfloat16, kernel: fused, fused_bins: {t['bins']}}}\n"
+        f"trainer: {{max_steps: {t['max_steps']}, period: {t['period']}, log_interval: 1}}\n"
+        "datasets:\n"
+        "  queries:\n"
+        f"    - {{identifier: harvest-train, name_or_path: beir, subsets: ['{h['beir']}'], split: train, "
+        "link: harvest-corpus}\n"
+        "  sections:\n"
+        f"    - {{identifier: harvest-corpus, name_or_path: beir, subsets: ['{h['beir']}']}}\n"
+    )
+    log(f"10 inputs: {t['n']} passages harvested from {h['files']} files in {h['harvest_s']:.2f} s; a checkpoint of "
+        f"{ckpt_bytes / 1e9:.3f} GB (e5-large-v2's config.json, seeded random f32 weights) written in {ckpt_s:.2f} s")
+
+    # the parsed config: scifact's body under the qlora and adafactor presets
+    exp = Experiment.from_file(str(yaml_path))
+    m, tr, col = exp.model, exp.trainer, exp.collate
+    check((m.kind, m.gradients, m.agg_method, m.output_norm, m.scaler, m.learn_scaler) ==
+          ("ranker", "retrieval", "mean", "l2", 10.0, True)
+          and (m.hidden_size, m.num_layers, m.num_heads, m.intermediate_size, m.vocab_size) ==
+          (hf["hidden_size"], hf["num_hidden_layers"], hf["num_attention_heads"], hf["intermediate_size"],
+           hf["vocab_size"])
+          and (m.lora_rank, m.lora_alpha, m.kbit, m.remat, m.hf_fallback) == (t["lora_rank"], 16.0, True, True, "error")
+          and (tr.optimizer, tr.gradcache_chunk_rows, tr.batch_size.effective, tr.batch_size.per_device,
+               tr.learning_rate, tr.gradient_clip_val) == ("adafactor", t["chunk_rows"], 32, t["micro_batch"], 1e-4, 1.0)
+          and (col.prefetch_n_sections, col.n_sections, col.max_pos_sections) == (100, 8, 2)
+          and exp.tokenizer.max_length == t["max_length"] and exp.search_defaults.sparse.max_postings == 2048
+          and exp.search_defaults.dense.kernel == "fused",
+          "the parsed Experiment is not scifact_ranker under the qlora and adafactor presets")
+
+    # step 0: the LoRA encoder, loaded, encodes as the same checkpoint loaded
+    # into an encoder without adapters; both hold the written tensors
+    gi = torch.Generator(device=dev).manual_seed(t["seed"])
+    ids = torch.randint(1000, hf["vocab_size"], (t["probe_rows"], t["max_length"]), generator=gi, device=dev)
+    mask = (torch.arange(t["max_length"], device=dev)[None]
+            < torch.randint(16, t["max_length"] + 1, (t["probe_rows"], 1), generator=gi, device=dev)).to(torch.int32)
+    pooled = {}
+    for name, mcfg in (("lora", m), ("plain", m.replace(lora_rank=0, kbit=False))):
+        model = cli._maybe_port_hf_encoder(
+            cli.build_model(mcfg, device=dev, generator=torch.Generator(device=dev).manual_seed(exp.sys.seed)), mcfg)
+        bb = model.encoder.backbone
+        last = hf["num_hidden_layers"] - 1
+        for got, key in ((bb.embeddings.word_embeddings.weight, "embeddings.word_embeddings.weight"),
+                         (bb.layers[0].attention_norm.weight, "encoder.layer.0.attention.output.LayerNorm.weight"),
+                         (bb.layers[last].attention.query.weight, f"encoder.layer.{last}.attention.self.query.weight")):
+            check(torch.equal(got.detach().cpu(), written[key]), f"{name}: {key} is not the written tensor")
+        with torch.no_grad():
+            pooled[name] = model.encode_field(ids, mask)
+        del model, bb
+    # lora_b is 0, so each adapter adds exact zeros to its base's output
+    step0_err = (pooled["lora"] - pooled["plain"]).abs().max().item()
+    check(step0_err <= 1e-6, f"step 0: the LoRA encoder's pooled output differs from the plain one by {step0_err:.3g}")
+    del pooled
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"10 step 0: the written tensors loaded bit for bit; LoRA encoder == plain encoder on {t['probe_rows']} rows "
+        f"(max |diff| {step0_err})")
+
+    # instrumentation: each wrapper records and calls the real function
+    rec: dict = dict(logs=[], steps=[], loaders=[], call=None)
+    real = dict(run=cli.run_experiment, loader=cli.RealmDataloader, kbit=cli.kbit_prepare,
+                loop=recipes.training_loop, step=RealmTrainStep.train_step_accum, kernel=dense_mod.fused_mips_binned)
+
+    def run_experiment(exp_, *, on_log=None, **kw):
+        def both(step, metrics):
+            rec["logs"].append((step, dict(metrics)))
+            on_log(step, metrics)
+
+        return real["run"](exp_, on_log=both, **kw)
+
+    def realm_dataloader(*args, **kw):
+        rec["loaders"].append(real["loader"](*args, **kw))
+        return rec["loaders"][-1]
+
+    def kbit_prepare(model, mask):
+        kb = real["kbit"](model, mask)
+        rec["codes"] = {n: v.codes.clone() for n, v in kb.frozen.items() if isinstance(v, QuantizedLeaf)}
+        rec["init"] = {n: p.detach().clone() for n, p in kb.trainable.items()}
+        rec["kbit_bytes"] = dict(kbit_memory_bytes(kb), quantized_leaves=len(rec["codes"]),
+                                 float_leaves=len(kb.frozen) - len(rec["codes"]), trainable_leaves=len(kb.trainable),
+                                 trainable_params=sum(p.numel() for p in kb.trainable.values()))
+        return kb
+
+    def loop(**kw):
+        rec["engines"], rec["generator"], rec["corpus"] = kw["engines"], kw["generator"], kw["corpus"]
+        return real["loop"](**kw)
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        events = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+        before = dict(fused_mips_binned.body_launches)
+        events[0].record()
+        out = real["step"](self, engines, corpus, micro, generator, weights, **kw)
+        events[1].record()
+        rec["steps"].append((events, {k: v - before[k] for k, v in fused_mips_binned.body_launches.items()},
+                             len(micro)))
+        return out
+
+    def kernel(vectors, queries, **kw):
+        if rec["call"] is None:
+            rec["call"] = (vectors, queries.detach().clone(), dict(kw))
+        return real["kernel"](vectors, queries, **kw)
+
+    patches = [(cli, "run_experiment", run_experiment), (cli, "RealmDataloader", realm_dataloader),
+               (cli, "kbit_prepare", kbit_prepare), (recipes, "training_loop", loop),
+               (RealmTrainStep, "train_step_accum", step), (dense_mod, "fused_mips_binned", kernel)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out = cli.main(["--config", str(yaml_path)])
+        torch.cuda.synchronize()
+        launches, bodies = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        run_s = time.perf_counter() - t_run
+        peak_run = torch.cuda.max_memory_allocated(dev)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+    model, step_fn, hist, state = out["model"], out["step_fn"], out["history"], out["state"]
+    logs, steps = rec["logs"], rec["steps"]
+    check(state.step == t["max_steps"] and [hh["period"] for hh in hist] == [0, 1],
+          f"ended at step {state.step}, periods {[hh['period'] for hh in hist]}")
+    check([s_ for s_, _ in logs] == list(range(1, t["max_steps"] + 1)), f"logged steps {[s_ for s_, _ in logs]}")
+    check(all(math.isfinite(mm["loss"]) and math.isfinite(mm["grad_norm"]) for _, mm in logs), "a loss is not finite")
+    check(step_fn.accumulate_grad_batches == t["accumulate"] and step_fn.gradcache_chunk_rows == t["chunk_rows"]
+          and type(step_fn.optimizer).__name__ == "Adafactor" and model.cfg.remat and model.cfg.lora_rank == t["lora_rank"],
+          "the step is not 8 micro-batches through GradCache with Adafactor, remat and LoRA")
+    per_step = t["accumulate"]
+    check(bodies == {"wgmma": per_step * t["max_steps"], "fma": 0} and launches == per_step * t["max_steps"],
+          f"main launched fused_mips_binned {launches} times, by body {bodies}, not {per_step} a step on wgmma")
+    check(all(b_ == {"wgmma": per_step, "fma": 0} for _, b_, _ in steps), "a step did not launch once a micro-batch")
+
+    # the kbit state after training: codes unchanged, every adapter and the pooler moved
+    kb = kbit_params(model)
+    check(kb is not None and set(kb.trainable) == set(rec["init"]), "the trained model lost its kbit split")
+    unchanged = all(torch.equal(kb.frozen[n].codes, c) for n, c in rec["codes"].items())
+    check(unchanged, "an int8 code changed in training")
+    moved = sorted(n for n, p in kb.trainable.items() if not torch.equal(p.detach(), rec["init"][n]))
+    check(moved == sorted(kb.trainable), f"trainable groups that did not move: {sorted(set(kb.trainable) - set(moved))}")
+    check(len(kb.trainable) == 4 * hf["num_hidden_layers"] + 1, f"{len(kb.trainable)} trainable leaves")
+    last = hf["num_hidden_layers"] - 1
+    for name, key in ((f"encoder.backbone.layers.{last}.attention.query.weight",
+                       f"encoder.layer.{last}.attention.self.query.weight"),
+                      ("encoder.backbone.layers.2.output.base.weight", "encoder.layer.2.output.dense.weight"),
+                      ("encoder.backbone.embeddings.word_embeddings.weight", "embeddings.word_embeddings.weight")):
+        want = quantize_leaf(flax_layout(model, name).to_flax(written[key].to(dev)))
+        check(torch.equal(kb.frozen[name].codes, want.codes) and torch.equal(kb.frozen[name].scale, want.scale),
+              f"{name}: the codes are not the written tensor's")
+    for name, key in (("encoder.backbone.layers.0.attention_norm.weight",
+                       "encoder.layer.0.attention.output.LayerNorm.weight"),
+                      ("encoder.backbone.layers.1.intermediate.base.bias", "encoder.layer.1.intermediate.dense.bias")):
+        check(torch.equal(kb.frozen[name].cpu(), written[key]), f"{name} is not the written tensor")
+    del rec["codes"], rec["init"], written
+
+    # one CLI-loop call (the first micro-batch's) against the plain version
+    vv, q, kw = rec["call"]
+    b, d = q.shape
+    k, bins, n_real = kw["k"], kw["bins"], kw["n_real"]
+    check((b, d, vv.shape[0], bins, k) == (t["micro_batch"], hf["hidden_size"], t["n"], t["bins"], 100),
+          f"the CLI-loop call is B={b} D={d} N={vv.shape[0]} bins={bins} k={k}")
+    body = _binned_body(vv.dtype, d, bins, (vv.data_ptr(), q.data_ptr()))
+    check(body == "wgmma", f"the D={d} call takes the {body} body")
+    ks, ki = fused_mips_binned(vv, q, **kw)
+    rs, ri = fused_mips_binned_reference(vv, q, **kw)
+    tol = 2 * d * 2.0**-24 * q.float().norm(dim=-1).max().item() * vv.float().norm(dim=-1).max().item()
+    err, swaps = check_against_plain(f"CLI-loop binned B={b} D={d}", ks, ki, rs, ri, q, vv, tol)
+    ms = time_ms(lambda: fused_mips_binned(vv, q, **kw), 20)
+    plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, q, **kw), 2)
+    library_ms = time_ms(lambda: torch.topk(q @ vv[:n_real].T, k, dim=-1), 20)
+    nbytes, ops = (n_real + b) * d * 2 + b * k * 8, 2 * b * n_real * d
+    bound = max(nbytes / hbm, ops / peak_bf16) * 1e3
+    bound_by = "bytes" if nbytes / hbm >= ops / peak_bf16 else "operations"
+    log(f"check large CLI-loop binned bf16 B={b} D={d} N={n_real} bins={bins} k={k} ({body}): max |kernel - plain| = "
+        f"{err:.3g} (tol {tol:.3g}), {swaps} id swaps inside the band; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
+    del rec["call"], vv, q, ks, ki, rs, ri
+
+    # GradCache against the monolithic backward on one micro-batch at full width
+    engines, corpus, generator = rec["engines"], rec["corpus"], rec["generator"]
+    weights = state.get_parameters()
+    batches = rec["loaders"][0].epoch(seed=4242)
+    collated = [step_fn.collate(engines, corpus, next(batches), generator, weights) for _ in range(2)]
+    params = list(kb.trainable.values())
+
+    def grads(fn) -> tuple[list, int]:
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        return [p.grad.detach().clone() for p in params], torch.cuda.max_memory_allocated(dev)
+
+    def rel_l2(a, b_) -> float:
+        num = torch.sqrt(sum(((x.double() - y.double()) ** 2).sum() for x, y in zip(a, b_)))
+        den = torch.sqrt(sum((y.double() ** 2).sum() for y in b_))
+        return (num / den).item()
+
+    rows = int(collated[0].query__input_ids.shape[0] + collated[0].section__input_ids.shape[0])
+    mono, peak_mono = grads(lambda: model(collated[0]).loss.backward())
+    cached, peak_cache = grads(lambda: gradcache_backward(model, collated[0], chunk_rows=t["chunk_rows"]))
+    chunked, peak_chunked = grads(lambda: gradcache_backward(model, collated[0], chunk_rows=t["gradcache_probe_chunk"]))
+    other, _ = grads(lambda: model(collated[1]).loss.backward())
+    rel = {"chunk_rows": rel_l2(cached, mono), "probe_chunk": rel_l2(chunked, mono), "control": rel_l2(other, mono)}
+    log(f"10 GradCache vs monolithic on one micro-batch ({rows} rows x {collated[0].section__input_ids.shape[1]} "
+        f"tokens): relative L2 of the trainable gradients {rel['chunk_rows']:.3g} at {t['chunk_rows']} rows a chunk, "
+        f"{rel['probe_chunk']:.3g} at {t['gradcache_probe_chunk']}; control (another micro-batch) {rel['control']:.3g}; "
+        f"limit {t['grad_rel_limit']}; peak memory monolithic {peak_mono / 2**30:.4f} GiB, GradCache "
+        f"{peak_cache / 2**30:.4f} GiB ({t['chunk_rows']} rows), {peak_chunked / 2**30:.4f} GiB "
+        f"({t['gradcache_probe_chunk']} rows) [{card}]")
+    check(rel["chunk_rows"] <= t["grad_rel_limit"] and rel["probe_chunk"] <= t["grad_rel_limit"],
+          f"GradCache's gradients differ from the monolithic ones by {rel}")
+    check(rel["control"] > 10 * t["grad_rel_limit"], f"the control reads {rel['control']:.3g}: the check is blind")
+
+    # one Adafactor update on the card against the same update on the CPU in f32
+    card_p = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    cpu_p = [torch.nn.Parameter(p.detach().cpu().clone()) for p in params]
+    for group, grads_ in ((card_p, mono), (cpu_p, [g_.cpu() for g_ in mono])):
+        for p, g_ in zip(group, grads_):
+            p.grad = g_
+        Adafactor(group, tr.learning_rate, weight_decay=tr.weight_decay or None).step()
+    ada_err = max((a.detach().cpu() - b_.detach()).abs().max().item() for a, b_ in zip(card_p, cpu_p))
+    ada_scale = max(b_.detach().abs().max().item() for b_ in cpu_p)
+    log(f"10 Adafactor on the card vs the CPU, one update of {len(params)} leaves: max |diff| {ada_err:.3g} "
+        f"(largest parameter {ada_scale:.3g})")
+    check(ada_err <= 1e-6 * ada_scale, f"Adafactor on the card differs from the CPU by {ada_err:.3g}")
+    del card_p, cpu_p, mono, cached, chunked, other, collated
+    model.zero_grad(set_to_none=True)
+
+    # one optimizer step, its 8 dataloader batches included, with every
+    # synchronizing CUDA call made an error
+    step_fn.train_step_accum(engines, corpus, [next(batches) for _ in range(per_step)], generator, weights)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        micro = [next(batches) for _ in range(per_step)]
+        step_fn.train_step_accum(engines, corpus, micro, generator, weights)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as exc:
+        fail(f"the large CLI's step or its dataloader waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    kbit_bytes = rec["kbit_bytes"]
+    del out, model, step_fn, kb, params, rec, micro, batches, engines, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+
+    periods = []
+    for p_, hh in enumerate(hist):
+        ms_ = [s_.elapsed_time(e_) for (s_, e_), _, _ in steps[p_ * t["period"] : (p_ + 1) * t["period"]]]
+        periods.append(dict(period=hh["period"], reembed_s=hh["reembed_s"], build_ms=hh["build_ms"]["total_ms"],
+                            step_ms=ms_, median_step_ms=statistics.median(ms_)))
+    all_steps = [x for p_ in periods for x in p_["step_ms"]]
+    wall = time.perf_counter() - started
+    result = dict(
+        harvest_s=h["harvest_s"], checkpoint_s=ckpt_s, checkpoint_bytes=ckpt_bytes, run_s=run_s, periods=periods,
+        median_step_ms=statistics.median(all_steps), losses=[mm["loss"] for _, mm in logs], kbit_bytes=kbit_bytes,
+        peak_mem_bytes=peak_run, gradcache_peak_mem_bytes=peak_cache, monolithic_peak_mem_bytes=peak_mono,
+        probe_chunk_peak_mem_bytes=peak_chunked, grad_rel_l2=rel, step0_max_abs_diff=step0_err,
+        adafactor_max_abs_diff=ada_err, launches=launches, body_launches=bodies, max_abs_err=err,
+        call=dict(shape=f"bfloat16 B={b} N={n_real} D={d} bins={bins} k={k}", ms=ms, plain_ms=plain_ms,
+                  library_ms=library_ms, bound_ms=bound, bound_by=bound_by),
+        sync_free_step=dict(enqueue_ms=enqueue_ms, finish_ms=finish_ms), wall_s=wall,
+    )
+    log(f"10 kbit [{card}]: {json.dumps(kbit_bytes)} (bytes: trainable leaves, frozen codes + scales + float leaves)")
+    for p_ in periods:
+        log(f"10 period {p_['period']} [{card}]: re-embed {p_['reembed_s']:.2f} s ({t['n']} sections of "
+            f"{t['max_length']} tokens through the kbit view), index build {p_['build_ms']:.2f} ms, steps "
+            f"{json.dumps([round(x, 4) for x in p_['step_ms']])} ms (median {p_['median_step_ms']:.4f})")
+    log(f"10 run [{card}]: main {run_s:.2f} s ({launches} fused_mips_binned launches, by body {bodies}); step median "
+        f"{result['median_step_ms']:.4f} ms (B = 32 as {per_step} micro-batches of {t['micro_batch']}); losses "
+        f"{json.dumps([round(x, 6) for x in result['losses']])}; peak memory {peak_run / 2**30:.4f} GiB")
+    log(f"10 step without a sync [{card}]: {per_step} dataloader batches and one optimizer step enqueued in "
+        f"{enqueue_ms:.2f} ms, finished {finish_ms:.2f} ms after the start")
+    log(f"phase 10 wall time: {wall:.1f} s")
     return result
 
 
@@ -2873,7 +3301,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli = cli_phase(dev, card, hbm, peak_bf16, CLI)
 
-    # 10. result lines
+    # 10. the large-encoder path of the CLI (its own main path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    large = large_cli_phase(dev, card, hbm, peak_bf16, LARGE)
+
+    # 11. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -2881,7 +3314,8 @@ def main() -> None:
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches,
-        max_abs_err=max(max_err, train["train_max_abs_err"], seq2seq["train_call"]["max_abs_err"], cli["max_abs_err"]),
+        max_abs_err=max(max_err, train["train_max_abs_err"], seq2seq["train_call"]["max_abs_err"], cli["max_abs_err"],
+                        large["max_abs_err"]),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
         shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
@@ -2901,6 +3335,8 @@ def main() -> None:
         cli_launches=cli["launches"], cli_body_launches=cli["body_launches"],
         cli_resume_launches=cli["resume_launches"], cli_resume_body_launches=cli["resume_body_launches"],
         cli_call=cli["call"], cli=cli,
+        large_launches=large["launches"], large_body_launches=large["body_launches"], large_call=large["call"],
+        large=large,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

@@ -235,14 +235,8 @@ def test_main_runs_and_resumes_from_a_config_file(tmp_path: Path, capsys) -> Non
 
 
 UNPORTED = {
-    "hf_encoder": ({"model": {"name_or_path": "bert-base-uncased"}}, "item 3"),
-    "kbit": ({"model": {"kbit": True, "lora_rank": 2}}, "item 4"),
-    "lora": ({"model": {"lora_rank": 4}}, "item 4"),
     "moe": ({"model": {"moe_experts": 4}}, "item 6"),
     "splade": ({"model": {"splade_encoder": True}}, "item 4"),
-    "remat": ({"model": {"remat": True}}, "item 7"),
-    "gradcache": ({"trainer": {"gradcache_chunk_rows": 128}}, "item 4"),
-    "adafactor": ({"trainer": {"optimizer": "adafactor"}}, "item 3"),
     "profile": ({"sys": {"profile_dir": "trace"}}, "item 7"),
 }
 

@@ -654,3 +654,161 @@ datasets:
     assert out["state"].step == 2 and next(out["model"].parameters()).is_cuda
     assert all(np.isfinite(h["train"]["loss"]) for h in out["history"])
     assert after["wgmma"] - before["wgmma"] == 2 * 2 and after["fma"] == before["fma"]
+
+
+def _lora_encoder(device, cfg_kw: dict, state: dict = None):
+    from vod_tpu_torch.models import TransformerEncoderConfig, VodEncoder, VodPoolerConfig
+
+    cfg = TransformerEncoderConfig(pooler=VodPoolerConfig(agg_method="mean", output_norm="l2", scaler=10.0,
+                                                          learn_scaler=True), **cfg_kw)
+    enc = VodEncoder(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    if state is not None:
+        enc.load_state_dict(state)
+    return enc
+
+
+def test_kbit_lora_remat_on_card_matches_cpu(cuda_device) -> None:
+    """A LoRA encoder with nonzero adapters, int8-frozen by `kbit_prepare`, with
+    remat, on the card and on the CPU from the same weights: codes and scales
+    equal exactly, f32 encodings within 1e-4 and the trainable gradients
+    within 1e-4 of their largest entry (TF32 off; other sum orders)."""
+    from vod_tpu_torch.models import QuantizedLeaf, kbit_prepare, lora_trainable_mask
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(vocab_size=300, hidden_size=128, num_layers=2, num_heads=4, intermediate_size=256, lora_rank=4,
+              remat=True, dtype=torch.float32)
+    cpu = _lora_encoder("cpu", kw)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    card = _lora_encoder(cuda_device, kw, {k: v.to(cuda_device) for k, v in cpu.state_dict().items()})
+    kbs = [kbit_prepare(m, lora_trainable_mask(m)) for m in (cpu, card)]
+    n_quantized = 0
+    for name, leaf in kbs[0].frozen.items():
+        other = kbs[1].frozen[name]
+        if isinstance(leaf, QuantizedLeaf):
+            n_quantized += 1
+            assert torch.equal(leaf.codes, other.codes.cpu()) and torch.equal(leaf.scale, other.scale.cpu()), name
+        else:
+            assert torch.equal(leaf, other.cpu()), name
+    assert n_quantized == 3 + 2 * 9
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, 300, (6, 40), generator=g)
+    mask = torch.ones_like(ids)
+    mask[3:, 25:] = 0
+    w = torch.randn((6, 128), generator=g)
+    outs, grads = [], []
+    for m, dev in ((cpu, "cpu"), (card, cuda_device)):
+        out = m(ids.to(dev), mask.to(dev))
+        (out * w.to(dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4
+    for name, gc in grads[0].items():
+        assert (gc - grads[1][name]).abs().max().item() <= 1e-4 * max(gc.abs().max().item(), 1e-6), name
+
+
+def test_gradcache_on_card_matches_monolithic(cuda_device) -> None:
+    """One collated micro-batch of a small bf16 Ranker on the card (LoRA over
+    an int8 base, remat): GradCache's gradients at 8 rows a chunk against the
+    monolithic backward, relative L2 within 1e-2 (bf16 activations: the chunk
+    shapes change the products' blocking), and a control (another
+    micro-batch's gradients) far above it."""
+    from vod_tpu_torch.models import (
+        Ranker,
+        RetrievalGradients,
+        TransformerEncoderConfig,
+        VodPoolerConfig,
+        kbit_prepare,
+        lora_trainable_mask,
+    )
+    from vod_tpu_torch.runtime import QueryBatch, build_device_corpus, gradcache_backward, make_train_step
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    cfg = TransformerEncoderConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                                   lora_rank=8, remat=True,
+                                   pooler=VodPoolerConfig(agg_method="mean", output_norm="l2", scaler=10.0,
+                                                          learn_scaler=True))
+    model = Ranker(cfg, RetrievalGradients(), device=cuda_device, generator=g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=g)
+    kbit_prepare(model, lora_trainable_mask(model))
+    n = 2048
+    corpus = build_device_corpus(torch.randint(1, 512, (n, 32), generator=g, device=cuda_device),
+                                 torch.ones((n, 32), dtype=torch.int32, device=cuda_device), device=cuda_device)
+    emb = torch.randn((n, 128), generator=g, device=cuda_device)
+    engines = HybridEngines(dense=build_dense_index(emb / emb.norm(dim=-1, keepdim=True), kernel="fused",
+                                                    device=cuda_device))
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), prefetch=32, n_sections=8,
+                           max_pos_sections=2, gradcache_chunk_rows=8)
+
+    def queries(seed):
+        gq = torch.Generator(device=cuda_device).manual_seed(seed)
+        return QueryBatch(input_ids=torch.randint(1, 512, (4, 16), generator=gq, device=cuda_device),
+                          attention_mask=torch.ones((4, 16), dtype=torch.int32, device=cuda_device),
+                          section_ids=torch.randint(0, n, (4, 2), generator=gq, device=cuda_device,
+                                                    dtype=torch.int32))
+
+    def grads(fn):
+        model.zero_grad(set_to_none=True)
+        fn()
+        return torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
+
+    batches = [step.collate(engines, corpus, queries(s), g, {"dense": 1.0}) for s in (1, 2)]
+    mono = grads(lambda: model(batches[0]).loss.backward())
+    cached = grads(lambda: gradcache_backward(model, batches[0], chunk_rows=8))
+    other = grads(lambda: model(batches[1]).loss.backward())
+    rel = ((cached - mono).norm() / mono.norm()).item()
+    control = ((other - mono).norm() / mono.norm()).item()
+    assert rel <= 1e-2 and control > 10 * 1e-2, (rel, control)
+
+
+def test_adafactor_on_card_matches_plain(cuda_device) -> None:
+    """Three Adafactor steps on the card against the same steps on the CPU
+    (factored and unfactored leaves, a zero leaf, weight decay): parameters
+    within 1e-6 of their largest entry."""
+    from vod_tpu_torch.runtime import Adafactor
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(256, 130), (3, 200, 160), (7, 5), (64,), (), (8, 4096)]
+    init = [0.1 * torch.randn(s, generator=g) for s in shapes] + [torch.zeros(130, 129)]
+    sides = []
+    for dev in ("cpu", cuda_device):
+        params = [torch.nn.Parameter(p.clone().to(dev)) for p in init]
+        sides.append((params, Adafactor(params, 1e-2, weight_decay=0.01)))
+    for _ in range(3):
+        grads = [torch.randn(p.shape, generator=g) for p in init]
+        for params, opt in sides:
+            for p, gr in zip(params, grads):
+                p.grad = gr.to(p.device)
+            opt.step()
+    for a, b in zip(*(s[0] for s in sides)):
+        assert (a.detach() - b.detach().cpu()).abs().max().item() <= 1e-6 * max(a.abs().max().item(), 1e-3)
+
+
+def test_binned_wgmma_at_d1024(cuda_device) -> None:
+    """The large-encoder CLI loop's call: bf16, D = 1024 (16 boxes of K),
+    N = 2^15, 512 bins, B = 4, k = 100, on the tensor-core body, held against
+    the plain version (scores within twice the f32 sum-order bound, ids equal
+    outside that band), with equal rows tied to the lowest id."""
+    g = torch.Generator(device=cuda_device).manual_seed(1024)
+    n, d, b, bins = 1 << 15, 1024, 4, 512
+    v = torch.randn((n, d), generator=g, device=cuda_device)
+    v = (v / v.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    v[[5 + bins, 5 + 30 * bins]] = v[5].clone()
+    q = torch.randn((b, d), generator=g, device=cuda_device)
+    q = q / q.norm(dim=-1, keepdim=True)
+    q[0] = v[5].float()
+    tol = 2 * d * 2.0**-24 * 1.01
+    assert _binned_body(v.dtype, d, bins, (v.data_ptr(), q.to(v.dtype).data_ptr())) == "wgmma"
+    before = dict(fused_mips_binned.body_launches)
+    for n_real in (n, n - 77):
+        ks, ki = fused_mips_binned(v, q, k=100, bins=bins, n_real=n_real)
+        rs, ri = fused_mips_binned_reference(v, q, k=100, bins=bins, n_real=n_real)
+        _held_against_plain(ks, ki, rs, ri, q, v, tol)
+        assert ki.max().item() < n_real and ki[0, 0].item() == 5
+    assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 2
+    assert fused_mips_binned.body_launches["fma"] == before["fma"]

@@ -142,7 +142,5 @@ def test_random_init_is_seeded_and_finite() -> None:
 
 
 def test_unported_options_raise() -> None:
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        VodEncoder(TransformerEncoderConfig(lora_rank=4, **SIZES), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         VodEncoder(TransformerEncoderConfig(moe_experts=2, **SIZES), device="cpu")

@@ -409,8 +409,6 @@ def test_unported_options_raise() -> None:
     opt = adamw(tmodel, 1e-3, weight_decay=0.0)
     with pytest.raises(NotImplementedError, match="splade"):
         make_train_step(tmodel, opt, splade_query_k=8)
-    with pytest.raises(NotImplementedError, match="GradCache"):
-        make_train_step(tmodel, opt, gradcache_chunk_rows=8)
     with pytest.raises(NotImplementedError, match="mesh"):
         training_loop(step_fn=make_train_step(tmodel, opt), engines=teng, corpus=tcorpus, train_queries=[],
                       state=TrainerState(), generator=torch.Generator(), mesh=object())

@@ -17,14 +17,26 @@ Declared differences from the JAX package:
    mask as parameter groups (optax's `add_decayed_weights` then `sgd`), and
    an `lr_schedule` sets each group's learning rate before every optimizer
    step from the count of updates applied (optax's schedule count);
+ - `model.name_or_path` is read without `transformers` (`models/hf_import.py`)
+   and, under `lora_rank > 0`, loaded into each LoRA layer's `base` with the
+   adapters kept from their init (`lora_b` is 0, so the encoder at step 0 is
+   the checkpoint's); JAX grafts the plain tree there, which a LoRA encoder
+   cannot apply;
  - options not ported yet raise `NotImplementedError` naming their ROADMAP
    item, before any data is loaded.
+
+`model.kbit` (with `lora_rank > 0`) int8-freezes the loaded base and trains
+the LoRA adapters and the pooler only (`models/kbit.py`); `model.remat`
+recomputes each encoder layer in the backward pass; `trainer.
+gradcache_chunk_rows` runs a Ranker's backward through GradCache; `trainer.
+optimizer: adafactor` is optax's Adafactor (`runtime/optim.py`).
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
+import re
 import typing as typ
 
 import torch
@@ -43,8 +55,10 @@ from vod_tpu_torch.models import (
     TransformerEncoderConfig,
     VodGradients,
     VodPoolerConfig,
+    kbit_prepare,
+    lora_trainable_mask,
 )
-from vod_tpu_torch.runtime import TrainerState, adamw, build_device_corpus, decay_mask, load_checkpoint
+from vod_tpu_torch.runtime import TrainerState, adafactor, adamw, build_device_corpus, decay_mask, load_checkpoint
 from vod_tpu_torch.runtime.train import make_train_step
 
 _NOT_PORTED = "is not ported to vod_tpu_torch yet (ROADMAP §A item {})"
@@ -58,21 +72,14 @@ def _raise_unported(unported: typ.Iterable[tuple[bool, str, str]]) -> None:
 
 def _unported_model_options(m: ModelConfig) -> list[tuple[bool, str, str]]:
     return [
-        (m.name_or_path is not None, "model.name_or_path (the HF encoder import, models/hf_import.py)", "3"),
-        (m.kbit, "model.kbit", "4"),
-        (m.lora_rank > 0, "model.lora_rank > 0 (LoRA)", "4"),
         (m.splade_encoder, "model.splade_encoder", "4"),
         (m.moe_experts > 0, "model.moe_experts > 0", "6"),
-        (m.remat, "model.remat (activation checkpointing)", "7"),
     ]
 
 
 def check_ported(exp: Experiment, device: typ.Union[str, torch.device] = "cuda") -> None:
     """Raise `NotImplementedError` for each option of `exp` the port lacks."""
-    t = exp.trainer
     unported = _unported_model_options(exp.model) + [
-        (t.gradcache_chunk_rows is not None, "trainer.gradcache_chunk_rows (GradCache)", "4"),
-        (t.optimizer == "adafactor", "trainer.optimizer: adafactor", "3"),
         (exp.sys.profile_dir is not None, "sys.profile_dir (profiler traces)", "7"),
     ]
     dev = torch.device(device)
@@ -115,6 +122,9 @@ def build_model(
         num_layers=cfg.num_layers,
         num_heads=cfg.num_heads,
         intermediate_size=cfg.intermediate_size,
+        remat=cfg.remat,
+        lora_rank=cfg.lora_rank,
+        lora_alpha=cfg.lora_alpha,
         pooler=VodPoolerConfig(
             agg_method=cfg.agg_method,
             output_norm=cfg.output_norm,
@@ -194,6 +204,41 @@ def _maybe_port_hf_lm(model: torch.nn.Module, cfg: ModelConfig) -> torch.nn.Modu
     return model
 
 
+def _maybe_port_hf_encoder(model: torch.nn.Module, cfg: ModelConfig) -> torch.nn.Module:
+    """Load a ported HF BERT-family backbone into a freshly initialised model
+    (`models/hf_import.py:load_hf_encoder`, which reads a local directory or
+    the offline HF cache). `hf_fallback: random` keeps the random init when
+    the checkpoint cannot be read. Under LoRA each FFN dense layer's weights
+    go into its `base`, and the adapters keep their init."""
+    if cfg.name_or_path is None or cfg.debug_encoder:
+        return model
+    try:
+        from vod_tpu_torch.models.hf_import import load_hf_encoder
+
+        hf_cfg, backbone = load_hf_encoder(cfg.name_or_path)
+    except Exception as exc:  # noqa: BLE001 - a missing or unreadable checkpoint surfaces here
+        if cfg.hf_fallback == "random":
+            import warnings
+
+            warnings.warn(f"HF port of {cfg.name_or_path!r} unavailable ({exc}); random init")
+            return model
+        raise
+    if (hf_cfg.hidden_size, hf_cfg.num_layers) != (cfg.hidden_size, cfg.num_layers):
+        raise ValueError(
+            f"config mismatch vs checkpoint {cfg.name_or_path!r}: "
+            f"hidden={hf_cfg.hidden_size} layers={hf_cfg.num_layers}"
+        )
+    target = model.encoder.backbone
+    if cfg.lora_rank > 0:
+        backbone = {re.sub(r"\.(intermediate|output)\.", r".\1.base.", k): v for k, v in backbone.items()}
+    missing, unexpected = target.load_state_dict(backbone, strict=False)
+    adapters = [k for k in missing if k.endswith((".lora_a", ".lora_b"))]
+    if unexpected or len(adapters) != len(missing):
+        raise ValueError(f"checkpoint {cfg.name_or_path!r} does not fit the encoder: missing "
+                         f"{sorted(set(missing) - set(adapters))}, unexpected {sorted(unexpected)}")
+    return model
+
+
 def _optimizer(model: torch.nn.Module, exp: Experiment, start_count: int) -> torch.optim.Optimizer:
     """The trainer's optimizer over `model`, with its learning-rate schedule
     counted from `start_count` updates."""
@@ -204,7 +249,9 @@ def _optimizer(model: torch.nn.Module, exp: Experiment, start_count: int) -> tor
     lr0 = lr(start_count) if callable(lr) else lr
     if t.optimizer == "adamw":
         opt = adamw(model, lr0, weight_decay=t.weight_decay)
-    else:  # sgd; adafactor raised in check_ported
+    elif t.optimizer == "adafactor":
+        opt = adafactor(model, lr0, weight_decay=t.weight_decay or None)
+    else:  # sgd
         keep = decay_mask(model)
         groups = [
             {"params": [p for n, p in model.named_parameters() if keep[n]], "weight_decay": t.weight_decay},
@@ -304,7 +351,13 @@ def run_experiment(
     generator = torch.Generator(device=device).manual_seed(exp.sys.seed)
     model = build_model(exp.model, proposal_temperature=exp.collate.temperature, device=device,
                         generator=generator)
+    model = _maybe_port_hf_encoder(model, exp.model)
     model = _maybe_port_hf_lm(model, exp.model)
+    if exp.model.kbit:
+        # QLoRA-style: int8-freeze the base, optimize LoRA and the pooler only
+        if exp.model.lora_rank <= 0:
+            raise ValueError("model.kbit requires model.lora_rank > 0 (nothing to train)")
+        kbit_prepare(model, lora_trainable_mask(model))
     state = TrainerState(
         max_steps=exp.trainer.max_steps,
         period=exp.trainer.period,
@@ -327,6 +380,7 @@ def run_experiment(
         gradient_clip_val=exp.trainer.gradient_clip_val,
         in_batch_negatives=exp.collate.in_batch_negatives,
         accumulate_grad_batches=accumulate,
+        gradcache_chunk_rows=exp.trainer.gradcache_chunk_rows,
     )
 
     if ckpt is not None:

@@ -19,6 +19,10 @@ key and a loop key each period, the port draws all three from the one
 `NotImplementedError`: SPLADE reindexing (`splade_doc_k`), a device mesh
 (`mesh`, `dp_axis`) and profiler traces (`profile_dir`).
 
+The re-embed calls the model's `encode_field`, so a kbit-prepared model
+(`models/kbit.py`) re-embeds through its dequantizing view, as JAX's
+`full_params` gives it.
+
 Each period's summary holds, beside JAX's `period`, `embed_s` (re-embed,
 build and tuning), `autotune` (when tuned) and `period_s`: `reembed_s`,
 `build_ms` by stage (the build's stages), `host_build` (whether the

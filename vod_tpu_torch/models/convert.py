@@ -14,7 +14,15 @@ flattened and transposed here. The same functions carry a tree of flax
 gradients over, since it has the parameters' structure.
 
 `flax_path` maps a port parameter name back to its flax path, which the
-optimizer's weight-decay groups are chosen by (`runtime/optim.py`).
+optimizer's weight-decay groups are chosen by (`runtime/optim.py`), and
+`flax_layout` names how a port tensor views as the flax leaf: kbit's
+quantization groups (`models/kbit.py`) and Adafactor's factored moments
+(`runtime/optim.py`) follow flax's axes, not torch's.
+
+A LoRA FFN layer (`intermediate: {base: {kernel, bias}, lora_a, lora_b}`)
+comes over with its adapters as they are; `kbit_flax_to_state_dict` carries
+a JAX `KbitParams` (trainable leaves, int8 codes and scales) into the
+`state_dict` of a kbit-prepared port model.
 
 `dense_index_from_fields` carries a JAX `PQIndex` or `IVFIndex` over: its
 fields as numpy arrays (`np.asarray` of each array) plus its static fields;
@@ -39,6 +47,16 @@ def _dense(prefix: str, p: typ.Mapping, sd: dict[str, torch.Tensor]) -> None:
     kernel = np.asarray(p["kernel"], dtype=np.float32)
     sd[f"{prefix}.weight"] = _t(kernel.reshape(-1, kernel.shape[-1]).T)
     sd[f"{prefix}.bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+
+
+def _ffn(prefix: str, p: typ.Mapping, sd: dict[str, torch.Tensor]) -> None:
+    """A flax Dense, or a LoRA Dense (`base`, `lora_a` [in, r], `lora_b` [r, out])."""
+    if "base" not in p:
+        _dense(prefix, p, sd)
+        return
+    _dense(f"{prefix}.base", p["base"], sd)
+    sd[f"{prefix}.lora_a"] = _t(p["lora_a"])
+    sd[f"{prefix}.lora_b"] = _t(p["lora_b"])
 
 
 def _attention_in(prefix: str, p: typ.Mapping, sd: dict[str, torch.Tensor]) -> None:
@@ -81,8 +99,8 @@ def flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
             _attention_in(f"{prefix}.attention.{name}", attn[name], sd)
         _dense(f"{prefix}.attention.out", attn["out"], sd)  # [heads, head_dim, H] -> [H, H]
         _norm(f"{prefix}.attention_norm", layer["attention_norm"], sd)
-        _dense(f"{prefix}.intermediate", layer["intermediate"], sd)
-        _dense(f"{prefix}.output", layer["output"], sd)
+        _ffn(f"{prefix}.intermediate", layer["intermediate"], sd)
+        _ffn(f"{prefix}.output", layer["output"], sd)
         _norm(f"{prefix}.output_norm", layer["output_norm"], sd)
         i += 1
     return sd
@@ -205,6 +223,83 @@ def flax_path(name: str) -> str:
         out[-1] = "embedding" if owner in _EMBEDDINGS else "scale" if owner in _NORMS else "kernel"
     return "".join(f"['{part}']" for part in ["params", *out])
 
+
+@dataclasses.dataclass(frozen=True)
+class FlaxLayout:
+    """How a port tensor views as its flax leaf: `same`; `transpose` (a Dense
+    kernel, [out, in] against flax's [in, out]); `qkv_kernel` ([H, heads,
+    head_dim] in flax), `qkv_bias` ([heads, head_dim]) and `out_kernel`
+    ([heads, head_dim, H]) of a head-split attention. Both directions are
+    views of a contiguous tensor."""
+
+    kind: str = "same"
+    heads: int = 1
+
+    def to_flax(self, t: torch.Tensor) -> torch.Tensor:
+        if self.kind == "transpose":
+            return t.T
+        if self.kind == "qkv_kernel":
+            return t.T.reshape(t.shape[1], self.heads, -1)
+        if self.kind == "out_kernel":
+            return t.T.reshape(self.heads, -1, t.shape[0])
+        if self.kind == "qkv_bias":
+            return t.reshape(self.heads, -1)
+        return t
+
+    def from_flax(self, f: torch.Tensor) -> torch.Tensor:
+        if self.kind == "transpose":
+            return f.T
+        if self.kind == "qkv_kernel":
+            return f.reshape(f.shape[0], -1).T
+        if self.kind == "out_kernel":
+            return f.reshape(-1, f.shape[-1]).T
+        if self.kind == "qkv_bias":
+            return f.reshape(-1)
+        return f
+
+
+def flax_layout(model: torch.nn.Module, name: str) -> FlaxLayout:
+    """The layout of `model`'s parameter (or kbit buffer: `*_codes`,
+    `*_scale`) `name` against its flax leaf. The encoder's and the causal
+    reader's attention split heads (`convert._attention_in`); every other
+    `nn.Linear` weight is a transposed Dense kernel."""
+    from .encoder import _Attention
+    from .lm import _DecoderLayer
+
+    *path, attr = name.split(".")
+    attr = attr.removesuffix("_codes").removesuffix("_scale")
+    owner = model.get_submodule(".".join(path))
+    if not isinstance(owner, torch.nn.Linear):
+        return FlaxLayout()
+    parent = model.get_submodule(".".join(path[:-1])) if path else None
+    if isinstance(parent, (_Attention, _DecoderLayer)):
+        heads = parent.cfg.num_heads
+        if path[-1] in ("query", "key", "value"):
+            return FlaxLayout("qkv_kernel" if attr == "weight" else "qkv_bias", heads)
+        if path[-1] == "out" and attr == "weight":
+            return FlaxLayout("out_kernel", heads)
+    return FlaxLayout("transpose") if attr == "weight" else FlaxLayout()
+
+
+def kbit_flax_to_state_dict(
+    model: torch.nn.Module, trainable: typ.Mapping[str, typ.Any], frozen: typ.Mapping[str, typ.Any]
+) -> dict[str, torch.Tensor]:
+    """A JAX `KbitParams` -> the `state_dict` of the kbit-prepared port
+    `model` of the same system. `trainable` maps flax paths
+    (`jax.tree_util.keystr`) to arrays; `frozen` maps them to arrays or to
+    `(codes, scale)` pairs of a `QuantizedLeaf`. Codes and scales keep
+    flax's layout, as the port stores them."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, like in model.state_dict().items():
+        for suffix, slot in (("_codes", 0), ("_scale", 1)):
+            if name.endswith(suffix):
+                sd[name] = torch.from_numpy(np.array(frozen[flax_path(name.removesuffix(suffix))][slot]))
+                break
+        else:
+            key = flax_path(name)
+            leaf = trainable[key] if key in trainable else frozen[key]
+            sd[name] = flax_layout(model, name).from_flax(_t(leaf)).contiguous().to(like.dtype)
+    return sd
 
 
 def _field_tensor(x: typ.Any, device: typ.Union[str, torch.device]) -> typ.Optional[torch.Tensor]:

@@ -18,6 +18,13 @@ Parity traps with the flax version, each handled where it arises below:
 
 Attention is written with plain tensor ops: the JAX package computes it in
 plain XLA, outside any Pallas kernel. The dense products stay `F.linear`.
+
+With `lora_rank > 0` the FFN's `intermediate` and `output` are `LoraDense`
+(attention keeps plain kernels, as in JAX); `lora_trainable_mask` names the
+adapters and the pooler, which `models/kbit.py` keeps trainable. With
+`remat` each layer runs under `torch.utils.checkpoint` (non-reentrant) when
+a gradient is recorded: the same outputs and gradients, with a layer's
+activations recomputed in the backward pass instead of kept.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import typing as typ
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .pooler import VodPooler, VodPoolerConfig
@@ -44,7 +52,9 @@ class TransformerEncoderConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16  # activations; parameters are f32
-    lora_rank: int = 0  # LoRA adapters: not ported yet
+    remat: bool = False  # recompute each layer's activations in the backward pass
+    lora_rank: int = 0  # > 0: LoRA adapters on the FFN's two dense layers
+    lora_alpha: float = 16.0
     moe_experts: int = 0  # routed-MoE FFN: not ported yet
     pooler: VodPoolerConfig = dataclasses.field(default_factory=VodPoolerConfig)
 
@@ -76,6 +86,40 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     # flax `nn.gelu` defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")
+
+
+class LoraDense(nn.Module):
+    """Dense + low-rank adapter: `x W + b + (alpha/r) (x A) B`, the adapter in
+    the activation dtype. `base` is the `nn.Linear` a checkpoint loads into;
+    `lora_a` [in, r] and `lora_b` [r, out] keep flax's layout. `init_weights`
+    draws `lora_a` from normal(0.02) and zeroes `lora_b`, so a fresh adapter
+    adds nothing."""
+
+    def __init__(self, in_features: int, features: int, rank: int, alpha: float, dtype: torch.dtype,
+                 device: typ.Any = None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = alpha / rank
+        self.base = nn.Linear(in_features, features, device=device)
+        self.lora_a = nn.Parameter(torch.zeros(in_features, rank, device=device))
+        self.lora_b = nn.Parameter(torch.zeros(rank, features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _dense(x, self.base, self.dtype)
+        return y + self.scale * ((x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype))
+
+
+def lora_trainable_mask(model: nn.Module) -> dict[str, bool]:
+    """Per parameter name: True for the LoRA adapters and the pooler (the
+    rule of `vod_tpu/models/encoder.py:lora_trainable_mask` on each name's
+    flax path); the rest is the frozen base."""
+    from .convert import flax_path
+
+    def rule(name: str) -> bool:
+        key = flax_path(name)
+        return "lora_a" in key or "lora_b" in key or "vod_pooler" in key
+
+    return {name: rule(name) for name, _ in model.named_parameters()}
 
 
 class _Embeddings(nn.Module):
@@ -140,15 +184,21 @@ class _Layer(nn.Module):
         self.cfg = cfg
         self.attention = _Attention(cfg, device)
         self.attention_norm = _LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, device)
-        self.intermediate = nn.Linear(cfg.hidden_size, cfg.intermediate_size, device=device)
-        self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size, device=device)
-        self.output_norm = _LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, device)
+        h, inter, r = cfg.hidden_size, cfg.intermediate_size, cfg.lora_rank
+        if r > 0:
+            self.intermediate = LoraDense(h, inter, r, cfg.lora_alpha, cfg.dtype, device)
+            self.output = LoraDense(inter, h, r, cfg.lora_alpha, cfg.dtype, device)
+        else:
+            self.intermediate = nn.Linear(h, inter, device=device)
+            self.output = nn.Linear(inter, h, device=device)
+        self.output_norm = _LayerNorm(h, cfg.layer_norm_eps, cfg.dtype, device)
+
+    def _ffn_dense(self, x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+        return layer(x) if isinstance(layer, LoraDense) else _dense(x, layer, self.cfg.dtype)
 
     def forward(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.dtype
         h = self.attention_norm(h + self.attention(h, mask))
-        ff = _gelu(_dense(h, self.intermediate, dt))
-        ff = _dense(ff, self.output, dt)
+        ff = self._ffn_dense(_gelu(self._ffn_dense(h, self.intermediate)), self.output)
         return self.output_norm(h + ff)
 
 
@@ -157,8 +207,6 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, cfg: TransformerEncoderConfig, device: typ.Any = None):
         super().__init__()
-        if cfg.lora_rank > 0:
-            raise NotImplementedError("LoRA adapters (lora_rank > 0) are not ported to vod_tpu_torch yet")
         if cfg.moe_experts > 0:
             raise NotImplementedError("the MoE FFN (moe_experts > 0) is not ported to vod_tpu_torch yet")
         self.cfg = cfg
@@ -173,8 +221,9 @@ class TransformerEncoder(nn.Module):
     ) -> torch.Tensor:
         h = self.embeddings(input_ids, token_type_ids)
         mask = attention_mask[:, None, None, :] > 0  # [B, 1, 1(=Lq), L]
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = layer(h, mask)
+            h = torch.utils.checkpoint.checkpoint(layer, h, mask, use_reentrant=False) if remat else layer(h, mask)
         return h
 
 
@@ -182,9 +231,12 @@ class TransformerEncoder(nn.Module):
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random-initialise every parameter from `generator` (BERT's scheme:
     normal(0, 0.02) weights, zero biases, unit LayerNorm scales; the pooler's
-    log-scaler at log(scaler))."""
+    log-scaler at log(scaler); LoRA's `lora_a` normal(0, 0.02), `lora_b` 0)."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, LoraDense):
+            m.lora_a.normal_(0.0, 0.02, generator=generator)
+            m.lora_b.zero_()
+        elif isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 0.02, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()

@@ -26,16 +26,22 @@ def _pad_to(x: torch.Tensor, length: int) -> torch.Tensor:
     return x if x.shape[-1] == length else F.pad(x, (0, length - x.shape[-1]))
 
 
+def fused_rows(batch: RealmBatch) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The query rows then the section rows, the shorter side padded to the
+    longer: (ids, mask, number of queries)."""
+    q_ids, q_mask = batch.query__input_ids, batch.query__attention_mask
+    s_ids, s_mask = batch.section__input_ids, batch.section__attention_mask
+    length = max(q_ids.shape[-1], s_ids.shape[-1])
+    ids = torch.cat([_pad_to(q_ids, length), _pad_to(s_ids, length)], dim=0)
+    mask = torch.cat([_pad_to(q_mask, length), _pad_to(s_mask, length)], dim=0)
+    return ids, mask, int(q_ids.shape[0])
+
+
 def _fused_encode(encoder: nn.Module, batch: RealmBatch) -> dict[str, torch.Tensor]:
     """One encoder pass over query + section tokens. With in-batch negatives
     (`extras["flat_sections"]`) the section pool is shared and its encoding
     stays [U, H]; otherwise it is [B, D, H]."""
-    q_ids, q_mask = batch.query__input_ids, batch.query__attention_mask
-    s_ids, s_mask = batch.section__input_ids, batch.section__attention_mask
-    b = q_ids.shape[0]
-    length = max(q_ids.shape[-1], s_ids.shape[-1])
-    ids = torch.cat([_pad_to(q_ids, length), _pad_to(s_ids, length)], dim=0)
-    mask = torch.cat([_pad_to(q_mask, length), _pad_to(s_mask, length)], dim=0)
+    ids, mask, b = fused_rows(batch)
     pooled = encoder(ids, mask)
     query_encoding, section_encoding = pooled[:b], pooled[b:]
     if not batch.extras.get("flat_sections", False):

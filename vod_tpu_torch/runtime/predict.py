@@ -4,7 +4,9 @@
 waits).
 
 `encode_fn(input_ids, attention_mask) -> [b, H]` is typically a system's
-`encode_field`. It runs under `torch.no_grad()`, chunk by chunk; the result
+`encode_field`; a kbit-prepared model (`models/kbit.py`) dequantizes inside
+its layers' forward, so its re-embed runs through the kbit view, as JAX's
+`full_params` gives it. It runs under `torch.no_grad()`, chunk by chunk; the result
 stays on the corpus's device, in f32 (or `dtype`), and feeds the index build
 directly. Nothing here waits for the device.
 """

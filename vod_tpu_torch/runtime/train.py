@@ -14,9 +14,15 @@ Where the JAX step passes parameters and optimizer state in and out, here
 they live in the model and the optimizer. The step never waits for the card:
 its metrics stay tensors on the card until the loop logs them.
 
+With `gradcache_chunk_rows` (a `Ranker` only) each micro-batch's backward
+runs through `runtime/gradcache.py` at one chunk's activation memory, with
+the same gradients. A kbit-prepared model (`models/kbit.py`) holds only its
+trainable leaves as parameters, so the optimizer, built over
+`model.parameters()`, and the clip see only those; its frozen base
+dequantizes inside each layer's forward.
+
 Not ported yet (each raises `NotImplementedError`): learned-sparse (SPLADE)
-live retrieval, GradCache, a device mesh and profiler traces. kbit has no
-counterpart: the port has no quantized parameter type.
+live retrieval, a device mesh and profiler traces.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from vod_tpu_torch.search.hybrid import HybridEngines
 from vod_tpu_torch.types.batch import RealmBatch
 from .callbacks import call_callbacks
 from .collate import DeviceCorpus, QueryBatch, device_collate
+from .gradcache import gradcache_backward
 from .state import TrainerState
 
 Noise = typ.Optional[tuple[torch.Tensor, torch.Tensor]]
@@ -74,9 +81,12 @@ class RealmTrainStep:
     ):
         if splade_query_k is not None:
             raise NotImplementedError("learned-sparse live retrieval (splade_query_k) is not ported to vod_tpu_torch yet")
-        if gradcache_chunk_rows is not None:
-            raise NotImplementedError("GradCache (gradcache_chunk_rows) is not ported to vod_tpu_torch yet")
+        if gradcache_chunk_rows is not None and with_lm:
+            # GradCache caches the pooled [rows, H] encodings; the Realm reader
+            # consumes full lm logits, which would defeat the memory saving
+            raise ValueError("gradcache_chunk_rows requires a retriever-only (Ranker) system")
         self.model = model
+        self.gradcache_chunk_rows = gradcache_chunk_rows
         self.optimizer = optimizer
         self.prefetch = prefetch
         self.n_sections = n_sections
@@ -175,8 +185,11 @@ class RealmTrainStep:
         rels, scores = [], []
         for i, q in enumerate(micro_batches):
             batch = self.collate(engines, corpus, q, generator, weights, None if noise is None else noise[i])
-            out = self.model(batch, mode="evaluate")
-            out.loss.backward()
+            if self.gradcache_chunk_rows is not None:
+                out = gradcache_backward(self.model, batch, chunk_rows=self.gradcache_chunk_rows)
+            else:
+                out = self.model(batch, mode="evaluate")
+                out.loss.backward()
             loss_sum = loss_sum + out.loss.detach()
             rels.append(batch.section__relevance)
             scores.append(out.retriever_scores.detach())
