@@ -238,7 +238,48 @@ checked, none caught:
     `kbit_memory_bytes` split, peak memory of the run, of the monolithic
     backward and of GradCache, re-embed s per period, the step median, the
     phase's wall;
-11. the script's wall time, the `kernels` JSON line, the card line, and
+11a. SPLADE through the experiment CLI (`SPLADE`), in process through
+    `vod_tpu_torch.exps.cli.main`, its own main path (counts zeroed before,
+    read after): `configs/scifact_ranker.yaml`'s body with
+    `model.splade_encoder` at bert-base-uncased's widths (hidden 768, 12
+    layers, 12 heads, FFN 3,072, vocab 30,522), `model.name_or_path` a
+    `BertForMaskedLM` checkpoint the phase writes (seeded random f32
+    weights; the CLI grafts the backbone only), splade_query_k 64,
+    splade_doc_k 128, splade_max_postings 4096, FLOPS weight 1e-4, over 2^15
+    harvested passages (6 steps, a period every 3). Checked: the parsed
+    config; no kernel launch (SPLADE reaches neither kernel, in JAX either);
+    no dense engine in either period and a learned index of a row per
+    vocabulary term rebuilt at each boundary; the backbone at step 0 is the
+    checkpoint's and the MLM head is not; every parameter moved; on one
+    collated batch the FLOPS term is finite, positive, inside the loss and
+    the fused query + section pass's; the collated `section__sparse` equals
+    a direct `sparse_search` of the queries' top-64 terms; one chunk's
+    impacts on the card within `SPLADE["impact_tol"]` of the CPU's, with a
+    control above it; one optimizer step with its dataloader batch under
+    sync-debug "error". Printed: impact re-embed s per period, the learned
+    table's width and bytes, terms per section and per query, the step
+    median, peak memory, enqueue beside finish;
+11b. the second stage over 11a's index (`SECOND_STAGE`): a cross-encoder
+    at ms-marco-MiniLM-L-6-v2's architecture (a checkpoint the phase writes)
+    re-ranks the top 32 of 64 held-out queries at max_length 256 through
+    `benchmark_retrieval(reranker=...)` (and `cross_encoder_rerank` orders
+    by the same scores), then fills the teacher scores of one collated
+    batch (-inf exactly at padding) for one `DistillationGradients(margin_mse)`
+    loss and backward of the SPLADE student; then
+    `vod_tpu_torch.examples.maxsim_bench` at its defaults (1M x 32 x 128-d
+    int8, 4 GiB): one `maxsim_rerank` block equal to `_score_gathered` on
+    the CPU, the brute-force scan's top-1 scored as the rerank scores it,
+    two-stage recall@10 at least the pooled-only one. No kernel launch;
+11c. the dynamic store and the cache (`DYNAMIC`): capacity 2^20 x 768 in
+    bf16 and int8, filled from 2^19 rows of phase 4's corpus in 8 adds, 10%
+    deleted, 1% updated, one add overflowing by 4,096 rows (dropped and
+    counted), compacted; `dynamic_search` at B = 64, k = 10 against an exact
+    f64 search over the live rows (int8: equal; bf16: within the f32
+    sum-order bound, ids equal outside it), ms per op printed; then
+    `cached_embeddings` of 11a's 2^15 passages at e5-base's width: the miss
+    writes the store, the hit reads it back bit for bit, a zeroed row
+    forces a recompute; ms of each;
+12. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -459,6 +500,52 @@ LARGE = dict(
     # the control (another micro-batch's gradients) 1.23
     grad_rel_limit=0.025,
 )
+
+
+# Phase 11a: `configs/scifact_ranker.yaml`'s body with a SPLADE encoder at
+# naver/splade-cocondenser-ensembledistil's architecture, a `BertForMaskedLM`
+# of bert-base-uncased's widths (`hf`: its published config.json, which the
+# phase writes beside seeded random f32 weights in that key layout, since no
+# pretrained weights are in the repository), `model.name_or_path` pointing at
+# it (the CLI grafts the backbone only, as JAX's does). The SPLADE knobs are
+# JAX's defaults (`vod_tpu/exps/structconf.py`: splade_query_k 64,
+# splade_doc_k 128, splade_max_postings 4096) and splade_flops_weight 1e-4
+# (`tests/test_splade.py`). Cuts, each an override in the phase's YAML: 2^15
+# harvested passages (as phase 10), 6 steps, a period every 3, `sys.mesh_shape`
+# [1]. `chunk_rows` None keeps the config's fused step (no GradCache).
+# `impact_tol` bounds one chunk's impacts on the card against the CPU's, both
+# in bf16 activations through 12 layers.
+SPLADE = dict(
+    n=1 << 15, passage_words=48, stride=48, queries=2048, held_out=64, query_words=(6, 10), vocab=30522,
+    max_steps=6, period=3, seed=17, max_length=200, query_k=64, doc_k=128, max_postings=4096, flops_weight=1e-4,
+    chunk_rows=None, probe_rows=8, impact_tol=0.05,
+    hf=dict(architectures=["BertForMaskedLM"], model_type="bert", vocab_size=30522, hidden_size=768,
+            num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072, max_position_embeddings=512,
+            type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu", hidden_dropout_prob=0.1,
+            attention_probs_dropout_prob=0.1, initializer_range=0.02, pad_token_id=0,
+            position_embedding_type="absolute", torch_dtype="float32"),
+)
+# Phase 11b: a cross-encoder at cross-encoder/ms-marco-MiniLM-L-6-v2's
+# architecture (`hf`: a `BertForSequenceClassification` of hidden 384, 6
+# layers, 12 heads, FFN 1,536, one label; seeded random weights) re-ranks the
+# top 32 of 64 held-out queries at `tokenize_pairs`' default max_length 256,
+# then teaches one collated batch; MaxSim at `examples/maxsim_bench.py`'s
+# defaults (1M docs x 32 tokens x 128-d int8, B = 64, Lq = 8, 256 candidates,
+# k = 10).
+SECOND_STAGE = dict(
+    seed=19, queries=64, batch=32, top_k=32, max_length=256, maxsim_args=[],
+    hf=dict(architectures=["BertForSequenceClassification"], model_type="bert", vocab_size=30522, hidden_size=384,
+            num_hidden_layers=6, num_attention_heads=12, intermediate_size=1536, max_position_embeddings=512,
+            type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu", hidden_dropout_prob=0.1,
+            attention_probs_dropout_prob=0.1, initializer_range=0.02, pad_token_id=0, num_labels=1,
+            position_embedding_type="absolute", torch_dtype="float32"),
+)
+# Phase 11c: the mutable dense store at capacity 2^20 x 768 (bf16, int8),
+# filled from 2^19 rows of phase 4's corpus in 8 adds, 10% deleted, 1%
+# updated, one add overflowing by 4,096 rows, compacted, searched at B = 64,
+# k = 10; the embedding cache over phase 11a's 2^15 passages.
+DYNAMIC = dict(capacity=1 << 20, fill=1 << 19, overflow=4096, b=64, k=10, seed=23, embed_chunk=512, hole_row=12345,
+               encoder=dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072))
 
 
 def fail(msg: str) -> None:
@@ -2523,12 +2610,15 @@ def cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
     return result
 
 
-def write_hf_checkpoint(directory: Path, t: dict, dev) -> dict:
-    """Phase 10's checkpoint: `config.json` with t["hf"] (e5-large-v2's
-    published architecture) and `model.safetensors` of seeded random f32
-    weights in `BertModel`'s key layout, drawn on the card, written by the
-    port's own writer. Returns the CPU copies of the tensors the load checks
-    read."""
+def write_hf_checkpoint(directory: Path, t: dict, dev, head: str = "") -> dict:
+    """A checkpoint directory: `config.json` with t["hf"] and
+    `model.safetensors` of seeded random f32 weights drawn on the card,
+    written by the port's own writer. `head` picks the key layout:
+    "" is `BertModel`'s (phase 10: e5-large-v2), "mlm" `BertForMaskedLM`'s
+    (`bert.*` without a pooler, and `cls.predictions.*`), "classifier"
+    `BertForSequenceClassification`'s (`bert.*` with the pooler, and
+    `classifier.*`). Returns CPU copies of the tensors the load checks read,
+    under their `BertModel` names (and the heads' own)."""
     import torch
 
     from vod_tpu_torch.models.hf_import import write_safetensors
@@ -2536,6 +2626,7 @@ def write_hf_checkpoint(directory: Path, t: dict, dev) -> dict:
     hf = t["hf"]
     h, inter = hf["hidden_size"], hf["intermediate_size"]
     g = torch.Generator(device=dev).manual_seed(t["seed"])
+    prefix = "bert." if head else ""
 
     def rnd(*shape, mean: float = 0.0):
         return (mean + 0.02 * torch.randn(shape, generator=g, device=dev)).cpu()
@@ -2557,8 +2648,19 @@ def write_hf_checkpoint(directory: Path, t: dict, dev) -> dict:
         for name in ("attention.output.LayerNorm", "output.LayerNorm"):
             tensors[p + name + ".weight"] = rnd(h, mean=1.0)
             tensors[p + name + ".bias"] = rnd(h)
-    tensors["pooler.dense.weight"] = rnd(h, h)
-    tensors["pooler.dense.bias"] = rnd(h)
+    if head != "mlm":
+        tensors["pooler.dense.weight"] = rnd(h, h)
+        tensors["pooler.dense.bias"] = rnd(h)
+    tensors = {prefix + k: v for k, v in tensors.items()}
+    if head == "mlm":
+        tensors.update({
+            "cls.predictions.transform.dense.weight": rnd(h, h), "cls.predictions.transform.dense.bias": rnd(h),
+            "cls.predictions.transform.LayerNorm.weight": rnd(h, mean=1.0),
+            "cls.predictions.transform.LayerNorm.bias": rnd(h), "cls.predictions.bias": rnd(hf["vocab_size"]),
+        })
+    elif head == "classifier":
+        tensors.update({"classifier.weight": rnd(hf.get("num_labels", 1), h),
+                        "classifier.bias": rnd(hf.get("num_labels", 1))})
     directory.mkdir(parents=True)
     (directory / "config.json").write_text(json.dumps(hf, indent=2))
     write_safetensors(directory / "model.safetensors", tensors)
@@ -2566,7 +2668,9 @@ def write_hf_checkpoint(directory: Path, t: dict, dev) -> dict:
     keep = ("embeddings.word_embeddings.weight", "encoder.layer.0.attention.output.LayerNorm.weight",
             f"encoder.layer.{last}.attention.self.query.weight", f"encoder.layer.{last}.attention.self.query.bias",
             "encoder.layer.1.intermediate.dense.bias", "encoder.layer.2.output.dense.weight")
-    return {k: tensors[k] for k in keep}
+    out = {k: tensors[prefix + k] for k in keep}
+    out.update({k: v for k, v in tensors.items() if k.startswith(("cls.", "classifier."))})
+    return out
 
 
 def large_cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
@@ -2888,6 +2992,595 @@ def large_cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> di
         f"{enqueue_ms:.2f} ms, finished {finish_ms:.2f} ms after the start")
     log(f"phase 10 wall time: {wall:.1f} s")
     return result
+
+
+def splade_cli_phase(dev, card: str, t: dict) -> tuple[dict, dict]:
+    """Phase 11a: a SPLADE ranker trained through the experiment CLI (module
+    constant SPLADE), in process through `vod_tpu_torch.exps.cli.main`: a
+    `BertForMaskedLM` checkpoint of bert-base-uncased's widths that the phase
+    writes (seeded random weights), grafted as the backbone; live
+    learned-sparse retrieval (the queries' top `splade_query_k` impact terms
+    searched in the learned impact postings) and a learned reindex at each
+    period boundary. `main` is its main path: launch counts are zeroed just
+    before it and read just after (the SPLADE path reaches neither kernel).
+    Returns the numbers, and what phases 11b and 11c reuse."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.data.corpus import _render
+    from vod_tpu_torch.exps import cli, recipes
+    from vod_tpu_torch.exps.structconf import Experiment
+    from vod_tpu_torch.models import SpladeEncoder, collect_losses, flops_loss, splade_topk_terms
+    from vod_tpu_torch.models.systems import fused_rows
+    from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_topk
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+    from vod_tpu_torch.search import SearchQueries, SparseIndex, sparse_search
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    h = harvest_beir(root, t)
+    t0 = time.perf_counter()
+    written = write_hf_checkpoint(root / "splade", t, dev, head="mlm")
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = (root / "splade" / "model.safetensors").stat().st_size
+    hf = t["hf"]
+    gradcache = f", gradcache_chunk_rows: {t['chunk_rows']}" if t["chunk_rows"] else ""
+    yaml_path = root / "exp.yaml"
+    yaml_path.write_text(
+        f"extends: ['{ROOT / 'configs' / 'scifact_ranker.yaml'}']\n"
+        f"model: {{splade_encoder: true, splade_flops_weight: {t['flops_weight']}, splade_query_k: {t['query_k']}, "
+        f"splade_doc_k: {t['doc_k']}, splade_max_postings: {t['max_postings']}, vocab_size: {hf['vocab_size']}, "
+        f"hidden_size: {hf['hidden_size']}, num_layers: {hf['num_hidden_layers']}, "
+        f"num_heads: {hf['num_attention_heads']}, intermediate_size: {hf['intermediate_size']}, "
+        f"name_or_path: '{root / 'splade'}', hf_fallback: error}}\n"
+        f"tokenizer: {{name_or_path: '{h['vocab_dir']}', max_length: {t['max_length']}}}\n"
+        f"trainer: {{max_steps: {t['max_steps']}, period: {t['period']}, log_interval: 1{gradcache}}}\n"
+        "sys: {mesh_shape: [1]}\n"
+        "datasets:\n"
+        "  queries:\n"
+        f"    - {{identifier: harvest-train, name_or_path: beir, subsets: ['{h['beir']}'], split: train, "
+        "link: harvest-corpus}\n"
+        "  sections:\n"
+        f"    - {{identifier: harvest-corpus, name_or_path: beir, subsets: ['{h['beir']}']}}\n"
+    )
+    log(f"11a inputs: {t['n']} passages harvested from {h['files']} files in {h['harvest_s']:.2f} s; a "
+        f"BertForMaskedLM checkpoint of {ckpt_bytes / 1e9:.3f} GB (bert-base-uncased's widths, seeded random f32 "
+        f"weights) written in {ckpt_s:.2f} s")
+
+    # the parsed config: scifact's body with the SPLADE encoder at those widths
+    exp = Experiment.from_file(str(yaml_path))
+    m, tr, col = exp.model, exp.trainer, exp.collate
+    check((m.kind, m.gradients, m.splade_encoder, m.splade_flops_weight, m.splade_query_k, m.splade_doc_k,
+           m.splade_max_postings) == ("ranker", "retrieval", True, t["flops_weight"], t["query_k"], t["doc_k"],
+                                      t["max_postings"])
+          and (m.hidden_size, m.num_layers, m.num_heads, m.intermediate_size, m.vocab_size) ==
+          (hf["hidden_size"], hf["num_hidden_layers"], hf["num_attention_heads"], hf["intermediate_size"],
+           hf["vocab_size"])
+          and (exp.dataloader.batch_size, col.prefetch_n_sections, col.n_sections, col.max_pos_sections,
+               tr.learning_rate, tr.gradient_clip_val, tr.gradcache_chunk_rows) ==
+          (32, 100, 8, 2, 1e-4, 1.0, t["chunk_rows"])
+          and exp.tokenizer.max_length == t["max_length"] and exp.search_defaults.sparse.max_postings == 2048,
+          "the parsed Experiment is not scifact_ranker with the SPLADE encoder")
+
+    # instrumentation: each wrapper records and calls the real function
+    rec: dict = dict(logs=[], steps=[], loaders=[], engines=[], encodes=[])
+    real = dict(run=cli.run_experiment, tokenize_corpus=cli.tokenize_corpus, loader=cli.RealmDataloader,
+                graft=cli._maybe_port_hf_encoder, loop=recipes.training_loop, terms=recipes.encode_corpus_terms,
+                step=RealmTrainStep.train_step_accum)
+
+    def run_experiment(exp_, *, on_log=None, **kw):
+        def both(step, metrics):
+            rec["logs"].append((step, dict(metrics)))
+            on_log(step, metrics)
+
+        return real["run"](exp_, on_log=both, **kw)
+
+    def tokenize_corpus(sections, *args, **kw):
+        rec["sections"] = list(sections)
+        rec["enc"] = real["tokenize_corpus"](sections, *args, **kw)
+        return rec["enc"]
+
+    def realm_dataloader(*args, **kw):
+        rec["loaders"].append(real["loader"](*args, **kw))
+        return rec["loaders"][-1]
+
+    def graft(model, cfg):
+        out = real["graft"](model, cfg)
+        rec["init"] = {n: p.detach().clone() for n, p in out.named_parameters()}
+        return out
+
+    def loop(**kw):
+        rec["engines"].append(kw["engines"])
+        rec["generator"], rec["corpus"] = kw["generator"], kw["corpus"]
+        return real["loop"](**kw)
+
+    def encode_terms(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["terms"](*args, **kw)
+        rec["encodes"].append(time.perf_counter() - t0)
+        return out
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        events = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        out = real["step"](self, engines, corpus, micro, generator, weights, **kw)
+        events[1].record()
+        rec["steps"].append(events)
+        return out
+
+    patches = [(cli, "run_experiment", run_experiment), (cli, "tokenize_corpus", tokenize_corpus),
+               (cli, "RealmDataloader", realm_dataloader), (cli, "_maybe_port_hf_encoder", graft),
+               (recipes, "training_loop", loop), (recipes, "encode_corpus_terms", encode_terms),
+               (RealmTrainStep, "train_step_accum", step)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)
+        fused_mips_topk.launches = 0
+        fused_mips_topk.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out = cli.main(["--config", str(yaml_path)])
+        torch.cuda.synchronize()
+        launches = {"fused_mips_binned": fused_mips_binned.launches, "fused_mips_topk": fused_mips_topk.launches}
+        run_s = time.perf_counter() - t_run  # main path ends
+        peak_run = torch.cuda.max_memory_allocated(dev)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+    model, step_fn, hist, state = out["model"], out["step_fn"], out["history"], out["state"]
+    logs, engines, corpus, generator = rec["logs"], rec["engines"], rec["corpus"], rec["generator"]
+    check(state.step == t["max_steps"] and [hh["period"] for hh in hist] == [0, 1],
+          f"ended at step {state.step}, periods {[hh['period'] for hh in hist]}")
+    check([s_ for s_, _ in logs] == list(range(1, t["max_steps"] + 1)), f"logged steps {[s_ for s_, _ in logs]}")
+    check(all(math.isfinite(mm["loss"]) and math.isfinite(mm["grad_norm"]) for _, mm in logs), "a loss is not finite")
+    check(isinstance(model.encoder, SpladeEncoder) and step_fn.splade_query_k == t["query_k"]
+          and model.encoder.flops_weight == t["flops_weight"], "the CLI did not build the SPLADE ranker")
+    check(launches == {"fused_mips_binned": 0, "fused_mips_topk": 0},
+          f"the SPLADE path launched a kernel: {launches} (it reaches neither, in JAX either)")
+    # no dense engine; the learned index rebuilt at each boundary from the current encoder
+    check(len(engines) == 2 and all(e.dense is None and isinstance(e.sparse, SparseIndex) for e in engines),
+          "a period trained with a dense engine or without a learned index")
+    check(engines[0].sparse is not engines[1].sparse
+          and not torch.equal(engines[0].sparse.postings_impacts, engines[1].sparse.postings_impacts),
+          "period 1's learned index equals period 0's")
+    check(all(int(e.sparse.postings_docs.shape[0]) == hf["vocab_size"] for e in engines),
+          "the learned index does not have a row per vocabulary term")
+    # the graft: the backbone is the checkpoint's, the MLM head keeps its init (backbone-only, as JAX's CLI)
+    init = rec["init"]
+    check(torch.equal(init["encoder.backbone.embeddings.word_embeddings.weight"].cpu(),
+                      written["embeddings.word_embeddings.weight"])
+          and torch.equal(init["encoder.backbone.layers.2.output.weight"].cpu(),
+                          written["encoder.layer.2.output.dense.weight"]),
+          "the backbone at step 0 is not the checkpoint's")
+    check(not torch.equal(init["encoder.transform.weight"].cpu(), written["cls.predictions.transform.dense.weight"]),
+          "the MLM head was loaded: the CLI grafts the backbone only, as JAX's does")
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), init[n])]
+    check(len(moved) == len(init), f"parameters that did not move: {sorted(set(init) - set(moved))[:5]}")
+    del init, rec["init"]
+
+    # one collated batch: the FLOPS term over the one fused pass, inside the loss;
+    # the collate's sparse scores against a direct search of the same query terms
+    weights = state.get_parameters()
+    loader = rec["loaders"][0]
+    batches = loader.epoch(seed=4242)
+    qb = next(batches)
+    batch = step_fn.collate(engines[-1], corpus, qb, generator, weights)
+    with torch.no_grad():
+        total, est = step_fn.loss(batch)
+        with collect_losses(model) as sown:
+            model(batch)
+        ids, mask, _ = fused_rows(batch)
+        fused_flops = t["flops_weight"] * flops_loss(model.encoder(ids, mask))
+        impacts = model.encode_field(qb.input_ids, qb.attention_mask)
+        q_terms, q_w = splade_topk_terms(impacts, t["query_k"])
+        direct = sparse_search(engines[-1].sparse, SearchQueries(terms=q_terms, term_weights=q_w,
+                                                                 subset_ids=qb.subset_ids), col.prefetch_n_sections)
+    flops = float(total - est.loss)
+    check(len(sown) == 1 and math.isfinite(flops) and flops > 0.0, f"the FLOPS term {flops} is not finite and positive")
+    check(abs(float(sown[0]) - flops) <= 1e-5 * abs(float(total)) + 1e-7
+          and abs(float(sown[0]) - float(fused_flops)) <= 1e-6 * float(fused_flops) + 1e-9,
+          f"the loss's FLOPS term {flops} is not the fused pass's {float(fused_flops)}")
+    finite = torch.isfinite(direct.scores)
+    sparse_tol = 1e-5 * float(direct.scores[finite].abs().max()) + 1e-6
+    check_collated("11a collated learned-sparse scores", batch.section__idx, batch.section__sparse, direct, sparse_tol)
+    check(bool(torch.isnan(batch.section__dense).all()), "a dense score reached the SPLADE batch")
+    terms_per_query = float((q_terms >= 0).sum(-1).float().mean())
+    log(f"11a loss pass: loss {float(total):.6f} = estimator {float(est.loss):.6f} + FLOPS {flops:.6g} (the fused "
+        f"pass's {float(fused_flops):.6g}); collated sparse scores == a direct sparse_search of the queries' top "
+        f"{t['query_k']} terms within {sparse_tol:.3g}")
+    del total, est, sown, batch, direct, impacts
+
+    # one chunk's impacts on the card against the same chunk on the CPU, through
+    # the CLI's initial encoder (after 6 steps at random weights the trained
+    # impacts hardly depend on the section: a control could not see a fault)
+    start = cli._maybe_port_hf_encoder(
+        cli.build_model(m, device=dev, generator=torch.Generator(device=dev).manual_seed(exp.sys.seed)), m).encoder
+    cpu_enc = SpladeEncoder(start.cfg, device="cpu")
+    cpu_enc.load_state_dict({k: v.cpu() for k, v in start.state_dict().items()})
+    rows = t["probe_rows"]
+    with torch.no_grad():
+        on_card = start(corpus.input_ids[:rows], corpus.attention_mask[:rows]).cpu()
+        other = start(corpus.input_ids[rows : 2 * rows], corpus.attention_mask[rows : 2 * rows]).cpu()
+        on_cpu = cpu_enc(corpus.input_ids[:rows].cpu(), corpus.attention_mask[:rows].cpu())
+    impact_err = (on_card - on_cpu).abs().max().item()
+    control = (other - on_cpu).abs().max().item()
+    log(f"11a impacts card vs CPU (the initial encoder, {rows} sections x {t['max_length']} tokens, bf16 "
+        f"activations): max |diff| {impact_err:.4g} (limit {t['impact_tol']}; largest impact "
+        f"{on_cpu.max().item():.4g}); control (other sections) {control:.4g}")
+    check(impact_err <= t["impact_tol"], f"impacts on the card differ from the CPU's by {impact_err:.4g}")
+    check(control > 4 * t["impact_tol"], f"the control reads {control:.4g}: the check is blind")
+    del cpu_enc, start
+
+    # one optimizer step, its dataloader batch included, with every synchronizing CUDA call made an error
+    step_fn.train_step(engines[-1], corpus, next(batches), generator, weights)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        step_fn.train_step(engines[-1], corpus, next(batches), generator, weights)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as exc:
+        fail(f"the SPLADE step or its dataloader waits for the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finish_ms = (time.perf_counter() - t0) * 1e3
+
+    periods = []
+    for p_, hh in enumerate(hist):
+        ms_ = [s_.elapsed_time(e_) for s_, e_ in rec["steps"][p_ * t["period"] : (p_ + 1) * t["period"]]]
+        periods.append(dict(period=hh["period"], reembed_s=hh["reembed_s"], encode_terms_s=rec["encodes"][p_],
+                            build_ms=hh["build_ms"]["total_ms"], index_bytes=hh["index_bytes"],
+                            learned_terms=hh["learned_terms"], step_ms=ms_, median_step_ms=statistics.median(ms_)))
+    all_steps = [x for p_ in periods for x in p_["step_ms"]]
+    result = dict(
+        harvest_s=h["harvest_s"], checkpoint_bytes=ckpt_bytes, run_s=run_s, periods=periods,
+        median_step_ms=statistics.median(all_steps), losses=[mm["loss"] for _, mm in logs], launches=launches,
+        peak_mem_bytes=peak_run, flops_term=flops, terms_per_query=terms_per_query,
+        terms_per_doc=[p_["learned_terms"]["doc_terms_mean"] for p_ in periods], impact_max_abs_err=impact_err,
+        impact_control=control, sync_free_step=dict(enqueue_ms=enqueue_ms, finish_ms=finish_ms),
+    )
+    for p_ in periods:
+        lt = p_["learned_terms"]
+        log(f"11a period {p_['period']} [{card}]: impact re-embed {p_['reembed_s']:.2f} s ({t['n']} sections of "
+            f"{t['max_length']} tokens, top {t['doc_k']} terms each on the card), learned table "
+            f"[{hf['vocab_size']}, {lt['width']}] of {p_['index_bytes'] / 2**20:.2f} MiB built in "
+            f"{p_['build_ms']:.2f} ms, {lt['doc_terms_mean']:.2f} terms a section; steps "
+            f"{json.dumps([round(x, 4) for x in p_['step_ms']])} ms (median {p_['median_step_ms']:.4f})")
+    log(f"11a run [{card}]: main {run_s:.2f} s (no kernel launch: {launches}); step median "
+        f"{result['median_step_ms']:.4f} ms (B = 32, 8 sections, {t['max_length']} tokens); losses "
+        f"{json.dumps([round(x, 6) for x in result['losses']])}; peak memory {peak_run / 2**30:.4f} GiB; "
+        f"{terms_per_query:.2f} terms a query")
+    log(f"11a step without a sync [{card}]: a dataloader batch and one optimizer step enqueued in {enqueue_ms:.2f} ms, "
+        f"finished {finish_ms:.2f} ms after the start")
+    ctx = dict(model=model, step_fn=step_fn, engines=engines[-1], corpus=corpus, generator=generator, weights=weights,
+               id_map=rec["enc"]["id_map"], held=h["held"], tokenizer=exp.tokenizer.instantiate(), exp=exp,
+               texts=_render(exp.templates.section, rec["sections"]), tmp=tmp)
+    result["wall_s"] = time.perf_counter() - started
+    log(f"phase 11a wall time: {result['wall_s']:.1f} s")
+    return result, ctx
+
+
+def second_stage_phase(dev, card: str, t: dict, ctx: dict) -> dict:
+    """Phase 11b: the second stage over phase 11a's learned index (module
+    constant SECOND_STAGE): a cross-encoder at ms-marco-MiniLM-L-6-v2's
+    architecture re-ranks 64 held-out queries' first-stage results through
+    `benchmark_retrieval(reranker=...)` and fills the teacher scores of one
+    collated batch for one `DistillationGradients(margin_mse)` loss and
+    backward of the SPLADE student; then `vod_tpu_torch.examples.
+    maxsim_bench` at the JAX script's defaults. None of it reaches a kernel
+    (checked). Returns the numbers."""
+    import torch
+
+    from vod_tpu_torch.examples import maxsim_bench
+    from vod_tpu_torch.models import (
+        CrossEncoder,
+        DistillationGradients,
+        config_from_hf,
+        cross_encoder_rerank,
+        cross_encoder_scores,
+        fill_teacher_scores,
+        port_bert_cross_encoder_weights,
+        splade_topk_terms,
+        tokenize_pairs,
+    )
+    from vod_tpu_torch.models.hf_import import load_hf_state_dict
+    from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_topk
+    from vod_tpu_torch.runtime import QueryBatch, benchmark_retrieval
+    from vod_tpu_torch.search import SearchQueries, hybrid_search
+    from vod_tpu_torch.types import RetrievalBatch
+
+    started = time.perf_counter()
+    root = Path(ctx["tmp"].name)
+    model, tok, texts, exp = ctx["model"], ctx["tokenizer"], ctx["texts"], ctx["exp"]
+    written = write_hf_checkpoint(root / "cross-encoder", t, dev, head="classifier")
+    cfg = config_from_hf(t["hf"], dtype=torch.bfloat16)
+    ce = CrossEncoder(cfg, device=dev)
+    ce.load_state_dict(port_bert_cross_encoder_weights(load_hf_state_dict(root / "cross-encoder"), cfg))
+    ce.eval()
+    check(torch.equal(ce.classifier.weight.detach().cpu(), written["classifier.weight"])
+          and torch.equal(ce.backbone.embeddings.word_embeddings.weight.detach().cpu(),
+                          written["embeddings.word_embeddings.weight"]),
+          "the cross-encoder is not the written checkpoint")
+
+    # the held-out queries: their learned terms from the trained encoder, their gold passage
+    held = ctx["held"][: t["queries"]]
+    qk = exp.model.splade_query_k
+    batches, qtexts = [], []
+    for i in range(0, len(held), t["batch"]):
+        part = held[i : i + t["batch"]]
+        enc = tok([text for _, text, _ in part], max_length=exp.tokenizer.max_length, truncation=True,
+                  padding="max_length", return_tensors="pt")
+        ids = enc["input_ids"].to(dev, torch.int32)
+        mask = enc["attention_mask"].to(dev, torch.int32)
+        with torch.no_grad():
+            terms, tw = splade_topk_terms(model.encode_field(ids, mask), qk)
+        gold = torch.tensor([[ctx["id_map"][g]] for _, _, g in part], device=dev, dtype=torch.int32)
+        batches.append(QueryBatch(ids, mask, section_ids=gold, terms=terms, term_weights=tw))
+        qtexts.append([text for _, text, _ in part])
+
+    timings = []
+
+    def pairs_of(bi: int, indices: torch.Tensor) -> dict:
+        rows = indices.cpu().tolist()
+        pairs = tokenize_pairs(tok, qtexts[bi], [[texts[c] if c >= 0 else "" for c in row] for row in rows],
+                               max_length=t["max_length"])
+        return {k: torch.from_numpy(v).to(dev) for k, v in pairs.items()}
+
+    def reranker(bi: int, merged: RetrievalBatch) -> torch.Tensor:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = pairs_of(bi, merged.indices)
+        t1 = time.perf_counter()
+        s = cross_encoder_scores(ce, p["input_ids"], p["attention_mask"], p["token_type_ids"])
+        torch.cuda.synchronize()
+        timings.append((t1 - t0, time.perf_counter() - t1, int(merged.indices.numel())))
+        return torch.where(merged.indices >= 0, s, float("-inf"))
+
+    fused_mips_binned.launches = 0
+    fused_mips_topk.launches = 0
+    bench = benchmark_retrieval(ctx["engines"], batches, top_k=t["top_k"], reranker=reranker,
+                                metrics=("ndcg_10", "mrr_10", "hitrate_3", "recall_10"))
+    check(set(bench) == {"score", "sparse", "rerank"} and all(math.isfinite(v) for m_ in bench.values()
+                                                              for v in m_.values()),
+          f"the benchmark's keys or metrics are wrong: {bench}")
+    # cross_encoder_rerank of one batch orders by the same scores
+    qb0 = batches[0]
+    merged, _ = hybrid_search(ctx["engines"], SearchQueries(terms=qb0.terms, term_weights=qb0.term_weights,
+                                                            section_ids=qb0.section_ids), t["top_k"])
+    p = pairs_of(0, merged.indices)
+    with torch.no_grad():
+        rr = cross_encoder_rerank(ce, merged, p["input_ids"], p["attention_mask"], p["token_type_ids"], top_k=10)
+        s = torch.where(merged.indices >= 0, cross_encoder_scores(ce, p["input_ids"], p["attention_mask"],
+                                                                  p["token_type_ids"]), float("-inf"))
+    ref = torch.sort(s, dim=-1, descending=True, stable=True)
+    check(torch.equal(rr.scores, ref.values[:, :10]) and torch.equal(rr.indices, torch.gather(merged.indices, -1,
+                                                                                               ref.indices[:, :10])),
+          "cross_encoder_rerank does not order by the cross-encoder's scores")
+    tok_s = sum(a for a, _, _ in timings)
+    ce_s = sum(b_ for _, b_, _ in timings)
+    n_pairs = sum(c for _, _, c in timings)
+    log(f"11b cross-encoder rerank [{card}]: {len(held)} held-out queries x top {t['top_k']} (+ the gold lookup): "
+        f"{n_pairs} pairs of {t['max_length']} tokens, tokenized in {tok_s:.3f} s ({n_pairs / tok_s:.0f} pairs/s), "
+        f"scored in {ce_s * 1e3:.2f} ms ({n_pairs / ce_s:.0f} pairs/s); metrics {json.dumps(bench)}")
+
+    # the teacher: one collated batch of the held-out queries, its sections scored by the cross-encoder
+    step_fn = ctx["step_fn"]
+    qb = QueryBatch(batches[0].input_ids, batches[0].attention_mask, section_ids=batches[0].section_ids)
+    batch = step_fn.collate(ctx["engines"], ctx["corpus"], qb, ctx["generator"], ctx["weights"])
+    p = pairs_of(0, torch.where(torch.isneginf(batch.section__score), -1, batch.section__idx))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    filled = fill_teacher_scores(ce, batch, p["input_ids"], p["attention_mask"], p["token_type_ids"])
+    torch.cuda.synchronize()
+    teacher_ms = (time.perf_counter() - t0) * 1e3
+    ts = filled.section__teacher_score
+    pad = torch.isneginf(batch.section__score)
+    check(torch.equal(torch.isneginf(ts), pad) and bool(torch.isfinite(ts[~pad]).all()),
+          "teacher scores are not -inf exactly at padding")
+    model.zero_grad(set_to_none=True)
+    out = DistillationGradients("margin_mse")(batch=filled, **model.encode(filled))
+    out.loss.backward()
+    grads = [p_.grad for p_ in model.parameters() if p_.grad is not None]
+    check(math.isfinite(float(out.loss.detach())) and len(grads) == len(list(model.parameters()))
+          and all(bool(torch.isfinite(g_).all()) for g_ in grads)
+          and float(model.encoder.transform.weight.grad.abs().max()) > 0,
+          "the distillation loss or its gradients are not finite")
+    model.zero_grad(set_to_none=True)
+    log(f"11b teacher [{card}]: {int((~pad).sum())} sampled sections of {ts.shape[0]} queries scored in "
+        f"{teacher_ms:.2f} ms; margin-MSE distillation loss {float(out.loss.detach()):.6f}, its backward through the "
+        f"SPLADE student finite")
+    del batch, filled, out, grads, ce
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MaxSim two-stage serving at the JAX script's defaults
+    t0 = time.perf_counter()
+    ms = maxsim_bench.main(t["maxsim_args"])
+    maxsim_s = time.perf_counter() - t0
+    check(ms["rerank_block_equal"] and ms["rerank_max_abs_err"] == 0.0,
+          "a maxsim_rerank block on the card differs from _score_gathered on the CPU")
+    check(ms["top1_scores_equal"], "the rerank and the brute-force scan score the same doc differently")
+    check(ms["recall"] >= ms["recall_pooled"] and math.isfinite(ms["ms_per_block"]),
+          f"two-stage recall {ms['recall']} below pooled-only {ms['recall_pooled']}")
+    kernel_launches = {"fused_mips_binned": fused_mips_binned.launches, "fused_mips_topk": fused_mips_topk.launches}
+    check(kernel_launches == {"fused_mips_binned": 0, "fused_mips_topk": 0},
+          f"the second stage launched a kernel: {kernel_launches} (it reaches neither, in JAX either)")
+    log(f"11b MaxSim [{card}]: {ms['store_gib']:.2f} GiB int8 store built in {ms['build_s']:.2f} s, brute-force scan "
+        f"{ms['gt_scan_s']:.2f} s; recall@10 two-stage {ms['recall']:.4f}, pooled-only {ms['recall_pooled']:.4f}; "
+        f"{ms['ms_per_block']:.4f} ms per 64-query block; one rerank block == _score_gathered on the CPU "
+        f"(max |diff| {ms['rerank_max_abs_err']}); {maxsim_s:.1f} s in all")
+    wall = time.perf_counter() - started
+    log(f"phase 11b wall time: {wall:.1f} s")
+    return dict(benchmark=bench, rerank_pairs=n_pairs, rerank_tokenize_s=tok_s, rerank_score_ms=ce_s * 1e3,
+                teacher_ms=teacher_ms, maxsim=ms, launches=kernel_launches, wall_s=wall)
+
+
+def dynamic_cache_phase(dev, card: str, t: dict, corpus) -> dict:
+    """Phase 11c: the mutable dense store at capacity 2^20 x 768 in bf16 and
+    int8, filled from phase 4's serving corpus (made anew from its seed) in 8
+    adds, with deletes, updates, an overflowing add and a compaction, then
+    searched at B = 64 against an exact search over the live rows; and
+    `cached_embeddings` of phase 11a's 2^15 tokenized passages at e5-base's
+    width: a miss, a hit, and a hole that forces a recompute. Returns the
+    numbers."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.models import Ranker, RetrievalGradients, TransformerEncoderConfig, VodPoolerConfig
+    from vod_tpu_torch.ops.numpy_ops import topk_lowest_first
+    from vod_tpu_torch.runtime import cached_embeddings
+    from vod_tpu_torch.search import (
+        SearchQueries,
+        dynamic_add,
+        dynamic_compact,
+        dynamic_delete,
+        dynamic_from_dense,
+        dynamic_search,
+        dynamic_update,
+    )
+    from vod_tpu_torch.search.dense import quantize_queries_int8
+    from vod_tpu_torch.types.lazy import TensorStoreFactory
+
+    started = time.perf_counter()
+    gs = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randn((N_SERVE, D), generator=gs, device=dev)  # phase 4's corpus: the same seed, the same draw
+    rows /= rows.norm(dim=-1, keepdim=True)
+    fill, step = t["fill"], t["fill"] // 8
+    g = torch.Generator(device=dev).manual_seed(t["seed"])
+    deleted = torch.randperm(fill, generator=g, device=dev)[: fill // 10].to(torch.int32)
+    live = torch.ones(fill, dtype=torch.bool, device=dev)
+    live[deleted.long()] = False
+    live_ids = live.nonzero().squeeze(-1).to(torch.int32)
+    updated = live_ids[torch.randperm(live_ids.numel(), generator=g, device=dev)[: fill // 100]]
+    new_rows = torch.randn((updated.numel(), D), generator=g, device=dev)
+    new_rows /= new_rows.norm(dim=-1, keepdim=True)
+    src = live_ids[torch.randperm(live_ids.numel(), generator=g, device=dev)[: t["b"]]].long()
+    queries = rows[src] + 0.1 * torch.randn((t["b"], D), generator=g, device=dev)
+    queries /= queries.norm(dim=-1, keepdim=True)
+    n_extra = t["capacity"] - fill + t["overflow"]
+    extra = torch.randn((n_extra, D), generator=g, device=dev)
+    extra /= extra.norm(dim=-1, keepdim=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    stores = {}
+    for dtype in ("bfloat16", "int8"):
+        ms: dict = {}
+        index, ms["from_dense"] = timed(lambda: dynamic_from_dense(rows[:step], t["capacity"], dtype=dtype))
+        adds = []
+        for i in range(1, 8):
+            (index, ids), a_ms = timed(lambda: dynamic_add(index, rows[i * step : (i + 1) * step]))
+            check(torch.equal(ids, torch.arange(i * step, (i + 1) * step, device=dev, dtype=torch.int32)),
+                  f"{dtype}: add {i} assigned other ids")
+            adds.append(a_ms)
+        ms["add"] = statistics.median(adds)
+        check(index.n_active == fill and int(index.n_alive) == fill and index.capacity == t["capacity"],
+              f"{dtype}: {index.n_active} rows after 8 adds")
+        index, ms["delete"] = timed(lambda: dynamic_delete(index, deleted))
+        check(int(index.n_alive) == fill - deleted.numel(), f"{dtype}: the delete left {int(index.n_alive)} alive")
+        (index, found), ms["update"] = timed(lambda: dynamic_update(index, updated, new_rows))
+        check(bool(found.all()), f"{dtype}: an update missed a live id")
+        (index, ids), ms["overflow_add"] = timed(lambda: dynamic_add(index, extra))
+        dropped = int((ids == -1).sum())
+        check(dropped == t["overflow"] and bool((ids[: n_extra - t["overflow"]] >= 0).all())
+              and index.n_active == t["capacity"], f"{dtype}: the overflow dropped {dropped} rows")
+        index, ms["compact"] = timed(lambda: dynamic_compact(index))
+        n_live = t["capacity"] - deleted.numel()
+        check(index.n_active == n_live and int(index.n_alive) == n_live, f"{dtype}: compaction kept {index.n_active}")
+        sq = SearchQueries(vector=queries)
+        out, _ = timed(lambda: dynamic_search(index, sq, t["k"]))
+        ms["search"] = time_ms(lambda: dynamic_search(index, sq, t["k"]), 10)
+        # an exact search over the live rows (all at the front after compaction), in f64
+        v = index.vectors[:n_live]
+        if index.scale is not None:
+            q_i8, q_row = quantize_queries_int8(queries, index.scale)
+            ref = (q_i8.double() @ v.double().T).float() * q_row
+        else:
+            ref = (queries.to(v.dtype).double() @ v.double().T).float()
+        rs, rpos = topk_lowest_first(ref, t["k"])
+        ri = index.ids[:n_live][rpos]
+        del ref, v
+        if dtype == "int8":
+            check(torch.equal(out.scores, rs) and torch.equal(out.indices, ri),
+                  "int8 dynamic_search != the exact search over the live rows")
+            err, swaps = 0.0, 0
+        else:
+            tol = 2 * D * 2.0**-24 * float(queries.norm(dim=-1).max()) * 1.01
+            inf = torch.full((t["b"], 1), float("inf"), device=dev)
+            gap = torch.cat([rs[:, :-1] - rs[:, 1:], inf], dim=-1)
+            clear = torch.minimum(gap, torch.cat([inf, gap[:, :-1]], dim=-1)) > tol
+            err = (out.scores - rs).abs().max().item()
+            swaps = int((out.indices != ri).sum())
+            check(err <= tol and torch.equal(out.indices[clear], ri[clear]),
+                  f"bf16 dynamic_search differs from the exact search: max |diff| {err:.3g} (tol {tol:.3g})")
+        check(bool(torch.isin(out.indices, deleted).logical_not().all()), f"{dtype}: a deleted id was returned")
+        stores[dtype] = dict(ms=ms, dropped=dropped, max_abs_err=err, swaps=swaps, live=n_live)
+        log(f"11c dynamic {dtype} [{card}]: capacity {t['capacity']} x {D}; ms per op: " +
+            ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" (adds of {step} rows; delete {deleted.numel()}; "
+            f"update {updated.numel()}; overflow add of {n_extra} rows dropped {dropped}; search B={t['b']} "
+            f"k={t['k']}); search == exact over {n_live} live rows" +
+            (" exactly" if dtype == "int8" else f" within {err:.3g}, {swaps} id swaps inside the band"))
+        del index, out
+    del rows, extra, new_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the embedding cache at e5-base's width over phase 11a's corpus
+    cfg = TransformerEncoderConfig(  # configs/presets/encoder/e5-base.yaml + pooler/mean-l2.yaml, as phase 4
+        max_position_embeddings=512, dtype=torch.bfloat16,
+        pooler=VodPoolerConfig(agg_method="mean", output_norm="l2", scaler=10.0, learn_scaler=True), **t["encoder"],
+    )
+    ranker = Ranker(cfg, RetrievalGradients(), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    calls = []
+
+    def encode(ids, mask):
+        calls.append(int(ids.shape[0]))
+        return ranker.encode_field(ids, mask)
+
+    tmp = tempfile.TemporaryDirectory()
+    kw = dict(cache_dir=tmp.name, dataset_fingerprint="harvest-2^15", chunk=t["embed_chunk"])
+    miss, miss_ms = timed(lambda: cached_embeddings(encode, ranker, corpus, **kw))
+    n_miss = len(calls)
+    calls.clear()
+    hit, hit_ms = timed(lambda: cached_embeddings(encode, ranker, corpus, **kw))
+    check(calls == [1] and torch.equal(hit, miss), "the hit did not read the store back bit for bit")
+    store_dir = next((Path(tmp.name) / "vectors").iterdir())
+    store = TensorStoreFactory.from_path(store_dir).open()
+    vecs = store.read()
+    vecs[t["hole_row"]] = 0.0
+    store.write(vecs)
+    calls.clear()
+    again, again_ms = timed(lambda: cached_embeddings(encode, ranker, corpus, **kw))
+    healed = store.read()
+    check(len(calls) == n_miss and bool((abs(healed).sum(-1) > 0).all()),
+          "a zeroed row did not force a recompute of the store")
+    recompute_err = (again - miss).abs().max().item()
+    log(f"11c cache [{card}]: cached_embeddings of {corpus.size} sections at e5-base's width: miss (encode + write "
+        f"{miss.numel() * 4 / 2**20:.1f} MiB) {miss_ms:.1f} ms, hit {hit_ms:.1f} ms (bit for bit); a zeroed row "
+        f"forced a recompute in {again_ms:.1f} ms (max |recompute - miss| {recompute_err:.3g})")
+    tmp.cleanup()
+    del ranker, miss, hit, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - started
+    log(f"phase 11c wall time: {wall:.1f} s")
+    return dict(stores=stores, cache=dict(miss_ms=miss_ms, hit_ms=hit_ms, recompute_ms=again_ms,
+                                          recompute_max_abs_diff=recompute_err), wall_s=wall)
 
 
 def main() -> None:
@@ -3306,7 +3999,24 @@ def main() -> None:
     torch.cuda.empty_cache()
     large = large_cli_phase(dev, card, hbm, peak_bf16, LARGE)
 
-    # 11. result lines
+    # 11. SPLADE through the CLI (11a), the second stage over its index (11b),
+    # the dynamic store and the embedding cache (11c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    splade, ctx = splade_cli_phase(dev, card, SPLADE)
+    second_stage = second_stage_phase(dev, card, SECOND_STAGE, ctx)
+    corpus11 = ctx["corpus"]
+    ctx["tmp"].cleanup()
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    dynamic = dynamic_cache_phase(dev, card, DYNAMIC, corpus11)
+    del corpus11
+    phase11_s = time.perf_counter() - t11
+    log(f"phase 11 wall time: {phase11_s:.1f} s")
+
+    # 12. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -3336,7 +4046,9 @@ def main() -> None:
         cli_resume_launches=cli["resume_launches"], cli_resume_body_launches=cli["resume_body_launches"],
         cli_call=cli["call"], cli=cli,
         large_launches=large["launches"], large_body_launches=large["body_launches"], large_call=large["call"],
-        large=large,
+        large=large, splade_launches=splade["launches"]["fused_mips_binned"],
+        second_stage_launches=second_stage["launches"]["fused_mips_binned"],
+        phase11=dict(splade=splade, second_stage=second_stage, dynamic=dynamic, wall_s=phase11_s),
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

@@ -236,7 +236,6 @@ def test_main_runs_and_resumes_from_a_config_file(tmp_path: Path, capsys) -> Non
 
 UNPORTED = {
     "moe": ({"model": {"moe_experts": 4}}, "item 6"),
-    "splade": ({"model": {"splade_encoder": True}}, "item 4"),
     "profile": ({"sys": {"profile_dir": "trace"}}, "item 7"),
 }
 

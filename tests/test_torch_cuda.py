@@ -812,3 +812,158 @@ def test_binned_wgmma_at_d1024(cuda_device) -> None:
         assert ki.max().item() < n_real and ki[0, 0].item() == 5
     assert fused_mips_binned.body_launches["wgmma"] == before["wgmma"] + 2
     assert fused_mips_binned.body_launches["fma"] == before["fma"]
+
+
+def _splade_ranker(device, dtype=torch.float32, vocab: int = 512, seed: int = 0):
+    from vod_tpu_torch.models import Ranker, RetrievalGradients, TransformerEncoderConfig
+
+    cfg = TransformerEncoderConfig(vocab_size=vocab, hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128,
+                                   dtype=dtype)
+    return Ranker(cfg, RetrievalGradients(), splade_encoder=True, splade_flops_weight=1e-3, device=device,
+                  generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def test_splade_on_card_matches_cpu(cuda_device) -> None:
+    """SPLADE impacts (f32) on the card against the same weights on the CPU
+    within 1e-4; bf16 on the card: non-negative, finite, padding-invariant;
+    the FLOPS term is collected in the loss pass and under GradCache."""
+    from vod_tpu_torch.models import collect_losses
+    from vod_tpu_torch.runtime import gradcache_backward
+    from vod_tpu_torch.types import RealmBatch
+
+    model = _splade_ranker(cuda_device)
+    cpu = _splade_ranker("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    ids = torch.randint(5, 512, (6, 24), generator=g, device=cuda_device)
+    mask = (torch.arange(24, device=cuda_device)[None] < torch.tensor([[24], [20], [9], [1], [24], [16]],
+                                                                        device=cuda_device)).to(torch.int32)
+    with torch.no_grad():
+        card, host = model.encode_field(ids, mask), cpu.encode_field(ids.cpu(), mask.cpu())
+    assert (card.cpu() - host).abs().max().item() <= 1e-4
+    bf = _splade_ranker(cuda_device, torch.bfloat16)
+    with torch.no_grad():
+        a = bf.encode_field(ids, mask)
+        b = bf.encode_field(torch.where(mask > 0, ids, 7), mask)
+    assert bool(torch.isfinite(a).all()) and bool((a >= 0).all()) and torch.equal(a, b)
+    b_, d = 2, 4
+    rel = torch.zeros((b_, d), device=cuda_device)
+    rel[:, 0] = 1.0
+    batch = RealmBatch(
+        query__input_ids=ids[:b_], query__attention_mask=mask[:b_],
+        section__input_ids=torch.randint(5, 512, (b_ * d, 24), generator=g, device=cuda_device),
+        section__attention_mask=torch.ones((b_ * d, 24), dtype=torch.int32, device=cuda_device),
+        section__relevance=rel, section__idx=torch.zeros((b_, d), dtype=torch.int32, device=cuda_device),
+        section__score=torch.zeros((b_, d), device=cuda_device),
+        section__sparse=torch.zeros((b_, d), device=cuda_device),
+        section__log_weight=torch.full((b_, d), -1.3863, device=cuda_device),
+    )
+    with collect_losses(model) as sown:
+        out = model(batch)
+    assert len(sown) == 1 and float(sown[0].detach()) > 0.0
+    model.zero_grad(set_to_none=True)
+    cached = gradcache_backward(model, batch, chunk_rows=4)  # 10 rows padded to 12
+    # the chunks' FLOPS terms (each over its own 4 rows) ride in the GradCache loss
+    assert float(cached.loss) > float(out.loss.detach()) and np.isfinite(float(cached.loss))
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+def test_splade_train_step_on_card_never_waits(cuda_device) -> None:
+    """Learned-sparse live retrieval on the card: query impacts -> top-k
+    terms -> the learned index, one optimizer step under sync-debug "error"
+    after a warm-up; the parameters move."""
+    from vod_tpu_torch.models import encode_corpus_terms
+    from vod_tpu_torch.runtime import QueryBatch, build_device_corpus, make_train_step
+    from vod_tpu_torch.search import build_impact_index
+
+    model = _splade_ranker(cuda_device, torch.bfloat16)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    n = 512
+    corpus = build_device_corpus(torch.randint(5, 512, (n, 32), generator=g, device=cuda_device),
+                                 torch.ones((n, 32), dtype=torch.int32, device=cuda_device), device=cuda_device)
+    terms, weights = encode_corpus_terms(model.encode_field, corpus.input_ids, corpus.attention_mask, k=64)
+    engines = HybridEngines(sparse=build_impact_index(terms, weights, n_terms=512, max_postings=256,
+                                                      device=cuda_device))
+    step = make_train_step(model, torch.optim.AdamW(model.parameters(), lr=1e-3), prefetch=32, n_sections=8,
+                           splade_query_k=32, gradient_clip_val=1.0)
+
+    def queries(seed):
+        gq = torch.Generator(device=cuda_device).manual_seed(seed)
+        return QueryBatch(input_ids=torch.randint(5, 512, (4, 16), generator=gq, device=cuda_device),
+                          attention_mask=torch.ones((4, 16), dtype=torch.int32, device=cuda_device),
+                          section_ids=torch.randint(0, n, (4, 1), generator=gq, device=cuda_device,
+                                                    dtype=torch.int32))
+
+    step.train_step(engines, corpus, queries(1), g, {"sparse": 1.0})
+    before = model.encoder.transform.weight.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics, _, _ = step.train_step(engines, corpus, queries(2), g, {"sparse": 1.0})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["loss"])) and not torch.equal(before, model.encoder.transform.weight)
+
+
+def test_maxsim_and_dynamic_int8_on_card_equal_cpu(cuda_device) -> None:
+    """int8 MaxSim rerank scores and int8 dynamic-store search (ids and
+    scores) on the card equal the CPU path bit for bit."""
+    from vod_tpu_torch.search import (
+        build_maxsim_index,
+        dynamic_add,
+        dynamic_delete,
+        dynamic_from_dense,
+        dynamic_search,
+        maxsim_rerank,
+    )
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tok = torch.randn((512, 16, 128), generator=g, device=cuda_device)
+    mask = torch.rand((512, 16), generator=g, device=cuda_device) > 0.3
+    q = torch.randn((8, 8, 128), generator=g, device=cuda_device)
+    qm = torch.ones((8, 8), dtype=torch.bool, device=cuda_device)
+    cand = torch.randint(-1, 512, (8, 64), generator=g, device=cuda_device, dtype=torch.int32)
+    idx = build_maxsim_index(tok, mask, codec="int8")
+    idx_cpu = build_maxsim_index(tok.cpu(), mask.cpu(), codec="int8")
+    assert torch.equal(idx.token_codes.cpu(), idx_cpu.token_codes)
+    assert torch.equal(maxsim_rerank(idx, q, qm, cand).cpu(), maxsim_rerank(idx_cpu, q.cpu(), qm.cpu(), cand.cpu()))
+    x = unit_rows(np.random.default_rng(4), 3000, 96)
+    stores = [dynamic_from_dense(torch.from_numpy(x).to(dev), capacity=4096, dtype="int8")
+              for dev in (cuda_device, "cpu")]
+    extra = torch.from_numpy(unit_rows(np.random.default_rng(5), 2000, 96))
+    out = []
+    for s in stores:
+        dev = s.vectors.device
+        s, ids = dynamic_add(s, extra.to(dev))
+        assert int((ids == -1).sum()) == 3000 + 2000 - 4096
+        s = dynamic_delete(s, torch.arange(0, 3000, 7, dtype=torch.int32, device=dev))
+        r = dynamic_search(s, SearchQueries(vector=torch.from_numpy(x[:32]).to(dev)), top_k=10)
+        out.append((r.indices.cpu(), r.scores.cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+def test_cross_encoder_and_cache_on_card(cuda_device, tmp_path) -> None:
+    """Cross-encoder scores (f32) on the card within 1e-4 of the CPU's;
+    `cached_embeddings` on the card: the miss writes, the hit reads back bit
+    for bit."""
+    from vod_tpu_torch.models import CrossEncoder, TransformerEncoderConfig, cross_encoder_scores
+    from vod_tpu_torch.runtime import build_device_corpus, cached_embeddings
+
+    cfg = TransformerEncoderConfig(vocab_size=512, hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128,
+                                   dtype=torch.float32)
+    model = CrossEncoder(cfg, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(6))
+    cpu = CrossEncoder(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    ids = torch.randint(5, 512, (3, 5, 20), generator=g, device=cuda_device)
+    types = (torch.arange(20, device=cuda_device) >= 8).to(torch.int32).expand(3, 5, 20)
+    mask = torch.ones_like(ids)
+    with torch.no_grad():
+        card = cross_encoder_scores(model, ids, mask, types, chunk=4)
+        host = cross_encoder_scores(cpu, ids.cpu(), mask.cpu(), types.cpu())
+    assert (card.cpu() - host).abs().max().item() <= 1e-4
+    ranker = _splade_ranker(cuda_device, torch.bfloat16)
+    corpus = build_device_corpus(ids.reshape(15, 20), mask.reshape(15, 20), device=cuda_device)
+    miss = cached_embeddings(ranker.encode_field, ranker, corpus, cache_dir=str(tmp_path), dataset_fingerprint="d")
+    hit = cached_embeddings(ranker.encode_field, ranker, corpus, cache_dir=str(tmp_path), dataset_fingerprint="d")
+    assert hit.device == miss.device and torch.equal(hit, miss)

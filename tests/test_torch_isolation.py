@@ -60,6 +60,9 @@ def test_every_module_imports_with_jax_and_vod_tpu_blocked() -> None:
         "vod_tpu_torch.data.rosetta.adapters", "vod_tpu_torch.data.loaders.beir",
         "vod_tpu_torch.data.loaders.local_text", "vod_tpu_torch.dataloaders.realm_dataloader",
         "vod_tpu_torch.dataloaders.samplers", "vod_tpu_torch.dataloaders.tokenizer_collate",
+        "vod_tpu_torch.models.splade", "vod_tpu_torch.models.cross_encoder", "vod_tpu_torch.search.maxsim",
+        "vod_tpu_torch.search.dynamic", "vod_tpu_torch.types.lazy", "vod_tpu_torch.utils.cache",
+        "vod_tpu_torch.examples.maxsim_bench", "vod_tpu_torch.examples.predict_and_index",
     } <= set(modules)
     code = (
         "import sys, importlib\n"

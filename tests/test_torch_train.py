@@ -407,13 +407,9 @@ def test_unported_options_raise() -> None:
     a, _, _, _, _, params = _init()
     tmodel, tcorpus, teng = _torch_side(a, params)
     opt = adamw(tmodel, 1e-3, weight_decay=0.0)
-    with pytest.raises(NotImplementedError, match="splade"):
-        make_train_step(tmodel, opt, splade_query_k=8)
     with pytest.raises(NotImplementedError, match="mesh"):
         training_loop(step_fn=make_train_step(tmodel, opt), engines=teng, corpus=tcorpus, train_queries=[],
                       state=TrainerState(), generator=torch.Generator(), mesh=object())
-    with pytest.raises(NotImplementedError, match="SPLADE"):
-        Ranker(TransformerEncoderConfig(**ENC), RetrievalGradients(), splade_encoder=True, device=CPU)
 
 
 def test_new_entry_points_default_to_the_card() -> None:

@@ -258,6 +258,7 @@ class WordPieceTokenizer:
     def __call__(
         self,
         text: typ.Union[str, typ.Sequence[str]],
+        text_pair: typ.Optional[typ.Union[str, typ.Sequence[str]]] = None,
         *,
         max_length: typ.Optional[int] = None,
         truncation: typ.Union[bool, str] = False,
@@ -266,24 +267,44 @@ class WordPieceTokenizer:
         return_offsets_mapping: bool = False,
         return_tensors: typ.Optional[str] = None,
     ) -> dict[str, typ.Any]:
-        """Encode one text or a list of texts: `input_ids`, `token_type_ids`,
-        `attention_mask` (and `offset_mapping`), as lists, or as int64
-        arrays (`return_tensors="np"`) or tensors (`"pt"`)."""
+        """Encode one text or a list of texts, or pairs of them (`text_pair`:
+        `[CLS] a [SEP] b [SEP]`, token types 0 then 1): `input_ids`,
+        `token_type_ids`, `attention_mask` (and `offset_mapping`), as lists,
+        or as int64 arrays (`return_tensors="np"`) or tensors (`"pt"`). A
+        pair truncates `longest_first` as the fast tokenizer does: when both
+        texts exceed half the budget each keeps half (the longer one the odd
+        token), else the longer one is cut to what the shorter leaves."""
         single = isinstance(text, str)
         texts = [text] if single else list(text)
+        pairs = None if text_pair is None else ([text_pair] if isinstance(text_pair, str) else list(text_pair))
+        if pairs is not None and len(pairs) != len(texts):
+            raise ValueError(f"{len(texts)} texts but {len(pairs)} text pairs")
         if truncation not in (False, True, "longest_first", "do_not_truncate"):
             raise ValueError(f"unsupported truncation {truncation!r}")
         if padding not in (False, True, "longest", "max_length", "do_not_pad"):
             raise ValueError(f"unsupported padding {padding!r}")
         truncate = truncation not in (False, "do_not_truncate") and max_length is not None
-        n_special = 2 if add_special_tokens else 0
-        keep = max(0, max_length - n_special) if truncate else None
-        rows, offs = [], []
-        for t in texts:
+        n_special = (2 if pairs is None else 3) if add_special_tokens else 0
+        budget = max(0, max_length - n_special) if truncate else None
+        cls, sep = ([self.cls_token_id], [self.sep_token_id]) if add_special_tokens else ([], [])
+        edge = [(0, 0)] if add_special_tokens else []
+        rows, types, offs = [], [], []
+        for i, t in enumerate(texts):
             ids, offsets = self._encode(t, return_offsets_mapping)
-            rows.append(ids[:keep])
-            offs.append(offsets[:keep])
-        lengths = np.fromiter((len(r) + n_special for r in rows), dtype=np.int64, count=len(rows))
+            if pairs is None:
+                ids, offsets = ids[:budget], offsets[:budget]
+                rows.append(cls + ids + sep)
+                types.append([0] * len(rows[-1]))
+                offs.append(edge + offsets + edge)
+                continue
+            ids_b, offsets_b = self._encode(pairs[i], return_offsets_mapping)
+            if budget is not None and len(ids) + len(ids_b) > budget:
+                n_a, n_b = _longest_first(len(ids), len(ids_b), budget)
+                ids, offsets, ids_b, offsets_b = ids[:n_a], offsets[:n_a], ids_b[:n_b], offsets_b[:n_b]
+            rows.append(cls + ids + sep + ids_b + sep)
+            types.append([0] * (len(cls) + len(ids) + len(sep)) + [1] * (len(ids_b) + len(sep)))
+            offs.append(edge + offsets + edge + offsets_b + edge)
+        lengths = np.fromiter((len(r) for r in rows), dtype=np.int64, count=len(rows))
         if padding in (True, "longest") or (padding == "max_length" and max_length is None):
             width = int(lengths.max(initial=0))
         elif padding == "max_length":
@@ -294,31 +315,27 @@ class WordPieceTokenizer:
             if return_tensors is not None and len(set(lengths.tolist())) > 1:
                 raise ValueError("rows of different lengths need padding to become a tensor")
             if return_tensors is None:
-                cls, sep = ([self.cls_token_id], [self.sep_token_id]) if add_special_tokens else ([], [])
-                edge = [(0, 0)] if add_special_tokens else []
                 out: dict[str, typ.Any] = {
-                    "input_ids": [cls + r + sep for r in rows],
-                    "token_type_ids": [[0] * int(n) for n in lengths],
+                    "input_ids": rows,
+                    "token_type_ids": types,
                     "attention_mask": [[1] * int(n) for n in lengths],
                 }
                 if return_offsets_mapping:
-                    out["offset_mapping"] = [edge + o + edge for o in offs]
+                    out["offset_mapping"] = offs
                 return {k: v[0] for k, v in out.items()} if single else out
             width = int(lengths.max(initial=0))
         ids_arr = np.full((len(rows), width), self.pad_token_id, dtype=np.int64)
-        start = 1 if add_special_tokens else 0
-        for i, r in enumerate(rows):
-            ids_arr[i, start : start + len(r)] = r
-        if add_special_tokens:
-            ids_arr[:, 0] = self.cls_token_id
-            ids_arr[np.arange(len(rows)), lengths - 1] = self.sep_token_id
+        type_arr = np.zeros((len(rows), width), dtype=np.int64)
+        for i, (r, tt) in enumerate(zip(rows, types)):
+            ids_arr[i, : len(r)] = r
+            type_arr[i, : len(tt)] = tt
         mask = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int64)
-        out = {"input_ids": ids_arr, "token_type_ids": np.zeros_like(ids_arr), "attention_mask": mask}
+        out = {"input_ids": ids_arr, "token_type_ids": type_arr, "attention_mask": mask}
         if return_offsets_mapping:
             om = np.zeros((len(rows), width, 2), dtype=np.int64)
             for i, o in enumerate(offs):
                 if o:
-                    om[i, start : start + len(o)] = o
+                    om[i, : len(o)] = o
             out["offset_mapping"] = om
         if return_tensors is None:
             lists = {k: v.tolist() for k, v in out.items()}
@@ -332,3 +349,17 @@ class WordPieceTokenizer:
         if return_tensors != "np":
             raise ValueError(f"unsupported return_tensors {return_tensors!r}")
         return out
+
+
+def _longest_first(n_a: int, n_b: int, budget: int) -> tuple[int, int]:
+    """The lengths a pair keeps under `longest_first` truncation to `budget`
+    tokens (the `tokenizers` rule): the shorter text keeps all of itself when
+    it fits in half, the longer the rest; else each keeps half, the longer
+    one the odd token (the second of two equal ones)."""
+    short, long_ = min(n_a, n_b), max(n_a, n_b)
+    keep_long = short if short > budget else max(short, budget - short)
+    keep_short = short
+    if keep_short + keep_long > budget:
+        keep_short = budget // 2
+        keep_long = keep_short + budget % 2
+    return (keep_short, keep_long) if n_a <= n_b else (keep_long, keep_short)

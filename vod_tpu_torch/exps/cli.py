@@ -25,6 +25,14 @@ Declared differences from the JAX package:
  - options not ported yet raise `NotImplementedError` naming their ROADMAP
    item, before any data is loaded.
 
+With `model.splade_encoder` the Ranker encodes with SPLADE: live retrieval
+searches the queries' top `splade_query_k` impact terms, and each period
+rebuilds a learned impact index (top `splade_doc_k` terms a document, at
+most `splade_max_postings` a term) that replaces both the dense engine and
+BM25, as in JAX. `model.name_or_path` then loads the checkpoint's backbone
+only (the `bert.*` tensors of a `BertForMaskedLM`): the MLM head keeps its
+init, as the JAX CLI leaves it (it never calls `port_splade_weights`).
+
 `model.kbit` (with `lora_rank > 0`) int8-freezes the loaded base and trains
 the LoRA adapters and the pooler only (`models/kbit.py`); `model.remat`
 recomputes each encoder layer in the backward pass; `trainer.
@@ -72,7 +80,6 @@ def _raise_unported(unported: typ.Iterable[tuple[bool, str, str]]) -> None:
 
 def _unported_model_options(m: ModelConfig) -> list[tuple[bool, str, str]]:
     return [
-        (m.splade_encoder, "model.splade_encoder", "4"),
         (m.moe_experts > 0, "model.moe_experts > 0", "6"),
     ]
 
@@ -154,7 +161,8 @@ def build_model(
             )
             return Seq2SeqRealm(enc_cfg, reader_cfg, gradients, **kw)
         return Realm(enc_cfg, _causal_lm_config(cfg), gradients, **kw)
-    return Ranker(enc_cfg, gradients, **kw)
+    return Ranker(enc_cfg, gradients, splade_encoder=cfg.splade_encoder, splade_flops_weight=cfg.splade_flops_weight,
+                  **kw)
 
 
 def _causal_lm_config(cfg: ModelConfig) -> CausalLMConfig:
@@ -380,6 +388,7 @@ def run_experiment(
         gradient_clip_val=exp.trainer.gradient_clip_val,
         in_batch_negatives=exp.collate.in_batch_negatives,
         accumulate_grad_batches=accumulate,
+        splade_query_k=exp.model.splade_query_k if exp.model.splade_encoder else None,
         gradcache_chunk_rows=exp.trainer.gradcache_chunk_rows,
     )
 
@@ -409,7 +418,10 @@ def run_experiment(
         sparse_engine=sparse_engine,
         val_queries=val_dl_batches,
         config=PeriodicTrainingConfig(
-            dense=exp.search_defaults.dense,
+            # splade: the learned impact index replaces the dense engine and is
+            # rebuilt from the current encoder at every period boundary
+            dense=None if exp.model.splade_encoder else exp.search_defaults.dense,
+            splade_doc_k=exp.model.splade_doc_k if exp.model.splade_encoder else None,
             splade_max_postings=exp.model.splade_max_postings,
             splade_query_k=exp.model.splade_query_k,
             checkpoint_dir=exp.trainer.checkpoint_path,

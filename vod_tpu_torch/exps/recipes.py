@@ -13,11 +13,19 @@ the pq, int8 or ivfpq codecs, the corpus is embedded into host RAM
 (`compute_embeddings_to_host`) and the index built from host slabs
 (`build_dense_from_host`); only the codes land on the device.
 
+With `splade_doc_k` (a SPLADE Ranker) the learned-sparse index takes the
+dense index's place: each period boundary encodes the corpus to its top
+`splade_doc_k` impact terms (`models/splade.py:encode_corpus_terms`, chunk
+by chunk on the device), rebuilds the impact postings (`build_impact_index`,
+`n_terms` from a probe's width, at most `splade_max_postings` a term) and
+trains against `HybridEngines(dense=None, sparse=learned)`; the benchmark
+between periods searches the queries' top `splade_query_k` impact terms.
+
 Random draws: where the JAX version splits its key into a build key, a tune
 key and a loop key each period, the port draws all three from the one
 `torch.Generator` it is given, in that order. Not ported yet, each raising
-`NotImplementedError`: SPLADE reindexing (`splade_doc_k`), a device mesh
-(`mesh`, `dp_axis`) and profiler traces (`profile_dir`).
+`NotImplementedError`: a device mesh (`mesh`, `dp_axis`) and profiler traces
+(`profile_dir`).
 
 The re-embed calls the model's `encode_field`, so a kbit-prepared model
 (`models/kbit.py`) re-embeds through its dequantizing view, as JAX's
@@ -27,7 +35,10 @@ Each period's summary holds, beside JAX's `period`, `embed_s` (re-embed,
 build and tuning), `autotune` (when tuned) and `period_s`: `reembed_s`,
 `build_ms` by stage (the build's stages), `host_build` (whether the
 host-slab branch ran), `index_bytes` and `train`, the loop's last logged
-metrics. The device is synchronized at those boundaries, once a period.
+metrics; a SPLADE period has `reembed_s` (the impact encode),
+`build_ms` (`total_ms`), `index_bytes` and `learned_terms` (the postings
+table's width and the mean terms a document keeps). The device is
+synchronized at those boundaries, once a period.
 """
 
 from __future__ import annotations
@@ -37,9 +48,11 @@ import pathlib
 import time
 import typing as typ
 
+import numpy as np
 import torch
 
 from vod_tpu_torch.configs.search import DenseFactoryConfig
+from vod_tpu_torch.models.splade import encode_corpus_terms, splade_topk_terms
 from vod_tpu_torch.runtime.benchmark import benchmark_retrieval
 from vod_tpu_torch.runtime.checkpoint import save_checkpoint
 from vod_tpu_torch.runtime.collate import DeviceCorpus, QueryBatch
@@ -50,6 +63,7 @@ from vod_tpu_torch.search.dense import index_nbytes
 from vod_tpu_torch.search.autotune import autotune_after_build
 from vod_tpu_torch.search.factory import build_dense_from_config, build_dense_from_host
 from vod_tpu_torch.search.hybrid import HybridEngines
+from vod_tpu_torch.search.sparse import build_impact_index
 
 
 @dataclasses.dataclass
@@ -76,8 +90,6 @@ class PeriodicTrainingConfig:
 
 
 def _check_ported(cfg: PeriodicTrainingConfig) -> None:
-    if cfg.splade_doc_k is not None:
-        raise NotImplementedError("SPLADE periodic reindexing (splade_doc_k) is not ported to vod_tpu_torch yet")
     if cfg.mesh is not None or cfg.dp_axis is not None:
         raise NotImplementedError("training over a device mesh (mesh, dp_axis) is not ported to vod_tpu_torch yet")
     if cfg.profile_dir is not None:
@@ -121,7 +133,25 @@ def periodic_training(
         summary: dict[str, typ.Any] = {"period": pidx}
 
         # 1. re-embed the corpus with the current encoder, rebuild the index
-        if cfg.dense is None:
+        if cfg.splade_doc_k is not None:
+            # learned-sparse reindex: the impact postings of the current encoder
+            terms, weights = encode_corpus_terms(
+                model.encode_field, corpus.input_ids, corpus.attention_mask, k=cfg.splade_doc_k, chunk=cfg.embed_chunk,
+            )
+            with torch.no_grad():
+                n_terms = int(model.encode_field(corpus.input_ids[:1], corpus.attention_mask[:1]).shape[-1])
+            summary["reembed_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            learned = build_impact_index(
+                terms, weights, n_terms=n_terms, max_postings=cfg.splade_max_postings,
+                subset_ids=None if corpus.subset_ids is None else corpus.subset_ids.cpu().numpy(), device=device,
+            )
+            _sync(device)
+            summary.update(build_ms={"total_ms": (time.perf_counter() - t1) * 1e3}, index_bytes=index_nbytes(learned),
+                           learned_terms={"width": int(learned.postings_docs.shape[1]),
+                                          "doc_terms_mean": float(np.mean(np.sum(terms >= 0, axis=1)))})
+            engines = HybridEngines(dense=None, sparse=learned)
+        elif cfg.dense is None:
             engines = HybridEngines(dense=None, sparse=sparse_engine)
         else:
             with torch.no_grad():
@@ -159,9 +189,17 @@ def periodic_training(
         ):
             with torch.no_grad():
                 q_vecs = [model.encode_field(qb.input_ids, qb.attention_mask) for qb in benchmark_queries]
-            summary["benchmark"] = benchmark_retrieval(
-                engines, benchmark_queries, query_vectors=q_vecs, metrics=cfg.metrics
-            )
+            if cfg.splade_doc_k is not None:
+                # learned-sparse queries: impacts -> top-k (terms, weights)
+                bq = []
+                for qb, imp in zip(benchmark_queries, q_vecs):
+                    tq, wq = splade_topk_terms(imp, cfg.splade_query_k)
+                    bq.append(dataclasses.replace(qb, terms=tq, term_weights=wq))
+                summary["benchmark"] = benchmark_retrieval(engines, bq, metrics=cfg.metrics)
+            else:
+                summary["benchmark"] = benchmark_retrieval(
+                    engines, benchmark_queries, query_vectors=q_vecs, metrics=cfg.metrics
+                )
 
         # 3. train for one period with live retrieval
         state, last = training_loop(

@@ -5,9 +5,12 @@ arrays (`jax.device_get(params)` gives that) and returns the `state_dict` of
 `vod_tpu_torch.models.encoder.VodEncoder` (or `DebugEncoder`);
 `lm_flax_to_state_dict` does the same for the reader `CausalLM`,
 `t5_flax_to_state_dict` for a `T5Encoder` or `VodT5Encoder`,
-`seq2seq_flax_to_state_dict` for the seq2seq reader `Seq2SeqLM`, and
-`system_flax_to_state_dict` for a whole `Ranker`, `Realm` or `Seq2SeqRealm`
-(the `encoder` subtree, plus the `lm` or `reader` subtree). flax stores a Dense kernel as
+`seq2seq_flax_to_state_dict` for the seq2seq reader `Seq2SeqLM`,
+`splade_flax_to_state_dict` for a `SpladeEncoder`,
+`cross_encoder_flax_to_state_dict` for a `CrossEncoder`, and
+`system_flax_to_state_dict` for a whole `Ranker` (its SPLADE form too),
+`Realm` or `Seq2SeqRealm` (the `encoder` subtree, plus the `lm` or `reader`
+subtree). flax stores a Dense kernel as
 `[in, out]` and attention kernels as `[H, heads, head_dim]` (query/key/value)
 and `[heads, head_dim, H]` (out); `nn.Linear` wants `[out, in]`, so each is
 flattened and transposed here. The same functions carry a tree of flax
@@ -106,6 +109,25 @@ def flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+def splade_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
+    """flax params of `SpladeEncoder` -> the port's `SpladeEncoder.state_dict`."""
+    p = params.get("params", params)
+    sd = flax_to_state_dict({"backbone": p["backbone"]})
+    _dense("transform", p["transform"], sd)
+    _norm("transform_norm", p["transform_norm"], sd)
+    sd["decoder_bias"] = _t(p["decoder_bias"])
+    return sd
+
+
+def cross_encoder_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
+    """flax params of `CrossEncoder` -> the port's `CrossEncoder.state_dict`."""
+    p = params.get("params", params)
+    sd = flax_to_state_dict({"backbone": p["backbone"]})
+    _dense("hf_pooler", p["hf_pooler"], sd)
+    _dense("classifier", p["classifier"], sd)
+    return sd
+
+
 def lm_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
     """flax params of `CausalLM` -> the port's `CausalLM.state_dict`."""
     p = params.get("params", params)
@@ -187,7 +209,8 @@ def seq2seq_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
 def system_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
     """flax params of `Ranker`, `Realm` or `Seq2SeqRealm` -> the port's `state_dict`."""
     p = params.get("params", params)
-    sd = {f"encoder.{k}": v for k, v in flax_to_state_dict(p["encoder"]).items()}
+    encoder = splade_flax_to_state_dict if "transform" in p["encoder"] else flax_to_state_dict
+    sd = {f"encoder.{k}": v for k, v in encoder(p["encoder"]).items()}
     if "lm" in p:
         sd.update({f"lm.{k}": v for k, v in lm_flax_to_state_dict(p["lm"]).items()})
     if "reader" in p:
@@ -195,7 +218,7 @@ def system_flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-_NORMS = ("LayerNorm", "attention_norm", "output_norm", "ln1", "ln2", "ln_f")
+_NORMS = ("LayerNorm", "attention_norm", "output_norm", "transform_norm", "ln1", "ln2", "ln_f")
 _EMBEDDINGS = ("word_embeddings", "position_embeddings", "token_type_embeddings", "wte", "wpe", "shared", "dec_embed")
 _T5_NORMS = ("ln0", "ln1", "ln2", "final_norm")
 

@@ -6,10 +6,17 @@ side is padded to the longer) and splits the pooled embeddings; `Realm` adds
 reader logits over the flattened `lm__input_ids`; `evaluate` hands both to
 the gradient estimator; `Realm.generate` decodes greedily from the reader.
 `forward(batch, mode=...)` dispatches like the flax `__call__`.
+
+A `Ranker(splade_encoder=True)` encodes with `SpladeEncoder`: its encodings
+are `[*, V]` vocabulary impacts, which the same gradient estimators score.
+Auxiliary losses (the SPLADE FLOPS term) are kept only inside
+`collect_losses(model)`, flax's `mutable=["losses"]`: the train step opens it
+around the loss pass, and the query encode of live retrieval runs outside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import typing as typ
 
 import torch
@@ -49,6 +56,21 @@ def _fused_encode(encoder: nn.Module, batch: RealmBatch) -> dict[str, torch.Tens
     return {"query_encoding": query_encoding, "section_encoding": section_encoding}
 
 
+@contextlib.contextmanager
+def collect_losses(model: nn.Module) -> typ.Iterator[list[torch.Tensor]]:
+    """While open, every submodule of `model` that sows an auxiliary loss
+    (it has a `sown` slot) appends it to the list yielded."""
+    sowers = [m for m in model.modules() if hasattr(m, "sown")]
+    losses: list[torch.Tensor] = []
+    for m in sowers:
+        m.sown = losses
+    try:
+        yield losses
+    finally:
+        for m in sowers:
+            m.sown = None
+
+
 def _encoder(cfg: TransformerEncoderConfig, debug: bool, device: typ.Any, generator: typ.Any) -> nn.Module:
     return (DebugEncoder if debug else VodEncoder)(cfg, device=device, generator=generator)
 
@@ -64,15 +86,19 @@ class Ranker(nn.Module):
         *,
         debug_encoder: bool = False,
         splade_encoder: bool = False,
+        splade_flops_weight: float = 0.0,
         device: typ.Union[str, torch.device] = "cuda",
         generator: typ.Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if splade_encoder:
-            raise NotImplementedError("the SPLADE encoder is not ported to vod_tpu_torch yet")
         self.cfg = cfg
         self.gradients = gradients
-        self.encoder = _encoder(cfg, debug_encoder, device, generator)
+        if splade_encoder:
+            from .splade import SpladeEncoder
+
+            self.encoder = SpladeEncoder(cfg, flops_weight=splade_flops_weight, device=device, generator=generator)
+        else:
+            self.encoder = _encoder(cfg, debug_encoder, device, generator)
 
     def encode(self, batch: RealmBatch) -> dict[str, torch.Tensor]:
         return _fused_encode(self.encoder, batch)
@@ -80,6 +106,11 @@ class Ranker(nn.Module):
     def encode_field(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Single-field encoding (the query side of live retrieval)."""
         return self.encoder(input_ids, attention_mask)
+
+    def encode_field_tokens(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Per-token embeddings `[B, T, H]` for late-interaction (MaxSim)
+        indexing (`search.maxsim.build_maxsim_index`); `VodEncoder` only."""
+        return self.encoder.tokens(input_ids, attention_mask)
 
     def evaluate(self, batch: RealmBatch) -> RealmOutput:
         return self.gradients(batch=batch, **self.encode(batch))

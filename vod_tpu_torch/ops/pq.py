@@ -116,9 +116,10 @@ def train_projection(x: torch.Tensor, out_dim: int) -> tuple[torch.Tensor, torch
 def quantize_int8(x: torch.Tensor, dim: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantisation along `dim`: scale = max(absmax, 1e-8) / 127.
     Returns (codes int8, scale f32). `torch.round` rounds half to even, as
-    `jnp.round` does."""
+    `jnp.round` does. The scale divides by a tensor: CUDA turns a division
+    by a Python scalar into a product with its reciprocal, one ulp off."""
     absmax = torch.amax(torch.abs(x), dim=dim, keepdim=True)
-    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    scale = torch.clamp(absmax, min=1e-8) / torch.full_like(absmax, 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -8,7 +8,7 @@ from .collate import DeviceCorpus, QueryBatch, build_device_corpus, build_lm_inp
 from .generation import evaluate_generation, generation_metrics
 from .gradcache import gradcache_backward
 from .optim import Adafactor, adafactor, adamw, decay_mask
-from .predict import compute_embeddings, compute_embeddings_to_host
+from .predict import cached_embeddings, compute_embeddings, compute_embeddings_to_host
 from .state import ParameterSchedule, TrainerState
 from .train import RealmTrainStep, clip_by_global_norm, make_train_step, training_loop, validation_loop
 
@@ -24,6 +24,7 @@ __all__ = [
     "benchmark_retrieval",
     "build_device_corpus",
     "build_lm_inputs",
+    "cached_embeddings",
     "clip_by_global_norm",
     "compute_embeddings",
     "compute_embeddings_to_host",

@@ -1,7 +1,6 @@
 """Embedding computation: re-embed a tokenized corpus with the current encoder
-(port of `compute_embeddings` and `compute_embeddings_to_host` of
-`vod_tpu/runtime/predict.py`; `cached_embeddings`, the tensorstore cache,
-waits).
+(port of `vod_tpu/runtime/predict.py`), and the fingerprint-keyed embedding
+cache on disk (`cached_embeddings`).
 
 `encode_fn(input_ids, attention_mask) -> [b, H]` is typically a system's
 `encode_field`; a kbit-prepared model (`models/kbit.py`) dequantizes inside
@@ -75,3 +74,39 @@ def compute_embeddings_to_host(
             out_np = np.empty((n, int(vecs.shape[-1])), out_dtype or np.float32)
         out_np[s0 : s0 + vecs.shape[0]] = vecs.to(torch.float32).cpu().numpy()
     return out_np
+
+
+def cached_embeddings(
+    encode_fn: EncodeFn,
+    params: typ.Any,
+    corpus: DeviceCorpus,
+    *,
+    cache_dir: str,
+    dataset_fingerprint: str,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """`compute_embeddings` behind a store on disk keyed by (dataset, weights,
+    dim): `params` is what `fingerprint_params` hashes (the model whose
+    `encode_fn` this is). A store that exists is read back (float32, to the
+    corpus's device) unless the zero-vector probe finds a hole or the store
+    cannot be decoded (`types/lazy.py:UnreadableStore`); then the embeddings
+    are computed and written over it."""
+    from vod_tpu_torch.types.lazy import TensorStoreFactory, UnreadableStore
+    from vod_tpu_torch.utils.cache import cached_artifact_path
+    from vod_tpu_torch.utils.fingerprint import fingerprint, fingerprint_params
+
+    with torch.no_grad():
+        dim = int(encode_fn(corpus.input_ids[:1], corpus.attention_mask[:1]).shape[-1])
+    fp = fingerprint({"dataset": dataset_fingerprint, "params": fingerprint_params(params), "dim": dim})
+    factory = TensorStoreFactory(cached_artifact_path(cache_dir, "vectors", fp), (corpus.size, dim))
+    if factory.exists():
+        try:
+            vecs = factory.open().read()
+        except UnreadableStore:
+            vecs = None
+        # zero-vector probe: a row of zeros is a hole, and the store is recomputed
+        if vecs is not None and not (np.abs(vecs).sum(axis=-1) == 0).any():
+            return torch.from_numpy(vecs).to(corpus.input_ids.device)
+    emb = compute_embeddings(encode_fn, corpus, chunk=chunk)
+    factory.instantiate().write(emb.cpu().numpy())
+    return emb

@@ -14,6 +14,14 @@ Where the JAX step passes parameters and optimizer state in and out, here
 they live in the model and the optimizer. The step never waits for the card:
 its metrics stay tensors on the card until the loop logs them.
 
+The loss differentiated is the estimator's plus every auxiliary loss the
+model sows in that pass (`systems.collect_losses`: the SPLADE FLOPS term),
+as JAX's `mutable=["losses"]` collects them; the query encode of live
+retrieval sows nothing. With `splade_query_k` the live retrieval is
+learned-sparse: the current encoder's query impacts are cut to their top-k
+(terms, weights) and searched in the sparse engine's impact postings
+instead of a dense query vector.
+
 With `gradcache_chunk_rows` (a `Ranker` only) each micro-batch's backward
 runs through `runtime/gradcache.py` at one chunk's activation memory, with
 the same gradients. A kbit-prepared model (`models/kbit.py`) holds only its
@@ -21,12 +29,13 @@ trainable leaves as parameters, so the optimizer, built over
 `model.parameters()`, and the clip see only those; its frozen base
 dequantizes inside each layer's forward.
 
-Not ported yet (each raises `NotImplementedError`): learned-sparse (SPLADE)
-live retrieval, a device mesh and profiler traces.
+Not ported yet (each raises `NotImplementedError`): a device mesh and
+profiler traces.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 import typing as typ
@@ -36,6 +45,8 @@ import torch
 from torch import nn
 
 from vod_tpu_torch.models.monitoring import RetrievalMonitor
+from vod_tpu_torch.models.splade import splade_topk_terms
+from vod_tpu_torch.models.systems import collect_losses
 from vod_tpu_torch.search.hybrid import HybridEngines
 from vod_tpu_torch.types.batch import RealmBatch
 from .callbacks import call_callbacks
@@ -79,14 +90,13 @@ class RealmTrainStep:
         splade_query_k: typ.Optional[int] = None,
         gradcache_chunk_rows: typ.Optional[int] = None,
     ):
-        if splade_query_k is not None:
-            raise NotImplementedError("learned-sparse live retrieval (splade_query_k) is not ported to vod_tpu_torch yet")
         if gradcache_chunk_rows is not None and with_lm:
             # GradCache caches the pooled [rows, H] encodings; the Realm reader
             # consumes full lm logits, which would defeat the memory saving
             raise ValueError("gradcache_chunk_rows requires a retriever-only (Ranker) system")
         self.model = model
         self.gradcache_chunk_rows = gradcache_chunk_rows
+        self.splade_query_k = splade_query_k
         self.optimizer = optimizer
         self.prefetch = prefetch
         self.n_sections = n_sections
@@ -109,9 +119,15 @@ class RealmTrainStep:
         noise: Noise = None,
     ) -> RealmBatch:
         """Live retrieval: the queries encoded with the current weights, outside
-        the gradient, then the device collate."""
+        the gradient (learned-sparse: their top-k impact terms), then the
+        device collate."""
         q_vec = None
-        if engines.dense is not None:
+        if self.splade_query_k is not None:
+            with torch.no_grad():
+                impacts = self.model.encode_field(queries.input_ids, queries.attention_mask)
+            terms, term_weights = splade_topk_terms(impacts, self.splade_query_k)
+            queries = dataclasses.replace(queries, terms=terms, term_weights=term_weights)
+        elif engines.dense is not None:
             with torch.no_grad():
                 q_vec = self.model.encode_field(queries.input_ids, queries.attention_mask)
         batch, _ = device_collate(
@@ -129,6 +145,13 @@ class RealmTrainStep:
             noise=noise,
         )
         return batch
+
+    def loss(self, batch: RealmBatch) -> tuple[torch.Tensor, typ.Any]:
+        """(the estimator's loss plus the auxiliary losses the model sows in
+        this pass, the estimator's output)."""
+        with collect_losses(self.model) as sown:
+            out = self.model(batch, mode="evaluate")
+        return out.loss + sum(sown) if sown else out.loss, out
 
     def apply_gradients(self) -> torch.Tensor:
         """Clip the accumulated gradients and step the optimizer; parameters
@@ -187,10 +210,11 @@ class RealmTrainStep:
             batch = self.collate(engines, corpus, q, generator, weights, None if noise is None else noise[i])
             if self.gradcache_chunk_rows is not None:
                 out = gradcache_backward(self.model, batch, chunk_rows=self.gradcache_chunk_rows)
+                loss = out.loss
             else:
-                out = self.model(batch, mode="evaluate")
-                out.loss.backward()
-            loss_sum = loss_sum + out.loss.detach()
+                loss, out = self.loss(batch)
+                loss.backward()
+            loss_sum = loss_sum + loss.detach()
             rels.append(batch.section__relevance)
             scores.append(out.retriever_scores.detach())
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
@@ -214,8 +238,8 @@ class RealmTrainStep:
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
         """Collate and evaluate without a gradient. Returns (metrics, relevances, scores)."""
         batch = self.collate(engines, corpus, queries, generator, weights)
-        out = self.model(batch, mode="evaluate")
-        metrics = {"loss": out.loss, **out.diagnostics}
+        loss, out = self.loss(batch)
+        metrics = {"loss": loss, **out.diagnostics}
         return metrics, batch.section__relevance, out.retriever_scores
 
 

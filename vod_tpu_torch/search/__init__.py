@@ -1,6 +1,8 @@
 """Search engines (port of `vod_tpu/search/`: flat/int8, PQ, IVF and IVF-PQ dense
-indexes, the BM25 sparse index, lookup, hybrid, the config-driven factory with
-its index cache and host-slab builds, and operating-point autotuning)."""
+indexes, the BM25 and learned-impact sparse index, lookup, hybrid, the
+config-driven factory with its index cache and host-slab builds,
+operating-point autotuning, the mutable dense store and the MaxSim
+late-interaction reranker)."""
 
 from .base import SearchQueries, subset_mask
 from .dense import (
@@ -16,10 +18,21 @@ from .dense import (
     pq_search,
 )
 from .autotune import OperatingPoint, autotune, autotune_after_build
+from .dynamic import (
+    DynamicDenseIndex,
+    dynamic_add,
+    dynamic_compact,
+    dynamic_delete,
+    dynamic_from_dense,
+    dynamic_index_init,
+    dynamic_search,
+    dynamic_update,
+)
 from .factory import build_dense_from_config, build_dense_from_host, build_hybrid_engines, build_sparse_from_config
 from .hybrid import HybridEngines, hybrid_search, hybrid_search_and_sample
 from .ivfpq import IVFPQIndex, build_ivfpq_index, ivfpq_search
 from .lookup import lookup_search
+from .maxsim import MaxSimIndex, build_maxsim_index, maxsim_rerank, maxsim_search
 from .sparse import (
     SparseIndex,
     bm25_topk,
@@ -31,9 +44,11 @@ from .sparse import (
 
 __all__ = [
     "DenseIndex",
+    "DynamicDenseIndex",
     "HybridEngines",
     "IVFIndex",
     "IVFPQIndex",
+    "MaxSimIndex",
     "OperatingPoint",
     "PQIndex",
     "SearchQueries",
@@ -48,17 +63,27 @@ __all__ = [
     "build_impact_index",
     "build_ivf_index",
     "build_ivfpq_index",
+    "build_maxsim_index",
     "build_pq_index",
     "build_pq_index_from_host",
     "build_sparse_from_config",
     "build_sparse_index",
     "build_sparse_index_native",
     "dense_search",
+    "dynamic_add",
+    "dynamic_compact",
+    "dynamic_delete",
+    "dynamic_from_dense",
+    "dynamic_index_init",
+    "dynamic_search",
+    "dynamic_update",
     "hybrid_search",
     "hybrid_search_and_sample",
     "ivf_search",
     "ivfpq_search",
     "lookup_search",
+    "maxsim_rerank",
+    "maxsim_search",
     "pq_search",
     "sparse_search",
     "subset_mask",

@@ -172,7 +172,7 @@ def quantize_queries_int8(q: torch.Tensor, scale: torch.Tensor) -> tuple[torch.T
     score = row scale * (codes . corpus codes)."""
     q_f = q.to(torch.float32) * scale
     q_absmax = torch.amax(torch.abs(q_f), dim=-1, keepdim=True)
-    q_row_scale = torch.clamp(q_absmax, min=1e-8) / 127.0
+    q_row_scale = torch.clamp(q_absmax, min=1e-8) / torch.full_like(q_absmax, 127.0)  # a tensor: exact on CUDA
     return torch.clamp(torch.round(q_f / q_row_scale), -127, 127).to(torch.int8), q_row_scale
 
 
