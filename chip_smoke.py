@@ -279,7 +279,41 @@ checked, none caught:
     `cached_embeddings` of 11a's 2^15 passages at e5-base's width: the miss
     writes the store, the hit reads it back bit for bit, a zeroed row
     forces a recompute; ms of each;
-12. the script's wall time, the `kernels` JSON line, the card line, and
+12. multi-device on `torch.distributed` (`SHARDED`, `MULTI_CLI`):
+12a. sharded search (`sharded_search_rank` on each rank): the 2^20 x 768
+    int8 corpus of phase 4's size, seeded, sharded over a "shard" axis
+    (`build_sharded_dense_index`, `kernel: fused`, 512 bins), 64 held-out
+    queries, k = 10; first at world size 1 under NCCL in this process, then
+    on two ranks of the one card under gloo through torchrun (this script
+    with `--rank-job`), 2^19 rows a rank. Checked on each rank: the
+    per-shard `fused_mips_binned` call takes the `wgmma` body and equals its
+    plain version in every id and score; `sharded_dense_search` launches it
+    once (its own main path) and equals the merge of the ranks' plain
+    per-shard answers, the same on every rank; recall@10 against exact f32
+    search at least `INT8_RECALL_FLOOR`; with n_real cut to put every real
+    row on rank 0, the other shards' kernel calls return -1 and the int8
+    sentinel and the search only real rows. Printed: the per-shard kernel,
+    its plain version, `torch.topk(torch._int_mm(q, Vᵀ), k)` and the bound
+    (one rank at a time), the merge (the collective, labelled by backend)
+    and the whole search;
+12b. the experiment CLI under torchrun with two ranks of the one card
+    (gloo; NCCL refuses two ranks on one GPU): each rank runs
+    `vod_tpu_torch.exps.cli.main` (`cli_rank`, which wraps what the CLI
+    calls to record) with `configs/scifact_ranker.yaml` at its own widths
+    under `extends: [strategy/dp, search/sharded]` (int8 sharded over `dp`,
+    `kernel: fused`) over phase 9's harvest, 6 steps with a period every
+    3, then `--resume_from` to step 9. Checked: finite losses; both ranks'
+    parameters equal after every step (a checksum broadcast from rank 0);
+    at least one `wgmma` launch of `fused_mips_binned` a step on each rank,
+    on its 16 rows of a `ShardedDenseIndex`; rank 0 writes each period's
+    checkpoint and rank 1 none, both load it on resume; the first step's
+    mean loss over the ranks equals one process's loss of the same global
+    batch within `MULTI_CLI["loss_rtol"]`; both ranks exit 0. Printed: the
+    step median, the collectives' bytes a step and their share of it, the
+    re-embeds, the sharded builds, each rank's peak memory;
+12c. with two or more cards, 12b again under NCCL at world size = the
+    cards' count; with one, a line says it did not run and why;
+13. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -322,6 +356,12 @@ EXACT_RECALL_FLOOR = 0.999  # only bf16 near-ties between two f32 sum orders may
 # 1 - (k-1)/(2*bins) = 1 - 9/1024 = 0.991 expected at 512 bins; the floor leaves
 # room for the sampling spread of 256 queries
 BINNED_RECALL_FLOOR = 0.975
+# Recall@10 floor of int8 `fused_mips_binned` at 512 bins, k = 10, against
+# exact f32 search (phase 12a): 0.9578 over one shard of 2^20 x 768 on an
+# H100 80GB HBM3 at 700 W (640 pairs, 27 misses): the bins' ~0.9% and the
+# int8 rounding of near-tied neighbours. The floor allows 45 misses, outside
+# that count's binomial spread (sd ~5).
+INT8_RECALL_FLOOR = 0.93
 
 
 # Phase 5: the REALM train path of configs/msmarco_pq_realm.yaml, cut as the
@@ -546,6 +586,28 @@ SECOND_STAGE = dict(
 # k = 10; the embedding cache over phase 11a's 2^15 passages.
 DYNAMIC = dict(capacity=1 << 20, fill=1 << 19, overflow=4096, b=64, k=10, seed=23, embed_chunk=512, hole_row=12345,
                encoder=dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072))
+
+
+# Phase 12: multi-device on torch.distributed. 12a: phase 4's serving corpus
+# size (2^20 x 768, seeded unit rows) as an int8 index sharded over the ranks
+# of a "shard" axis (`kernel: fused`, 512 bins), B = 64 held-out queries (a
+# corpus row + 0.1 noise), k = 10: first at world size 1 under NCCL in this
+# process, then two ranks on the one card under gloo (NCCL refuses two ranks
+# on one GPU), each holding 2^19 rows. `pad_cut`: n_real is cut to rows_per_shard - pad_cut, which puts
+# every real row on rank 0 and leaves the other shards padding only.
+SHARDED = dict(n=1 << 20, d=768, b=64, k=10, bins=512, seed=29, ranks=2, recall_floor=INT8_RECALL_FLOOR,
+               pad_cut=1000, timeout=420)
+# 12b: `configs/scifact_ranker.yaml` at its own widths (hidden 256, 4 layers,
+# 4 heads, FFN 1024, max_length 200, B = 32 global, 8 sections of a prefetch
+# of 100, lr 1e-4, clip 1.0) composed with `strategy/dp` and `search/sharded`
+# (int8, sharded over `dp`, `kernel: fused`), over phase 9's harvest (2^17
+# passages, 8,192 queries), under torchrun with two ranks on the one card
+# (gloo): 6 steps with a period every 3, then a resume to step 9. The first
+# step's loss is held against one process's loss of the same global batch
+# within `loss_rtol` (relative). 12c runs it again under NCCL at world size
+# = the cards' count when there are two or more.
+MULTI_CLI = dict(CLI, held_out=0, max_length=200, max_steps=6, period=3, resume_steps=9, seed=31, ranks=2,
+                 loss_rtol=1e-3, timeout=900)
 
 
 def fail(msg: str) -> None:
@@ -3583,6 +3645,501 @@ def dynamic_cache_phase(dev, card: str, t: dict, corpus) -> dict:
                                           recompute_max_abs_diff=recompute_err), wall_s=wall)
 
 
+def wall_ms(fn, reps: int) -> float:
+    """Mean host wall ms per call over `reps` calls after one warm-up, the
+    card synchronized before and after (for calls whose collectives block
+    the host, where CUDA events would see only the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def sharded_search_rank(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dict:
+    """Phase 12a on this rank of the process group (every rank runs it; at
+    world size 1 too): the int8 corpus sharded over a "shard" axis of all
+    ranks, `kernel: fused`. Checked: this rank's per-shard `fused_mips_binned`
+    call takes the `wgmma` body and equals its plain version in every id and
+    score; `sharded_dense_search` (its own main path: one launch on this
+    rank, on `wgmma`) equals the merge of the ranks' plain per-shard answers
+    and is the same on every rank; recall@10 against exact f32 search clears
+    `t["recall_floor"]`; with n_real cut so that every real row lies on rank
+    0, the other shards return -1 / the int8 sentinel and the search only
+    real rows. Timed, one rank at a time: the per-shard kernel, its plain
+    version, the library call and the bound; together: the merge (the
+    collective and the top-k) and the whole search. Returns the numbers."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from vod_tpu_torch.ops.mips import _INT32_MIN, _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.parallel import all_gather_tensor, axis_group, barrier, make_mesh
+    from vod_tpu_torch.search import SearchQueries
+    from vod_tpu_torch.search.dense import quantize_queries_int8
+    from vod_tpu_torch.search.sharded import build_sharded_dense_index, merge_across_shards, sharded_dense_search
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    backend = dist.get_backend()
+    n, d, b, k, bins = t["n"], t["d"], t["b"], t["k"], t["bins"]
+    mesh = make_mesh((world,), ("shard",))
+    group = axis_group(mesh, "shard")
+    g = torch.Generator(device=dev).manual_seed(t["seed"])  # the same corpus on every rank
+    corpus = torch.randn((n, d), generator=g, device=dev)
+    corpus /= corpus.norm(dim=-1, keepdim=True)
+    src = torch.randint(0, n, (b,), generator=g, device=dev)
+    q = corpus[src] + 0.1 * torch.randn((b, d), generator=g, device=dev)
+    q /= q.norm(dim=-1, keepdim=True)
+    exact = torch.topk(q @ corpus.T, k, dim=-1).indices
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_sharded_dense_index(corpus, mesh, axis="shard", dtype="int8", kernel="fused", approx_recall=0.95)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    del corpus
+    rows = index.rows_per_shard
+    check(rows == n // world and index.local_real == rows and index.vectors.dtype == torch.int8,
+          f"12a rank {rank}: shard of {tuple(index.vectors.shape)}, {index.local_real} real rows")
+    q_i8, q_scale = quantize_queries_int8(q, index.scale)
+
+    # this rank's per-shard call against its plain version
+    body = _binned_body(torch.int8, d, bins, (index.vectors.data_ptr(), q_i8.data_ptr()))
+    check(body == "wgmma", f"12a rank {rank}: the per-shard call's body is {body}")
+    before = fused_mips_binned.body_launches["wgmma"]
+    ks, ki = fused_mips_binned(index.vectors, q_i8, k=k, n_real=index.local_real)
+    check(fused_mips_binned.body_launches["wgmma"] == before + 1, f"12a rank {rank}: not on the wgmma body")
+    rs, ri = fused_mips_binned_reference(index.vectors, q_i8, k=k, n_real=index.local_real)
+    check(torch.equal(ks, rs) and torch.equal(ki, ri), f"12a rank {rank}: per-shard kernel != plain (int8)")
+
+    # the search: this rank's main path
+    fused_mips_binned.launches = 0
+    fused_mips_binned.body_launches.update(wgmma=0, fma=0)
+    out = sharded_dense_search(index, SearchQueries(vector=q), k)
+    torch.cuda.synchronize()
+    launches = dict(fused_mips_binned.body_launches)
+    check(launches == {"wgmma": 1, "fma": 0}, f"12a rank {rank}: the search launched {launches}")
+
+    # the merge of the ranks' plain per-shard answers, and every rank's answer
+    offset = index.shard * rows
+    plain_s = torch.where(ri >= 0, rs.to(torch.float32) * q_scale, float("-inf"))
+    plain_i = torch.where(ri >= 0, ri + offset, -1)
+    want_s, want_i = merge_across_shards(plain_s, plain_i, group)
+    check(torch.equal(out.indices, want_i.to(torch.int32)) and torch.equal(out.scores, want_s),
+          f"12a rank {rank}: the merged answer != the merge of the plain per-shard answers")
+    every = all_gather_tensor(out.indices.contiguous(), group)
+    check(all(torch.equal(every[r], every[0]) for r in range(world)), "12a: the ranks' merged answers differ")
+    got = out.indices.cpu().numpy()
+    want = exact.cpu().numpy()
+    recall = float(sum(len(set(got[r]) & set(want[r])) for r in range(b)) / (b * k))
+    check(recall >= t["recall_floor"], f"12a: recall@10 {recall:.4f} < floor {t['recall_floor']}")
+
+    # every real row on rank 0: the other shards are padding only
+    cut = dataclasses.replace(index, n_real=rows - t["pad_cut"])
+    before = fused_mips_binned.body_launches["wgmma"]
+    cs, ci = fused_mips_binned(cut.vectors, q_i8, k=k, n_real=cut.local_real)
+    check(fused_mips_binned.body_launches["wgmma"] == before + 1, f"12a rank {rank}: cut call not on wgmma")
+    crs, cri = fused_mips_binned_reference(cut.vectors, q_i8, k=k, n_real=cut.local_real)
+    check(torch.equal(cs, crs) and torch.equal(ci, cri), f"12a rank {rank}: cut per-shard kernel != plain")
+    if rank > 0:
+        check(cut.local_real == 0 and bool((ci == -1).all()) and bool((cs == _INT32_MIN).all()),
+              f"12a rank {rank}: a shard of padding only returned rows")
+    cut_out = sharded_dense_search(cut, SearchQueries(vector=q), k)
+    check(bool(torch.isfinite(cut_out.scores).all()) and int(cut_out.indices.max()) < cut.n_real
+          and int(cut_out.indices.min()) >= 0, f"12a rank {rank}: the cut search returned padding")
+
+    # times: the per-shard calls one rank at a time, the collectives together
+    nbytes = rows * d + b * d + b * k * 8
+    ops = 2 * b * rows * d
+    bound = max(nbytes / hbm, ops / peak_int8) * 1e3
+    times: dict = {}
+    for r in range(world):
+        barrier("12a-time")
+        if r == rank:
+            times = dict(
+                ms=time_ms(lambda: fused_mips_binned(index.vectors, q_i8, k=k, n_real=index.local_real), 20),
+                plain_ms=time_ms(lambda: fused_mips_binned_reference(index.vectors, q_i8, k=k,
+                                                                     n_real=index.local_real), 2),
+                library_ms=time_ms(lambda: torch.topk(torch._int_mm(q_i8, index.vectors.T), k, dim=-1), 20),
+            )
+        barrier("12a-time")
+    merge_ms = wall_ms(lambda: merge_across_shards(plain_s, plain_i, group), 20)
+    search_ms = wall_ms(lambda: sharded_dense_search(index, SearchQueries(vector=q), k), 20)
+    return dict(rank=rank, world=world, backend=backend, rows=rows, local_real=index.local_real, build_ms=build_ms,
+                launches=launches, recall_at_10=recall, **times, bound_ms=bound,
+                bound_by="bytes" if nbytes / hbm >= ops / peak_int8 else "operations",
+                merge_ms=merge_ms, search_ms=search_ms, max_abs_err=0.0, card=card)
+
+
+def cli_rank(dev, card: str, t: dict, out_dir: Path) -> dict:
+    """Phase 12b on this rank: `vod_tpu_torch.exps.cli.main` with the phase's
+    YAML, then `main(["--resume_from", run, "--max_steps", ...])`, in the
+    process group this rank joined (so `main` keeps it). Instrumented by
+    wrapping what the CLI calls: each optimizer step's wall ms, its
+    `fused_mips_binned` launches by body, its collectives (bytes, host
+    seconds) and a checksum of the parameters broadcast from rank 0 and
+    held against this rank's; the re-embeds and the sharded builds; the
+    trainer-state writes (rank 0's checkpoints); the checksum after the
+    resume's load. The first step's collated batch (and, on rank 0, the
+    weights before it) go to `out_dir` for the one-process check."""
+    import torch
+    import torch.distributed as dist
+
+    from vod_tpu_torch.exps import cli, recipes
+    from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.parallel import barrier
+    from vod_tpu_torch.runtime.state import TrainerState
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+    from vod_tpu_torch.search import sharded as sharded_mod
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec: dict = dict(steps=[], reembed_s=[], builds=[], writes=0, resume_ok=None, coll=[0, 0.0, 0], first=True)
+    real = dict(step=RealmTrainStep.train_step_accum, collate=RealmTrainStep.collate, embed=recipes.compute_embeddings,
+                build=recipes.build_dense_from_config, save=TrainerState.save, load=cli.load_checkpoint,
+                all_reduce=dist.all_reduce, broadcast=dist.broadcast, kernel=sharded_mod.fused_mips_binned)
+
+    def kernel(vectors, queries, **kw):
+        if "call" not in rec:  # the loop's first per-shard call, timed after the runs
+            rec["call"] = (vectors, queries.clone(), kw)
+        return real["kernel"](vectors, queries, **kw)
+
+    def counted(fn):
+        def wrapped(tensor, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(tensor, *args, **kw)
+            rec["coll"][0] += tensor.numel() * tensor.element_size()
+            rec["coll"][1] += time.perf_counter() - t0
+            rec["coll"][2] += 1
+            return out
+
+        return wrapped
+
+    def checksum(model) -> tuple[bool, float]:
+        s = torch.stack([p.detach().double().sum() for p in model.parameters()]).sum().reshape(1)
+        s0 = s.clone()
+        real["broadcast"](s0, src=0)  # rank 0's, uncounted
+        return bool(torch.equal(s, s0)), float(s)
+
+    def collate(self, *args, **kw):
+        batch = real["collate"](self, *args, **kw)
+        if rec["first"]:
+            torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in vars(batch).items()},
+                       out_dir / f"batch-rank{rank}.pt")
+        return batch
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        if rec["first"] and rank == 0:
+            torch.save({k: v.cpu() for k, v in self.model.state_dict().items()}, out_dir / "state0.pt")
+        before = dict(fused_mips_binned.body_launches)
+        c0 = list(rec["coll"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["step"](self, engines, corpus, micro, generator, weights, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ok, cs = checksum(self.model)
+        rec["steps"].append(dict(
+            ms=ms, launches={k: v - before[k] for k, v in fused_mips_binned.body_launches.items()},
+            loss=float(out[0]["loss"]), checksum_ok=ok, checksum=cs, rows=int(micro[0].input_ids.shape[0]),
+            coll_bytes=rec["coll"][0] - c0[0], coll_s=rec["coll"][1] - c0[1], coll_calls=rec["coll"][2] - c0[2],
+            index=type(engines.dense).__name__, local_real=int(getattr(engines.dense, "local_real", -1)),
+        ))
+        rec["first"] = False
+        return out
+
+    def embed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["embed"](*args, **kw)
+        torch.cuda.synchronize()
+        rec["reembed_s"].append(time.perf_counter() - t0)
+        return out
+
+    def build(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = real["build"](*args, **kw)
+        torch.cuda.synchronize()
+        rec["builds"].append(dict(ms=(time.perf_counter() - t0) * 1e3, type=type(index).__name__,
+                                  rows=int(index.vectors.shape[0]), local_real=int(getattr(index, "local_real", -1))))
+        return index
+
+    def save(self, path):
+        rec["writes"] += 1
+        return real["save"](self, path)
+
+    def load(*args, **kw):
+        state = real["load"](*args, **kw)
+        rec["resume_ok"] = checksum(kw["model"])[0]
+        return state
+
+    dist.all_reduce, dist.broadcast = counted(real["all_reduce"]), counted(real["broadcast"])
+    RealmTrainStep.train_step_accum, RealmTrainStep.collate = step, collate
+    recipes.compute_embeddings, recipes.build_dense_from_config = embed, build
+    TrainerState.save, cli.load_checkpoint = save, load
+    sharded_mod.fused_mips_binned = kernel
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = cli.main(["--config", t["yaml"], "--backend", t["backend"]])
+    resumed = cli.main(["--resume_from", t["run"], "--max_steps", str(t["resume_steps"]), "--backend", t["backend"]])
+    n_params = sum(p.numel() for p in first["model"].parameters())
+
+    # the loop's per-shard call against its plain version, then timed one rank at a time
+    v, q, kw = rec["call"]
+    ks, ki = real["kernel"](v, q, **kw)
+    rs, ri = fused_mips_binned_reference(v, q, **kw)
+    check(torch.equal(ks, rs) and torch.equal(ki, ri), f"12b rank {rank}: the loop's per-shard call != plain")
+    b, d = (int(x) for x in q.shape)
+    nbytes = int(v.shape[0]) * d + b * d + b * kw["k"] * 8
+    ops = 2 * b * int(v.shape[0]) * d
+    call = dict(shape=f"int8 B={b} D={d} rows={int(v.shape[0])} n_real={kw['n_real']} k={kw['k']}",
+                bound_ms=max(nbytes / t["hbm"], ops / t["peak_int8"]) * 1e3,
+                bound_by="bytes" if nbytes / t["hbm"] >= ops / t["peak_int8"] else "operations")
+    for r in range(world):
+        barrier("12b-time")
+        if r == rank:
+            call.update(
+                ms=time_ms(lambda: real["kernel"](v, q, **kw), 20),
+                plain_ms=time_ms(lambda: fused_mips_binned_reference(v, q, **kw), 3),
+                library_ms=time_ms(lambda: torch.topk(torch._int_mm(q, v.T), kw["k"], dim=-1), 20) if b > 16 else None,
+            )
+        barrier("12b-time")
+    return dict(rank=rank, call=call, steps=rec["steps"], reembed_s=rec["reembed_s"], builds=rec["builds"], writes=rec["writes"],
+                resume_ok=rec["resume_ok"], first_step=first["state"].step, resumed_step=resumed["state"].step,
+                periods=[len(first["history"]), len(resumed["history"])], n_params=n_params,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, backend=dist.get_backend())
+
+
+def rank_job(job: str, out_dir: Path, params: dict) -> None:
+    """One rank of a phase-12 group under torchrun (`chip_smoke.py --rank-job
+    <job> <out_dir> <params json>`): joins the group from torchrun's
+    environment on `cuda:{LOCAL_RANK % device_count}` with `params["backend"]`,
+    runs the job and writes its result to `out_dir/<job>-rank<r>.json`. A
+    failed check exits non-zero, and torchrun then fails the group."""
+    import torch
+
+    from vod_tpu_torch.examples import mips_kernel_bench
+    from vod_tpu_torch.parallel import init_distributed, rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = init_distributed(backend=params["backend"], device="cuda")
+    dev = rank_device()
+    card = mips_kernel_bench.card_name(dev)
+    try:
+        if job == "sharded":
+            res = sharded_search_rank(dev, card, params["hbm"], params["peak_int8"], params)
+        else:
+            res = cli_rank(dev, card, params, out_dir)
+        (out_dir / f"{job}-rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def torchrun(job: str, world: int, out_dir: Path, params: dict, timeout: int) -> tuple[list, float]:
+    """`python -m torch.distributed.run --standalone --nproc_per_node <world>
+    chip_smoke.py --rank-job <job> ...` (torchrun), its output to a log under
+    `out_dir`; the whole process group is killed at `timeout`. Fails unless
+    every rank exits 0 and writes its result. Returns (the ranks' results,
+    wall seconds)."""
+    import os
+    import signal
+    import subprocess
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={world}",
+           str(ROOT / "chip_smoke.py"), "--rank-job", job, str(out_dir), json.dumps(params)]
+    log_path = out_dir / f"{job}-{params['backend']}.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    text = log_path.read_text(errors="replace")
+    if rc != 0:
+        print(text[-8000:], file=sys.stderr, flush=True)
+        fail(f"torchrun {job} over {world} ranks ({params['backend']}): exit {rc}")
+    for line in text.splitlines():
+        if line.startswith("[rank") or ("'loss'" in line and line.startswith("[")):
+            log(f"  {job}/{params['backend']}: {line[:300]}")
+    return [json.loads((out_dir / f"{job}-rank{r}.json").read_text()) for r in range(world)], wall
+
+
+def multi_device_phase(dev, card: str, hbm: float, peak_int8: float, t: dict, tc: dict) -> dict:
+    """Phase 12: multi-device on torch.distributed (`SHARDED`, `MULTI_CLI`).
+    12a: `sharded_search_rank` at world size 1 under NCCL in this process,
+    then on `t["ranks"]` ranks of the one card under gloo (torchrun). 12b:
+    the experiment CLI under torchrun with `tc["ranks"]` ranks of the one
+    card (gloo), `cli_rank` on each. Checked: every loss finite; both ranks'
+    parameters equal after every step; at least one `fused_mips_binned`
+    launch a step on each rank, all `wgmma`, on a `ShardedDenseIndex` shard;
+    rank 0 writes each checkpoint (one a period) and rank 1 none, and both
+    ranks load it on resume; the first step's mean loss over the ranks
+    equals one process's loss of the same global batch (the ranks'
+    collated rows, the weights before the step) within `tc["loss_rtol"]`;
+    both ranks exit 0. 12c: with two or more cards, 12b again under NCCL at
+    world size = the cards' count; with one, a line says why it did not run.
+    Returns the numbers."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.exps import cli
+    from vod_tpu_torch.exps.structconf import Experiment
+    from vod_tpu_torch.parallel import init_distributed
+    from vod_tpu_torch.types.batch import RealmBatch
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    out: dict = {}
+
+    # 12a at world size 1: a real NCCL group in this process
+    check(init_distributed(num_processes=1, process_id=0, device="cuda", init_method=f"file://{root / 'pg'}")
+          == (0, 1), "12a: the world-size-1 group did not form")
+    try:
+        out["w1"] = sharded_search_rank(dev, card, hbm, peak_int8, t)
+    finally:  # a failed check exits at once, not after NCCL's watchdog times out
+        torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    w1 = out["w1"]
+    log(f"12a world 1 ({w1['backend']}): {w1['rows']} rows a shard, build {w1['build_ms']:.1f} ms; per-shard kernel "
+        f"{w1['ms']:.4f} ms, plain {w1['plain_ms']:.4f} ms, library {w1['library_ms']:.4f} ms, bound "
+        f"{w1['bound_ms']:.4f} ms ({w1['bound_by']}); merge {w1['merge_ms']:.4f} ms, search {w1['search_ms']:.4f} ms; "
+        f"recall@10 {w1['recall_at_10']:.4f} [{card}]")
+
+    # 12a over two ranks of the one card (gloo)
+    params = dict(t, backend="gloo", hbm=hbm, peak_int8=peak_int8)
+    ranks, wall = torchrun("sharded", t["ranks"], root, params, t["timeout"])
+    out["gloo"] = ranks
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["rows"] == t["n"] // t["ranks"], f"12a rank {r['rank']}: {r['rows']} rows")
+        log(f"12a rank {r['rank']}/{r['world']} (gloo, both on one card): {r['rows']} rows a shard, build "
+            f"{r['build_ms']:.1f} ms; per-shard kernel {r['ms']:.4f} ms (wgmma), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); merge over gloo "
+            f"{r['merge_ms']:.4f} ms, search {r['search_ms']:.4f} ms; recall@10 {r['recall_at_10']:.4f} [{card}]")
+    log(f"12a over {t['ranks']} gloo ranks: torchrun wall {wall:.1f} s")
+
+    # 12b: the CLI under torchrun, two ranks of the one card (gloo)
+    tc = dict(tc)
+    h = harvest_beir(root / "cli", tc)
+    run = root / "cli" / "run"
+    yaml_path = root / "cli" / "exp.yaml"
+    yaml_path.write_text(
+        f"extends: ['{ROOT / 'configs' / 'scifact_ranker.yaml'}', strategy/dp, search/sharded]\n"
+        f"tokenizer: {{name_or_path: '{h['vocab_dir']}', max_length: {tc['max_length']}}}\n"
+        "search_defaults:\n"
+        "  dense: {codec: int8, sharded: true, shard_axis: dp, kernel: fused}\n"
+        f"trainer: {{max_steps: {tc['max_steps']}, period: {tc['period']}, log_interval: 1, "
+        f"checkpoint_path: '{run}'}}\n"
+        "datasets:\n"
+        "  queries:\n"
+        f"    - {{identifier: harvest-train, name_or_path: beir, subsets: ['{h['beir']}'], split: train, "
+        "link: harvest-corpus}\n"
+        "  sections:\n"
+        f"    - {{identifier: harvest-corpus, name_or_path: beir, subsets: ['{h['beir']}']}}\n"
+    )
+    exp = Experiment.from_file(str(yaml_path))
+    m, col, tr, dn = exp.model, exp.collate, exp.trainer, exp.search_defaults.dense
+    check((m.kind, m.gradients, m.hidden_size, m.num_layers, m.num_heads, m.intermediate_size) ==
+          ("ranker", "retrieval", 256, 4, 4, 1024)
+          and (exp.tokenizer.max_length, exp.dataloader.batch_size, col.n_sections, col.prefetch_n_sections,
+               tr.learning_rate, tr.gradient_clip_val) == (200, 32, 8, 100, 1e-4, 1.0)
+          and (list(exp.sys.mesh_shape), list(exp.sys.mesh_axes)) == ([-1], ["dp"])
+          and (dn.codec, dn.sharded, dn.shard_axis, dn.kernel) == ("int8", True, "dp", "fused"),
+          "12b: the parsed Experiment is not scifact_ranker under strategy/dp and search/sharded")
+    log(f"12b inputs: {tc['n']} passages harvested in {h['harvest_s']:.2f} s; {tc['queries']} queries")
+
+    def run_cli(world: int, backend: str) -> dict:
+        import shutil
+
+        shutil.rmtree(run, ignore_errors=True)  # a run of its own: 12c starts from step 0 too
+        params = dict(tc, backend=backend, yaml=str(yaml_path), run=str(run), hbm=hbm, peak_int8=peak_int8)
+        ranks, wall = torchrun("cli", world, root / "cli", params, tc["timeout"])
+        n_steps = tc["resume_steps"]
+        for r in ranks:
+            label = f"12b rank {r['rank']}/{world} ({backend})"
+            check(r["backend"] == backend and r["first_step"] == tc["max_steps"]
+                  and r["resumed_step"] == tc["resume_steps"], f"{label}: steps {r['first_step']}, {r['resumed_step']}")
+            check(len(r["steps"]) == n_steps, f"{label}: {len(r['steps'])} optimizer steps, not {n_steps}")
+            check(all(math.isfinite(s["loss"]) for s in r["steps"]), f"{label}: a loss is not finite")
+            check(all(s["checksum_ok"] for s in r["steps"]), f"{label}: parameters differ from rank 0's after a step")
+            check(all(s["launches"]["wgmma"] >= 1 and s["launches"]["fma"] == 0 for s in r["steps"]),
+                  f"{label}: a step without a wgmma launch of fused_mips_binned: {[s['launches'] for s in r['steps']]}")
+            # the resume reads config.json, where every batch field counts as set: per_device drives the loader
+            rows = [exp.dataloader.batch_size // world] * tc["max_steps"] + [
+                exp.trainer.batch_size.per_device // world] * (tc["resume_steps"] - tc["max_steps"])
+            check([s["rows"] for s in r["steps"]] == rows and all(s["index"] == "ShardedDenseIndex"
+                                                                  for s in r["steps"]),
+                  f"{label}: steps over {[s['rows'] for s in r['steps']]} rows, not {rows} of a sharded index")
+            check(all(b_["type"] == "ShardedDenseIndex" for b_ in r["builds"]) and len(r["builds"]) == 3,
+                  f"{label}: builds {r['builds']}")
+            check(r["writes"] == (3 if r["rank"] == 0 else 0), f"{label}: {r['writes']} checkpoint writes")
+            check(r["resume_ok"] is True, f"{label}: the resumed parameters differ from rank 0's")
+        check(sorted(p.name for p in run.iterdir()) == ["config.json", "period-0", "period-1", "period-2"],
+              f"12b: the run directory holds {sorted(p.name for p in run.iterdir())}")
+        return dict(ranks=ranks, wall_s=wall)
+
+    def one_process_loss(world: int) -> float:
+        """The first step's loss of one process over the ranks' rows."""
+        parts = [torch.load(root / "cli" / f"batch-rank{r}.pt", weights_only=False) for r in range(world)]
+        fields = {k: torch.cat([p[k] for p in parts]).to(dev) if isinstance(parts[0][k], torch.Tensor) else parts[0][k]
+                  for k in parts[0]}
+        model = cli.build_model(exp.model, proposal_temperature=exp.collate.temperature, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(exp.sys.seed))
+        model.load_state_dict(torch.load(root / "cli" / "state0.pt", weights_only=True))
+        with torch.no_grad():
+            return float(model(RealmBatch(**fields), mode="evaluate").loss)
+
+    out["cli"] = run_cli(tc["ranks"], "gloo")
+    ranks = out["cli"]["ranks"]
+    first = sum(r["steps"][0]["loss"] for r in ranks) / len(ranks)
+    single = one_process_loss(tc["ranks"])
+    rel = abs(first - single) / max(abs(single), 1e-12)
+    check(rel <= tc["loss_rtol"], f"12b: first-step loss {first:.6f} over the ranks != one process's {single:.6f}")
+    out["cli"].update(first_loss=first, one_process_loss=single, first_loss_rel=rel)
+    for r in ranks:
+        steady = [s["ms"] for i, s in enumerate(r["steps"]) if i % tc["period"] != 0]
+        share = sum(s["coll_s"] for s in r["steps"]) * 1e3 / sum(s["ms"] for s in r["steps"])
+        r.update(step_median_ms=statistics.median(steady), coll_bytes_step=statistics.median(
+            [s["coll_bytes"] for s in r["steps"]]), coll_share=share)
+        log(f"12b rank {r['rank']} (gloo, both on one card): step median {r['step_median_ms']:.2f} ms (first of each "
+            f"period left out), {r['coll_bytes_step']:,} bytes of collectives a step ({share:.3f} of the step, gloo, "
+            f"host wall); re-embeds {[round(x, 2) for x in r['reembed_s']]} s; sharded builds "
+            f"{[round(b_['ms'], 1) for b_ in r['builds']]} ms; peak {r['peak_gib']:.4f} GiB; launches a step "
+            f"{[s['launches']['wgmma'] for s in r['steps']]}; losses {[round(s['loss'], 5) for s in r['steps']]} "
+            f"[{card}]")
+    for r in ranks:
+        c = r["call"]
+        log(f"12b rank {r['rank']} loop call ({c['shape']}, equal to plain): kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f} ms, library {c['library_ms']} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}) "
+            f"[{card}]")
+    log(f"12b: first-step loss over the ranks {first:.6f}, one process {single:.6f} (rel {rel:.2e}); "
+        f"{r['n_params']:,} parameters; torchrun wall {out['cli']['wall_s']:.1f} s")
+
+    # 12c: NCCL at world size 2 or more needs as many cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out["nccl"] = run_cli(n_cards, "nccl")
+        log(f"12c: the CLI under NCCL over {n_cards} cards: torchrun wall {out['nccl']['wall_s']:.1f} s")
+    else:
+        out["nccl"] = None
+        log(f"12c not run: NCCL at world size 2 or more needs 2 or more cards, and this machine has {n_cards}")
+    tmp.cleanup()
+    out["wall_s"] = time.perf_counter() - started
+    log(f"phase 12 wall time: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     started = time.perf_counter()
     import numpy as np
@@ -3594,6 +4151,9 @@ def main() -> None:
     if not all((ROOT / "vod_tpu_torch" / "csrc" / f"{name}.cu").is_file() for name in kernel_names):
         fail(f"no vod_tpu_torch checkout around {ROOT}")
     sys.path.insert(0, str(ROOT))
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank-job":  # one rank of phase 12, under torchrun
+        rank_job(sys.argv[2], Path(sys.argv[3]), json.loads(sys.argv[4]))
+        return
     from vod_tpu_torch.examples import mips_kernel_bench
     from vod_tpu_torch.models import TransformerEncoderConfig, VodEncoder, VodPoolerConfig
     from vod_tpu_torch.ops import cuda_build
@@ -4016,7 +4576,28 @@ def main() -> None:
     phase11_s = time.perf_counter() - t11
     log(f"phase 11 wall time: {phase11_s:.1f} s")
 
-    # 12. result lines
+    # 12. multi-device on torch.distributed: sharded search at world size 1
+    # (NCCL) and over two ranks of the card (gloo) (12a), the CLI under
+    # torchrun (12b), NCCL over two or more cards where there are (12c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi = multi_device_phase(dev, card, hbm, peak_int8, SHARDED, MULTI_CLI)
+    shard_keys = ("rank", "world", "backend", "rows", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "merge_ms", "search_ms", "recall_at_10", "build_ms")
+    sharded = dict(
+        shards=[{k: r[k] for k in shard_keys} for r in [multi["w1"], *multi["gloo"]]],
+        cli=dict(first_loss=multi["cli"]["first_loss"], one_process_loss=multi["cli"]["one_process_loss"],
+                 ranks=[{k: r[k] for k in ("rank", "step_median_ms", "coll_bytes_step", "coll_share", "reembed_s",
+                                            "peak_gib", "n_params", "call")} | {"build_ms": [b_["ms"] for b_ in r["builds"]]}
+                        for r in multi["cli"]["ranks"]], wall_s=multi["cli"]["wall_s"]),
+        nccl_cards=None if multi["nccl"] is None else len(multi["nccl"]["ranks"]), wall_s=multi["wall_s"],
+    )
+    sharded_launches = dict(
+        w1_nccl=multi["w1"]["launches"], gloo_ranks=[r["launches"] for r in multi["gloo"]],
+        cli_ranks_per_step=[[s["launches"]["wgmma"] for s in r["steps"]] for r in multi["cli"]["ranks"]],
+    )
+
+    # 13. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -4049,6 +4630,7 @@ def main() -> None:
         large=large, splade_launches=splade["launches"]["fused_mips_binned"],
         second_stage_launches=second_stage["launches"]["fused_mips_binned"],
         phase11=dict(splade=splade, second_stage=second_stage, dynamic=dynamic, wall_s=phase11_s),
+        sharded_launches=sharded_launches, sharded=sharded,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

@@ -256,14 +256,19 @@ def test_unported_option_raises_before_data_loads(over: dict, item: str) -> None
 
 
 def test_mesh_and_multi_process_launch_raise(monkeypatch) -> None:
+    """A mesh is ported: one process (one rank) runs without one, as JAX does
+    on one device, whatever the devices. A multi-process launch needs a
+    coordinator or torchrun's environment (`tests/test_torch_cli_mesh.py`
+    runs two ranks)."""
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     exp = Experiment.parse(_raw(sys={"mesh_shape": [2, 2], "mesh_axes": ["dp", "shard"]}))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.check_ported(exp, "cuda")
-    cli.check_ported(exp, "cpu")  # one device: no mesh, as in JAX
+    cli.check_ported(exp, "cuda")
+    cli.check_ported(exp, "cpu")
     cli.check_ported(Experiment.parse(_raw(sys={"mesh_shape": [1]})), "cuda")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["--config", "x.yaml", "--num_processes", "2"])
+    with pytest.raises(ValueError, match="coordinator"):
+        cli.main(["--config", "x.yaml", "--num_processes", "2", "--device", "cpu"])
 
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "vod_tpu", "pydantic", "yaml", "transformers", "tokenizers",

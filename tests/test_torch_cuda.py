@@ -967,3 +967,25 @@ def test_cross_encoder_and_cache_on_card(cuda_device, tmp_path) -> None:
     miss = cached_embeddings(ranker.encode_field, ranker, corpus, cache_dir=str(tmp_path), dataset_fingerprint="d")
     hit = cached_embeddings(ranker.encode_field, ranker, corpus, cache_dir=str(tmp_path), dataset_fingerprint="d")
     assert hit.device == miss.device and torch.equal(hit, miss)
+
+
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")], ids=["w1-nccl", "w2-gloo-one-card"])
+def test_per_shard_binned_call_matches_plain_on_card(cuda_device, world: int, backend: str, tmp_path) -> None:
+    """The sharded int8 index's per-shard `fused_mips_binned` call on the card
+    (`search/sharded.py`): at world size 1 under NCCL, and on two ranks of the
+    one card under gloo (NCCL refuses two ranks on one GPU). Each rank's
+    call takes the `wgmma` body and equals its plain version; a shard of
+    padding only (n_real cut to put every real row on rank 0) returns -1 and
+    the int8 sentinel; every rank merges the same answer."""
+    from tests.torch_helpers import job_shard_kernel, run_ranks
+
+    n = 1 << 16
+    out = run_ranks(job_shard_kernel, world, tmp_path, n, 256, 64, 10, device="cuda", backend=backend)
+    for rank, r in enumerate(out):
+        assert r["body"] == "wgmma"
+        assert r["full"]["launched"] == 1 and r["full"]["equal"] and r["full"]["local_real"] == n // world
+        assert r["cut"]["launched"] == 1 and r["cut"]["equal"]
+        assert r["cut"]["empty"] == (rank > 0)
+        np.testing.assert_array_equal(r["full"]["ids"], out[0]["full"]["ids"])
+        np.testing.assert_array_equal(r["cut"]["ids"], out[0]["cut"]["ids"])
+        assert (r["cut"]["ids"] < n // world - 100).all() and (r["cut"]["ids"] >= 0).all()

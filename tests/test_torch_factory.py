@@ -108,12 +108,15 @@ def test_pq_and_ivf_builds_have_the_jax_structure(diff: dict) -> None:
 
 
 def test_unported_builds_raise() -> None:
+    """Sharded flat/int8 are ported (`tests/test_torch_sharded.py`); as in
+    JAX, `sharded` without a mesh builds the plain index and a mesh without
+    `sharded` is ignored. Sharded pq raises, naming ROADMAP §A item 5b."""
     x = _vectors()
     for cfg, kw in ((DenseFactoryConfig(sharded=True), {}), (DenseFactoryConfig(), {"mesh": object()})):
-        with pytest.raises(NotImplementedError):
-            build_dense_from_config(cfg, x, device="cpu", **kw)
-        with pytest.raises(NotImplementedError):
-            build_dense_from_host(dataclasses.replace(cfg, codec="int8"), x, device="cpu", **kw)
+        assert type(build_dense_from_config(cfg, x, device="cpu", **kw)) is DenseIndex
+        assert type(build_dense_from_host(dataclasses.replace(cfg, codec="int8"), x, device="cpu", **kw)) is DenseIndex
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        build_dense_from_config(DenseFactoryConfig(codec="pq", sharded=True), x, mesh=object(), device="cpu")
 
 
 def test_builders_default_to_the_card() -> None:

@@ -238,9 +238,8 @@ def test_host_build_downgrades_full_precision_stores_and_refuses_flat() -> None:
     assert ix.rerank_codes.dtype == torch.int8 and ix.refine_codes.dtype == torch.int8
     with pytest.raises(ValueError, match="host-slab build supports"):
         build_dense_from_host(DenseFactoryConfig(codec="flat"), x, device=CPU)
-    for bad in (DenseFactoryConfig(codec="pq", sharded=True), DenseFactoryConfig(codec="int8")):
-        with pytest.raises(NotImplementedError):
-            build_dense_from_host(bad, x, mesh=object() if not bad.sharded else None, device=CPU)
+    with pytest.raises(NotImplementedError, match="item 5b"):  # sharded int8 is ported (test_torch_sharded.py)
+        build_dense_from_host(DenseFactoryConfig(codec="pq", sharded=True), x, mesh=object(), device=CPU)
 
 
 def _record(monkeypatch, module, name: str) -> list:

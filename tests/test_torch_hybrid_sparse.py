@@ -192,17 +192,6 @@ def test_build_sparse_from_config_and_hybrid_engines_match_jax() -> None:
     assert build_hybrid_engines(hcfg, device=CPU) == HybridEngines()
 
 
-@pytest.mark.parametrize("call", ["sparse-mesh", "hybrid-mesh"])
-def test_unported_options_raise(call: str) -> None:
-    docs = [[1, 2], [3]]
-    cfg = HybridSearchFactoryConfig(sparse=SparseFactoryConfig(sharded=True))
-    with pytest.raises(NotImplementedError):
-        if call == "sparse-mesh":
-            build_sparse_from_config(SparseFactoryConfig(), docs, mesh=object(), device=CPU)
-        else:
-            build_hybrid_engines(cfg, doc_terms=docs, mesh=object(), device=CPU)
-
-
 def test_sharded_flag_without_a_mesh_builds_the_plain_index_as_jax_does() -> None:
     docs = [[1, 2], [3, 3, 1]]
     cfg = HybridSearchFactoryConfig(sparse=SparseFactoryConfig(sharded=True))

@@ -63,6 +63,8 @@ def test_every_module_imports_with_jax_and_vod_tpu_blocked() -> None:
         "vod_tpu_torch.models.splade", "vod_tpu_torch.models.cross_encoder", "vod_tpu_torch.search.maxsim",
         "vod_tpu_torch.search.dynamic", "vod_tpu_torch.types.lazy", "vod_tpu_torch.utils.cache",
         "vod_tpu_torch.examples.maxsim_bench", "vod_tpu_torch.examples.predict_and_index",
+        "vod_tpu_torch.parallel.distributed", "vod_tpu_torch.parallel.mesh", "vod_tpu_torch.search.sharded",
+        "vod_tpu_torch.examples.multiprocess_dryrun",
     } <= set(modules)
     code = (
         "import sys, importlib\n"

@@ -407,9 +407,10 @@ def test_unported_options_raise() -> None:
     a, _, _, _, _, params = _init()
     tmodel, tcorpus, teng = _torch_side(a, params)
     opt = adamw(tmodel, 1e-3, weight_decay=0.0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is ported (tests/test_torch_train_dp.py); profiler traces are not
+    with pytest.raises(NotImplementedError, match="profile_dir"):
         training_loop(step_fn=make_train_step(tmodel, opt), engines=teng, corpus=tcorpus, train_queries=[],
-                      state=TrainerState(), generator=torch.Generator(), mesh=object())
+                      state=TrainerState(), generator=torch.Generator(), profile_dir="trace")
 
 
 def test_new_entry_points_default_to_the_card() -> None:

@@ -7,6 +7,9 @@ The suite runs several pytest workers at once, so PyTorch gets one thread.
 
 from __future__ import annotations
 
+import time
+import typing as typ
+
 import numpy as np
 import pytest
 import torch
@@ -35,3 +38,348 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA; run on the card")
     return torch.device("cuda", 0)
+
+
+# ---- multi-rank runs: a gloo group of CPU ranks --------------------------------
+#
+# A job is a function of this module (so that a child imports no JAX) called as
+# `job(rank, world, *args)` in each of `world` processes joined in one gloo
+# group through a file in the test's tmp_path. The children come from a fork
+# server that has imported torch and the port once, so each group starts in
+# about a second; each child runs one torch thread.
+
+_SPAWNS = iter(range(1 << 30))
+_PRELOAD = ["torch", "numpy", "tests.torch_helpers", "vod_tpu_torch.exps.cli", "vod_tpu_torch.search.sharded"]
+
+
+def _rank_main(job, rank: int, world: int, init_file: str, args: tuple, results, device: str,
+               backend: typ.Optional[str]) -> None:
+    import traceback
+
+    torch.set_num_threads(1)
+    try:
+        from vod_tpu_torch.parallel import init_distributed
+
+        init_distributed(num_processes=world, process_id=rank, device=device, backend=backend,
+                         init_method=f"file://{init_file}")
+        out = job(rank, world, *args)
+        results.put((rank, None, out))
+    except BaseException:  # noqa: BLE001 - the parent raises it
+        results.put((rank, traceback.format_exc(), None))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_ranks(job, world: int, tmp_path, *args, timeout: float = 300.0, device: str = "cpu",
+              backend: typ.Optional[str] = None) -> list:
+    """Run `job(rank, world, *args)` on `world` ranks of one group (CPU ranks
+    under gloo unless `device` / `backend` say otherwise); returns their
+    results in rank order and raises the first rank's error."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    init_file = str(tmp_path / f"pg-{next(_SPAWNS)}")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(job, r, world, init_file, args, results, device, backend))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got: dict[int, typ.Any] = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            try:
+                rank, err, out = results.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode is not None]
+                if dead or time.monotonic() > deadline:
+                    why = f"exited ({[procs[r].exitcode for r in dead]})" if dead else f"gave no result in {timeout} s"
+                    raise RuntimeError(f"ranks {dead or sorted(set(range(world)) - set(got))} of {world} {why}")
+                continue
+            if err is not None:
+                raise RuntimeError(f"rank {rank} of {world} failed:\n{err}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    return [got[r] for r in range(world)]
+
+
+def _tensors(d: typ.Optional[dict]) -> dict:
+    """Arrays as tensors; other values as they are."""
+    return {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v for k, v in (d or {}).items()}
+
+
+def job_sharded_dense(rank: int, world: int, vectors, mesh_shape, axis_names, axis: str, build_kw: dict,
+                      queries: dict, top_k: int, batch_axis: typ.Optional[str] = None) -> tuple:
+    """Build this rank's shard of `vectors` and search `queries` (all of them,
+    or with `batch_axis` this rank's block of their rows). Returns (scores,
+    ids, the shard's real rows)."""
+    from vod_tpu_torch.parallel import make_mesh, shard_batch
+    from vod_tpu_torch.search.base import SearchQueries
+    from vod_tpu_torch.search.sharded import build_sharded_dense_index, sharded_dense_search
+
+    mesh = make_mesh(mesh_shape, axis_names)
+    index = build_sharded_dense_index(vectors, mesh, axis=axis, device="cpu", **_tensors(build_kw))
+    q = SearchQueries(**_tensors(queries))
+    if batch_axis is not None:
+        q = shard_batch(q, mesh, batch_axis)
+    r = sharded_dense_search(index, q, top_k, batch_axis=batch_axis)
+    return np_of(r.scores), np_of(r.indices), index.local_real
+
+
+def job_sharded_sparse(rank: int, world: int, table: dict, axis: str, queries: dict, top_k: int,
+                       batch_axis: typ.Optional[str] = None) -> tuple:
+    """Split the BM25 table `table` (the fields of a `SparseIndex`) over the
+    ranks and search. Returns (scores, ids, this rank's postings width)."""
+    from vod_tpu_torch.parallel import make_mesh, shard_batch
+    from vod_tpu_torch.search.base import SearchQueries
+    from vod_tpu_torch.search.sharded import shard_sparse_index, sharded_sparse_search
+    from vod_tpu_torch.search.sparse import SparseIndex
+
+    mesh = make_mesh((world,), (axis,))
+    index = shard_sparse_index(SparseIndex(**{**_tensors(table), "n_docs": table["n_docs"]}), mesh, axis=axis)
+    q = SearchQueries(**_tensors(queries))
+    if batch_axis is not None:
+        q = shard_batch(q, mesh, batch_axis)
+    r = sharded_sparse_search(index, q, top_k, batch_axis=batch_axis)
+    return np_of(r.scores), np_of(r.indices), int(index.postings_docs.shape[1])
+
+
+def job_basics(rank: int, world: int, n_rows: int) -> dict:
+    """`process_slice`, `global_batch_from_local`, `all_gather_tensor`,
+    `barrier` and `is_main_process` on this rank."""
+    from vod_tpu_torch.parallel import (
+        all_gather_tensor,
+        barrier,
+        global_batch_from_local,
+        is_main_process,
+        make_mesh,
+        process_slice,
+        world_size,
+    )
+
+    sl = process_slice(n_rows)
+    rows = torch.arange(n_rows, dtype=torch.float32)[sl].reshape(-1, 1) * 10 + rank  # rank-tagged rows
+    barrier("test")
+    gathered = all_gather_tensor(torch.tensor([rank, 7 * rank], dtype=torch.bfloat16))
+    meshes = {"1d": make_mesh((-1,), ("dp",)), "2d": make_mesh((2, -1) if world % 2 == 0 else (-1, 1), ("dp", "fsdp"))}
+    return dict(slice=(sl.start, sl.stop), world=world_size(), main=is_main_process(),
+                meshes={k: list(m.shape) for k, m in meshes.items()},
+                batch=np_of(global_batch_from_local(rows)), gathered=np_of(gathered.to(torch.float32)))
+
+
+def job_aggregate(rank: int, world: int, values: dict) -> dict:
+    """`aggregate_metrics_psum` of this rank's block of each value's rows."""
+    from vod_tpu_torch.models.monitoring import aggregate_metrics_psum
+
+    mine = {k: torch.as_tensor(np.array_split(v, world)[rank]) for k, v in values.items()}
+    return {k: float(v) for k, v in aggregate_metrics_psum(mine).items()}
+
+
+def topic_ranker(sizes: dict, state: typ.Optional[dict] = None, seed: int = 0):
+    """A float32 `Ranker` (mean pooling, l2, learned scaler 8) of `sizes`,
+    from `state` (numpy arrays) or seeded weights."""
+    from vod_tpu_torch.models import Ranker, RetrievalGradients, TransformerEncoderConfig, VodPoolerConfig
+
+    cfg = TransformerEncoderConfig(dtype=torch.float32, pooler=VodPoolerConfig(
+        agg_method="mean", output_norm="l2", scaler=8.0, learn_scaler=True), **sizes)
+    model = Ranker(cfg, RetrievalGradients(), device=CPU, generator=torch.Generator().manual_seed(seed))
+    if state is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return model
+
+
+def job_train_dp(rank: int, world: int, sizes: dict, state: dict, sec: np.ndarray, batches: list, index: str,
+                 step_kw: dict, optimizer: str, val_batches: int = 0, emb: typ.Optional[np.ndarray] = None) -> dict:
+    """`training_loop` (and `validation_loop` over the first `val_batches`
+    batches) of a topic `Ranker` from `state` over the global `batches`
+    [(query ids, gold ids)], on a dp mesh of the world (no mesh at world 1).
+    `index`: "flat" (a replicated f32 index) or "sharded" (sharded over dp).
+    `emb` replaces the model's embeddings of `sec` as the index's vectors.
+    Returns the logs (rank 0), the final parameters and the validation
+    metrics."""
+    from vod_tpu_torch.parallel import make_mesh
+    from vod_tpu_torch.runtime import QueryBatch, TrainerState, adamw, build_device_corpus, make_train_step
+    from vod_tpu_torch.runtime.train import training_loop, validation_loop
+    from vod_tpu_torch.search import HybridEngines, build_dense_index
+    from vod_tpu_torch.search.sharded import build_sharded_dense_index
+
+    mesh = make_mesh((world,), ("dp",)) if world > 1 else None
+    model = topic_ranker(sizes, state)
+    corpus = build_device_corpus(sec, np.ones_like(sec), device=CPU)
+    if emb is None:
+        with torch.no_grad():
+            emb = model.encode_field(corpus.input_ids, corpus.attention_mask)
+    emb = torch.as_tensor(emb)
+    if index == "sharded" and mesh is not None:
+        dense = build_sharded_dense_index(emb, mesh, axis="dp", dtype="float32", approx_recall=None)
+    else:
+        dense = build_dense_index(emb, dtype="float32", approx_recall=None, device=CPU)
+    engines = HybridEngines(dense=dense)
+    opt = adamw(model, 1e-3, weight_decay=0.0) if optimizer == "adam" else torch.optim.SGD(model.parameters(), lr=0.5)
+    step = make_train_step(model, opt, **step_kw)
+    qs = [QueryBatch(torch.from_numpy(i), torch.ones_like(torch.from_numpy(i)), section_ids=torch.from_numpy(g))
+          for i, g in batches]
+    logs: list = []
+    gen = torch.Generator().manual_seed(5)
+    state_, last = training_loop(
+        step_fn=step, engines=engines, corpus=corpus, train_queries=qs, state=TrainerState(max_steps=len(qs)),
+        generator=gen, log_interval=1, prefetch_batches=0, metrics=("mrr", "hitrate_3"), mesh=mesh,
+        on_log=lambda s, m: logs.append(m),
+    )
+    val = None
+    if val_batches:
+        val = validation_loop(step_fn=step, engines=engines, corpus=corpus, val_queries=qs[:val_batches],
+                              generator=gen, weights=None, metrics=("mrr", "hitrate_3"), mesh=mesh)
+    return dict(logs=logs, last=last, steps=state_.step, val=val,
+                params={k: np_of(v) for k, v in model.state_dict().items()})
+
+
+def job_embeddings(rank: int, world: int, sizes: dict, state: dict, sec: np.ndarray, chunk: int) -> np.ndarray:
+    """`compute_embeddings` of a topic `Ranker` over `sec`, its chunks split
+    over a dp mesh of the world."""
+    from vod_tpu_torch.parallel import make_mesh
+    from vod_tpu_torch.runtime import build_device_corpus
+    from vod_tpu_torch.runtime.predict import compute_embeddings
+
+    model = topic_ranker(sizes, state)
+    corpus = build_device_corpus(sec, np.ones_like(sec), device=CPU)
+    return np_of(compute_embeddings(model.encode_field, corpus, chunk=chunk, mesh=make_mesh((world,), ("dp",))))
+
+
+def job_fsdp_step(rank: int, world: int, sizes: dict, state: dict, sec: np.ndarray, batch: tuple) -> dict:
+    """One `RealmTrainStep.train_step` (AdamW, clip 1.0) of a topic `Ranker`
+    whose parameters FSDP2 shards over an `fsdp` mesh of the world
+    (`shard_params`); the batch is whole on every rank, as JAX's fsdp-only
+    mesh leaves it. Returns the loss, the gradient norm, the full
+    parameters and the shard dims."""
+    from vod_tpu_torch.parallel import fsdp_sharding, make_mesh, shard_params
+    from vod_tpu_torch.runtime import QueryBatch, adamw, build_device_corpus, make_train_step
+    from vod_tpu_torch.search import HybridEngines, build_dense_index
+
+    model = topic_ranker(sizes, state)
+    corpus = build_device_corpus(sec, np.ones_like(sec), device=CPU)
+    with torch.no_grad():
+        emb = model.encode_field(corpus.input_ids, corpus.attention_mask)
+    engines = HybridEngines(dense=build_dense_index(emb, dtype="float32", approx_recall=None, device=CPU))
+    dims = {}
+    if world > 1:
+        mesh = make_mesh((world,), ("fsdp",))
+        dims = fsdp_sharding(model, mesh)
+        shard_params(model, mesh)
+    step = make_train_step(model, adamw(model, 1e-3, weight_decay=0.01), prefetch=16, n_sections=4,
+                           max_pos_sections=1, gradient_clip_val=1.0)
+    ids, gold = batch
+    m, _, _ = step.train_step(engines, corpus, QueryBatch(torch.from_numpy(ids), torch.ones_like(torch.from_numpy(ids)),
+                                                          section_ids=torch.from_numpy(gold)),
+                              torch.Generator().manual_seed(3), None)
+    full = {k: np_of(v.full_tensor() if hasattr(v, "full_tensor") else v) for k, v in model.state_dict().items()}
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), params=full, dims=dims,
+                sharded=sorted(k for k, p in model.named_parameters() if hasattr(p, "to_local")))
+
+
+def job_cli(rank: int, world: int, config: str, resume: typ.Optional[tuple] = None) -> dict:
+    """`cli.main` on this rank (`--device cpu`), then, with `resume` = (run
+    dir, max steps), `main(--resume_from ...)`. Returns the runs' steps,
+    losses, the accumulation, the engines' types and a parameter checksum."""
+    import contextlib
+    import io
+
+    from vod_tpu_torch.exps import cli, recipes
+    from vod_tpu_torch.search import factory
+
+    built: list = []
+
+    def spy(real):
+        def wrapped(*a, **kw):
+            index = real(*a, **kw)
+            built.append(type(index).__name__)
+            return index
+
+        return wrapped
+
+    recipes.build_dense_from_config = spy(recipes.build_dense_from_config)
+    factory.build_sparse_from_config = spy(factory.build_sparse_from_config)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        first = cli.main(["--config", config, "--device", "cpu"])
+        second = None
+        if resume is not None:
+            second = cli.main(["--resume_from", resume[0], "--max_steps", str(resume[1]), "--device", "cpu"])
+
+    def summary(res: dict) -> dict:
+        hist = res["history"]
+        return dict(step=res["state"].step, periods=len(hist), accumulate=res["step_fn"].accumulate_grad_batches,
+                    losses=[h["train"].get("loss") for h in hist],
+                    checksum=float(sum(p.detach().double().sum() for p in res["model"].parameters())))
+
+    return dict(first=summary(first), second=None if second is None else summary(second), stdout=out.getvalue(),
+                built=built)
+
+
+def job_sequence(rank: int, world: int, calls: list) -> list:
+    """Several jobs, one after the other, in one group: [(job, args), ...]."""
+    return [job(rank, world, *args) for job, args in calls]
+
+
+def job_shard_batch(rank: int, world: int, leaves: dict) -> dict:
+    """`shard_batch` of a dict of arrays over a dp mesh of the world, and of
+    a `QueryBatch` made of the first two leaves."""
+    from vod_tpu_torch.parallel import make_mesh, shard_batch
+    from vod_tpu_torch.runtime import QueryBatch
+
+    mesh = make_mesh((world,), ("dp",))
+    out = shard_batch({k: torch.as_tensor(v) for k, v in leaves.items()}, mesh, "dp")
+    ids, mask = (torch.as_tensor(v) for v in list(leaves.values())[:2])
+    qb = shard_batch(QueryBatch(ids, mask), mesh, "dp")
+    return dict(leaves={k: np_of(v) for k, v in out.items()}, query=np_of(qb.input_ids),
+                none_kept=qb.section_ids is None)
+
+
+def job_cli_refusal(rank: int, world: int, config: str) -> str:
+    """The error `cli.main` raises for `config` on this rank ("" if none)."""
+    from vod_tpu_torch.exps import cli
+
+    try:
+        cli.main(["--config", config, "--device", "cpu"])
+    except Exception as exc:  # noqa: BLE001 - the test reads it
+        return f"{type(exc).__name__}: {exc}"
+    return ""
+
+
+def job_shard_kernel(rank: int, world: int, n: int, d: int, b: int, k: int) -> dict:
+    """On this rank's card: an int8 corpus of `n` seeded unit rows sharded
+    over the world (`kernel: fused`); this shard's `fused_mips_binned` call
+    against its plain version (and on a cut that leaves the shards after
+    rank 0 padding only), its body and launches, and the merged answer."""
+    import dataclasses
+
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.parallel import make_mesh, rank_device
+    from vod_tpu_torch.search import SearchQueries
+    from vod_tpu_torch.search.dense import quantize_queries_int8
+    from vod_tpu_torch.search.sharded import build_sharded_dense_index, sharded_dense_search
+
+    dev = rank_device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, d), generator=g, device=dev)
+    x /= x.norm(dim=-1, keepdim=True)
+    q = x[:b] + 0.1 * torch.randn((b, d), generator=g, device=dev)
+    index = build_sharded_dense_index(x, make_mesh((world,), ("shard",)), axis="shard", dtype="int8", kernel="fused")
+    q8, _ = quantize_queries_int8(q, index.scale)
+    out = {"body": _binned_body(torch.int8, d, 512, (index.vectors.data_ptr(), q8.data_ptr()))}
+    for name, ix in (("full", index), ("cut", dataclasses.replace(index, n_real=index.rows_per_shard - 100))):
+        before = fused_mips_binned.body_launches["wgmma"]
+        ks, ki = fused_mips_binned(ix.vectors, q8, k=k, n_real=ix.local_real)
+        out[name] = dict(launched=fused_mips_binned.body_launches["wgmma"] - before, local_real=ix.local_real,
+                         equal=bool(all(torch.equal(a, b_) for a, b_ in zip(
+                             (ks, ki), fused_mips_binned_reference(ix.vectors, q8, k=k, n_real=ix.local_real)))),
+                         empty=bool((ki == -1).all()), ids=np_of(sharded_dense_search(ix, SearchQueries(vector=q),
+                                                                                      k).indices))
+    return out

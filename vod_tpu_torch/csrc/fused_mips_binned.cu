@@ -463,7 +463,9 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
   if (err != cudaSuccess) return err;
   CUtensorMap map_q, map_v;
   if ((err = sw128_map(&map_q, Body::MAP, Body::ELEM, q, B, D, QT)) != cudaSuccess) return err;
-  if ((err = sw128_map(&map_v, Body::MAP, Body::ELEM, v, n_real, D, WBT)) != cudaSuccess) return err;  // rows past n_real are never read
+  // rows past n_real are never read; a shard of padding only (n_real = 0, a
+  // sharded index's last shards) loads nothing, but its map still needs a row
+  if ((err = sw128_map(&map_v, Body::MAP, Body::ELEM, v, n_real > 0 ? n_real : 1, D, WBT)) != cudaSuccess) return err;
   const dim3 grid((B + QT - 1) / QT, bins / WBT, splits);  // query tile fastest: blocks reading the same rows run together
   binned_wgmma_kernel<Body><<<grid, WTHREADS + 32, dyn, stream>>>(
       map_q, map_v, static_cast<typename Body::Acc*>(part_s), static_cast<int*>(part_i), B, bins,

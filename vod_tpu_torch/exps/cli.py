@@ -4,9 +4,24 @@ periodic training with in-loop reindexing. `resume_from` reloads the run's
 config and its newest checkpoint.
 
     python -m vod_tpu_torch.exps.cli --config exp.yaml [--max_steps N] [--resume_from RUN_DIR] [--device cuda]
+    torchrun --nproc_per_node 2 -m vod_tpu_torch.exps.cli --config exp.yaml
 
 It runs on the card unless `--device cpu` (`run_experiment(device=...)`)
 asks for the CPU.
+
+Several processes: under torchrun (its `RANK`/`WORLD_SIZE`/`LOCAL_RANK`/
+`MASTER_ADDR` environment) or with JAX's flags (`--coordinator host:port
+--num_processes N --process_id i`, or their `JAX_*` variables) each process
+joins the group (`parallel/distributed.py:init_distributed`: nccl for
+`--device cuda`, each rank on `cuda:{LOCAL_RANK % device_count}`; gloo for
+the CPU; `--backend` names another). The mesh comes from `sys.mesh_shape`
+/ `sys.mesh_axes` under JAX's gate: a layout other than `[1]` over more than
+one rank (declared difference: the port counts ranks, where JAX counts
+devices). Batches split over its `dp` axis, `n_dp` enters the batch
+accounting, `dense.sharded` and `sparse.sharded` shard over their axes, and
+rank 0 prints and writes. As in JAX, the CLI never shards parameters: an
+`fsdp`-only mesh runs the whole batch on every rank (`parallel/mesh.py:
+shard_params` is reached through the API).
 
 Declared differences from the JAX package:
  - the model's weights are drawn eagerly from a `torch.Generator` seeded
@@ -66,6 +81,7 @@ from vod_tpu_torch.models import (
     kbit_prepare,
     lora_trainable_mask,
 )
+from vod_tpu_torch.parallel.distributed import init_distributed, is_main_process, rank_device, world_size
 from vod_tpu_torch.runtime import TrainerState, adafactor, adamw, build_device_corpus, decay_mask, load_checkpoint
 from vod_tpu_torch.runtime.train import make_train_step
 
@@ -84,16 +100,23 @@ def _unported_model_options(m: ModelConfig) -> list[tuple[bool, str, str]]:
     ]
 
 
+def _uses_mesh(exp: Experiment) -> bool:
+    """JAX's gate (`vod_tpu/exps/cli.py:227`), over ranks instead of devices."""
+    return list(exp.sys.mesh_shape) != [1] and world_size() > 1
+
+
 def check_ported(exp: Experiment, device: typ.Union[str, torch.device] = "cuda") -> None:
-    """Raise `NotImplementedError` for each option of `exp` the port lacks."""
+    """Raise `NotImplementedError` for each option of `exp` the port lacks
+    (`device` is where the run would go; every option below runs on both)."""
+    del device
+    mesh = _uses_mesh(exp)
     unported = _unported_model_options(exp.model) + [
         (exp.sys.profile_dir is not None, "sys.profile_dir (profiler traces)", "7"),
+        (mesh and exp.model.splade_encoder, "model.splade_encoder over a mesh", "5b"),
+        (mesh and exp.collate.in_batch_negatives, "collate.in_batch_negatives over a mesh", "5b"),
+        (mesh and exp.search_defaults.dense.autotune_target_recall is not None,
+         "dense.autotune_target_recall over a mesh", "5b"),
     ]
-    dev = torch.device(device)
-    n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if list(exp.sys.mesh_shape) != [1] and n_devices > 1:
-        mesh = f"a device mesh (sys.mesh_shape {list(exp.sys.mesh_shape)} over {n_devices} devices)"
-        unported.append((True, mesh, "5"))
     _raise_unported(unported)
 
 
@@ -298,19 +321,36 @@ def run_experiment(
     Returns {model, optimizer, step_fn, state, history}."""
     check_ported(exp, device)
     device = torch.device(device)
+    if device.type == "cuda" and world_size() > 1:
+        device = rank_device()
     tokenizer = tokenizer if tokenizer is not None else exp.tokenizer.instantiate()
+
+    # --- the mesh from SysConfig: batches split over a "dp" axis, sharded
+    # indexes over their `shard_axis` ---
+    mesh = dp_axis = None
+    if _uses_mesh(exp):
+        from vod_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(tuple(exp.sys.mesh_shape), tuple(exp.sys.mesh_axes))
+        dp_axis = "dp" if "dp" in mesh.mesh_dim_names else None
+        if exp.search_defaults.dense.sharded and exp.search_defaults.dense.shard_axis not in mesh.mesh_dim_names:
+            raise ValueError(
+                f"dense.sharded requires axis {exp.search_defaults.dense.shard_axis!r} "
+                f"in sys.mesh_axes {list(mesh.mesh_dim_names)}"
+            )
 
     # effective-batch accounting: when `trainer.batch_size` is set explicitly,
     # `per_device` drives the dataloader and accumulate_grad_batches is
-    # inferred as ceil(effective / per_device) unless pinned by hand
+    # inferred as ceil(effective / (per_device * dp degree)) unless pinned by hand
     dl_config = exp.dataloader
     accumulate = exp.trainer.accumulate_grad_batches
     bs = exp.trainer.batch_size
     if bs.fields_set:
         if "per_device" in bs.fields_set and bs.per_device != dl_config.batch_size:
             dl_config = dl_config.replace(batch_size=bs.per_device)
+        n_dp = mesh.size(mesh.mesh_dim_names.index(dp_axis)) if (mesh is not None and dp_axis is not None) else 1
         if accumulate == 1:
-            accumulate = max(1, -(-bs.effective // dl_config.batch_size))
+            accumulate = max(1, -(-bs.effective // (n_dp * dl_config.batch_size)))
 
     if sections is None or queries is None:
         from vod_tpu_torch.data.interface import load_queries, load_sections
@@ -336,7 +376,9 @@ def run_experiment(
     terms, counts = enc["terms"], enc["term_counts"]
     sparse_engine = build_sparse_from_config(
         sparse_cfg, [terms[i, : counts[i]].tolist() for i in range(len(sections))], n_terms=1 << 18,
-        device=device,
+        mesh=mesh if (sparse_cfg.sharded and mesh is not None and sparse_cfg.shard_axis in mesh.mesh_dim_names)
+        else None,
+        shard_axis=sparse_cfg.shard_axis, device=device,
     )
 
     # --- dataloaders --------------------------------------------------------------
@@ -400,7 +442,7 @@ def run_experiment(
         state.epoch = loaded.epoch
         state.update_steps = loaded.update_steps
 
-    if exp.trainer.checkpoint_path:
+    if exp.trainer.checkpoint_path and is_main_process():
         # the config beside the checkpoints, so `--resume_from <dir>` can reload it
         cfg_dir = pathlib.Path(exp.trainer.checkpoint_path)
         cfg_dir.mkdir(parents=True, exist_ok=True)
@@ -428,6 +470,8 @@ def run_experiment(
             log_interval=exp.trainer.log_interval,
             val_check_interval=exp.trainer.val_check_interval,
             metrics=tuple(exp.trainer.metrics),
+            mesh=mesh,
+            dp_axis=dp_axis,
         ),
         on_log=on_log,
     )
@@ -459,10 +503,11 @@ def parser() -> "argparse.ArgumentParser":
         help="run/checkpoint dir; reloads its config.json unless --config overrides",
     )
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    # multi-process launch: not ported (ROADMAP §A item 5)
-    p.add_argument("--coordinator", default=None, help="host:port of process 0 (not ported)")
+    # multi-process launch: JAX's flags; torchrun's environment needs none
+    p.add_argument("--coordinator", default=None, help="host:port of process 0")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--backend", default=None, help="process-group backend (default: nccl on cuda, gloo on cpu)")
     return p
 
 
@@ -471,8 +516,12 @@ def main(argv: typ.Optional[list[str]] = None) -> dict[str, typ.Any]:
     [--resume_from RUN_DIR] [--device cuda|cpu]`. Returns run_experiment's result."""
     p = parser()
     args = p.parse_args(argv)
-    if args.coordinator or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(f"a multi-process launch {_NOT_PORTED.format('5')}")
+    joined = torch.distributed.is_initialized()
+    rank, world = init_distributed(args.coordinator, args.num_processes, args.process_id, backend=args.backend,
+                                   device=args.device)
+    if world > 1:
+        print(f"[rank {rank}/{world}] joined ({torch.distributed.get_backend()}, {rank_device(args.device)})",
+              flush=True)
     if args.config is not None:
         exp = Experiment.from_file(args.config)
     elif args.resume_from and (pathlib.Path(args.resume_from) / "config.json").exists():
@@ -486,7 +535,10 @@ def main(argv: typ.Optional[list[str]] = None) -> dict[str, typ.Any]:
     result = run_experiment(
         exp, on_log=lambda s, m: print(f"[{s}] {m}", flush=True), resume_from=args.resume_from, device=args.device
     )
-    print(f"done: {result['state'].step} steps", flush=True)
+    if is_main_process():
+        print(f"done: {result['state'].step} steps", flush=True)
+    if world > 1 and not joined:  # leave a group this call did not make
+        torch.distributed.destroy_process_group()
     return result
 
 

@@ -23,9 +23,17 @@ between periods searches the queries' top `splade_query_k` impact terms.
 
 Random draws: where the JAX version splits its key into a build key, a tune
 key and a loop key each period, the port draws all three from the one
-`torch.Generator` it is given, in that order. Not ported yet, each raising
-`NotImplementedError`: a device mesh (`mesh`, `dp_axis`) and profiler traces
-(`profile_dir`).
+`torch.Generator` it is given, in that order. Not ported yet, raising
+`NotImplementedError`: profiler traces (`profile_dir`).
+
+Over a mesh (`mesh`; `dp_axis` names the data-parallel axis, None for
+none): the re-embed splits its chunks over `dp_axis` (or the mesh's `dp`
+axis) and gathers the embeddings to every rank, the factory shards a
+`dense.sharded` index over `dense.shard_axis`, the loops split the batches
+over `dp_axis` (when it is set, as JAX passes the mesh to the loops only
+then), and every rank passes a barrier after each rebuild. Rank 0 writes
+the checkpoints. Under a mesh the learned-sparse reindex and the autotuner
+raise `NotImplementedError` (ROADMAP §A item 5b).
 
 The re-embed calls the model's `encode_field`, so a kbit-prepared model
 (`models/kbit.py`) re-embeds through its dequantizing view, as JAX's
@@ -53,6 +61,7 @@ import torch
 
 from vod_tpu_torch.configs.search import DenseFactoryConfig
 from vod_tpu_torch.models.splade import encode_corpus_terms, splade_topk_terms
+from vod_tpu_torch.parallel.distributed import barrier
 from vod_tpu_torch.runtime.benchmark import benchmark_retrieval
 from vod_tpu_torch.runtime.checkpoint import save_checkpoint
 from vod_tpu_torch.runtime.collate import DeviceCorpus, QueryBatch
@@ -90,8 +99,11 @@ class PeriodicTrainingConfig:
 
 
 def _check_ported(cfg: PeriodicTrainingConfig) -> None:
-    if cfg.mesh is not None or cfg.dp_axis is not None:
-        raise NotImplementedError("training over a device mesh (mesh, dp_axis) is not ported to vod_tpu_torch yet")
+    if cfg.mesh is not None and cfg.splade_doc_k is not None:
+        raise NotImplementedError("the learned-sparse reindex over a mesh is not ported to vod_tpu_torch yet "
+                                  "(ROADMAP §A item 5b)")
+    if cfg.mesh is not None and cfg.dense is not None and cfg.dense.autotune_target_recall is not None:
+        raise NotImplementedError("autotuning over a mesh is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)")
     if cfg.profile_dir is not None:
         raise NotImplementedError("profiler traces (profile_dir) are not ported to vod_tpu_torch yet")
 
@@ -163,15 +175,18 @@ def periodic_training(
                     chunk=cfg.embed_chunk, device=device,
                 )
             else:
-                emb = compute_embeddings(model.encode_field, corpus, chunk=cfg.embed_chunk)
+                emb = compute_embeddings(
+                    model.encode_field, corpus, chunk=cfg.embed_chunk, mesh=cfg.mesh, dp_axis=cfg.dp_axis or "dp"
+                )
             _sync(device)
             summary["reembed_s"] = time.perf_counter() - t0
             build_ms: dict[str, float] = {}
             t1 = time.perf_counter()
             build = build_dense_from_host if host else build_dense_from_config
-            dense = build(cfg.dense, emb, generator=generator, subset_ids=corpus.subset_ids, device=device,
-                          timings=build_ms)
+            dense = build(cfg.dense, emb, generator=generator, subset_ids=corpus.subset_ids, mesh=cfg.mesh,
+                          device=device, timings=build_ms)
             _sync(device)
+            barrier("rebuild")
             build_ms["total_ms"] = (time.perf_counter() - t1) * 1e3
             summary.update(build_ms=build_ms, host_build=host, index_bytes=index_nbytes(dense))
             if cfg.dense.autotune_target_recall is not None:
@@ -216,6 +231,8 @@ def periodic_training(
             on_log=on_log,
             callbacks=callbacks,
             until_step=state.next_period_start_step,
+            mesh=cfg.mesh if cfg.dp_axis else None,
+            dp_axis=cfg.dp_axis or "dp",
         )
         if state.step == start_step and not state.completed:
             raise RuntimeError(f"period {pidx} took no optimizer step: train_queries_fn({pidx}) yielded too few batches")

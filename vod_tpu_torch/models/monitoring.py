@@ -5,7 +5,10 @@ Metrics (mrr, hitrate, precision, recall, kldiv, min, max, entropy, ndcg) are
 computed per row on `[B, D]` relevances and scores, sorted by descending
 score and cut at the name's `_<topk>` suffix; NaN marks an undefined row.
 `RetrievalMonitor` keeps its running sums on the scores' device: `update`
-never waits for the device, only `compute()` copies to the host.
+never waits for the device, only `compute()` copies to the host. Over a
+process group, `compute(group=...)` and `aggregate_metrics_psum` reduce the
+ranks' (sum, count) pairs with one `all_reduce`, as JAX's `psum` does over a
+mesh axis.
 """
 
 from __future__ import annotations
@@ -123,6 +126,26 @@ def retrieval_metrics(
     return out
 
 
+def aggregate_metrics_psum(values: dict[str, torch.Tensor], group: typ.Any = None) -> dict[str, torch.Tensor]:
+    """NaN-aware mean over the ranks of `group` (JAX: over a mesh axis): the
+    masked sums and the counts of every value, all-reduced in one call.
+    Without a process group it is the NaN-aware mean of each value alone."""
+    from vod_tpu_torch.parallel.distributed import all_reduce_
+
+    names = list(values)
+    if not names:
+        return {}
+    vs = [torch.as_tensor(values[n], dtype=torch.float32) for n in names]
+    dev = vs[0].device
+    stats = torch.stack(
+        [torch.stack([torch.where(torch.isnan(v), 0.0, v).sum(), (~torch.isnan(v)).sum().to(torch.float32)])
+         for v in (x.to(dev) for x in vs)]
+    )  # [M, 2]
+    all_reduce_(stats, group=group)
+    means = stats[:, 0] / torch.clamp(stats[:, 1], min=1.0)
+    return dict(zip(names, means.unbind()))
+
+
 class RetrievalMonitor:
     """Streaming NaN-aware mean of per-row metrics over batches. The running
     (sum, count) pairs stay on the scores' device; `compute()` is the only
@@ -149,7 +172,18 @@ class RetrievalMonitor:
             s.add_(torch.where(ok, v, 0.0).sum())
             c.add_(ok.sum())
 
-    def compute(self) -> dict[str, float]:
+    def compute(self, group: typ.Any = None) -> dict[str, float]:
+        """The means; with `group`, of every rank's rows (the ranks' sums and
+        counts all-reduced first; every rank of the group must call it)."""
+        if group is not None:
+            from vod_tpu_torch.parallel.distributed import all_reduce_
+
+            if self._state is None:  # this rank saw no batch: it still joins the reduction
+                raise ValueError("RetrievalMonitor.compute(group=...) before any update")
+            stats = torch.stack([torch.stack(sc) for sc in self._state.values()])
+            all_reduce_(stats, group=group)
+            host_stats = stats.cpu().tolist()  # the only host sync
+            return {m: s / c if c > 0 else float("nan") for m, (s, c) in zip(self._state, host_stats)}
         if self._state is None:
             return {m: float("nan") for m in self.metrics}
         host = {m: (float(s), float(c)) for m, (s, c) in self._state.items()}  # the only host sync

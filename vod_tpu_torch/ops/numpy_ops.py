@@ -96,10 +96,19 @@ def fill_nans_with_min(
 
 
 def replace_negative_indices(
-    indices: torch.Tensor, world_size: int, generator: torch.Generator
+    indices: torch.Tensor,
+    world_size: int,
+    generator: torch.Generator,
+    rows: typ.Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Replace padding (-1) ids with uniform random valid ids drawn from `generator`."""
-    rand = torch.randint(
-        0, world_size, indices.shape, generator=generator, device=indices.device, dtype=indices.dtype
+    """Replace padding (-1) ids with uniform random valid ids drawn from
+    `generator`. With `rows` = (block, blocks), `indices` is one block of a
+    global batch's rows: the draws are made for the global batch and this
+    block's rows kept (`ops/sample.py:rows_of_global`)."""
+    from .sample import rows_of_global
+
+    rand = rows_of_global(
+        lambda sh: torch.randint(0, world_size, sh, generator=generator, device=indices.device, dtype=indices.dtype),
+        indices.shape, rows,
     )
     return torch.where(indices < 0, rand, indices)

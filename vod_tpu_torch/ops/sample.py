@@ -17,6 +17,11 @@ argument, one `[..., n]` tensor per group, and otherwise draws it from the
 `torch.Generator` it is given, on the scores' device. Fed the same noise, the
 port gives the JAX version's samples. Rows are processed together as one
 batch of tensor ops; nothing here waits for the device.
+
+A rank of a data-parallel group passes `rows` = (block, blocks): it holds
+block `block` of a global batch cut into `blocks` equal blocks, draws the
+noise for the global batch and keeps its block's rows, so W ranks draw what
+one process draws for the global batch, and their generators stay in step.
 """
 
 from __future__ import annotations
@@ -46,13 +51,32 @@ def _log1mexp(neg_x: torch.Tensor) -> torch.Tensor:
     return torch.where(small, neg_x, safe)
 
 
+def rows_of_global(draw: typ.Callable[[tuple[int, ...]], torch.Tensor], shape: typ.Sequence[int],
+                   rows: typ.Optional[tuple[int, int]]) -> torch.Tensor:
+    """`draw(shape)`, or with `rows` = (block, blocks) block `block` of
+    `draw` at the global batch's shape (`blocks` x the leading axis)."""
+    shape = tuple(int(s) for s in shape)
+    if rows is None:
+        return draw(shape)
+    block, blocks = rows
+    full = draw((shape[0] * blocks,) + shape[1:])
+    return full[block * shape[0] : (block + 1) * shape[0]]
+
+
 def exponential_noise(
-    shape: typ.Sequence[int], *, like: torch.Tensor, generator: typ.Optional[torch.Generator]
+    shape: typ.Sequence[int],
+    *,
+    like: torch.Tensor,
+    generator: typ.Optional[torch.Generator],
+    rows: typ.Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Exp(1) draws of `shape` in the dtype and on the device of `like`."""
+    """Exp(1) draws of `shape` in the dtype and on the device of `like`
+    (with `rows`: this block's rows of the global batch's draws)."""
     if generator is None:
         raise ValueError("priority sampling needs `noise` or a torch.Generator to draw it")
-    return torch.empty(tuple(shape), dtype=like.dtype, device=like.device).exponential_(generator=generator)
+    return rows_of_global(
+        lambda sh: torch.empty(sh, dtype=like.dtype, device=like.device).exponential_(generator=generator), shape, rows
+    )
 
 
 def _masked_priority_sample(
@@ -138,13 +162,15 @@ def labeled_priority_sampling(
     *,
     noise: typ.Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     generator: typ.Optional[torch.Generator] = None,
+    rows: typ.Optional[tuple[int, int]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-label priority sampling over [n] or [B, n] scores.
 
     Returns (local ids [..., k_total] int64 with -1 padding, log_weights,
     labels {0, 1} int32, lse [..., 2] of the positive and negative groups).
     Positives come first, then negatives, then padding. `noise` is the pair
-    (positives' draws, negatives' draws), each shaped like `scores`."""
+    (positives' draws, negatives' draws), each shaped like `scores`;
+    without it they come from `generator` (`rows`: see the module)."""
     mss = max_support_size or -1
     if mss >= 0:
         mss = max(mss, k_total)
@@ -156,7 +182,7 @@ def labeled_priority_sampling(
     if noise is not None:
         noise_pos, noise_neg = (e.unsqueeze(0) for e in noise) if squeeze else noise
     elif temperature > 0:
-        noise_pos, noise_neg = (exponential_noise(s.shape, like=s, generator=generator) for _ in range(2))
+        noise_pos, noise_neg = (exponential_noise(s.shape, like=s, generator=generator, rows=rows) for _ in range(2))
     else:
         noise_pos = noise_neg = None
 
@@ -227,6 +253,7 @@ def sample_search_results(
     max_support_size: typ.Optional[int] = None,
     noise: typ.Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     generator: typ.Optional[torch.Generator] = None,
+    rows: typ.Optional[tuple[int, int]] = None,
 ) -> PrioritySampledSections:
     """Sample positive/negative sections by per-label priority sampling, gather
     their ids, scores and raw engine scores, and compute the `max_sampling_id`
@@ -242,7 +269,7 @@ def sample_search_results(
     )
     local_ids, log_weights, labels, constants = labeled_priority_sampling(
         sr_scores, labels_ref, k_positive=max_pos_sections, k_total=total, normalized=True,
-        temperature=temperature, max_support_size=max_support_size, noise=noise, generator=generator,
+        temperature=temperature, max_support_size=max_support_size, noise=noise, generator=generator, rows=rows,
     )
 
     safe_ids = torch.clamp(local_ids, 0, sr_scores.shape[-1] - 1)

@@ -12,6 +12,13 @@ draws the sampler's Exp(1) noise first (unless `noise` is given), then the
 random real sections that padding slots fetch. The JAX version draws those
 from two keys split off the step's key, so its padding slots fetch other
 sections; their scores are -inf either way, so they never contribute.
+
+Data parallel: a rank that holds block `rows` = (block, blocks) of a global
+batch draws the noise and the padding sections for the global batch and
+keeps its block, so W ranks draw what one process draws for it
+(`ops/sample.py`); `batch_axis` names the mesh axis the rows are split over,
+for the sharded engines. In-batch negatives pool the sections of the whole
+batch and raise `NotImplementedError` under `rows` (ROADMAP §A item 5b).
 """
 
 from __future__ import annotations
@@ -114,11 +121,18 @@ def device_collate(
     with_lm: bool = False,
     in_batch_negatives: bool = False,
     noise: typ.Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    rows: typ.Optional[tuple[int, int]] = None,
+    batch_axis: typ.Optional[str] = None,
 ) -> tuple[RealmBatch, PrioritySampledSections]:
     """search -> merge -> sample -> gather section tokens -> RealmBatch.
 
     `noise` is the sampler's Exp(1) draws (positives', negatives'), each
-    `[B, min(prefetch, merged width)]`; without it they come from `generator`."""
+    `[B, min(prefetch, merged width)]`; without it they come from `generator`.
+    `rows` and `batch_axis`: see the module."""
+    if in_batch_negatives and rows is not None:
+        raise NotImplementedError(
+            "in-batch negatives over a data-parallel batch are not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
+        )
     sq = SearchQueries(
         vector=query_vectors,
         terms=queries.terms,
@@ -130,7 +144,7 @@ def device_collate(
     sampled, _merged = hybrid_search_and_sample(
         engines, sq, prefetch=prefetch, total=n_sections, max_pos_sections=max_pos_sections,
         temperature=temperature, max_support_size=max_support_size, weights=weights,
-        noise=noise, generator=generator,
+        noise=noise, generator=generator, batch_axis=batch_axis, rows=rows,
     )
     b = int(queries.input_ids.shape[0])
     if in_batch_negatives:
@@ -168,7 +182,7 @@ def device_collate(
 
     # padding slots fetch a random real section; their scores stay -inf so
     # they never contribute
-    flat_idx = replace_negative_indices(sampled.batch.indices, corpus.size, generator)
+    flat_idx = replace_negative_indices(sampled.batch.indices, corpus.size, generator, rows)
     sec_ids = corpus.input_ids[flat_idx.long()]  # [B, D, Ls]
     sec_mask = corpus.attention_mask[flat_idx.long()]
     d = int(flat_idx.shape[1])

@@ -8,6 +8,11 @@ its layers' forward, so its re-embed runs through the kbit view, as JAX's
 `full_params` gives it. It runs under `torch.no_grad()`, chunk by chunk; the result
 stays on the corpus's device, in f32 (or `dtype`), and feeds the index build
 directly. Nothing here waits for the device.
+
+Over a mesh (`mesh`, `dp_axis`), the chunks go to the axis's ranks in
+contiguous blocks (JAX shards the chunk axis over `dp`), each rank embeds
+its block, and the blocks are gathered to every rank (JAX returns one
+global array): every rank ends with the whole `[N, H]` matrix.
 """
 
 from __future__ import annotations
@@ -30,10 +35,26 @@ def compute_embeddings(
     chunk: int = 512,
     dtype: torch.dtype = torch.float32,
     mesh: typ.Any = None,
+    dp_axis: str = "dp",
 ) -> torch.Tensor:
-    """Embed every corpus row. Returns [N, H] on the corpus's device."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel re-embedding over a mesh is not ported to vod_tpu_torch yet")
+    """Embed every corpus row. Returns [N, H] on the corpus's device (with
+    `mesh`: the chunks split over `dp_axis`, the result on every rank)."""
+    from vod_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
+    dp = axis_size(mesh, dp_axis)
+    if dp > 1:
+        from vod_tpu_torch.parallel.distributed import all_gather_tensor
+
+        n = corpus.size
+        per = -(-(-(-n // chunk)) // dp) * chunk  # rows of a rank's block of chunks
+        lo = axis_index(mesh, dp_axis) * per
+        hi = min(lo + per, n)
+        probe = encode_fn(corpus.input_ids[:1], corpus.attention_mask[:1])
+        block = torch.zeros((per, int(probe.shape[-1])), dtype=dtype, device=probe.device)
+        for s in range(lo, hi, chunk):
+            e = min(s + chunk, hi)
+            block[s - lo : e - lo] = encode_fn(corpus.input_ids[s:e], corpus.attention_mask[s:e]).to(dtype)
+        return all_gather_tensor(block, axis_group(mesh, dp_axis)).reshape(dp * per, -1)[:n]
     out: typ.Optional[torch.Tensor] = None
     n = corpus.size
     for s in range(0, n, chunk):

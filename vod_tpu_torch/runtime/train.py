@@ -29,8 +29,24 @@ trainable leaves as parameters, so the optimizer, built over
 `model.parameters()`, and the clip see only those; its frozen base
 dequantizes inside each layer's forward.
 
-Not ported yet (each raises `NotImplementedError`): a device mesh and
-profiler traces.
+Data parallel: the loops take a `mesh` (`parallel/mesh.py`) and the axis
+`dp_axis` whose ranks split each batch (`shard_batch`). The step then takes
+a `DataParallel`: the collate draws for the global batch and keeps this
+rank's rows, the sharded engines gather the queries where the index shards
+over the batch's axis, and the gradients are averaged over the axis once
+per optimizer step (one `all_reduce` of all of them), before the clip. The
+average of the ranks' mean losses is the global batch's mean where every
+rank's loss averages the same number of rows (each row has a positive, as
+the gold lookup gives every training row). The logged loss, the
+estimator's diagnostics and the monitor are reduced over the axis before a
+log (`aggregate_metrics_psum`, `RetrievalMonitor.compute(group=...)`), and
+rank 0 calls `on_log`. Parameters sharded by `parallel/mesh.py:
+shard_params` (FSDP2 DTensors) have their norm summed over their shards.
+A model that sows an auxiliary loss (SPLADE's FLOPS term, a statistic of
+the whole batch) raises `NotImplementedError` under a data-parallel split
+(ROADMAP §A item 5b), as in-batch negatives do in the collate.
+
+Not ported yet (raises `NotImplementedError`): profiler traces.
 """
 
 from __future__ import annotations
@@ -44,9 +60,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from vod_tpu_torch.models.monitoring import RetrievalMonitor
+from vod_tpu_torch.models.monitoring import RetrievalMonitor, aggregate_metrics_psum
 from vod_tpu_torch.models.splade import splade_topk_terms
 from vod_tpu_torch.models.systems import collect_losses
+from vod_tpu_torch.parallel.distributed import all_reduce_, is_main_process
+from vod_tpu_torch.parallel.mesh import DataParallel, data_parallel, shard_batch
 from vod_tpu_torch.search.hybrid import HybridEngines
 from vod_tpu_torch.types.batch import RealmBatch
 from .callbacks import call_callbacks
@@ -57,16 +75,50 @@ from .state import TrainerState
 Noise = typ.Optional[tuple[torch.Tensor, torch.Tensor]]
 
 
+def _local(g: torch.Tensor) -> torch.Tensor:
+    """The tensor this rank holds of `g` (a DTensor's local shard)."""
+    return g.to_local() if hasattr(g, "to_local") else g
+
+
+def _global_norm(grads: typ.Sequence[torch.Tensor]) -> torch.Tensor:
+    """L2 norm of all `grads`; a sharded (DTensor) gradient's squares are
+    summed over its shards first."""
+    plain = [g for g in grads if not hasattr(g, "to_local")]
+    sharded = [g for g in grads if hasattr(g, "to_local")]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in plain])) if plain else None
+    if not sharded:
+        return norm
+    sq = torch.stack([torch.linalg.vector_norm(g.to_local()) ** 2 for g in sharded]).sum()
+    all_reduce_(sq, group=sharded[0].device_mesh.get_group())
+    return torch.sqrt(sq + (norm**2 if norm is not None else 0.0))
+
+
 def clip_by_global_norm(grads: typ.Sequence[torch.Tensor], max_norm: typ.Optional[float]) -> torch.Tensor:
     """Scale `grads` in place by min(1, max_norm / max(|g|, 1e-9)), where |g|
     is their global L2 norm (optax's formula; `clip_grad_norm_` divides by
     |g| + 1e-6 instead). Returns |g| before scaling, on the card."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    norm = _global_norm(grads)
     if max_norm:
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
         for g in grads:
-            g.mul_(scale)
+            _local(g).mul_(scale)
     return norm
+
+
+def average_gradients(params: typ.Sequence[torch.Tensor], group: typ.Any, size: int) -> None:
+    """Average the parameters' gradients (each rank's local tensors) over
+    `group` in one `all_reduce` of their concatenation."""
+    grads = [_local(p.grad) for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+    all_reduce_(flat, group=group)
+    flat.div_(size)
+    offset = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[offset : offset + n].view_as(g))
+        offset += n
 
 
 class RealmTrainStep:
@@ -117,10 +169,11 @@ class RealmTrainStep:
         generator: torch.Generator,
         weights: typ.Optional[dict[str, float]],
         noise: Noise = None,
+        dp: typ.Optional[DataParallel] = None,
     ) -> RealmBatch:
         """Live retrieval: the queries encoded with the current weights, outside
         the gradient (learned-sparse: their top-k impact terms), then the
-        device collate."""
+        device collate (`dp`: this rank's place in a data-parallel batch)."""
         q_vec = None
         if self.splade_query_k is not None:
             with torch.no_grad():
@@ -143,6 +196,8 @@ class RealmTrainStep:
             with_lm=self.with_lm,
             in_batch_negatives=self.in_batch_negatives,
             noise=noise,
+            rows=None if dp is None else dp.rows,
+            batch_axis=None if dp is None or not dp.split else dp.axis,
         )
         return batch
 
@@ -177,13 +232,14 @@ class RealmTrainStep:
         weights: typ.Optional[dict[str, float]],
         *,
         noise: Noise = None,
+        dp: typ.Optional[DataParallel] = None,
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
         """One optimizer step on one batch: `train_step_accum` over one
         micro-batch. Returns (metrics: loss, grad_norm and the estimator's
         diagnostics, all tensors on the card; the batch's relevances [B, D];
         the retriever's scores [B, D])."""
         return self.train_step_accum(
-            engines, corpus, [queries], generator, weights, noise=None if noise is None else [noise]
+            engines, corpus, [queries], generator, weights, noise=None if noise is None else [noise], dp=dp
         )
 
     def train_step_accum(
@@ -195,19 +251,26 @@ class RealmTrainStep:
         weights: typ.Optional[dict[str, float]],
         *,
         noise: typ.Optional[typ.Sequence[Noise]] = None,
+        dp: typ.Optional[DataParallel] = None,
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
         """One optimizer step over several micro-batches: each is collated and
         encoded with the pre-update weights, the gradients are summed and
         divided by their count, the loss is averaged. Returns (metrics,
         relevances and scores of all micro-batches stacked along rows); over
         one micro-batch the metrics also hold the estimator's diagnostics, as
-        the JAX `train_step`'s do."""
+        the JAX `train_step`'s do. With `dp` the gradients are then averaged
+        over its axis, once, before the clip; the metrics stay this rank's."""
+        if dp is not None and dp.split and any(hasattr(m, "sown") for m in self.model.modules()):
+            raise NotImplementedError(
+                "an auxiliary loss sown over a data-parallel batch (SPLADE's FLOPS term) is not ported to "
+                "vod_tpu_torch yet (ROADMAP §A item 5b)"
+            )
         n_micro = len(micro_batches)
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=micro_batches[0].input_ids.device)
         rels, scores = [], []
         for i, q in enumerate(micro_batches):
-            batch = self.collate(engines, corpus, q, generator, weights, None if noise is None else noise[i])
+            batch = self.collate(engines, corpus, q, generator, weights, None if noise is None else noise[i], dp)
             if self.gradcache_chunk_rows is not None:
                 out = gradcache_backward(self.model, batch, chunk_rows=self.gradcache_chunk_rows)
                 loss = out.loss
@@ -220,7 +283,12 @@ class RealmTrainStep:
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         for p in params:
             if p.grad is not None:
-                p.grad.div_(n_micro)
+                _local(p.grad).div_(n_micro)
+        if dp is not None:
+            for p in params:  # a parameter outside this loss still takes part in the reduction
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            average_gradients(params, dp.group, dp.size)
         norm = self.apply_gradients()
         metrics = {"loss": loss_sum / n_micro, "grad_norm": norm}
         if n_micro == 1:
@@ -235,9 +303,11 @@ class RealmTrainStep:
         queries: QueryBatch,
         generator: torch.Generator,
         weights: typ.Optional[dict[str, float]],
+        *,
+        dp: typ.Optional[DataParallel] = None,
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
         """Collate and evaluate without a gradient. Returns (metrics, relevances, scores)."""
-        batch = self.collate(engines, corpus, queries, generator, weights)
+        batch = self.collate(engines, corpus, queries, generator, weights, dp=dp)
         loss, out = self.loss(batch)
         metrics = {"loss": loss, **out.diagnostics}
         return metrics, batch.section__relevance, out.retriever_scores
@@ -265,16 +335,17 @@ def training_loop(
     prefetch_batches: int = 2,
     until_step: typ.Optional[int] = None,
     mesh: typ.Any = None,
+    dp_axis: str = "dp",
     profile_dir: typ.Optional[str] = None,
 ) -> tuple[TrainerState, dict]:
     """One period of training: until `until_step` (default
     `state.next_period_start_step`) or until the query iterator is exhausted.
     With `accumulate_grad_batches` > 1 each optimizer step takes that many
     batches; a short tail is dropped, never stepped. Metrics stay on the card
-    until a log step (every `log_interval` steps, and the last). Returns
-    (state, the last logged metrics)."""
-    if mesh is not None:
-        raise NotImplementedError("training over a device mesh is not ported to vod_tpu_torch yet")
+    until a log step (every `log_interval` steps, and the last). With `mesh`,
+    every rank iterates the same global batches and keeps its rows over
+    `dp_axis` (see the module); the logged metrics are the axis's, and rank 0
+    calls `on_log`. Returns (state, the last logged metrics)."""
     if profile_dir is not None:
         raise NotImplementedError("profiler traces (profile_dir) are not ported to vod_tpu_torch yet")
 
@@ -290,11 +361,13 @@ def training_loop(
         train_queries = prefetch_iterator(iter(train_queries), size=prefetch_batches)
     accum = max(1, int(step_fn.accumulate_grad_batches))
     train_iter = iter(train_queries)
+    group = _dp_group(mesh, dp_axis)
     try:
         for queries in train_iter:
             if state.step >= until or state.completed:
                 break
             weights = state.get_parameters()
+            dp = data_parallel(mesh, dp_axis, int(queries.input_ids.shape[0]))
             if accum > 1:
                 micro = [queries]
                 for _ in range(accum - 1):
@@ -307,31 +380,37 @@ def training_loop(
                     # break before on_train_batch_start so start/end hooks pair
                     break
                 call_callbacks(callbacks, "on_train_batch_start", batch=queries, step=state.step)
-                m, rel, scores = step_fn.train_step_accum(engines, corpus, micro, generator, weights)
+                micro = [shard_batch(q, mesh, dp_axis) for q in micro]
+                m, rel, scores = step_fn.train_step_accum(engines, corpus, micro, generator, weights, dp=dp)
             else:
                 call_callbacks(callbacks, "on_train_batch_start", batch=queries, step=state.step)
-                m, rel, scores = step_fn.train_step(engines, corpus, queries, generator, weights)
+                m, rel, scores = step_fn.train_step(
+                    engines, corpus, shard_batch(queries, mesh, dp_axis), generator, weights, dp=dp
+                )
             monitor.update(relevances=rel, scores=scores)
             call_callbacks(callbacks, "on_train_batch_end", metrics=m, step=state.step)
             state.step += 1
             state.update_steps += 1
             n_done += 1
             if state.step % log_interval == 0 or state.step >= until:
+                if group is not None:
+                    m = aggregate_metrics_psum(m, group)
                 last_logged = {
                     **{k: float(v) for k, v in m.items()},
-                    **monitor.compute(),
+                    **monitor.compute(group),
                     "steps_per_sec": n_done / max(time.time() - t0, 1e-6),
                     "step": state.step,
                     **{f"parameters/{k}": v for k, v in weights.items()},
                 }
-                if on_log:
+                if on_log and is_main_process():
                     on_log(state.step, last_logged)
             if val_check_interval and val_queries is not None and state.step % val_check_interval == 0:
                 val_metrics = validation_loop(
                     step_fn=step_fn, engines=engines, corpus=corpus, val_queries=val_queries,
-                    generator=generator, weights=state.get_parameters(), metrics=metrics,
+                    generator=generator, weights=state.get_parameters(), metrics=metrics, mesh=mesh,
+                    dp_axis=dp_axis,
                 )
-                if on_log:
+                if on_log and is_main_process():
                     on_log(state.step, {f"val/{k}": v for k, v in val_metrics.items()})
                 if on_checkpoint:
                     on_checkpoint(step_fn.model, step_fn.optimizer, state)
@@ -351,17 +430,30 @@ def validation_loop(
     weights: typ.Optional[dict[str, float]],
     metrics: typ.Sequence[str] = ("mrr", "ndcg_10", "hitrate_3"),
     mesh: typ.Any = None,
+    dp_axis: str = "dp",
 ) -> dict[str, float]:
     """Evaluation without a gradient over the validation queries: the
-    monitor's means and the mean loss."""
-    if mesh is not None:
-        raise NotImplementedError("validation over a device mesh is not ported to vod_tpu_torch yet")
+    monitor's means and the mean loss; with `mesh`, each batch's rows split
+    over `dp_axis` and both reduced over it, as in `training_loop`."""
+    group = _dp_group(mesh, dp_axis)
     monitor = RetrievalMonitor(list(metrics))
     losses = []
     for queries in val_queries:
-        m, rel, scores = step_fn.eval_step(engines, corpus, queries, generator, weights)
+        dp = data_parallel(mesh, dp_axis, int(queries.input_ids.shape[0]))
+        m, rel, scores = step_fn.eval_step(
+            engines, corpus, shard_batch(queries, mesh, dp_axis), generator, weights, dp=dp
+        )
         monitor.update(relevances=rel, scores=scores)
         losses.append(m["loss"])
-    out = monitor.compute()
+    out = monitor.compute(group) if losses else monitor.compute()
+    if losses and group is not None:
+        losses = list(aggregate_metrics_psum({"loss": torch.stack([x.detach() for x in losses])}, group).values())
     out["loss"] = float(np.mean([float(x) for x in losses])) if losses else math.nan
     return out
+
+
+def _dp_group(mesh: typ.Any, dp_axis: typ.Optional[str]) -> typ.Any:
+    """The process group of the data-parallel axis, or None without one of size > 1."""
+    from vod_tpu_torch.parallel.mesh import axis_group, axis_size
+
+    return axis_group(mesh, dp_axis) if axis_size(mesh, dp_axis) > 1 else None

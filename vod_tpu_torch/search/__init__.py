@@ -1,8 +1,9 @@
 """Search engines (port of `vod_tpu/search/`: flat/int8, PQ, IVF and IVF-PQ dense
 indexes, the BM25 and learned-impact sparse index, lookup, hybrid, the
 config-driven factory with its index cache and host-slab builds,
-operating-point autotuning, the mutable dense store and the MaxSim
-late-interaction reranker)."""
+operating-point autotuning, the mutable dense store, the MaxSim
+late-interaction reranker, and the sharded flat/int8 and BM25 indexes over a
+mesh axis)."""
 
 from .base import SearchQueries, subset_mask
 from .dense import (
@@ -33,6 +34,14 @@ from .hybrid import HybridEngines, hybrid_search, hybrid_search_and_sample
 from .ivfpq import IVFPQIndex, build_ivfpq_index, ivfpq_search
 from .lookup import lookup_search
 from .maxsim import MaxSimIndex, build_maxsim_index, maxsim_rerank, maxsim_search
+from .sharded import (
+    ShardedDenseIndex,
+    ShardedSparseIndex,
+    build_sharded_dense_index,
+    shard_sparse_index,
+    sharded_dense_search,
+    sharded_sparse_search,
+)
 from .sparse import (
     SparseIndex,
     bm25_topk,
@@ -52,6 +61,8 @@ __all__ = [
     "OperatingPoint",
     "PQIndex",
     "SearchQueries",
+    "ShardedDenseIndex",
+    "ShardedSparseIndex",
     "SparseIndex",
     "autotune",
     "autotune_after_build",
@@ -66,6 +77,7 @@ __all__ = [
     "build_maxsim_index",
     "build_pq_index",
     "build_pq_index_from_host",
+    "build_sharded_dense_index",
     "build_sparse_from_config",
     "build_sparse_index",
     "build_sparse_index_native",
@@ -85,6 +97,9 @@ __all__ = [
     "maxsim_rerank",
     "maxsim_search",
     "pq_search",
+    "shard_sparse_index",
+    "sharded_dense_search",
+    "sharded_sparse_search",
     "sparse_search",
     "subset_mask",
 ]

@@ -17,8 +17,16 @@ index's tensors, on the CPU) and `meta.json` (its type and every other field,
 a `None` field as null), where JAX writes orbax arrays beside the same
 `meta.json`.
 
-Not ported, each raising `NotImplementedError`: sharding over a mesh
-(`sharded`, `mesh`, for both engines).
+Sharding: with `cfg.sharded` and a `mesh`, a flat or int8 dense index is
+built straight into its shards over `cfg.shard_axis`
+(`search/sharded.py:build_sharded_dense_index`, never cached: each rank
+quantizes and keeps only its block), and the host-slab int8 build encodes
+only this rank's rows; a sparse config with `sharded` and a mesh splits the
+BM25 postings by doc range. Sharded pq, ivf and ivfpq, and any ivfpq
+build given a mesh (JAX's k-means over the mesh), raise
+`NotImplementedError` (ROADMAP §A item 5b). As in JAX, `sharded` without a
+mesh builds the unsharded index, and for the other codecs a mesh without
+`sharded` is ignored.
 """
 
 from __future__ import annotations
@@ -71,9 +79,21 @@ def _load_index(path: pathlib.Path, device: typ.Union[str, torch.device] = "cuda
     return cls(**arrays, **spec["meta"])
 
 
-def _check_unsharded(cfg: DenseFactoryConfig, mesh: typ.Any) -> None:
-    if cfg.sharded or mesh is not None:
-        raise NotImplementedError("sharded dense indexes (sharded, mesh) are not ported to vod_tpu_torch yet")
+def _sharded(cfg: DenseFactoryConfig, mesh: typ.Any) -> bool:
+    """Whether `cfg` builds shards over `mesh`; raises for the codecs whose
+    sharded build is not ported, and for an ivfpq build given a mesh (JAX
+    runs its k-means over the mesh, `kmeans_sharded`)."""
+    if mesh is not None and cfg.codec == "ivfpq":
+        raise NotImplementedError(
+            "an ivfpq build over a mesh (multi-device k-means) is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
+        )
+    if not (cfg.sharded and mesh is not None):
+        return False
+    if cfg.codec not in ("flat", "int8"):
+        raise NotImplementedError(
+            f"the sharded {cfg.codec} index is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
+        )
+    return True
 
 
 def build_dense_from_config(
@@ -95,8 +115,15 @@ def build_dense_from_config(
     the device, as the JAX factory defaults to `PRNGKey(0)`). `timings`,
     when given, receives the pq and ivfpq builds' wall ms by stage
     (`build_pq_index`, `build_ivfpq_index`), and "load_ms" when the index
-    comes from the cache."""
-    _check_unsharded(cfg, mesh)
+    comes from the cache. With `cfg.sharded` and `mesh`, flat and int8
+    build this rank's shard (`ShardedDenseIndex`) and skip the cache."""
+    if _sharded(cfg, mesh):
+        from .sharded import build_sharded_dense_index
+
+        return build_sharded_dense_index(
+            vectors, mesh, axis=cfg.shard_axis, dtype="int8" if cfg.codec == "int8" else cfg.dtype,
+            subset_ids=subset_ids, approx_recall=cfg.approx_recall, kernel=cfg.kernel, device=device,
+        )
     cache_path = None
     if cache_dir is not None and data_fingerprint is not None:
         cache_path = pathlib.Path(cache_dir) / "indices" / _index_fingerprint("dense", cfg, data_fingerprint)
@@ -218,10 +245,11 @@ def build_dense_from_host(
       * flat  -> refused: it cannot fit by definition.
 
     Draws come from `generator` (default: seed 0 on the device). `timings`
-    receives the wall ms by stage."""
+    receives the wall ms by stage. With `cfg.sharded` and `mesh` (int8
+    only), each rank encodes its own block of rows into its shard."""
     from .dense import _auto_pad_multiple, _slab_on, build_pq_index_from_host
 
-    _check_unsharded(cfg, mesh)
+    sharded = _sharded(cfg, mesh)
     dev = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -262,6 +290,29 @@ def build_dense_from_host(
             scale = torch.clamp(torch.amax(torch.abs(sample), dim=0, keepdim=True), min=1e-8) / 127.0
             del sample
         tile = 1024 if cfg.kernel == "fused" else 128
+        if sharded:
+            # pre-quantized codes go straight into the shard (re-running
+            # build_sharded_dense_index would quantize the codes again)
+            from vod_tpu_torch.parallel.mesh import axis_index, axis_size
+            from .sharded import ShardedDenseIndex, _local_block
+
+            mult = axis_size(mesh, cfg.shard_axis) * tile
+            rows = -(-n // mult) * mult // axis_size(mesh, cfg.shard_axis)
+            lo = axis_index(mesh, cfg.shard_axis) * rows
+            codes = torch.zeros((rows, d), dtype=torch.int8, device=dev)
+            with clock("encode_ms"):
+                for s0 in range(lo, min(lo + rows, n), slab):
+                    x = _slab_on(vectors_np, s0, min(slab, lo + rows - s0), dev)
+                    codes[s0 - lo : s0 - lo + int(x.shape[0])] = torch.clamp(torch.round(x / scale), -127, 127).to(
+                        torch.int8)
+                    del x
+            return ShardedDenseIndex(
+                vectors=codes, scale=scale,
+                subset_ids=None if subset_ids is None else _local_block(subset_ids, lo, lo + rows, rows, dev,
+                                                                        torch.int32),
+                n_real=n, rows_per_shard=rows, axis=cfg.shard_axis, mesh=mesh, approx_recall=cfg.approx_recall,
+                kernel=cfg.kernel,
+            )
         mult = max(tile, _auto_pad_multiple(n, None))
         codes = torch.zeros((-(-n // mult) * mult, d), dtype=torch.int8, device=dev)
         with clock("encode_ms"):
@@ -368,17 +419,21 @@ def build_sparse_from_config(
     shard_axis: str = "shard",
     device: typ.Union[str, torch.device] = "cuda",
     timings: typ.Optional[dict] = None,
-) -> SparseIndex:
+) -> typ.Any:
     """Config-driven BM25 build through the O(tokens) C++ postings builder
     (python fallback inside), moved to `device`; `timings` receives the
-    build's wall ms by stage (`build_sparse_index_native`)."""
-    del shard_axis  # names the mesh axis, which is not ported
-    if mesh is not None:
-        raise NotImplementedError("the sharded sparse index (mesh) is not ported to vod_tpu_torch yet")
-    return build_sparse_index_native(
+    build's wall ms by stage (`build_sparse_index_native`). With `mesh`, this
+    rank keeps its doc range of the global table over `shard_axis`
+    (`ShardedSparseIndex`)."""
+    index = build_sparse_index_native(
         doc_terms, n_terms=n_terms, max_postings=cfg.max_postings, k1=cfg.k1, b=cfg.b,
-        subset_ids=subset_ids, device=device, timings=timings,
+        subset_ids=subset_ids, device="cpu" if mesh is not None else device, timings=timings,
     )
+    if mesh is not None:
+        from .sharded import shard_sparse_index
+
+        return shard_sparse_index(index, mesh, axis=shard_axis, device=device)
+    return index
 
 
 def build_hybrid_engines(
@@ -396,17 +451,19 @@ def build_hybrid_engines(
     """Assemble the hybrid bundle: each engine the config names and the
     inputs feed (dense from `vectors`, through the cache when `cache_dir` and
     `data_fingerprint` are given; sparse from `doc_terms`, never cached, as
-    in JAX), both with the corpus's `subset_ids`."""
-    if mesh is not None:
-        raise NotImplementedError("sharded engines (mesh) are not ported to vod_tpu_torch yet")
+    in JAX), both with the corpus's `subset_ids`; each shards over `mesh`
+    where its config says `sharded`."""
     dense = None
     if config.dense is not None and vectors is not None:
         dense = build_dense_from_config(
             config.dense, vectors, generator=generator, subset_ids=subset_ids, cache_dir=cache_dir,
-            data_fingerprint=data_fingerprint, device=device,
+            data_fingerprint=data_fingerprint, mesh=mesh, device=device,
         )
     sparse = None
     if config.sparse is not None and doc_terms is not None:
         # as in JAX, `sparse.sharded` shards only when a mesh is given
-        sparse = build_sparse_from_config(config.sparse, doc_terms, subset_ids=subset_ids, device=device)
+        sparse = build_sparse_from_config(
+            config.sparse, doc_terms, subset_ids=subset_ids, mesh=mesh if config.sparse.sharded else None,
+            shard_axis=config.sparse.shard_axis, device=device,
+        )
     return HybridEngines(dense=dense, sparse=sparse)

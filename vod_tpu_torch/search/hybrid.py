@@ -5,9 +5,12 @@ per row, the gold lookup rides along with score 0 and label 1, and the results
 are merged by weighted score sum. `hybrid_search_and_sample` adds the
 truncation to the prefetch width and labeled priority sampling: the retrieval
 segment of the training collate. The dense engine is a flat/int8
-`DenseIndex`, a `PQIndex`, an `IVFIndex` or an `IVFPQIndex`; the sparse
-engine is a BM25 `SparseIndex`. The sharded indexes (dense and sparse) wait
-for later slices of the port.
+`DenseIndex`, a `PQIndex`, an `IVFIndex`, an `IVFPQIndex` or a
+`ShardedDenseIndex`; the sparse engine is a BM25 `SparseIndex` or a
+`ShardedSparseIndex`. A sharded engine merges over its mesh axis, and
+`batch_axis` names the axis the query rows are split over (a data-parallel
+batch), so a shard group that splits the batch first gathers it
+(`search/sharded.py`).
 """
 
 from __future__ import annotations
@@ -25,20 +28,26 @@ from .base import SearchQueries
 from .dense import DenseIndex, IVFIndex, PQIndex, dense_search, ivf_search, pq_search
 from .ivfpq import IVFPQIndex, ivfpq_search
 from .lookup import lookup_search
+from .sharded import ShardedDenseIndex, ShardedSparseIndex, sharded_dense_search, sharded_sparse_search
 from .sparse import SparseIndex, sparse_search
 
 
 @dataclasses.dataclass
 class HybridEngines:
     """Named engine bundle. The dense engine is a `DenseIndex`, `PQIndex`,
-    `IVFIndex` or `IVFPQIndex`, the sparse engine a `SparseIndex`; any other
-    engine raises `NotImplementedError` when searched."""
+    `IVFIndex`, `IVFPQIndex` or `ShardedDenseIndex`, the sparse engine a
+    `SparseIndex` or `ShardedSparseIndex`; any other engine raises
+    `NotImplementedError` when searched."""
 
-    dense: typ.Optional[typ.Union[DenseIndex, PQIndex, IVFIndex, IVFPQIndex]] = None
-    sparse: typ.Optional[SparseIndex] = None
+    dense: typ.Optional[typ.Union[DenseIndex, PQIndex, IVFIndex, IVFPQIndex, ShardedDenseIndex]] = None
+    sparse: typ.Optional[typ.Union[SparseIndex, ShardedSparseIndex]] = None
 
 
-def _dense_dispatch(index: typ.Any, queries: SearchQueries, top_k: int) -> RetrievalBatch:
+def _dense_dispatch(
+    index: typ.Any, queries: SearchQueries, top_k: int, batch_axis: typ.Optional[str] = None
+) -> RetrievalBatch:
+    if isinstance(index, ShardedDenseIndex):
+        return sharded_dense_search(index, queries, top_k, batch_axis=batch_axis)
     if isinstance(index, IVFPQIndex):
         return ivfpq_search(index, queries, top_k)
     if isinstance(index, PQIndex):
@@ -55,23 +64,29 @@ def hybrid_search(
     queries: SearchQueries,
     top_k: int,
     weights: typ.Optional[dict[str, torch.Tensor | float]] = None,
+    *,
+    batch_axis: typ.Optional[str] = None,
 ) -> tuple[RetrievalBatch, dict[str, torch.Tensor]]:
     """Search every engine, normalize, weighted-merge.
 
     Returns (merged batch sorted by combined score, per-engine raw scores
-    aligned to the merged ids)."""
+    aligned to the merged ids). `batch_axis`: the mesh axis the query rows
+    are split over, for the sharded engines."""
     results: dict[str, RetrievalBatch] = {}
     if queries.section_ids is not None:
         results["lookup"] = lookup_search(queries)
     if engines.dense is not None and queries.vector is not None:
-        r = _dense_dispatch(engines.dense, queries, top_k)
+        r = _dense_dispatch(engines.dense, queries, top_k, batch_axis)
         results["dense"] = r.replace(scores=normalize_scores(r.scores))
     if engines.sparse is not None and queries.terms is not None:
-        if not isinstance(engines.sparse, SparseIndex):
+        if isinstance(engines.sparse, ShardedSparseIndex):
+            r = sharded_sparse_search(engines.sparse, queries, top_k, batch_axis=batch_axis)
+        elif isinstance(engines.sparse, SparseIndex):
+            r = sparse_search(engines.sparse, queries, top_k)
+        else:
             raise NotImplementedError(
                 f"the sparse engine {type(engines.sparse).__name__} is not ported to vod_tpu_torch yet"
             )
-        r = sparse_search(engines.sparse, queries, top_k)
         results["sparse"] = r.replace(scores=normalize_scores(r.scores))
     if not results:
         raise ValueError("No engine matched the provided queries")
@@ -96,6 +111,8 @@ def hybrid_search_and_sample(
     weights: typ.Optional[dict[str, torch.Tensor | float]] = None,
     noise: typ.Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     generator: typ.Optional[torch.Generator] = None,
+    batch_axis: typ.Optional[str] = None,
+    rows: typ.Optional[tuple[int, int]] = None,
 ) -> tuple[PrioritySampledSections, RetrievalBatch]:
     """search -> normalize -> merge -> truncate to `prefetch` -> labeled
     priority sampling. Returns (the samples, the truncated merged batch).
@@ -104,8 +121,10 @@ def hybrid_search_and_sample(
     their combined score (the lookup contributes 0) falls below the engine
     scores: they sort first by a +1e30 key, in their merged order (a stable
     sort). `noise` is the sampler's Exp(1) draws, each `[B, min(prefetch,
-    merged width)]`; without it they come from `generator`."""
-    merged, raw = hybrid_search(engines, queries, prefetch, weights)
+    merged width)]`; without it they come from `generator`, drawn for the
+    global batch and cut to block `rows` = (index, blocks) when the rows are
+    one rank's block of it. `batch_axis` goes to `hybrid_search`."""
+    merged, raw = hybrid_search(engines, queries, prefetch, weights, batch_axis=batch_axis)
     k = min(prefetch, merged.scores.shape[-1])
     if merged.labels is not None:
         key = torch.where(merged.labels > 0, merged.scores + 1e30, merged.scores)
@@ -127,5 +146,6 @@ def hybrid_search_and_sample(
         max_support_size=max_support_size,
         noise=noise,
         generator=generator,
+        rows=rows,
     )
     return sampled, merged

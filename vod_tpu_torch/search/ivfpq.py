@@ -409,7 +409,9 @@ def train_ivfpq_stages(
     from vod_tpu_torch.ops.kmeans import infer_n_clusters, kmeans
 
     if mesh is not None:
-        raise NotImplementedError("multi-device k-means (mesh) is not ported to vod_tpu_torch yet")
+        raise NotImplementedError(
+            "multi-device k-means (mesh) is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
+        )
     d = int(train.shape[-1])
     rotation = None
     aniso_resolved = None
@@ -494,7 +496,9 @@ def build_ivfpq_index(
     if not keep_codes and refine == "none":
         raise ValueError("keep_codes=False requires a refine store to score against")
     if mesh is not None:
-        raise NotImplementedError("multi-device k-means (mesh) is not ported to vod_tpu_torch yet")
+        raise NotImplementedError(
+            "multi-device k-means (mesh) is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
+        )
     vectors = torch.as_tensor(vectors, device=device)
     dev = vectors.device
     if generator is None:
