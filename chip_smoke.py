@@ -197,7 +197,7 @@ checked, none caught:
     per step, the step median and peak memory; then phase 8's wall time;
  9. the experiment CLI from text to a train step (`CLI`), in process
     through `vod_tpu_torch.exps.cli.main`, each `main` its own main path
-    (counts zeroed before, read after): 2^17 passages harvested from the
+    (counts zeroed before, read after): 2^16 passages harvested from the
     interpreter's site-packages, 8,192 generated queries and a 30,522-entry
     vocab.txt written as a BeIR directory, and a YAML extending
     `configs/msmarco_pq_realm.yaml` (flat bf16 `kernel: fused` at 512 bins,
@@ -207,7 +207,7 @@ checked, none caught:
     section tokenizes to all `[UNK]`; finite losses; the logged weights
     follow the yaml's schedules; period 1's index differs from period 0's;
     2 `fused_mips_binned` launches a step, all `wgmma`; one CLI-loop call
-    (B = 32, D = 384, N = 2^17, 512 bins, k = 100) against its plain
+    (B = 32, D = 384, N = 2^16, 512 bins, k = 100) against its plain
     version; BM25's top 100 holds the gold passage for at least
     `CLI["bm25_recall_floor"]` of 256 held-out queries; the resume starts at
     step 6 and ends at 9; one optimizer step with its dataloader batches
@@ -313,13 +313,46 @@ checked, none caught:
     re-embeds, the sharded builds, each rank's peak memory;
 12c. with two or more cards, 12b again under NCCL at world size = the
     cards' count; with one, a line says it did not run and why;
-13. the script's wall time, the `kernels` JSON line, the card line, and
+13. the sharded compressed indexes and batch-wide training over a
+    data-parallel group (`COMPRESSED`, `PQ_CLI`, `SPLADE_DP`), each path
+    checked to launch neither kernel (JAX launches none there):
+13a. `compressed_search_rank` on each rank, at world size 1 under NCCL in
+    this process, then on two gloo ranks of the card: phase 8a's 2^20 x 768
+    corpus through the factory with `sharded: true` (msmarco_pq_realm.yaml's
+    4-bit PQ with an int8 refine, the `ivf` preset, the `ivfpq` preset with
+    its coarse k-means over the ranks) and MaxSim at `maxsim_bench`'s
+    defaults, 64 held-out queries, k = 10. Checked: an `all_reduce` (MAX) of
+    -inf on a CUDA tensor; the ranks' answers equal; IVF and untruncated
+    IVF-PQ give the unsharded ids outside the score band; PQ and the
+    preset's IVF-PQ reach the unsharded recall@10 less 0.01; `kmeans_sharded`
+    within 1e-4 (relative) of `kmeans` from the same rows after one
+    iteration, and its objective after all within 1e-4; the sharded IVF-PQ
+    autotune meets its target; MaxSim equals the unsharded rerank exactly.
+    Printed per engine: build, per-shard search, merge and whole search ms
+    (host beside card);
+13b. configs/msmarco_pq_realm.yaml through the CLI on two gloo ranks
+    (`batchwide_cli_rank`) under `strategy/dp` with its PQ sharded over
+    `dp`, in-batch negatives and autotuning, phase 9's harvest at length 96,
+    a batch of 4 (cut from 32), 6 steps and a resume to step 9. Checked:
+    finite losses; parameters equal on both ranks after every step; a
+    sharded PQ built and tuned each period, to one point on both ranks; the
+    first batch pools the global batch's sections; the collate's sharded
+    search equals a direct call; the first step's loss within 1e-3 relative
+    of one process's on the same global batch;
+13c. phase 11a's SPLADE composition under `strategy/dp` on two gloo ranks:
+    as 13b, the first loss with the FLOPS term; the period-0 impact terms
+    and learned index re-embedded over the ranks equal one process's;
+13d. with two or more cards, 13a under NCCL at world size = their count;
+    with one, a line says it did not run and why;
+14. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
+import functools
 import gc
 import json
 import math
@@ -487,7 +520,7 @@ IVFPQ_SERVE = dict(
 IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRESET, autotune_target_recall=0.9))
 
 # Phase 9: the experiment CLI from text to a train step. Everything comes
-# from the card machine's own files, nothing downloaded: 2^17 passages of 48
+# from the card machine's own files, nothing downloaded: 2^16 passages of 48
 # words harvested from the running interpreter's site-packages (stride 48,
 # windows that do not overlap), 8,192 train queries of 6-10 consecutive
 # words of one seeded passage each (that passage their qrel) and 256 more
@@ -504,14 +537,15 @@ IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRE
 # logits [256, 463, 30522] (14.5 GB a copy) ran the card out of memory in
 # the first step; at 96 the rows hold 256 tokens, phase 5's 248. Harvested
 # passages of 48 words average about 74 tokens, so few are truncated (the
-# phase prints the share).
+# phase prints the share). The harvest is cut from 2^17 to 2^16 so that
+# phase 13 fits the script's time (12b and 13b take phase 9's harvest too).
 CLI = dict(
-    n=1 << 17, passage_words=48, stride=48, queries=8192, held_out=256, query_words=(6, 10), vocab=30522,
+    n=1 << 16, passage_words=48, stride=48, queries=8192, held_out=256, query_words=(6, 10), vocab=30522,
     max_length=96, max_steps=6, period=3, resume_steps=9, bins=512, seed=11,
     # the share of held-out queries whose gold passage is in BM25's top 100:
     # 0.9453 on an H100 80GB HBM3 at 700 W (256 literal spans; a binomial
     # spread of ~0.014; at 2^18 passages, before phase 10 took the time that
-    # halved the corpus). A broken analyzer, build or scorer finds ~100 / 2^17
+    # halved the corpus). A broken analyzer, build or scorer finds ~100 / 2^16
     bm25_recall_floor=0.85,
 )
 
@@ -600,7 +634,7 @@ SHARDED = dict(n=1 << 20, d=768, b=64, k=10, bins=512, seed=29, ranks=2, recall_
 # 12b: `configs/scifact_ranker.yaml` at its own widths (hidden 256, 4 layers,
 # 4 heads, FFN 1024, max_length 200, B = 32 global, 8 sections of a prefetch
 # of 100, lr 1e-4, clip 1.0) composed with `strategy/dp` and `search/sharded`
-# (int8, sharded over `dp`, `kernel: fused`), over phase 9's harvest (2^17
+# (int8, sharded over `dp`, `kernel: fused`), over phase 9's harvest (2^16
 # passages, 8,192 queries), under torchrun with two ranks on the one card
 # (gloo): 6 steps with a period every 3, then a resume to step 9. The first
 # step's loss is held against one process's loss of the same global batch
@@ -608,6 +642,57 @@ SHARDED = dict(n=1 << 20, d=768, b=64, k=10, bins=512, seed=29, ranks=2, recall_
 # = the cards' count when there are two or more.
 MULTI_CLI = dict(CLI, held_out=0, max_length=200, max_steps=6, period=3, resume_steps=9, seed=31, ranks=2,
                  loss_rtol=1e-3, timeout=900)
+
+# Phase 13: the sharded compressed indexes and batch-wide training over a
+# data-parallel group. 13a: phase 8a's corpus (2^20 x 768 unit rows around
+# 4,096 centres), 64 held-out queries, k = 10, through the factory with
+# `sharded: true` over a "shard" axis of every rank: msmarco_pq_realm.yaml's
+# codec (`pq`: 4-bit PQ of 128 subquantizers, exhaustive ADC, int8 refine at
+# 128 PCA dims, k_factor 32), the `ivf` preset, the `ivfpq` preset (its
+# coarse k-means over the axis, `kmeans_sharded`), and MaxSim at
+# `maxsim_bench`'s defaults (1M docs x 32 tokens x 128-d int8, 256
+# candidates a query); first at world size 1 under NCCL in this process,
+# then two gloo ranks on the one card. `tol`: the score band inside which
+# IVF and untruncated IVF-PQ may order ids otherwise (f32 sums of bf16 /
+# int8 products: exact products, sums in one order on both sides, so 1e-4
+# is loose); `recall_slack`: how far the sharded PQ and truncated IVF-PQ
+# recall@10 may fall under the unsharded index's (their per-shard pools
+# differ from the global pool by design); `kmeans_rtol`: how far
+# `kmeans_sharded` may be from `kmeans` from the same initial rows, after one
+# iteration (the Frobenius relative distance of the centroids: the segment
+# sums meet in another order) and after all 10 (the relative distance of the
+# k-means objective: on the card `index_add_` sums in no fixed order, so a
+# row on a tie changes cells and the iterates drift apart, one process's
+# from itself too; the centroids' distances are printed beside a control,
+# `kmeans` run twice).
+COMPRESSED = dict(
+    n=1 << 20, d=768, centres=4096, noise=0.1, decay=64.0, b=64, k=10, seed=37, ranks=2, timeout=600,
+    pq=dict(codec="pq", n_subquantizers=128, code_bits=4, coarse_dim=None, refine="int8", refine_dim=128,
+            k_factor=32, train_size=1_000_000),
+    ivf=dict(codec="ivf", nprobe=32),
+    ivfpq=IVFPQ_PRESET,
+    maxsim=dict(n=1_000_000, lt=32, d=128, lq=8, n_candidates=256, n_topics=4096),
+    tol=1e-4, recall_slack=0.01, kmeans_rtol=1e-4, target_recall=0.9,
+)
+# 13b: configs/msmarco_pq_realm.yaml at its own widths (hidden 384, 6
+# layers, the 384 x 6 reader) through the CLI on two gloo ranks, with
+# `strategy/dp`, `search_defaults.dense.sharded: true` over `dp` (the yaml's
+# own PQ), `collate.in_batch_negatives: true` and
+# `dense.autotune_target_recall: 0.9`, over phase 9's harvest and length
+# (`tokenizer.max_length` 96): 6 steps, a period every 3, then a resume to
+# step 9. Cut: `dataloader.batch_size` 32 -> 4. In-batch negatives make the
+# reader read every (query, pooled section) pair: B x (B x D) rows, 8,192 of
+# 256 tokens at B = 32 (f32 logits of 256 GB); at 4 a rank holds 2 x 32 rows.
+PQ_CLI = dict(CLI, held_out=0, max_steps=6, period=3, resume_steps=9, seed=41, ranks=2, batch_size=4,
+              target_recall=0.9, loss_rtol=1e-3, timeout=900)
+# 13c: phase 11a's composition (scifact's body, the bert-base SPLADE encoder
+# from a written checkpoint, 2^15 passages, 6 steps, a period every 3) under
+# `strategy/dp` on two gloo ranks: the FLOPS term over the global batch and
+# the learned reindex split over the ranks. One process peaked at 56.0322
+# GiB in 11a; a rank holds half the rows (16 queries and 128 sections), and
+# the activations dominate, so about 30 GiB a rank: both fit in 80 GB at
+# phase 11a's length (200).
+SPLADE_DP = dict(SPLADE, seed=43, ranks=2, loss_rtol=1e-3, timeout=900)
 
 
 def fail(msg: str) -> None:
@@ -2346,7 +2431,7 @@ def cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
     """Phase 9: the experiment CLI on the card (module constant CLI), in
     process through `vod_tpu_torch.exps.cli.main`, the function `python -m
     vod_tpu_torch.exps.cli` runs: `main(["--config", yaml])` (2 periods of 3
-    optimizer steps, each period re-embedding the 2^17 sections), then
+    optimizer steps, each period re-embedding the 2^16 sections), then
     `main(["--resume_from", run, "--max_steps", "9"])` (one more period).
     Each `main` is a main path of its own: launch counts are zeroed just
     before it and read just after. The runner's stages are timed by
@@ -3913,8 +3998,649 @@ def cli_rank(dev, card: str, t: dict, out_dir: Path) -> dict:
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, backend=dist.get_backend())
 
 
+def compressed_search_rank(dev, card: str, t: dict) -> dict:
+    """Phase 13a on this rank of the process group (every rank runs it; at
+    world size 1 too), module constant COMPRESSED. First the collective the
+    MaxSim merge needs: an `all_reduce` (MAX) of a CUDA tensor holding -inf.
+    Then, for each of pq, ivf and ivfpq: the factory's sharded build over a
+    "shard" axis of every rank (the unsharded index it shards is kept for
+    the checks), and the search through the hybrid's dispatch, the main path
+    of that engine (no kernel launches on it: JAX's sharded compressed
+    searches are plain XLA). Checked: every rank holds the same answer; IVF
+    and the untruncated IVF-PQ give the unsharded index's ids where the score
+    margin exceeds `t["tol"]`; PQ and the preset's (truncated) IVF-PQ reach
+    the unsharded recall@10 less `t["recall_slack"]`; `kmeans_sharded` from
+    the first 1,024 rows against `kmeans` from the same rows (see
+    `COMPRESSED`); the sharded
+    IVF-PQ autotune meets its target; MaxSim's sharded rerank equals the
+    unsharded one exactly. Timed: each build; each shard's part of the search
+    (CUDA events, one rank at a time), the merge (host wall), the whole
+    search (host wall, and the card's kernel time from the profiler).
+    Returns the numbers."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from vod_tpu_torch.configs import DenseFactoryConfig
+    from vod_tpu_torch.examples.maxsim_bench import _slab
+    from vod_tpu_torch.ops.kmeans import infer_n_clusters, kmeans, kmeans_sharded
+    from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_topk
+    from vod_tpu_torch.parallel import all_gather_tensor, axis_group, barrier, make_mesh
+    from vod_tpu_torch.search import SearchQueries, build_dense_from_config, ivf_search, ivfpq_search, pq_search
+    from vod_tpu_torch.search import sharded as sm
+    from vod_tpu_torch.search.hybrid import _dense_dispatch
+    from vod_tpu_torch.search.maxsim import MaxSimIndex, maxsim_rerank
+
+    autotune = importlib.import_module("vod_tpu_torch.search.autotune")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    backend = dist.get_backend()
+    k = t["k"]
+    mesh = make_mesh((world,), ("shard",))
+    group = axis_group(mesh, "shard")
+    probe = torch.tensor([float("-inf"), float(rank)], device=dev)
+    dist.all_reduce(probe, op=dist.ReduceOp.MAX, group=group)
+    check(bool(torch.isneginf(probe[0])) and float(probe[1]) == world - 1,
+          f"13a rank {rank}: all_reduce(MAX) over {backend} on a CUDA tensor gave {probe.tolist()}")
+
+    g = torch.Generator(device=dev).manual_seed(t["seed"])  # the same corpus on every rank
+    corpus, draw = clustered_corpus(t["n"], t["d"], t, g, dev)
+    q = draw(t["b"])
+    exact, _ = exact_ids(q, corpus, k)
+    qs = SearchQueries(vector=q)
+    out: dict = dict(rank=rank, world=world, backend=backend, card=card)
+
+    def zero_launches() -> None:
+        for kern in (fused_mips_binned, fused_mips_topk):
+            kern.launches = 0
+            kern.body_launches.update(wgmma=0, fma=0)
+
+    def launches() -> dict:
+        return {"fused_mips_binned": fused_mips_binned.launches, "fused_mips_topk": fused_mips_topk.launches}
+
+    def one_rank_at_a_time(fn, reps: int) -> float:
+        ms = 0.0
+        for r in range(world):
+            barrier("13a-time")
+            if r == rank:
+                ms = time_ms(fn, reps)
+            barrier("13a-time")
+        return ms
+
+    # the unsharded index each build shards, caught on its way into the shard function
+    caught: dict = {}
+    real = {name: getattr(sm, name) for name in ("shard_pq_index", "shard_ivf_index", "shard_ivfpq_index")}
+
+    def catching(name):
+        def shard(index, *args, **kw):
+            caught["full"] = index
+            return real[name](index, *args, **kw)
+
+        return shard
+
+    def ivfpq_part(ix, qq, kk):
+        pool = sm.ivfpq_shard_pool(ix, qq, kk)
+        return pool.scores, pool.indices
+
+    plain = dict(pq=pq_search, ivf=ivf_search, ivfpq=ivfpq_search)
+    local = dict(pq=sm.pq_shard_topk, ivf=sm.ivf_shard_topk, ivfpq=ivfpq_part)
+    for name in real:
+        setattr(sm, name, catching(name))
+    try:
+        for engine in ("pq", "ivf", "ivfpq"):
+            cfg = DenseFactoryConfig(**t[engine], sharded=True, shard_axis="shard")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ix = build_dense_from_config(cfg, corpus, mesh=mesh, device=dev)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            full = caught.pop("full")
+            zero_launches()  # the engine's main path: the search through the hybrid's dispatch
+            got = _dense_dispatch(ix, qs, k)
+            torch.cuda.synchronize()
+            path_launches = launches()
+            check(path_launches == {"fused_mips_binned": 0, "fused_mips_topk": 0},
+                  f"13a {engine} rank {rank}: the sharded search launched {path_launches}")
+            every = all_gather_tensor(got.indices.contiguous(), group)
+            check(all(torch.equal(every[r], every[0]) for r in range(world)), f"13a {engine}: the ranks' answers differ")
+            want = plain[engine](full, qs, k)
+            rec, rec_plain = recall_at(got.indices, exact), recall_at(want.indices, exact)
+            res = dict(type=type(ix).__name__, build_ms=build_ms, recall_at_10=rec, unsharded_recall_at_10=rec_plain,
+                       launches=path_launches)
+            if engine == "ivf":
+                res["max_score_err"], res["band_swaps"] = check_sparse_close(f"13a ivf rank {rank}", got, want, t["tol"])
+            else:
+                check(rec >= rec_plain - t["recall_slack"],
+                      f"13a {engine}: recall@10 {rec:.4f} < the unsharded {rec_plain:.4f} - {t['recall_slack']}")
+            if engine == "ivfpq":
+                untruncated = full.replace(max_windows=0)
+                u_got = _dense_dispatch(real["shard_ivfpq_index"](untruncated, mesh, axis="shard"), qs, k)
+                res["untruncated_max_score_err"], res["untruncated_band_swaps"] = check_sparse_close(
+                    f"13a ivfpq untruncated rank {rank}", u_got, ivfpq_search(untruncated, qs, k), t["tol"])
+                res["untruncated_recall_at_10"] = recall_at(u_got.indices, exact)
+                # the coarse quantizer's k-means over the axis against one process's, from the same rows
+                c = infer_n_clusters(t["n"])
+                init = corpus[:c].clone()
+
+                def lloyd(fn, iters: int, *args) -> tuple:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cent, assign = fn(corpus, c, *args, n_iters=iters, init=init,
+                                      generator=torch.Generator(device=dev).manual_seed(t["seed"]))
+                    torch.cuda.synchronize()
+                    return cent, assign, (time.perf_counter() - t0) * 1e3
+
+                def rel(a, b_) -> float:
+                    return float(torch.linalg.vector_norm(a - b_) / torch.linalg.vector_norm(b_))
+
+                def objective(cent, assign) -> float:
+                    return float(sum(((corpus[s0:s0 + 131072] - cent[assign[s0:s0 + 131072].long()]) ** 2).sum()
+                                     for s0 in range(0, t["n"], 131072))) / t["n"]
+
+                sharded_kmeans = functools.partial(kmeans_sharded, axis="shard")
+                one_s, _, _ = lloyd(lambda x, k_, *a, **kw: sharded_kmeans(x, k_, mesh, **kw), 1)
+                one_u, _, _ = lloyd(kmeans, 1)
+                res["kmeans_one_iter_rel"] = rel(one_s, one_u)
+                cs, a_s, res["kmeans_sharded_ms"] = lloyd(lambda x, k_, *a, **kw: sharded_kmeans(x, k_, mesh, **kw),
+                                                          cfg.kmeans_iters)
+                cu, a_u, res["kmeans_ms"] = lloyd(kmeans, cfg.kmeans_iters)
+                cu2, _, _ = lloyd(kmeans, cfg.kmeans_iters)  # the control: one process against itself
+                res["kmeans_rel"], res["kmeans_control_rel"] = rel(cs, cu), rel(cu2, cu)
+                res["kmeans_moved_rows"] = int((a_s != a_u).sum())
+                j_s, j_u = objective(cs, a_s), objective(cu, a_u)
+                res["kmeans_objective_rel"] = abs(j_s - j_u) / j_u
+                check(res["kmeans_one_iter_rel"] <= t["kmeans_rtol"] and res["kmeans_objective_rel"] <= t["kmeans_rtol"],
+                      f"13a rank {rank}: kmeans_sharded against kmeans: one iteration {res['kmeans_one_iter_rel']:.3g}, "
+                      f"the objective after {cfg.kmeans_iters} {res['kmeans_objective_rel']:.3g} (relative)")
+                del cs, cu, cu2, a_s, a_u, one_s, one_u
+                # the autotuner over the sharded index, in lockstep on every rank
+                tcfg = dataclasses.replace(cfg, autotune_target_recall=t["target_recall"], autotune_measure_time=False)
+                tuned, info = autotune.autotune_after_build(ix, tcfg, corpus,
+                                                            generator=torch.Generator(device=dev).manual_seed(1))
+                _, info_plain = autotune.autotune_after_build(full, tcfg, corpus,
+                                                              generator=torch.Generator(device=dev).manual_seed(1))
+                check(info["met"] and tuned.nprobe == info["params"]["nprobe"],
+                      f"13a rank {rank}: the sharded IVF-PQ autotune did not meet its target: {info['params']} "
+                      f"{info['recall']}")
+                res.update(autotune=info["params"], autotune_recall=info["recall"],
+                           autotune_unsharded=info_plain["params"], autotune_unsharded_recall=info_plain["recall"])
+            # times: this shard's part one rank at a time, the merge and the whole search together
+            part = local[engine]
+            res["shard_ms"] = one_rank_at_a_time(lambda: part(ix, qs, k), 10)
+            loc_s, loc_i = part(ix, qs, k)
+            keep = int(loc_s.shape[-1]) * (2 if getattr(ix, "spilled", False) else 1)
+            res["merge_ms"] = wall_ms(lambda: sm.merge_across_shards(loc_s, loc_i, group, keep=keep), 20)
+            res["search_ms"] = wall_ms(lambda: _dense_dispatch(ix, qs, k), 10)
+            res["search_host_ms"], res["search_device_ms"], _ = host_and_device_ms(lambda: _dense_dispatch(ix, qs, k), 5)
+            out[engine] = res
+            del ix, full, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for name, fn in real.items():
+            setattr(sm, name, fn)
+    del corpus
+
+    # MaxSim at maxsim_bench's defaults: the int8 token store, sharded by rows
+    tm = t["maxsim"]
+    n, lt, d = tm["n"], tm["lt"], tm["d"]
+    gm = torch.Generator(device=dev).manual_seed(1)
+    topics = torch.nn.functional.normalize(torch.randn((tm["n_topics"], d), generator=gm, device=dev), dim=-1)
+    slab = 65_536
+    n_pad = -(-n // slab) * slab
+    scale = torch.full((1, d), 1.2 / 127.0, device=dev)
+    codes = torch.empty((n_pad, lt, d), dtype=torch.int8, device=dev)
+    for i in range(n_pad // slab):
+        x = _slab(i, slab, topics, lt, dev)
+        codes[i * slab : (i + 1) * slab] = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    store = MaxSimIndex(token_codes=codes, token_mask=torch.ones((n_pad, lt), dtype=torch.bool, device=dev),
+                        scale=scale, n_real=n)
+    b, c = t["b"], tm["n_candidates"]
+    src = torch.randint(0, n, (b,), generator=gm, device=dev)
+    q_tok = codes[src][:, : tm["lq"]].to(torch.float32) * scale + 0.1 * torch.randn((b, tm["lq"], d), generator=gm,
+                                                                                   device=dev)
+    q_mask = torch.ones((b, tm["lq"]), dtype=torch.bool, device=dev)
+    cand = torch.randint(0, n, (b, c), generator=gm, device=dev)
+    cand[:, 0] = src
+    cand[:, -8:] = -1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    six = sm.shard_maxsim_index(store, mesh, axis="shard")
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    zero_launches()
+    got = sm.sharded_maxsim_rerank(six, q_tok, q_mask, cand)  # the MaxSim main path
+    torch.cuda.synchronize()
+    path_launches = launches()
+    check(path_launches == {"fused_mips_binned": 0, "fused_mips_topk": 0}, f"13a maxsim: launched {path_launches}")
+    want = maxsim_rerank(store, q_tok, q_mask, cand)
+    check(torch.equal(got, want), f"13a rank {rank}: the sharded MaxSim scores != the unsharded ones")
+    part = sm.maxsim_shard_scores(six, q_tok, q_mask, cand)
+    out["maxsim"] = dict(
+        type=type(six).__name__, rows=six.rows_per_shard, build_ms=build_ms, launches=path_launches,
+        top1_is_source=float((torch.gather(cand, 1, got.argmax(-1, keepdim=True))[:, 0] == src).float().mean()),
+        shard_ms=one_rank_at_a_time(lambda: sm.maxsim_shard_scores(six, q_tok, q_mask, cand), 10),
+        merge_ms=wall_ms(lambda: dist.all_reduce(part.clone(), op=dist.ReduceOp.MAX, group=group), 20),
+        search_ms=wall_ms(lambda: sm.sharded_maxsim_rerank(six, q_tok, q_mask, cand), 10),
+    )
+    out["maxsim"]["search_host_ms"], out["maxsim"]["search_device_ms"], _ = host_and_device_ms(
+        lambda: sm.sharded_maxsim_rerank(six, q_tok, q_mask, cand), 5)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def batchwide_cli_rank(dev, card: str, t: dict, out_dir: Path) -> dict:
+    """Phase 13b (`t["kind"]` "pq") or 13c ("splade") on this rank:
+    `vod_tpu_torch.exps.cli.main` with the phase's YAML (13b then the
+    resume), in the process group this rank joined. Instrumented by wrapping
+    what the CLI calls: each optimizer step's wall ms, loss, launches of both
+    kernels, collectives (bytes, host seconds) and a checksum of the
+    parameters against rank 0's; the dense builds and re-embeds; 13b the
+    first in-loop `sharded_pq_search` call, run again directly after the
+    runs; 13c the first impact re-embed (its inputs and terms) and learned
+    table (to `out_dir`). The first step's collated batch (and, on rank 0,
+    the weights before it) go to `out_dir` for the one-process checks."""
+    import torch
+    import torch.distributed as dist
+
+    from vod_tpu_torch.exps import cli, recipes
+    from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_topk
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+    from vod_tpu_torch.search import hybrid as hybrid_mod
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec: dict = dict(steps=[], builds=[], reembed_s=[], coll=[0, 0.0, 0], first=True, micro=0)
+    real = dict(step=RealmTrainStep.train_step_accum, collate=RealmTrainStep.collate, all_reduce=dist.all_reduce,
+                broadcast=dist.broadcast, search=hybrid_mod.sharded_pq_search, build=recipes.build_dense_from_config,
+                embed=recipes.compute_embeddings, terms=recipes.encode_corpus_terms, impact=recipes.build_impact_index)
+
+    def counted(fn):
+        def wrapped(tensor, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(tensor, *args, **kw)
+            rec["coll"][0] += tensor.numel() * tensor.element_size()
+            rec["coll"][1] += time.perf_counter() - t0
+            rec["coll"][2] += 1
+            return out
+
+        return wrapped
+
+    def checksum(model) -> bool:
+        s = torch.stack([p.detach().double().sum() for p in model.parameters()]).sum().reshape(1)
+        s0 = s.clone()
+        real["broadcast"](s0, src=0)  # rank 0's, uncounted
+        return bool(torch.equal(s, s0))
+
+    def collate(self, *args, **kw):
+        batch = real["collate"](self, *args, **kw)
+        if rec["first"]:  # each micro-batch of the first step
+            torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in vars(batch).items()},
+                       out_dir / f"batch-rank{rank}-{rec['micro']}.pt")
+            rec["micro"] += 1
+        return batch
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        if rec["first"] and rank == 0:
+            torch.save({k: v.cpu() for k, v in self.model.state_dict().items()}, out_dir / "state0.pt")
+        before = (fused_mips_binned.launches, fused_mips_topk.launches)
+        c0 = list(rec["coll"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["step"](self, engines, corpus, micro, generator, weights, **kw)
+        torch.cuda.synchronize()
+        rec["steps"].append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, loss=float(out[0]["loss"]), checksum_ok=checksum(self.model),
+            launches=[fused_mips_binned.launches - before[0], fused_mips_topk.launches - before[1]],
+            rows=int(micro[0].input_ids.shape[0]), micro=len(micro), coll_bytes=rec["coll"][0] - c0[0],
+            coll_s=rec["coll"][1] - c0[1], dense=type(engines.dense).__name__, sparse=type(engines.sparse).__name__,
+        ))
+        rec["first"] = False
+        return out
+
+    def search(index, queries, top_k, **kw):
+        out = real["search"](index, queries, top_k, **kw)
+        if "search" not in rec:
+            rec["search"] = (index, queries, top_k, kw, out.scores.clone(), out.indices.clone())
+        return out
+
+    def timed(name, key):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+
+        return wrapped
+
+    def build(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = real["build"](*args, **kw)
+        torch.cuda.synchronize()
+        rec["builds"].append(dict(ms=(time.perf_counter() - t0) * 1e3, type=type(index).__name__))
+        return index
+
+    def terms(encode_fn, input_ids, attention_mask, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["terms"](encode_fn, input_ids, attention_mask, **kw)
+        torch.cuda.synchronize()
+        rec["reembed_s"].append(time.perf_counter() - t0)
+        if len(rec["reembed_s"]) == 1:
+            saved = dict(terms=torch.from_numpy(out[0]), weights=torch.from_numpy(out[1]), k=kw["k"],
+                         chunk=kw["chunk"])
+            if rank == 0:
+                saved.update(input_ids=input_ids.cpu(), attention_mask=attention_mask.cpu())
+            torch.save(saved, out_dir / f"terms-rank{rank}.pt")
+        return out
+
+    def impact(*args, **kw):
+        index = real["impact"](*args, **kw)
+        if "impact" not in rec:
+            rec["impact"] = True
+            torch.save(dict(docs=index.postings_docs.cpu(), impacts=index.postings_impacts.cpu(), n_terms=kw["n_terms"],
+                            max_postings=kw["max_postings"]), out_dir / f"impact-rank{rank}.pt")
+        return index
+
+    dist.all_reduce, dist.broadcast = counted(real["all_reduce"]), counted(real["broadcast"])
+    RealmTrainStep.train_step_accum, RealmTrainStep.collate = step, collate
+    hybrid_mod.sharded_pq_search = search
+    recipes.build_dense_from_config, recipes.compute_embeddings = build, timed("embed", "reembed_s")
+    recipes.encode_corpus_terms, recipes.build_impact_index = terms, impact
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kern in (fused_mips_binned, fused_mips_topk):
+        kern.launches = 0
+    first = cli.main(["--config", t["yaml"], "--backend", t["backend"]])
+    resumed = None
+    if t.get("run"):
+        resumed = cli.main(["--resume_from", t["run"], "--max_steps", str(t["resume_steps"]), "--backend",
+                            t["backend"]])
+    path_launches = [fused_mips_binned.launches, fused_mips_topk.launches]
+    res = dict(rank=rank, world=world, backend=dist.get_backend(), steps=rec["steps"], builds=rec["builds"],
+               reembed_s=rec["reembed_s"], first_step=first["state"].step, launches=path_launches,
+               resumed_step=None if resumed is None else resumed["state"].step,
+               autotune=[h.get("autotune", {}).get("params") for h in first["history"]],
+               autotune_met=[h.get("autotune", {}).get("met") for h in first["history"]],
+               n_params=sum(p.numel() for p in first["model"].parameters()),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=card)
+    if "search" in rec:  # the collate's sharded PQ search, run again directly (a collective: every rank)
+        index, queries, top_k, kw, scores, ids = rec["search"]
+        again = real["search"](index, queries, top_k, **kw)
+        res["direct_equal"] = bool(torch.equal(again.indices, ids) and torch.equal(again.scores, scores))
+        res["search_index"] = dict(type=type(index).__name__, rows=index.rows_per_shard, local_real=index.local_real)
+    return res
+
+
+def one_process_batch(out_dir: Path, world: int, dev, micro: int = 0):
+    """Micro-batch `micro` of the first step as one process collates it,
+    from the ranks' rows: the per-query fields concatenated in rank order; a
+    pooled section field (in-batch negatives: the same pool on every rank)
+    taken once."""
+    import torch
+
+    from vod_tpu_torch.types.batch import RealmBatch
+
+    parts = [torch.load(out_dir / f"batch-rank{r}-{micro}.pt", weights_only=False) for r in range(world)]
+    flat = parts[0]["extras"].get("flat_sections", False)
+    fields = {}
+    for k, v in parts[0].items():
+        if not isinstance(v, torch.Tensor):
+            fields[k] = v
+        elif flat and k in ("section__input_ids", "section__attention_mask"):
+            check(all(torch.equal(p[k], v) for p in parts), f"the ranks' pooled {k} differ")
+            fields[k] = v.to(dev)
+        else:
+            fields[k] = torch.cat([p[k] for p in parts]).to(dev)
+    return RealmBatch(**fields)
+
+
+def batchwide_phase(dev, card: str, ta: dict, tb: dict, tc: dict) -> dict:
+    """Phase 13: the sharded compressed indexes (13a, `COMPRESSED`) and
+    batch-wide training over a data-parallel group (13b `PQ_CLI`, 13c
+    `SPLADE_DP`). 13a: `compressed_search_rank` at world size 1 under NCCL in
+    this process, then on `ta["ranks"]` gloo ranks of the one card. 13b / 13c:
+    the CLI under torchrun on two gloo ranks of the card, `batchwide_cli_rank`
+    on each. Checked: every step's loss finite and both ranks' parameters
+    equal after it; no kernel launch on any phase-13 path (JAX launches none
+    there); the first step's loss over the ranks within the tolerance of one
+    process's on the same global batch (13c: the FLOPS term included); 13b:
+    a `ShardedPQIndex` built every period, tuned every period to the same
+    point on both ranks, in-batch negatives pooled over the global batch
+    (each rank's rows against one pool), the collate's sharded search equal
+    to a direct call, the resume; 13c: the learned reindex split over the
+    ranks equals one process's. 13d: with two or more cards, 13a under NCCL
+    at world size = their count. Returns the numbers."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.exps import cli
+    from vod_tpu_torch.exps.structconf import Experiment
+    from vod_tpu_torch.models import collect_losses
+    from vod_tpu_torch.models.splade import encode_corpus_terms
+    from vod_tpu_torch.parallel import init_distributed
+    from vod_tpu_torch.search import build_impact_index
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    out: dict = {}
+    engines = ("pq", "ivf", "ivfpq", "maxsim")
+
+    def log_13a(r: dict, label: str) -> None:
+        for e in engines:
+            x = r[e]
+            extra = ""
+            if e != "maxsim":
+                extra = f"; recall@10 {x['recall_at_10']:.4f} (unsharded {x['unsharded_recall_at_10']:.4f})"
+            if e == "ivfpq":
+                extra += (f", untruncated {x['untruncated_recall_at_10']:.4f}; kmeans_sharded {x['kmeans_sharded_ms']:.1f}"
+                          f" ms, kmeans {x['kmeans_ms']:.1f} ms; relative distance after one iteration "
+                          f"{x['kmeans_one_iter_rel']:.3g}, after all {x['kmeans_rel']:.3g} (kmeans against itself "
+                          f"{x['kmeans_control_rel']:.3g}), objective {x['kmeans_objective_rel']:.3g}, "
+                          f"{x['kmeans_moved_rows']} rows in other cells; autotune {x['autotune']} "
+                          f"(recall {x['autotune_recall']}), unsharded {x['autotune_unsharded']} "
+                          f"({x['autotune_unsharded_recall']})")
+            log(f"13a {label} {e} ({x['type']}): build {x['build_ms']:.1f} ms; per-shard {x['shard_ms']:.4f} ms, merge "
+                f"{x['merge_ms']:.4f} ms, search {x['search_ms']:.4f} ms (host enqueue {x['search_host_ms']:.4f}, card "
+                f"{x['search_device_ms']:.4f}){extra} [{card}]")
+        log(f"13a {label}: peak {r['peak_gib']:.4f} GiB")
+
+    # 13a at world size 1: a real NCCL group in this process
+    check(init_distributed(num_processes=1, process_id=0, device="cuda", init_method=f"file://{root / 'pg'}")
+          == (0, 1), "13a: the world-size-1 group did not form")
+    try:
+        out["w1"] = compressed_search_rank(dev, card, ta)
+    finally:  # a failed check exits at once, not after NCCL's watchdog times out
+        torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_13a(out["w1"], f"world 1 ({out['w1']['backend']})")
+
+    # 13a over two ranks of the one card (gloo)
+    ranks, wall = torchrun("compressed", ta["ranks"], root, dict(ta, backend="gloo"), ta["timeout"])
+    out["gloo"] = ranks
+    for r in ranks:
+        check(r["backend"] == "gloo", f"13a rank {r['rank']}: backend {r['backend']}")
+        log_13a(r, f"rank {r['rank']}/{r['world']} (gloo, both on one card)")
+    log(f"13a over {ta['ranks']} gloo ranks: torchrun wall {wall:.1f} s")
+
+    def datasets(h: dict) -> str:
+        return ("datasets:\n"
+                "  queries:\n"
+                f"    - {{identifier: harvest-train, name_or_path: beir, subsets: ['{h['beir']}'], split: train, "
+                "link: harvest-corpus}\n"
+                "  sections:\n"
+                f"    - {{identifier: harvest-corpus, name_or_path: beir, subsets: ['{h['beir']}']}}\n")
+
+    def run_ranks(job: str, t: dict, d: Path) -> tuple[list, float]:
+        ranks, wall = torchrun(job, t["ranks"], d, t, t["timeout"])
+        for r in ranks:
+            label = f"13{'b' if job == 'pq_cli' else 'c'} rank {r['rank']}"
+            check(r["backend"] == "gloo" and r["first_step"] == t["max_steps"], f"{label}: {r['first_step']} steps")
+            check(all(math.isfinite(s["loss"]) for s in r["steps"]), f"{label}: a loss is not finite")
+            check(all(s["checksum_ok"] for s in r["steps"]), f"{label}: parameters differ from rank 0's after a step")
+            check(r["launches"] == [0, 0] and all(s["launches"] == [0, 0] for s in r["steps"]),
+                  f"{label}: a kernel launched on the path: {r['launches']}")
+        return ranks, wall
+
+    def first_loss_check(label: str, ranks: list, d: Path, exp, sown: bool) -> dict:
+        model = cli.build_model(exp.model, proposal_temperature=exp.collate.temperature, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(exp.sys.seed))
+        model.load_state_dict(torch.load(d / "state0.pt", weights_only=True))
+        losses = []
+        for i in range(ranks[0]["steps"][0]["micro"]):  # the step's loss: the mean over its micro-batches
+            batch = one_process_batch(d, len(ranks), dev, i)
+            with torch.no_grad(), collect_losses(model) as terms:
+                losses.append(float(model(batch, mode="evaluate").loss + (sum(terms) if terms else 0.0)))
+            check(not sown or len(terms) == 1, f"{label}: the one-process pass sowed {len(terms)} terms")
+            del batch
+        single = sum(losses) / len(losses)
+        first = sum(r["steps"][0]["loss"] for r in ranks) / len(ranks)
+        rel = abs(first - single) / max(abs(single), 1e-12)
+        check(rel <= (tb if label == "13b" else tc)["loss_rtol"],
+              f"{label}: first-step loss {first:.6f} over the ranks != one process's {single:.6f}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(first_loss=first, one_process_loss=single, first_loss_rel=rel)
+
+    def step_summary(label: str, ranks: list, period: int) -> None:
+        for r in ranks:
+            steady = [s["ms"] for i, s in enumerate(r["steps"]) if i % period != 0] or [s["ms"] for s in r["steps"]]
+            r["step_median_ms"] = statistics.median(steady)
+            r["coll_share"] = sum(s["coll_s"] for s in r["steps"]) * 1e3 / sum(s["ms"] for s in r["steps"])
+            r["coll_bytes_step"] = statistics.median([s["coll_bytes"] for s in r["steps"]])
+            log(f"{label} rank {r['rank']} (gloo, both on one card): {len(r['steps'])} steps, median {r['step_median_ms']:.2f}"
+                f" ms (first of each period left out), {r['coll_bytes_step']:,} bytes of collectives a step "
+                f"({r['coll_share']:.3f} of the step, host wall); re-embeds {[round(x, 2) for x in r['reembed_s']]} s; "
+                f"builds {[(b_['type'], round(b_['ms'], 1)) for b_ in r['builds']]}; peak {r['peak_gib']:.4f} GiB; "
+                f"losses {[round(s['loss'], 5) for s in r['steps']]}; {r['n_params']:,} parameters [{card}]")
+
+    # 13b: configs/msmarco_pq_realm.yaml through the CLI on two gloo ranks
+    d = root / "pq"
+    h = harvest_beir(d, tb)
+    run = d / "run"
+    yaml_path = d / "exp.yaml"
+    yaml_path.write_text(
+        f"extends: ['{ROOT / 'configs' / 'msmarco_pq_realm.yaml'}', strategy/dp]\n"
+        f"tokenizer: {{name_or_path: '{h['vocab_dir']}', max_length: {tb['max_length']}}}\n"
+        "collate: {in_batch_negatives: true}\n"
+        f"dataloader: {{batch_size: {tb['batch_size']}}}\n"
+        "search_defaults:\n"
+        f"  dense: {{sharded: true, shard_axis: dp, autotune_target_recall: {tb['target_recall']}}}\n"
+        f"trainer: {{max_steps: {tb['max_steps']}, period: {tb['period']}, log_interval: 1, checkpoint_path: '{run}', "
+        f"batch_size: {{effective: {2 * tb['batch_size']}, per_device: {tb['batch_size']}}}}}\n"
+        + datasets(h)
+    )
+    exp = Experiment.from_file(str(yaml_path))
+    m, col, dn = exp.model, exp.collate, exp.search_defaults.dense
+    check((m.kind, m.gradients, m.hidden_size, m.num_layers, m.lm_hidden_size, m.lm_num_layers) ==
+          ("realm", "vod", 384, 6, 384, 6)
+          and (dn.codec, dn.n_subquantizers, dn.code_bits, dn.coarse_dim, dn.refine, dn.refine_dim, dn.k_factor) ==
+          ("pq", 128, 4, None, "int8", 128, 32)
+          and (dn.sharded, dn.shard_axis, dn.autotune_target_recall, col.in_batch_negatives, col.n_sections) ==
+          (True, "dp", tb["target_recall"], True, 8)
+          and (list(exp.sys.mesh_shape), list(exp.sys.mesh_axes)) == ([-1], ["dp"])
+          and (exp.tokenizer.max_length, exp.trainer.accumulate_grad_batches) == (tb["max_length"], 2),
+          "13b: the parsed Experiment is not msmarco_pq_realm under the phase's overrides")
+    log(f"13b inputs: {tb['n']} passages harvested in {h['harvest_s']:.2f} s; {tb['queries']} queries")
+    ranks, wall = run_ranks("pq_cli", dict(tb, backend="gloo", yaml=str(yaml_path), run=str(run)), d)
+    for r in ranks:
+        label = f"13b rank {r['rank']}"
+        check(r["resumed_step"] == tb["resume_steps"], f"{label}: resumed to {r['resumed_step']}")
+        check(len(r["steps"]) == tb["resume_steps"] and all(s["micro"] == 2 and s["rows"] == tb["batch_size"] //
+                                                            tb["ranks"] for s in r["steps"]),
+              f"{label}: steps over {[(s['micro'], s['rows']) for s in r['steps']]}")
+        check(all(s["dense"] == "ShardedPQIndex" for s in r["steps"]) and len(r["builds"]) == 3
+              and all(b_["type"] == "ShardedPQIndex" for b_ in r["builds"]), f"{label}: builds {r['builds']}")
+        check(all(a is not None for a in r["autotune"]), f"{label}: a period was not tuned: {r['autotune']}")
+        check(r["direct_equal"], f"{label}: the collate's sharded_pq_search != a direct call")
+    check(ranks[0]["autotune"] == ranks[1]["autotune"], "13b: the ranks took different operating points")
+    batch0 = torch.load(d / "batch-rank0-0.pt", weights_only=False)
+    check(batch0["extras"].get("flat_sections", False) and batch0["section__input_ids"].shape[0]
+          == tb["batch_size"] * exp.collate.n_sections, "13b: the first batch does not pool the global batch's sections")
+    out["pq_cli"] = dict(ranks=ranks, wall_s=wall, **first_loss_check("13b", ranks, d, exp, sown=False))
+    step_summary("13b", ranks, tb["period"])
+    log(f"13b: autotune {ranks[0]['autotune']} (target met: {ranks[0]['autotune_met']}); the collate's sharded search equals a direct call on both ranks "
+        f"({ranks[0]['search_index']}); first-step loss over the ranks {out['pq_cli']['first_loss']:.6f}, one process "
+        f"{out['pq_cli']['one_process_loss']:.6f} (rel {out['pq_cli']['first_loss_rel']:.2e}); torchrun wall "
+        f"{wall:.1f} s [{card}]")
+
+    # 13c: phase 11a's SPLADE composition under strategy/dp on two gloo ranks
+    d = root / "splade"
+    h = harvest_beir(d, tc)
+    write_hf_checkpoint(d / "ckpt", tc, dev, head="mlm")
+    hf = tc["hf"]
+    yaml_path = d / "exp.yaml"
+    yaml_path.write_text(
+        f"extends: ['{ROOT / 'configs' / 'scifact_ranker.yaml'}', strategy/dp]\n"
+        f"model: {{splade_encoder: true, splade_flops_weight: {tc['flops_weight']}, splade_query_k: {tc['query_k']}, "
+        f"splade_doc_k: {tc['doc_k']}, splade_max_postings: {tc['max_postings']}, vocab_size: {hf['vocab_size']}, "
+        f"hidden_size: {hf['hidden_size']}, num_layers: {hf['num_hidden_layers']}, "
+        f"num_heads: {hf['num_attention_heads']}, intermediate_size: {hf['intermediate_size']}, "
+        f"name_or_path: '{d / 'ckpt'}', hf_fallback: error}}\n"
+        f"tokenizer: {{name_or_path: '{h['vocab_dir']}', max_length: {tc['max_length']}}}\n"
+        f"trainer: {{max_steps: {tc['max_steps']}, period: {tc['period']}, log_interval: 1}}\n"
+        + datasets(h)
+    )
+    exp = Experiment.from_file(str(yaml_path))
+    check(exp.model.splade_encoder and exp.model.splade_flops_weight == tc["flops_weight"]
+          and (list(exp.sys.mesh_shape), list(exp.sys.mesh_axes)) == ([-1], ["dp"]) and exp.dataloader.batch_size == 32,
+          "13c: the parsed Experiment is not 11a's SPLADE composition under strategy/dp")
+    ranks, wall = run_ranks("splade_cli", dict(tc, backend="gloo", yaml=str(yaml_path)), d)
+    for r in ranks:
+        check(len(r["steps"]) == tc["max_steps"] and all(s["rows"] == 32 // tc["ranks"] for s in r["steps"])
+              and all(s["sparse"] == "SparseIndex" for s in r["steps"]), f"13c rank {r['rank']}: steps {r['steps']}")
+    out["splade_cli"] = dict(ranks=ranks, wall_s=wall, **first_loss_check("13c", ranks, d, exp, sown=True))
+    # the learned reindex split over the ranks against one process's, from the same weights
+    saved = [torch.load(d / f"terms-rank{r}.pt", weights_only=False) for r in range(tc["ranks"])]
+    model = cli.build_model(exp.model, proposal_temperature=exp.collate.temperature, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(exp.sys.seed))
+    model.load_state_dict(torch.load(d / "state0.pt", weights_only=True))
+    t0 = time.perf_counter()
+    terms, weights = encode_corpus_terms(model.encode_field, saved[0]["input_ids"].to(dev),
+                                         saved[0]["attention_mask"].to(dev), k=saved[0]["k"], chunk=saved[0]["chunk"])
+    one_s = time.perf_counter() - t0
+    for s_ in saved:
+        check(torch.equal(s_["terms"], torch.from_numpy(terms)) and torch.equal(s_["weights"], torch.from_numpy(weights)),
+              "13c: the impact terms re-embedded over the ranks != one process's")
+    table = [torch.load(d / f"impact-rank{r}.pt", weights_only=False) for r in range(tc["ranks"])]
+    learned = build_impact_index(terms, weights, n_terms=table[0]["n_terms"], max_postings=table[0]["max_postings"],
+                                 device="cpu")
+    for tb_ in table:
+        check(torch.equal(tb_["docs"], learned.postings_docs) and torch.equal(tb_["impacts"], learned.postings_impacts),
+              "13c: a rank's learned impact index != the one-process index")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["splade_cli"].update(one_process_reembed_s=one_s, table_width=int(learned.postings_docs.shape[1]))
+    step_summary("13c", ranks, tc["period"])
+    log(f"13c: the learned index ({learned.postings_docs.shape[1]} postings a term) over the ranks equals one "
+        f"process's (one-process re-embed {one_s:.2f} s); first-step loss (FLOPS term included) over the ranks "
+        f"{out['splade_cli']['first_loss']:.6f}, one process {out['splade_cli']['one_process_loss']:.6f} (rel "
+        f"{out['splade_cli']['first_loss_rel']:.2e}); torchrun wall {wall:.1f} s [{card}]")
+
+    # 13d: NCCL at world size 2 or more needs as many cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        ranks, wall = torchrun("compressed", n_cards, root, dict(ta, backend="nccl"), ta["timeout"])
+        out["nccl"] = ranks
+        for r in ranks:
+            log_13a(r, f"rank {r['rank']}/{r['world']} (nccl, {n_cards} cards)")
+    else:
+        out["nccl"] = None
+        log(f"13d not run: NCCL at world size 2 or more needs 2 or more cards, and this machine has {n_cards}")
+    tmp.cleanup()
+    out["wall_s"] = time.perf_counter() - started
+    log(f"phase 13 wall time: {out['wall_s']:.1f} s")
+    return out
+
+
 def rank_job(job: str, out_dir: Path, params: dict) -> None:
-    """One rank of a phase-12 group under torchrun (`chip_smoke.py --rank-job
+    """One rank of a phase-12 or phase-13 group under torchrun (`chip_smoke.py --rank-job
     <job> <out_dir> <params json>`): joins the group from torchrun's
     environment on `cuda:{LOCAL_RANK % device_count}` with `params["backend"]`,
     runs the job and writes its result to `out_dir/<job>-rank<r>.json`. A
@@ -3932,6 +4658,10 @@ def rank_job(job: str, out_dir: Path, params: dict) -> None:
     try:
         if job == "sharded":
             res = sharded_search_rank(dev, card, params["hbm"], params["peak_int8"], params)
+        elif job == "compressed":
+            res = compressed_search_rank(dev, card, params)
+        elif job in ("pq_cli", "splade_cli"):
+            res = batchwide_cli_rank(dev, card, params, out_dir)
         else:
             res = cli_rank(dev, card, params, out_dir)
         (out_dir / f"{job}-rank{rank}.json").write_text(json.dumps(res))
@@ -4151,7 +4881,7 @@ def main() -> None:
     if not all((ROOT / "vod_tpu_torch" / "csrc" / f"{name}.cu").is_file() for name in kernel_names):
         fail(f"no vod_tpu_torch checkout around {ROOT}")
     sys.path.insert(0, str(ROOT))
-    if len(sys.argv) == 5 and sys.argv[1] == "--rank-job":  # one rank of phase 12, under torchrun
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank-job":  # one rank of phase 12 or 13, under torchrun
         rank_job(sys.argv[2], Path(sys.argv[3]), json.loads(sys.argv[4]))
         return
     from vod_tpu_torch.examples import mips_kernel_bench
@@ -4597,7 +5327,37 @@ def main() -> None:
         cli_ranks_per_step=[[s["launches"]["wgmma"] for s in r["steps"]] for r in multi["cli"]["ranks"]],
     )
 
-    # 13. result lines
+    # 13. the sharded compressed indexes (13a) and batch-wide training over a
+    # data-parallel group through the CLI (13b msmarco_pq_realm, 13c SPLADE);
+    # NCCL over two or more cards where there are (13d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batchwide = batchwide_phase(dev, card, COMPRESSED, PQ_CLI, SPLADE_DP)
+    compressed_keys = ("type", "build_ms", "shard_ms", "merge_ms", "search_ms", "search_host_ms", "search_device_ms")
+    phase13 = dict(
+        compressed=[dict(rank=r["rank"], world=r["world"], backend=r["backend"], peak_gib=r["peak_gib"],
+                         **{e: {k: v for k, v in r[e].items() if k in compressed_keys or "recall" in k
+                                or k.startswith(("kmeans", "autotune", "untruncated"))}
+                            for e in ("pq", "ivf", "ivfpq", "maxsim")})
+                    for r in [batchwide["w1"], *batchwide["gloo"]]],
+        pq_cli={k: batchwide["pq_cli"][k] for k in ("first_loss", "one_process_loss", "first_loss_rel", "wall_s")}
+        | dict(ranks=[{k: r[k] for k in ("rank", "step_median_ms", "coll_share", "coll_bytes_step", "reembed_s",
+                                         "peak_gib", "autotune", "n_params")} for r in batchwide["pq_cli"]["ranks"]]),
+        splade_cli={k: batchwide["splade_cli"][k] for k in ("first_loss", "one_process_loss", "first_loss_rel",
+                                                              "wall_s", "one_process_reembed_s", "table_width")}
+        | dict(ranks=[{k: r[k] for k in ("rank", "step_median_ms", "coll_share", "coll_bytes_step", "reembed_s",
+                                         "peak_gib", "n_params")} for r in batchwide["splade_cli"]["ranks"]]),
+        nccl_cards=None if batchwide["nccl"] is None else len(batchwide["nccl"]), wall_s=batchwide["wall_s"],
+    )
+    # every phase-13 path launched neither kernel (checked in the phase)
+    phase13_launches = dict(
+        compressed=[{e: r[e]["launches"] for e in ("pq", "ivf", "ivfpq", "maxsim")}
+                    for r in [batchwide["w1"], *batchwide["gloo"]]],
+        pq_cli=[r["launches"] for r in batchwide["pq_cli"]["ranks"]],
+        splade_cli=[r["launches"] for r in batchwide["splade_cli"]["ranks"]],
+    )
+
+    # 14. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -4630,7 +5390,7 @@ def main() -> None:
         large=large, splade_launches=splade["launches"]["fused_mips_binned"],
         second_stage_launches=second_stage["launches"]["fused_mips_binned"],
         phase11=dict(splade=splade, second_stage=second_stage, dynamic=dynamic, wall_s=phase11_s),
-        sharded_launches=sharded_launches, sharded=sharded,
+        sharded_launches=sharded_launches, sharded=sharded, phase13_launches=phase13_launches, phase13=phase13,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],
@@ -4640,6 +5400,7 @@ def main() -> None:
         body=exact_main["body"], body_launches=body_launches, corpus_read_ms=read_ms,
         body_ms={body: {f"{s['dtype']} B={s['B']} k={s['k']}": s["ms"] for s in exact_shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
+        phase13_launches=phase13_launches,
     )]
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s, the kernels' build included")
     log(json.dumps({"kernels": kernels}))

@@ -4,10 +4,9 @@ CPU ranks of one gloo group run `main` on `tests/fixtures/beir_tiny` with the
 batch's `dp` axis, `kernel: fused`, the BM25 postings split over `dp` too),
 checkpoint (rank 0 writes) and resume; the batch accounting takes the dp
 degree as JAX's `cli.py:246-251` does; a shard axis missing from the mesh
-raises JAX's `ValueError`; and sharded PQ, IVF and IVF-PQ still raise
-`NotImplementedError` naming ROADMAP §A item 5b."""
+raises JAX's `ValueError`; and the factory builds sharded PQ, IVF and
+IVF-PQ on two ranks (in memory and, for PQ and IVF-PQ, from host slabs)."""
 
-import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -16,8 +15,6 @@ import pytest
 from tests.helpers import _VOCAB
 from tests.test_torch_cli import _write_cli_inputs
 from tests.torch_helpers import job_cli, job_cli_refusal, job_sequence, run_ranks
-from vod_tpu_torch.configs import DenseFactoryConfig
-from vod_tpu_torch.search import build_dense_from_config, build_dense_from_host
 
 MESH_YAML = """\
 extends: [strategy/dp, search/sharded]
@@ -98,11 +95,21 @@ def test_a_shard_axis_missing_from_the_mesh_raises_as_jax_does(two_ranks: dict) 
 
 
 @pytest.mark.parametrize("codec", ["pq", "ivf", "ivfpq"])
-def test_sharded_compressed_codecs_still_raise(codec: str) -> None:
-    x = np.random.default_rng(0).standard_normal((64, 16)).astype(np.float32)
-    cfg = DenseFactoryConfig(codec=codec, sharded=True)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        build_dense_from_config(cfg, x, mesh=object(), device="cpu")
+def test_sharded_compressed_codecs_still_raise(codec: str, tmp_path) -> None:
+    """Once a refusal (ROADMAP §A item 5b), now the build: `sharded: true`
+    over a two-rank mesh gives each rank its shard, which answers like the
+    unsharded index (every cell probed, the whole PQ pool kept)."""
+    from tests.torch_helpers import job_factory_sharded
+
+    x = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
+    kw = {"pq": dict(n_subquantizers=4, coarse_dim=None, kmeans_iters=2),
+          "ivf": dict(n_clusters=4, nprobe=4, dtype="float32"),
+          "ivfpq": dict(n_clusters=4, nprobe=4, ivf_window=16, refine="int8", keep_codes=False, kmeans_iters=2,
+                        max_windows=0)}[codec]
+    calls = [(job_factory_sharded, (codec, x, kw))]
     if codec != "ivf":
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            build_dense_from_host(dataclasses.replace(cfg), x, mesh=object(), device="cpu")
+        calls.append((job_factory_sharded, (codec, x, kw, True)))
+    for rank in run_ranks(job_sequence, 2, tmp_path, calls):
+        for res in rank:
+            assert res["type"] == "Sharded" + res["plain_type"], res["type"]
+            np.testing.assert_array_equal(res["ids"], res["plain_ids"])

@@ -989,3 +989,27 @@ def test_per_shard_binned_call_matches_plain_on_card(cuda_device, world: int, ba
         np.testing.assert_array_equal(r["full"]["ids"], out[0]["full"]["ids"])
         np.testing.assert_array_equal(r["cut"]["ids"], out[0]["cut"]["ids"])
         assert (r["cut"]["ids"] < n // world - 100).all() and (r["cut"]["ids"] >= 0).all()
+
+
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")], ids=["nccl-1", "gloo-2"])
+def test_sharded_compressed_engines_on_card_match_cpu(cuda_device, world: int, backend: str, tmp_path) -> None:
+    """The sharded PQ, IVF, IVF-PQ and MaxSim searches (`search/sharded.py`)
+    on the card against the same shards on the CPU: at world size 1 under
+    NCCL, and on two ranks of the one card under gloo. int8 products are
+    exact on both devices, so the PQ, IVF-PQ and MaxSim answers are equal;
+    IVF's bf16 products are summed in f32 in another order: scores within
+    1e-4 and ids equal where the margin to both neighbours exceeds it."""
+    from tests.torch_helpers import job_compressed_on_card, run_ranks
+
+    out = run_ranks(job_compressed_on_card, world, tmp_path, 4096, 64, 16, 10, device="cuda", backend=backend)
+    for r in out:
+        for name in ("pq", "ivfpq"):
+            (cs, ci), (gs, gi) = r[name]
+            np.testing.assert_array_equal(gi, ci, err_msg=name)
+            np.testing.assert_allclose(gs, cs, atol=1e-5, rtol=0, err_msg=name)
+        (cs, ci), (gs, gi) = r["ivf"]
+        np.testing.assert_allclose(gs, cs, atol=1e-4, rtol=0)
+        gap = np.minimum(np.abs(np.diff(cs, axis=1, prepend=np.inf)), np.abs(np.diff(cs, axis=1, append=-np.inf)))
+        np.testing.assert_array_equal(gi[gap > 1e-4], ci[gap > 1e-4])
+        np.testing.assert_array_equal(r["maxsim"][1], r["maxsim"][0])
+        np.testing.assert_array_equal(r["ivfpq"][1][1], out[0]["ivfpq"][1][1])  # the same merged answer on every rank

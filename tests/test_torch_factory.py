@@ -107,16 +107,20 @@ def test_pq_and_ivf_builds_have_the_jax_structure(diff: dict) -> None:
             assert g == w or (w is None and g is None), f.name
 
 
-def test_unported_builds_raise() -> None:
-    """Sharded flat/int8 are ported (`tests/test_torch_sharded.py`); as in
-    JAX, `sharded` without a mesh builds the plain index and a mesh without
-    `sharded` is ignored. Sharded pq raises, naming ROADMAP §A item 5b."""
+def test_unported_builds_raise(tmp_path) -> None:
+    """As in JAX, `sharded` without a mesh builds the plain index and a mesh
+    without `sharded` is ignored. Sharded pq, once a refusal (ROADMAP §A
+    item 5b), now builds: over a one-rank mesh it is the whole index as one
+    shard and answers as the unsharded index does."""
+    from tests.torch_helpers import job_factory_sharded, run_ranks
+
     x = _vectors()
     for cfg, kw in ((DenseFactoryConfig(sharded=True), {}), (DenseFactoryConfig(), {"mesh": object()})):
         assert type(build_dense_from_config(cfg, x, device="cpu", **kw)) is DenseIndex
         assert type(build_dense_from_host(dataclasses.replace(cfg, codec="int8"), x, device="cpu", **kw)) is DenseIndex
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        build_dense_from_config(DenseFactoryConfig(codec="pq", sharded=True), x, mesh=object(), device="cpu")
+    (res,) = run_ranks(job_factory_sharded, 1, tmp_path, "pq", x, dict(n_subquantizers=4, kmeans_iters=1))
+    assert (res["type"], res["plain_type"]) == ("ShardedPQIndex", "PQIndex")
+    np.testing.assert_array_equal(res["ids"], res["plain_ids"])
 
 
 def test_builders_default_to_the_card() -> None:

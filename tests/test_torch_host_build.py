@@ -226,7 +226,7 @@ def test_ivfpq_from_host_matches_jax(spill: bool, monkeypatch) -> None:
                          ivfpq_search(got, SearchQueries(vector=torch.from_numpy(q)), K))
 
 
-def test_host_build_downgrades_full_precision_stores_and_refuses_flat() -> None:
+def test_host_build_downgrades_full_precision_stores_and_refuses_flat(tmp_path) -> None:
     x = _corpus()[:600]
     with pytest.warns(UserWarning, match="refine='float32'"):
         ix = build_dense_from_host(DenseFactoryConfig(codec="pq", n_subquantizers=8, kmeans_iters=1, refine="float32"),
@@ -238,8 +238,12 @@ def test_host_build_downgrades_full_precision_stores_and_refuses_flat() -> None:
     assert ix.rerank_codes.dtype == torch.int8 and ix.refine_codes.dtype == torch.int8
     with pytest.raises(ValueError, match="host-slab build supports"):
         build_dense_from_host(DenseFactoryConfig(codec="flat"), x, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5b"):  # sharded int8 is ported (test_torch_sharded.py)
-        build_dense_from_host(DenseFactoryConfig(codec="pq", sharded=True), x, mesh=object(), device=CPU)
+    # sharded pq from host slabs, once a refusal (ROADMAP §A item 5b), now keeps this rank's shard
+    from tests.torch_helpers import job_factory_sharded, run_ranks
+
+    (res,) = run_ranks(job_factory_sharded, 1, tmp_path, "pq", x, dict(n_subquantizers=8, kmeans_iters=1), True)
+    assert (res["type"], res["plain_type"]) == ("ShardedPQIndex", "PQIndex")
+    np.testing.assert_array_equal(res["ids"], res["plain_ids"])
 
 
 def _record(monkeypatch, module, name: str) -> list:

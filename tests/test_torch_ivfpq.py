@@ -401,10 +401,18 @@ def test_search_server_serves_what_ivfpq_search_returns() -> None:
 
 
 def test_mesh_still_raises() -> None:
-    with pytest.raises(NotImplementedError):
-        build_ivfpq_index(_corpus()[:100], n_clusters=4, refine="int8", keep_codes=False, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError):
-        build_dense_from_config(_cfg(), _corpus()[:100], mesh=object(), device=CPU)
+    """Once a refusal (ROADMAP §A item 5b). The mesh reaches the ivfpq
+    build only with `sharded` (JAX `factory.py:169`): an unsharded config
+    under a mesh builds the index built without one, bit for bit. A mesh
+    given to the build itself must have the k-means axis."""
+    x = _corpus()[:300]
+    want = build_dense_from_config(_cfg(), x, device=CPU)
+    got = build_dense_from_config(_cfg(), x, mesh=object(), device=CPU)
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b), f.name
+    with pytest.raises(ValueError, match="axis"):
+        build_ivfpq_index(x, n_clusters=4, refine="int8", keep_codes=False, mesh=object(), device=CPU)
 
 
 def test_build_defaults_to_the_card() -> None:

@@ -41,7 +41,6 @@ from vod_tpu.runtime.train import training_loop as jax_training_loop
 from vod_tpu.search import HybridEngines as JaxEngines
 from vod_tpu.search.sharded import build_sharded_dense_index as jax_build_sharded
 from vod_tpu_torch.models import system_flax_to_state_dict
-from vod_tpu_torch.parallel import DataParallel
 from vod_tpu_torch.runtime import QueryBatch, build_device_corpus, device_collate
 
 POOLER = dict(agg_method="mean", output_norm="l2", scaler=8.0, learn_scaler=True)
@@ -169,25 +168,25 @@ def test_aggregate_metrics_psum_matches_jax(world: int, tmp_path) -> None:
             assert got[k] == pytest.approx(want[k], abs=1e-6), k
 
 
-def test_batch_wide_options_raise_under_a_split_batch() -> None:
-    """In-batch negatives and a sown auxiliary loss (SPLADE's FLOPS term) are
-    statistics of the whole batch: under a data-parallel split they raise
-    `NotImplementedError` naming ROADMAP §A item 5b, before any collective."""
-    from vod_tpu_torch.models import Ranker, RetrievalGradients, TransformerEncoderConfig
-    from vod_tpu_torch.runtime import adamw, make_train_step
+def test_batch_wide_options_raise_under_a_split_batch(tmp_path) -> None:
+    """Once refusals (ROADMAP §A item 5b), now run: in-batch negatives and a
+    sown auxiliary loss (SPLADE's FLOPS term) over a batch split on two
+    ranks, each rank scoring its rows against the global batch's pool
+    (`tests/test_torch_train_dp_batchwide.py` holds them to one process).
+    A split batch without its axis's group still cannot pool, and says so."""
+    from tests.torch_helpers import job_train_batchwide, splade_ranker
     from vod_tpu_torch.search import HybridEngines, build_dense_index
 
-    sec, batches, _ = _task()
+    sec, batches, _ = _task(n_batches=1)
+    state = {k: v.numpy() for k, v in splade_ranker(SIZES).state_dict().items()}
+    step = dict(STEP, in_batch_negatives=True)
+    for res in run_ranks(job_train_batchwide, 2, tmp_path, "splade", SIZES, state, sec, batches, step):
+        (q_shape, s_shape), = res["shapes"]
+        assert q_shape[0] == 4 and s_shape[0] == 8 * STEP["n_sections"]
     corpus = build_device_corpus(sec, np.ones_like(sec), device="cpu")
     q = QueryBatch(torch.from_numpy(batches[0][0]), torch.ones_like(torch.from_numpy(batches[0][0])),
                    section_ids=torch.from_numpy(batches[0][1]))
     engines = HybridEngines(dense=build_dense_index(np.eye(64, 32, dtype=np.float32), dtype="float32", device="cpu"))
-    with pytest.raises(NotImplementedError, match="5b"):
+    with pytest.raises(ValueError, match="group"):
         device_collate(engines, corpus, q, generator=torch.Generator(), query_vectors=torch.zeros(8, 32),
                        in_batch_negatives=True, rows=(0, 2))
-    dp = DataParallel(mesh=None, axis="dp", index=0, size=2, split=True)
-    splade = Ranker(TransformerEncoderConfig(dtype=torch.float32, **SIZES), RetrievalGradients(), splade_encoder=True,
-                    device="cpu")
-    step = make_train_step(splade, adamw(splade, 1e-3, weight_decay=0.0), splade_query_k=4)
-    with pytest.raises(NotImplementedError, match="5b"):
-        step.train_step(engines, corpus, q, torch.Generator(), None, dp=dp)

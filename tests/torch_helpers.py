@@ -317,7 +317,9 @@ def job_cli(rank: int, world: int, config: str, resume: typ.Optional[tuple] = No
         hist = res["history"]
         return dict(step=res["state"].step, periods=len(hist), accumulate=res["step_fn"].accumulate_grad_batches,
                     losses=[h["train"].get("loss") for h in hist],
-                    checksum=float(sum(p.detach().double().sum() for p in res["model"].parameters())))
+                    checksum=float(sum(p.detach().double().sum() for p in res["model"].parameters())),
+                    autotune=[h.get("autotune", {}).get("params") for h in hist],
+                    in_batch_negatives=res["step_fn"].in_batch_negatives)
 
     return dict(first=summary(first), second=None if second is None else summary(second), stdout=out.getvalue(),
                 built=built)
@@ -382,4 +384,247 @@ def job_shard_kernel(rank: int, world: int, n: int, d: int, b: int, k: int) -> d
                              (ks, ki), fused_mips_binned_reference(ix.vectors, q8, k=k, n_real=ix.local_real)))),
                          empty=bool((ki == -1).all()), ids=np_of(sharded_dense_search(ix, SearchQueries(vector=q),
                                                                                       k).indices))
+    return out
+
+
+# ---- the sharded compressed engines, k-means, autotuning, batch-wide training ---
+
+
+def _index_from_fields(kind: str, fields: dict):
+    """The port's unsharded index of `kind` from a JAX index's fields (numpy)."""
+    from vod_tpu_torch.models import convert
+    from vod_tpu_torch.search.maxsim import MaxSimIndex
+
+    if kind == "ivfpq":
+        return convert.ivfpq_index_from_fields(fields, device=CPU)
+    if kind == "maxsim":
+        return MaxSimIndex(**_tensors(fields))
+    return convert.dense_index_from_fields(fields, device=CPU)
+
+
+def job_sharded_engine(rank: int, world: int, kind: str, fields: dict, axis: str, queries: dict, top_k: int,
+                       batch_axis: typ.Optional[str] = None, shard_kw: typ.Optional[dict] = None) -> dict:
+    """Shard the port's copy of a JAX index (`kind`: "pq", "ivf" or "ivfpq")
+    over the world's `axis` and search `queries` (with `batch_axis`, this
+    rank's block of their rows). Returns the answer, this rank's arrays and
+    the unsharded index's answer."""
+    from vod_tpu_torch.parallel import make_mesh, shard_batch
+    from vod_tpu_torch.search import dense, ivfpq, sharded
+    from vod_tpu_torch.search.base import SearchQueries
+
+    mesh = make_mesh((world,), (axis,))
+    index = _index_from_fields(kind, fields)
+    shard, search, plain = {
+        "pq": (sharded.shard_pq_index, sharded.sharded_pq_search, dense.pq_search),
+        "ivf": (sharded.shard_ivf_index, sharded.sharded_ivf_search, dense.ivf_search),
+        "ivfpq": (sharded.shard_ivfpq_index, sharded.sharded_ivfpq_search, ivfpq.ivfpq_search),
+    }[kind]
+    shard_kw = dict(shard_kw or {})
+    if "corpus_shard" in shard_kw:
+        shard_kw["corpus_shard"] = torch.as_tensor(shard_kw["corpus_shard"])
+    ix = shard(index, mesh, axis=axis, **shard_kw)
+    q = SearchQueries(**_tensors(queries))
+    whole = plain(index, q, top_k) if kind != "pq" or "corpus_shard" not in shard_kw else None
+    if batch_axis is not None:
+        q = shard_batch(q, mesh, batch_axis)
+    r = search(ix, q, top_k, batch_axis=batch_axis)
+    arrays = {k: np_of(v) for k, v in vars(ix).items() if isinstance(v, torch.Tensor)}
+    return dict(scores=np_of(r.scores), ids=np_of(r.indices), arrays=arrays,
+                meta={k: v for k, v in vars(ix).items() if isinstance(v, (int, float, bool, str)) or v is None},
+                plain=None if whole is None else (np_of(whole.scores), np_of(whole.indices)))
+
+
+def job_sharded_maxsim(rank: int, world: int, fields: dict, q_tokens, q_mask, cand) -> dict:
+    """The port's sharded MaxSim rerank of a JAX store's copy, beside its
+    unsharded rerank."""
+    from vod_tpu_torch.parallel import make_mesh
+    from vod_tpu_torch.search.maxsim import maxsim_rerank
+    from vod_tpu_torch.search.sharded import shard_maxsim_index, sharded_maxsim_rerank
+
+    index = _index_from_fields("maxsim", fields)
+    ix = shard_maxsim_index(index, make_mesh((world,), ("shard",)), axis="shard")
+    args = (torch.as_tensor(q_tokens), torch.as_tensor(q_mask), torch.as_tensor(cand))
+    return dict(sharded=np_of(sharded_maxsim_rerank(ix, *args)), plain=np_of(maxsim_rerank(index, *args)),
+                rows=ix.rows_per_shard)
+
+
+def job_kmeans_sharded(rank: int, world: int, x, k: int, init, seed: int, n_iters: int) -> dict:
+    """`kmeans_sharded` over the world and, in the same process, the
+    unsharded `kmeans`, both from generator `seed` (and `init` if given)."""
+    from vod_tpu_torch.ops.kmeans import kmeans, kmeans_sharded
+    from vod_tpu_torch.parallel import make_mesh
+
+    x = torch.as_tensor(x)
+    init = None if init is None else torch.as_tensor(init)
+    c, a = kmeans_sharded(x, k, make_mesh((world,), ("shard",)), axis="shard", n_iters=n_iters, init=init,
+                          generator=torch.Generator().manual_seed(seed))
+    pc, pa = kmeans(x, k, n_iters=n_iters, init=init, generator=torch.Generator().manual_seed(seed))
+    return dict(centroids=np_of(c), assign=np_of(a), plain_centroids=np_of(pc), plain_assign=np_of(pa))
+
+
+def job_autotune_sharded(rank: int, world: int, kind: str, fields: dict, queries, gt, target: float, top_k: int,
+                         fcfg: dict, seed: int) -> dict:
+    """The port's sharded copy of a JAX index (and the unsharded copy) tuned
+    by `autotune` over `queries` / `gt` (untimed), and the sharded copy by
+    `autotune_after_build(fcfg)` over the queries as the corpus (timed: each
+    rank times its own sweep, every rank takes rank 0's choice)."""
+    import importlib
+
+    from vod_tpu_torch.configs.search import DenseFactoryConfig
+    from vod_tpu_torch.parallel import make_mesh
+    from vod_tpu_torch.search import sharded
+
+    at = importlib.import_module("vod_tpu_torch.search.autotune")
+    mesh = make_mesh((world,), ("shard",))
+    shard = {"pq": sharded.shard_pq_index, "ivf": sharded.shard_ivf_index, "ivfpq": sharded.shard_ivfpq_index}[kind]
+    index = shard(_index_from_fields(kind, fields), mesh, axis="shard")
+    q = torch.as_tensor(queries)
+    tuned, chosen, _ = at.autotune(index, q, gt, target_recall=target, top_k=top_k, measure_time=False)
+    _, plain, _ = at.autotune(_index_from_fields(kind, fields), q, gt, target_recall=target, top_k=top_k,
+                              measure_time=False)
+    _, info = at.autotune_after_build(index, DenseFactoryConfig(**fcfg), q, generator=torch.Generator().manual_seed(seed))
+    return dict(grid=at.default_grid(index), chosen=chosen.params, recall=chosen.recall, plain=plain.params,
+                plain_recall=plain.recall, timed=info["params"],
+                meta={k: v for k, v in vars(tuned).items() if isinstance(v, int) and not isinstance(v, bool)})
+
+
+def splade_ranker(sizes: dict, state: typ.Optional[dict] = None, seed: int = 0, flops_weight: float = 1e-2):
+    """A float32 SPLADE `Ranker` of `sizes` (FLOPS term at `flops_weight`)."""
+    from vod_tpu_torch.models import Ranker, RetrievalGradients, TransformerEncoderConfig
+
+    model = Ranker(TransformerEncoderConfig(dtype=torch.float32, **sizes), RetrievalGradients(), splade_encoder=True,
+                   splade_flops_weight=flops_weight, device=CPU, generator=torch.Generator().manual_seed(seed))
+    if state is not None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return model
+
+
+def job_train_batchwide(rank: int, world: int, model_kind: str, sizes: dict, state: dict, sec: np.ndarray,
+                        batches: list, step_kw: dict) -> dict:
+    """`training_loop` over the global `batches` [(query ids, gold ids)] on a
+    dp mesh of the world (no mesh at world 1), SGD: a topic `Ranker`
+    ("topic") over a replicated f32 index, or a SPLADE `Ranker` ("splade")
+    over its learned impact index (its FLOPS term sown). Returns the logged
+    losses (rank 0), the parameters and the first step's collated batch
+    shapes."""
+    from vod_tpu_torch.models.splade import encode_corpus_terms
+    from vod_tpu_torch.parallel import make_mesh
+    from vod_tpu_torch.runtime import QueryBatch, TrainerState, build_device_corpus, make_train_step
+    from vod_tpu_torch.runtime.train import RealmTrainStep, training_loop
+    from vod_tpu_torch.search import HybridEngines, build_dense_index, build_impact_index
+
+    mesh = make_mesh((world,), ("dp",)) if world > 1 else None
+    corpus = build_device_corpus(sec, np.ones_like(sec), device=CPU)
+    if model_kind == "splade":
+        model = splade_ranker(sizes, state)
+        terms, weights = encode_corpus_terms(model.encode_field, corpus.input_ids, corpus.attention_mask, k=8,
+                                             chunk=16, mesh=mesh)
+        engines = HybridEngines(sparse=build_impact_index(terms, weights, n_terms=sizes["vocab_size"], device=CPU))
+        step_kw = dict(step_kw, splade_query_k=8)
+    else:
+        model = topic_ranker(sizes, state)
+        with torch.no_grad():
+            emb = model.encode_field(corpus.input_ids, corpus.attention_mask)
+        engines = HybridEngines(dense=build_dense_index(emb, dtype="float32", approx_recall=None, device=CPU))
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.5), **step_kw)
+    shapes: list = []
+    real_loss = RealmTrainStep.loss
+
+    def loss(self, batch, dp=None):
+        shapes.append((tuple(batch.query__input_ids.shape), tuple(batch.section__input_ids.shape)))
+        return real_loss(self, batch, dp)
+
+    RealmTrainStep.loss = loss
+    qs = [QueryBatch(torch.from_numpy(i), torch.ones_like(torch.from_numpy(i)), section_ids=torch.from_numpy(g))
+          for i, g in batches]
+    logs: list = []
+    try:
+        training_loop(step_fn=step, engines=engines, corpus=corpus, train_queries=qs,
+                      state=TrainerState(max_steps=len(qs)), generator=torch.Generator().manual_seed(5),
+                      log_interval=1, prefetch_batches=0, metrics=("mrr",), mesh=mesh,
+                      on_log=lambda s, m: logs.append(m))
+    finally:
+        RealmTrainStep.loss = real_loss
+    return dict(logs=logs, shapes=shapes, params={k: np_of(v) for k, v in model.state_dict().items()})
+
+
+def job_corpus_terms(rank: int, world: int, sizes: dict, state: dict, sec: np.ndarray, k: int, chunk: int) -> tuple:
+    """`encode_corpus_terms` of a SPLADE `Ranker` over `sec`, its chunks
+    split over a dp mesh of the world (no mesh at world 1)."""
+    from vod_tpu_torch.models.splade import encode_corpus_terms
+    from vod_tpu_torch.parallel import make_mesh
+    from vod_tpu_torch.runtime import build_device_corpus
+
+    model = splade_ranker(sizes, state)
+    corpus = build_device_corpus(sec, np.ones_like(sec), device=CPU)
+    return encode_corpus_terms(model.encode_field, corpus.input_ids, corpus.attention_mask, k=k, chunk=chunk,
+                               mesh=make_mesh((world,), ("dp",)) if world > 1 else None)
+
+
+def job_factory_sharded(rank: int, world: int, codec: str, x: np.ndarray, cfg_kw: dict, host: bool = False) -> dict:
+    """The factory's build of `codec` with `sharded: true` over the world's
+    "shard" axis (`build_dense_from_host` with `host`), and the unsharded
+    build's answer to the first rows of `x` beside the sharded one's."""
+    from vod_tpu_torch.configs import DenseFactoryConfig
+    from vod_tpu_torch.parallel import make_mesh
+    from vod_tpu_torch.search import SearchQueries, build_dense_from_config, build_dense_from_host
+    from vod_tpu_torch.search.hybrid import _dense_dispatch
+
+    cfg = DenseFactoryConfig(codec=codec, sharded=True, **cfg_kw)
+    build = build_dense_from_host if host else build_dense_from_config
+    sharded = build(cfg, x, mesh=make_mesh((world,), ("shard",)), device="cpu")
+    plain = build(cfg, x, device="cpu")
+    q = SearchQueries(vector=torch.as_tensor(x[:4]))
+    return dict(type=type(sharded).__name__, plain_type=type(plain).__name__,
+                ids=np_of(_dense_dispatch(sharded, q, 5).indices), plain_ids=np_of(_dense_dispatch(plain, q, 5).indices))
+
+
+def job_compressed_on_card(rank: int, world: int, n: int, d: int, b: int, k: int) -> dict:
+    """Each compressed engine (pq, ivf, ivfpq: built on the CPU from seeded
+    clustered rows; MaxSim: a seeded int8 store) sharded over the world's
+    "shard" axis twice, from the CPU copy and from a copy moved to this
+    rank's card; both searched. Returns both answers by engine."""
+    import dataclasses
+
+    from vod_tpu_torch.parallel import make_mesh, rank_device
+    from vod_tpu_torch.search import SearchQueries, build_ivf_index, build_ivfpq_index, build_pq_index, sharded
+    from vod_tpu_torch.search.maxsim import MaxSimIndex
+
+    dev = rank_device()
+    mesh = make_mesh((world,), ("shard",))
+    rng = np.random.default_rng(0)
+    centres = unit_rows(rng, 32, d)
+    x = (centres[rng.integers(0, 32, n)] + 0.2 * rng.standard_normal((n, d))).astype(np.float32)
+    q = torch.from_numpy(x[:b] + 0.05 * rng.standard_normal((b, d)).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    built = {
+        "pq": (build_pq_index(x, n_subquantizers=8, code_bits=4, coarse_dim=None, refine="int8", refine_dim=16,
+                              k_factor=8, kmeans_iters=3, generator=gen, device=CPU),
+               sharded.shard_pq_index, sharded.sharded_pq_search),
+        "ivf": (build_ivf_index(x, n_clusters=16, nprobe=4, dtype="bfloat16", generator=gen, device=CPU),
+                sharded.shard_ivf_index, sharded.sharded_ivf_search),
+        "ivfpq": (build_ivfpq_index(x, n_clusters=16, nprobe=4, window=64, refine="int8", refine_dim=16,
+                                    keep_codes=False, rerank="int8", k_factor=4, generator=gen, device=CPU),
+                  sharded.shard_ivfpq_index, sharded.sharded_ivfpq_search),
+    }
+
+    def to(index, device):
+        return dataclasses.replace(index, **{f.name: getattr(index, f.name).to(device) for f in dataclasses.fields(index)
+                                             if isinstance(getattr(index, f.name), torch.Tensor)})
+
+    out = {}
+    for name, (index, shard, search) in built.items():
+        answers = []
+        for device in (CPU, dev):
+            r = search(shard(to(index, device), mesh, axis="shard"), SearchQueries(vector=q.to(device)), k)
+            answers.append((np_of(r.scores), np_of(r.indices)))
+        out[name] = answers
+    codes = torch.randint(-127, 128, (n // 8, 8, 16), generator=gen, dtype=torch.int8)
+    store = MaxSimIndex(token_codes=codes, token_mask=torch.rand((n // 8, 8), generator=gen) < 0.9,
+                        scale=torch.full((1, 16), 0.01), n_real=n // 8)
+    qt, qm = torch.randn((b, 4, 16), generator=gen), torch.ones((b, 4), dtype=torch.bool)
+    cand = torch.randint(0, n // 8, (b, 32), generator=gen)
+    out["maxsim"] = [np_of(sharded.sharded_maxsim_rerank(sharded.shard_maxsim_index(to(store, device), mesh, axis="shard"),
+                                                         qt.to(device), qm.to(device), cand.to(device)))
+                     for device in (CPU, dev)]
     return out

@@ -19,7 +19,11 @@ the CPU; `--backend` names another). The mesh comes from `sys.mesh_shape`
 one rank (declared difference: the port counts ranks, where JAX counts
 devices). Batches split over its `dp` axis, `n_dp` enters the batch
 accounting, `dense.sharded` and `sparse.sharded` shard over their axes, and
-rank 0 prints and writes. As in JAX, the CLI never shards parameters: an
+rank 0 prints and writes. SPLADE, `collate.in_batch_negatives` and
+`dense.autotune_target_recall` run under a mesh too: the FLOPS term and the
+section pool are the global batch's, and every rank takes rank 0's
+operating point (`runtime/train.py`, `search/autotune.py`). As in JAX, the
+CLI never shards parameters: an
 `fsdp`-only mesh runs the whole batch on every rank (`parallel/mesh.py:
 shard_params` is reached through the API).
 
@@ -109,13 +113,8 @@ def check_ported(exp: Experiment, device: typ.Union[str, torch.device] = "cuda")
     """Raise `NotImplementedError` for each option of `exp` the port lacks
     (`device` is where the run would go; every option below runs on both)."""
     del device
-    mesh = _uses_mesh(exp)
     unported = _unported_model_options(exp.model) + [
         (exp.sys.profile_dir is not None, "sys.profile_dir (profiler traces)", "7"),
-        (mesh and exp.model.splade_encoder, "model.splade_encoder over a mesh", "5b"),
-        (mesh and exp.collate.in_batch_negatives, "collate.in_batch_negatives over a mesh", "5b"),
-        (mesh and exp.search_defaults.dense.autotune_target_recall is not None,
-         "dense.autotune_target_recall over a mesh", "5b"),
     ]
     _raise_unported(unported)
 

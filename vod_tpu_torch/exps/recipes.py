@@ -31,9 +31,11 @@ none): the re-embed splits its chunks over `dp_axis` (or the mesh's `dp`
 axis) and gathers the embeddings to every rank, the factory shards a
 `dense.sharded` index over `dense.shard_axis`, the loops split the batches
 over `dp_axis` (when it is set, as JAX passes the mesh to the loops only
-then), and every rank passes a barrier after each rebuild. Rank 0 writes
-the checkpoints. Under a mesh the learned-sparse reindex and the autotuner
-raise `NotImplementedError` (ROADMAP §A item 5b).
+then), and every rank passes a barrier after each rebuild. The autotuner
+sweeps a sharded index on every rank in lockstep and every rank takes rank
+0's choice; the learned-sparse reindex encodes each rank's block of the
+corpus's impacts, gathers them, and every rank builds the same impact
+index. Rank 0 writes the checkpoints.
 
 The re-embed calls the model's `encode_field`, so a kbit-prepared model
 (`models/kbit.py`) re-embeds through its dequantizing view, as JAX's
@@ -99,11 +101,6 @@ class PeriodicTrainingConfig:
 
 
 def _check_ported(cfg: PeriodicTrainingConfig) -> None:
-    if cfg.mesh is not None and cfg.splade_doc_k is not None:
-        raise NotImplementedError("the learned-sparse reindex over a mesh is not ported to vod_tpu_torch yet "
-                                  "(ROADMAP §A item 5b)")
-    if cfg.mesh is not None and cfg.dense is not None and cfg.dense.autotune_target_recall is not None:
-        raise NotImplementedError("autotuning over a mesh is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)")
     if cfg.profile_dir is not None:
         raise NotImplementedError("profiler traces (profile_dir) are not ported to vod_tpu_torch yet")
 
@@ -149,6 +146,7 @@ def periodic_training(
             # learned-sparse reindex: the impact postings of the current encoder
             terms, weights = encode_corpus_terms(
                 model.encode_field, corpus.input_ids, corpus.attention_mask, k=cfg.splade_doc_k, chunk=cfg.embed_chunk,
+                mesh=cfg.mesh, dp_axis=cfg.dp_axis or "dp",
             )
             with torch.no_grad():
                 n_terms = int(model.encode_field(corpus.input_ids[:1], corpus.attention_mask[:1]).shape[-1])

@@ -20,9 +20,12 @@ in f32 (a `[288, 200, 30522]` micro-batch is 3.5 GB in bf16).
 With `flops_weight > 0` the forward appends `flops_weight * flops_loss`
 to `sown` when a caller collects losses (`systems.collect_losses`): flax's
 `sow` into `"losses"`, which is only kept where that collection is mutable.
+Over a data-parallel split the collector names the axis's group, and the
+term's mean is the global batch's (`flops_loss(group=...)`).
 
 `encode_corpus_terms` sparsifies chunk by chunk on the device, so the
-dense `[N, V]` impacts never exist at once; `splade_topk_terms` breaks ties
+dense `[N, V]` impacts never exist at once (over a mesh, each rank encodes
+its block of chunks and the parts are gathered); `splade_topk_terms` breaks ties
 to the lowest term id, as `lax.top_k` does.
 """
 
@@ -32,15 +35,32 @@ import typing as typ
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from vod_tpu_torch.ops.numpy_ops import topk_lowest_first
 from .encoder import TransformerEncoder, TransformerEncoderConfig, _dense, _gelu, _LayerNorm, _materialise
 
 
-def flops_loss(impacts: torch.Tensor) -> torch.Tensor:
-    """SPLADE FLOPS regularizer `sum_v (mean_b w_{b,v})^2`."""
-    return torch.sum(torch.mean(impacts, dim=0) ** 2)
+def flops_loss(
+    impacts: torch.Tensor, *, group: typ.Any = None, rows: typ.Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """SPLADE FLOPS regularizer `sum_v (mean_b w_{b,v})^2`. With `group`,
+    the mean is over the rows of every rank of the group (their sums and
+    count summed by a differentiable `all_reduce`); `rows` masks the rows
+    of `impacts` that count (None: all)."""
+    if group is None and rows is None:
+        return torch.sum(torch.mean(impacts, dim=0) ** 2)
+    if rows is None:
+        total = torch.cat([impacts.sum(0), impacts.new_full((1,), float(impacts.shape[0]))])
+    else:
+        keep = rows.to(impacts.dtype)
+        total = torch.cat([(impacts * keep[:, None]).sum(0), keep.sum().reshape(1)])
+    if group is not None and dist.is_initialized() and dist.get_world_size(group) > 1:
+        from torch.distributed.nn.functional import all_reduce
+
+        total = all_reduce(total, group=group)
+    return torch.sum((total[:-1] / total[-1]) ** 2)
 
 
 class SpladeEncoder(nn.Module):
@@ -60,7 +80,10 @@ class SpladeEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.flops_weight = flops_weight
-        self.sown: typ.Optional[list[torch.Tensor]] = None  # set by `systems.collect_losses`
+        # set by `systems.collect_losses`
+        self.sown: typ.Optional[list[torch.Tensor]] = None
+        self.sown_group: typ.Any = None
+        self.sown_rows: typ.Optional[torch.Tensor] = None
         h = cfg.hidden_size
         self.backbone = TransformerEncoder(cfg, device="meta")
         self.transform = nn.Linear(h, h, device="meta")
@@ -81,7 +104,7 @@ class SpladeEncoder(nn.Module):
         logits = logits.masked_fill(~(attention_mask[..., None] > 0), float("-inf"))
         impacts = torch.log1p(torch.relu(torch.amax(logits, dim=1).to(torch.float32)))  # [B, V]
         if self.flops_weight > 0.0 and self.sown is not None:
-            self.sown.append(self.flops_weight * flops_loss(impacts))
+            self.sown.append(self.flops_weight * flops_loss(impacts, group=self.sown_group, rows=self.sown_rows))
         return impacts
 
 
@@ -136,16 +159,33 @@ def encode_corpus_terms(
     *,
     k: int,
     chunk: int = 256,
+    mesh: typ.Any = None,
+    dp_axis: str = "dp",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Chunked corpus encoding with top-k sparsification on the device: the
     dense `[N, V]` impacts never exist at once, only one chunk's. Returns host
     (terms `[N, k]` int32 / -1, weights `[N, k]` f32) for
     `build_impact_index`. `encode_fn(ids, mask) -> [b, V]` is typically the
-    SPLADE Ranker's `encode_field`."""
+    SPLADE Ranker's `encode_field`. With `mesh`, the chunks are split over
+    `dp_axis` in contiguous blocks (the chunks one process would encode) and
+    the parts gathered, so every rank returns the whole corpus's terms."""
+    from vod_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
     n = int(input_ids.shape[0])
-    terms = torch.empty((n, k), dtype=torch.int32, device=input_ids.device)
-    weights = torch.empty((n, k), dtype=torch.float32, device=input_ids.device)
-    for s in range(0, n, chunk):
-        t, w = splade_topk_terms(encode_fn(input_ids[s : s + chunk], attention_mask[s : s + chunk]), k)
-        terms[s : s + chunk], weights[s : s + chunk] = t, w
+    dp = axis_size(mesh, dp_axis)
+    per = -(-(-(-n // chunk)) // dp) * chunk if dp > 1 else n  # rows of a rank's block of chunks
+    lo = axis_index(mesh, dp_axis) * per if dp > 1 else 0
+    hi = min(lo + per, n)
+    terms = torch.full((per, k), -1, dtype=torch.int32, device=input_ids.device)
+    weights = torch.zeros((per, k), dtype=torch.float32, device=input_ids.device)
+    for s in range(lo, hi, chunk):
+        e = min(s + chunk, hi)
+        terms[s - lo : e - lo], weights[s - lo : e - lo] = splade_topk_terms(
+            encode_fn(input_ids[s:e], attention_mask[s:e]), k)
+    if dp > 1:
+        from vod_tpu_torch.parallel.distributed import all_gather_tensor
+
+        group = axis_group(mesh, dp_axis)
+        terms = all_gather_tensor(terms, group).reshape(-1, k)[:n]
+        weights = all_gather_tensor(weights, group).reshape(-1, k)[:n]
     return terms.cpu().numpy(), weights.cpu().numpy()

@@ -57,18 +57,23 @@ def _fused_encode(encoder: nn.Module, batch: RealmBatch) -> dict[str, torch.Tens
 
 
 @contextlib.contextmanager
-def collect_losses(model: nn.Module) -> typ.Iterator[list[torch.Tensor]]:
+def collect_losses(
+    model: nn.Module, *, group: typ.Any = None, rows: typ.Optional[torch.Tensor] = None
+) -> typ.Iterator[list[torch.Tensor]]:
     """While open, every submodule of `model` that sows an auxiliary loss
-    (it has a `sown` slot) appends it to the list yielded."""
+    (it has a `sown` slot) appends it to the list yielded. `group`: the
+    process group over which a batch statistic sums (a data-parallel axis
+    splitting the batch); `rows`: a bool mask of the rows of the next
+    forward that count toward it (None: all)."""
     sowers = [m for m in model.modules() if hasattr(m, "sown")]
     losses: list[torch.Tensor] = []
     for m in sowers:
-        m.sown = losses
+        m.sown, m.sown_group, m.sown_rows = losses, group, rows
     try:
         yield losses
     finally:
         for m in sowers:
-            m.sown = None
+            m.sown, m.sown_group, m.sown_rows = None, None, None
 
 
 def _encoder(cfg: TransformerEncoderConfig, debug: bool, device: typ.Any, generator: typ.Any) -> nn.Module:

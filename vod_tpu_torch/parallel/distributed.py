@@ -145,7 +145,11 @@ def global_rank(group: typ.Any, rank: int) -> int:
 
 
 def _bytes_of(t: torch.Tensor) -> torch.Tensor:
-    return t.contiguous().reshape(-1).view(torch.uint8)
+    # a copy with row-major strides: `contiguous()` keeps the stride of a
+    # size-1 axis (a one-row slice of a wider tensor), which `view` refuses
+    dense = t if t.is_contiguous() and (t.numel() != 1 or t.stride() == (1,) * t.ndim) else \
+        torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+    return dense.reshape(-1).view(torch.uint8)
 
 
 def all_gather_tensor(t: torch.Tensor, group: typ.Any = None) -> torch.Tensor:

@@ -13,7 +13,7 @@ process group, one device a rank:
 
 `make_mesh((dp, fsdp), ("dp", "fsdp"))` builds the 2-D mesh; either axis may
 be 1. `tp_sharding` and `combined_sharding` are not ported (ROADMAP §A item
-5b).
+6).
 """
 
 from __future__ import annotations

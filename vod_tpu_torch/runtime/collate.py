@@ -17,8 +17,13 @@ Data parallel: a rank that holds block `rows` = (block, blocks) of a global
 batch draws the noise and the padding sections for the global batch and
 keeps its block, so W ranks draw what one process draws for it
 (`ops/sample.py`); `batch_axis` names the mesh axis the rows are split over,
-for the sharded engines. In-batch negatives pool the sections of the whole
-batch and raise `NotImplementedError` under `rows` (ROADMAP §A item 5b).
+for the sharded engines. In-batch negatives pool the unique sections of the
+global batch, as JAX's global collate does: the ranks gather their sampled
+ids, scores, labels and log-weights over `group` (the axis's process group),
+every rank flattens the same pool and fills its padding with the same draws
+(the pool's width is the global batch's), and each keeps the pool's
+channels for its own query rows, so every rank scores its queries against
+the whole pool.
 """
 
 from __future__ import annotations
@@ -31,9 +36,11 @@ import torch
 from vod_tpu_torch.ops.in_batch_negatives import flatten_samples
 from vod_tpu_torch.ops.numpy_ops import replace_negative_indices
 from vod_tpu_torch.ops.sample import PrioritySampledSections
+from vod_tpu_torch.parallel.distributed import all_gather_tensor
 from vod_tpu_torch.search.base import SearchQueries
 from vod_tpu_torch.search.hybrid import HybridEngines, hybrid_search_and_sample
 from vod_tpu_torch.types.batch import RealmBatch
+from vod_tpu_torch.types.retrieval import RetrievalBatch
 
 
 @dataclasses.dataclass
@@ -105,6 +112,23 @@ def build_lm_inputs(
     return ids, mask * (ids >= 0), torch.where(mask > 0, tt, 0)
 
 
+def _global_samples(sampled: PrioritySampledSections, group: typ.Any) -> PrioritySampledSections:
+    """The global batch's samples from every rank's rows (rank order)."""
+
+    def rows(x: torch.Tensor) -> torch.Tensor:
+        every = all_gather_tensor(x.contiguous(), group)
+        return every.reshape((-1,) + tuple(x.shape[1:]))
+
+    b = sampled.batch
+    return PrioritySampledSections(
+        batch=RetrievalBatch(scores=rows(b.scores), indices=rows(b.indices),
+                             labels=None if b.labels is None else rows(b.labels)),
+        log_weights=rows(sampled.log_weights), max_sampling_id=rows(sampled.max_sampling_id),
+        lse_pos=rows(sampled.lse_pos), lse_neg=rows(sampled.lse_neg),
+        raw_scores={k: rows(v) for k, v in sampled.raw_scores.items()},
+    )
+
+
 def device_collate(
     engines: HybridEngines,
     corpus: DeviceCorpus,
@@ -123,16 +147,16 @@ def device_collate(
     noise: typ.Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     rows: typ.Optional[tuple[int, int]] = None,
     batch_axis: typ.Optional[str] = None,
+    group: typ.Any = None,
 ) -> tuple[RealmBatch, PrioritySampledSections]:
     """search -> merge -> sample -> gather section tokens -> RealmBatch.
 
     `noise` is the sampler's Exp(1) draws (positives', negatives'), each
     `[B, min(prefetch, merged width)]`; without it they come from `generator`.
-    `rows` and `batch_axis`: see the module."""
-    if in_batch_negatives and rows is not None:
-        raise NotImplementedError(
-            "in-batch negatives over a data-parallel batch are not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
-        )
+    `rows`, `batch_axis` and `group` (the process group of the axis `rows`
+    splits, which in-batch negatives gather over): see the module."""
+    if in_batch_negatives and rows is not None and group is None:
+        raise ValueError("in-batch negatives over a data-parallel batch need the axis's process group (group=)")
     sq = SearchQueries(
         vector=query_vectors,
         terms=queries.terms,
@@ -148,8 +172,16 @@ def device_collate(
     )
     b = int(queries.input_ids.shape[0])
     if in_batch_negatives:
-        # one shared pool of unique sections; every query scores against all of it
-        flat = flatten_samples(sampled)
+        # one shared pool of the global batch's unique sections; every query
+        # scores against all of it
+        flat = flatten_samples(sampled if rows is None else _global_samples(sampled, group))
+        if rows is not None:  # this rank's query rows of the per-query channels
+            mine = slice(rows[0] * b, (rows[0] + 1) * b)
+            flat = dataclasses.replace(
+                flat, scores=flat.scores[mine], labels=flat.labels[mine], log_weights=flat.log_weights[mine],
+                raw_scores={k: v[mine] for k, v in flat.raw_scores.items()}, lse_pos=flat.lse_pos[mine],
+                lse_neg=flat.lse_neg[mine], max_sampling_id=flat.max_sampling_id[mine],
+            )
         pool_idx = replace_negative_indices(flat.pool_ids, corpus.size, generator)  # [U]
         sec_ids = corpus.input_ids[pool_idx.long()]  # [U, Ls]
         sec_mask = corpus.attention_mask[pool_idx.long()]

@@ -42,9 +42,22 @@ estimator's diagnostics and the monitor are reduced over the axis before a
 log (`aggregate_metrics_psum`, `RetrievalMonitor.compute(group=...)`), and
 rank 0 calls `on_log`. Parameters sharded by `parallel/mesh.py:
 shard_params` (FSDP2 DTensors) have their norm summed over their shards.
-A model that sows an auxiliary loss (SPLADE's FLOPS term, a statistic of
-the whole batch) raises `NotImplementedError` under a data-parallel split
-(ROADMAP §A item 5b), as in-batch negatives do in the collate.
+
+Batch-wide terms over a split batch. In-batch negatives pool the global
+batch's sections (`collate.py`): each rank encodes the whole pool and
+scores its own queries against it, so the gradient a pooled section gets
+from another rank's queries reaches that rank's copy, and the average over
+the axis adds them once. A sown auxiliary loss (SPLADE's FLOPS term, `sum_v
+(mean_b w_bv)^2` over the global batch) takes its sums and row count over
+the axis through a differentiable `all_reduce`
+(`systems.collect_losses(group=...)`): every rank holds the global term,
+and since the backward of a SUM `all_reduce` is another one, each rank's
+rows receive the term's gradient W times, which the average over the axis
+divides back to once, JAX's gradient. With in-batch negatives the pooled
+sections count for the term only in the rank's own block of the pool (each
+is encoded on every rank). GradCache with a sown loss over a split batch
+raises `NotImplementedError` (ROADMAP §A item 7): its per-chunk term would
+cover other rows than JAX's chunks of the global batch.
 
 Not ported yet (raises `NotImplementedError`): profiler traces.
 """
@@ -198,13 +211,24 @@ class RealmTrainStep:
             noise=noise,
             rows=None if dp is None else dp.rows,
             batch_axis=None if dp is None or not dp.split else dp.axis,
+            group=None if dp is None or not dp.split else dp.group,
         )
         return batch
 
-    def loss(self, batch: RealmBatch) -> tuple[torch.Tensor, typ.Any]:
+    def loss(self, batch: RealmBatch, dp: typ.Optional[DataParallel] = None) -> tuple[torch.Tensor, typ.Any]:
         """(the estimator's loss plus the auxiliary losses the model sows in
-        this pass, the estimator's output)."""
-        with collect_losses(self.model) as sown:
+        this pass, the estimator's output). Over a split batch (`dp`) the
+        sown losses are the global batch's (see the module)."""
+        group = rows = None
+        if dp is not None and dp.split:
+            group = dp.group
+            if batch.extras.get("flat_sections", False):
+                # the fused pass holds this rank's queries, then the whole pool:
+                # the pool counts in its block of it only
+                b, u = int(batch.query__input_ids.shape[0]), int(batch.section__input_ids.shape[0])
+                block = torch.arange(u, device=batch.section__input_ids.device) * dp.size // u == dp.index
+                rows = torch.cat([torch.ones((b,), dtype=torch.bool, device=block.device), block])
+        with collect_losses(self.model, group=group, rows=rows) as sown:
             out = self.model(batch, mode="evaluate")
         return out.loss + sum(sown) if sown else out.loss, out
 
@@ -260,10 +284,11 @@ class RealmTrainStep:
         one micro-batch the metrics also hold the estimator's diagnostics, as
         the JAX `train_step`'s do. With `dp` the gradients are then averaged
         over its axis, once, before the clip; the metrics stay this rank's."""
-        if dp is not None and dp.split and any(hasattr(m, "sown") for m in self.model.modules()):
+        if (dp is not None and dp.split and self.gradcache_chunk_rows is not None
+                and any(hasattr(m, "sown") for m in self.model.modules())):
             raise NotImplementedError(
-                "an auxiliary loss sown over a data-parallel batch (SPLADE's FLOPS term) is not ported to "
-                "vod_tpu_torch yet (ROADMAP §A item 5b)"
+                "GradCache with a sown auxiliary loss over a data-parallel batch is not ported to vod_tpu_torch yet "
+                "(ROADMAP §A item 7)"
             )
         n_micro = len(micro_batches)
         self.optimizer.zero_grad(set_to_none=True)
@@ -275,7 +300,7 @@ class RealmTrainStep:
                 out = gradcache_backward(self.model, batch, chunk_rows=self.gradcache_chunk_rows)
                 loss = out.loss
             else:
-                loss, out = self.loss(batch)
+                loss, out = self.loss(batch, dp)
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
             rels.append(batch.section__relevance)
@@ -308,7 +333,7 @@ class RealmTrainStep:
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
         """Collate and evaluate without a gradient. Returns (metrics, relevances, scores)."""
         batch = self.collate(engines, corpus, queries, generator, weights, dp=dp)
-        loss, out = self.loss(batch)
+        loss, out = self.loss(batch, dp)
         metrics = {"loss": loss, **out.diagnostics}
         return metrics, batch.section__relevance, out.retriever_scores
 

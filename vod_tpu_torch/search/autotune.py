@@ -10,18 +10,27 @@ Runtime knobs per engine:
   * `IVFPQIndex` - `nprobe` (the window budget `max_windows` rescaled from
     the index's built nprobe -> budget ratio, capped at the total window
     count so probing every cell stays exact); with a rerank store, also
-    `k_factor` crossed with nprobe;
-  * `IVFIndex` - `nprobe`;
-  * `PQIndex` - `k_factor` and, in coarse mode, `n_candidates`; the direct
-    serving codec (keep_codes=False) also sweeps the coarse stage through
-    `fused_mips_binned` (`fused`, `fused_bins` 2048, `fused_tile` 16384);
+    `k_factor` crossed with nprobe. `ShardedIVFPQIndex` the same, its
+    per-shard budget capped at the busiest shard's window count, and an
+    untruncated index stays untruncated;
+  * `IVFIndex`, `ShardedIVFIndex` - `nprobe`;
+  * `PQIndex`, `ShardedPQIndex` - `k_factor` and, in coarse mode,
+    `n_candidates`; the direct serving codec (keep_codes=False) of an
+    unsharded index also sweeps the coarse stage through `fused_mips_binned`
+    (`fused`, `fused_bins` 2048, `fused_tile` 16384);
   * a flat `DenseIndex` - nothing to tune (a single point).
+
+A sharded index is swept by every rank of its axis in lockstep (each search
+is a collective), over the same queries; a timed sweep may time otherwise on
+each rank, so every rank takes the axis's rank 0's choice. Declared
+difference: JAX's default grid gives a sharded direct-mode PQ the fused
+points too, and then fails to set `kernel` on a `ShardedPQIndex`, which has
+no such field (ROADMAP §C); the port's grid leaves them out there.
 
 Wall time is taken on the host clock around each search with the device
 synchronized before and after (`torch.cuda.synchronize`), the minimum over
 repeats after one warm-up; the JAX package's relay nudges (distinct inputs
-per repeat, a forced fetch) have no counterpart here. The sharded engines
-are not ported.
+per repeat, a forced fetch) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,10 +41,25 @@ import typing as typ
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from vod_tpu_torch.parallel.distributed import global_rank
+from vod_tpu_torch.parallel.mesh import axis_group
 from .base import SearchQueries
 from .dense import DenseIndex, IVFIndex, PQIndex, _sync, build_dense_index, dense_search, ivf_search, pq_search
 from .ivfpq import IVFPQIndex, ivfpq_search
+from .sharded import (
+    ShardedDenseIndex,
+    ShardedIVFIndex,
+    ShardedIVFPQIndex,
+    ShardedPQIndex,
+    sharded_dense_search,
+    sharded_ivf_search,
+    sharded_ivfpq_search,
+    sharded_pq_search,
+)
+
+_SHARDED = (ShardedDenseIndex, ShardedPQIndex, ShardedIVFIndex, ShardedIVFPQIndex)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,9 +100,18 @@ def apply_runtime_params(index: typ.Any, params: dict[str, int]) -> typ.Any:
         if "k_factor" in params:  # IndexRefine pool width (rerank store only)
             kw["k_factor"] = int(params["k_factor"])
         return index.replace(**kw)
-    if isinstance(index, IVFIndex):
+    if isinstance(index, (IVFIndex, ShardedIVFIndex)):
         return index.replace(nprobe=int(params["nprobe"]))
-    if isinstance(index, PQIndex):
+    if isinstance(index, ShardedIVFPQIndex):
+        kw = {"nprobe": int(params["nprobe"])}
+        if "k_factor" in params:
+            kw["k_factor"] = int(params["k_factor"])
+        if index.max_windows <= 0:
+            return index.replace(**kw)  # untruncated stays untruncated
+        per_probe = index.max_windows / max(index.nprobe, 1)
+        busiest = index.slots_per_shard // index.window  # the busiest shard's windows
+        return index.replace(**kw, max_windows=int(min(busiest, max(1, round(per_probe * kw["nprobe"])))))
+    if isinstance(index, (PQIndex, ShardedPQIndex)):
         kw = {}
         if "k_factor" in params:
             kw["k_factor"] = int(params["k_factor"])
@@ -87,6 +120,8 @@ def apply_runtime_params(index: typ.Any, params: dict[str, int]) -> typ.Any:
                 raise ValueError("n_candidates only applies to coarse-mode PQ indexes")
             kw["n_candidates"] = int(params["n_candidates"])
         # fused=1 routes the coarse stage through `fused_mips_binned`
+        if isinstance(index, ShardedPQIndex) and {"fused", "fused_bins", "fused_tile"} & set(params):
+            raise TypeError("a ShardedPQIndex has no fused coarse kernel (JAX's sharded coarse stage is a scan)")
         if "fused" in params:
             kw["kernel"] = "fused" if params["fused"] else "scan"
         if "fused_bins" in params:
@@ -99,24 +134,24 @@ def apply_runtime_params(index: typ.Any, params: dict[str, int]) -> typ.Any:
 
 def default_grid(index: typ.Any) -> list[dict[str, int]]:
     """The faiss-`ParameterSpace`-shaped default sweep for this engine."""
-    if isinstance(index, (IVFPQIndex, IVFIndex)):
-        c = int(index.centroids.shape[0])
+    if isinstance(index, (IVFPQIndex, IVFIndex, ShardedIVFIndex, ShardedIVFPQIndex)):
+        c = int(index.centroids.shape[0])  # a sharded IVF's padded cells count, as in JAX
         probes = [{"nprobe": p} for p in (1, 2, 4, 8, 16, 32, 64, 128, 256) if p <= c]
         if getattr(index, "rerank_codes", None) is not None:
             # IndexRefine pool width crossed with nprobe
             return [{**p, "k_factor": f} for p in probes for f in (4, 16, 32)]
         return probes
-    if isinstance(index, PQIndex):
+    if isinstance(index, (PQIndex, ShardedPQIndex)):
         ks: list[dict[str, int]] = (
             [{"k_factor": f} for f in (1, 2, 4, 8, 16, 32)] if index.refine_codes is not None else [{}]
         )
         # n_candidates only gates the ADC stage; in coarse -> refine direct
         # mode (codes None) the pool is k_factor * k straight from the coarse scan
         if index.coarse_codes is not None and index.codes is not None:
-            n = int(index.coarse_codes.shape[0])
+            n = _pq_rows(index)
             cands = [c for c in (256, 1024, 4096, 16384) if c <= n]
             ks = [{**k, "n_candidates": c} for k in ks for c in cands]
-        elif index.coarse_codes is not None and index.refine_codes is not None:
+        elif index.coarse_codes is not None and index.refine_codes is not None and isinstance(index, PQIndex):
             # the direct serving codec: also the fused coarse kernel at bins
             # 2048, tile 16384 (the scan where the tile does not divide the
             # rows); the one knob not cost-monotone in recall, so timed sweeps
@@ -128,7 +163,20 @@ def default_grid(index: typ.Any) -> list[dict[str, int]]:
     return [{}]  # flat / anything else: a single operating point
 
 
+def _pq_rows(index: typ.Any) -> int:
+    """The rows of a PQ index, a sharded one's over every shard (padding included)."""
+    if isinstance(index, ShardedPQIndex):
+        from vod_tpu_torch.parallel.mesh import axis_size
+
+        return index.rows_per_shard * axis_size(index.mesh, index.axis)
+    return int(index.coarse_codes.shape[0])
+
+
 def _search_fn(index: typ.Any) -> typ.Callable[[typ.Any, torch.Tensor, int], torch.Tensor]:
+    sharded = {ShardedIVFPQIndex: sharded_ivfpq_search, ShardedIVFIndex: sharded_ivf_search,
+               ShardedPQIndex: sharded_pq_search, ShardedDenseIndex: sharded_dense_search}.get(type(index))
+    if sharded is not None:
+        return lambda ix, q, k: sharded(ix, SearchQueries(vector=q), k).indices
     if isinstance(index, IVFPQIndex):
         return lambda ix, q, k: ivfpq_search(ix, SearchQueries(vector=q), k).indices
     if isinstance(index, IVFIndex):
@@ -242,11 +290,13 @@ def autotune_after_build(
     `emb` is the embedding matrix the index was built from: a device tensor
     (in-memory path) or a host numpy array (host-slab path). The queries are
     a sample of its rows; the ground truth an exact f32 scan on the device or
-    a blocked product on the host, where `emb` lives. Returns
+    a blocked product on the host, where `emb` lives. A sharded index takes
+    the whole matrix on every rank of its axis and the generator in the same
+    state on each (every rank draws the same sample). Returns
     `(tuned_index, info | None)`; None = the engine has no runtime knobs."""
     if getattr(fcfg, "autotune_target_recall", None) is None:
         return index, None
-    if not isinstance(index, (PQIndex, IVFIndex, IVFPQIndex)):
+    if not isinstance(index, (PQIndex, IVFIndex, IVFPQIndex, ShardedPQIndex, ShardedIVFIndex, ShardedIVFPQIndex)):
         return index, None
     n = int(emb.shape[0])
     nq = min(int(fcfg.autotune_queries), n)
@@ -291,7 +341,24 @@ def autotune(
 ) -> tuple[typ.Any, OperatingPoint, list[OperatingPoint]]:
     """One call: sweep -> Pareto -> select -> apply. Returns `(tuned_index,
     chosen_point, pareto_points)`; the tuned index shares `index`'s tensors."""
+    grid = list(grid) if grid is not None else default_grid(index)
     points = sweep_operating_points(index, queries, gt_indices, top_k=top_k, grid=grid, measure_time=measure_time)
     front = pareto_front(points)
-    chosen = select_operating_point(front, target_recall)
+    chosen = _first_ranks_choice(index, grid, points, select_operating_point(front, target_recall))
     return apply_runtime_params(index, chosen.params), chosen, front
+
+
+def _first_ranks_choice(
+    index: typ.Any, grid: list[dict[str, int]], points: list[OperatingPoint], chosen: OperatingPoint
+) -> OperatingPoint:
+    """A sharded index's rank 0's `chosen` on every rank of its axis (one
+    broadcast of its position in the grid); `chosen` otherwise."""
+    if not isinstance(index, _SHARDED) or not dist.is_initialized():
+        return chosen
+    group = axis_group(index.mesh, index.axis)
+    if dist.get_world_size(group) == 1:
+        return chosen
+    device = next(v.device for v in vars(index).values() if isinstance(v, torch.Tensor))
+    pos = torch.tensor([grid.index(chosen.params)], dtype=torch.int64, device=device)
+    dist.broadcast(pos, src=global_rank(group, 0), group=group)
+    return next(p for p in points if p.params == grid[int(pos.item())])

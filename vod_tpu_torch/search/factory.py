@@ -21,12 +21,15 @@ Sharding: with `cfg.sharded` and a `mesh`, a flat or int8 dense index is
 built straight into its shards over `cfg.shard_axis`
 (`search/sharded.py:build_sharded_dense_index`, never cached: each rank
 quantizes and keeps only its block), and the host-slab int8 build encodes
-only this rank's rows; a sparse config with `sharded` and a mesh splits the
-BM25 postings by doc range. Sharded pq, ivf and ivfpq, and any ivfpq
-build given a mesh (JAX's k-means over the mesh), raise
-`NotImplementedError` (ROADMAP §A item 5b). As in JAX, `sharded` without a
-mesh builds the unsharded index, and for the other codecs a mesh without
-`sharded` is ignored.
+only this rank's rows. Every other codec builds (or loads from the cache)
+the unsharded index on every rank, makes it the axis's rank 0's
+(`same_on_every_rank`) and keeps this rank's shard (`ShardedPQIndex`,
+`ShardedIVFIndex`, `ShardedIVFPQIndex`); an ivfpq build trains its coarse
+k-means over the axis (`kmeans_sharded`). A sparse config with `sharded` and
+a mesh splits the BM25 postings by doc range. As in JAX, `sharded` without a
+mesh builds the unsharded index, and a mesh without `sharded` is ignored,
+by the ivfpq build too. Under a process group only the global rank 0 writes
+the cache.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from vod_tpu_torch.configs.search import DenseFactoryConfig, HybridSearchFactoryConfig, SparseFactoryConfig
+from vod_tpu_torch.parallel.distributed import is_main_process
 from vod_tpu_torch.utils.fingerprint import fingerprint
 from . import dense as dense_module
 from .dense import DenseIndex, IVFIndex, PQIndex, build_dense_index, build_ivf_index, build_pq_index
@@ -80,20 +84,38 @@ def _load_index(path: pathlib.Path, device: typ.Union[str, torch.device] = "cuda
 
 
 def _sharded(cfg: DenseFactoryConfig, mesh: typ.Any) -> bool:
-    """Whether `cfg` builds shards over `mesh`; raises for the codecs whose
-    sharded build is not ported, and for an ivfpq build given a mesh (JAX
-    runs its k-means over the mesh, `kmeans_sharded`)."""
-    if mesh is not None and cfg.codec == "ivfpq":
-        raise NotImplementedError(
-            "an ivfpq build over a mesh (multi-device k-means) is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
+    """Whether `cfg` builds shards over `mesh` (as in JAX: `sharded` and a mesh)."""
+    return bool(cfg.sharded and mesh is not None)
+
+
+def _shard_from_config(
+    cfg: DenseFactoryConfig, index: typ.Any, vectors: typ.Any, subset_ids: typ.Any, mesh: typ.Any,
+    device: typ.Union[str, torch.device],
+) -> typ.Any:
+    """This rank's shard of a built (or loaded) index, from the axis's
+    rank 0's copy of it."""
+    from vod_tpu_torch.parallel.mesh import axis_group
+    from .sharded import (
+        _axis_size,
+        build_sharded_dense_index,
+        same_on_every_rank,
+        shard_ivf_index,
+        shard_ivfpq_index,
+        shard_pq_index,
+    )
+
+    axis = cfg.shard_axis
+    _axis_size(mesh, axis)
+    if isinstance(index, DenseIndex):
+        # a flat index loaded from the cache: re-shard the raw vectors
+        return build_sharded_dense_index(
+            vectors, mesh, axis=axis, dtype="int8" if cfg.codec == "int8" else cfg.dtype, subset_ids=subset_ids,
+            approx_recall=cfg.approx_recall, kernel=cfg.kernel, device=device,
         )
-    if not (cfg.sharded and mesh is not None):
-        return False
-    if cfg.codec not in ("flat", "int8"):
-        raise NotImplementedError(
-            f"the sharded {cfg.codec} index is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
-        )
-    return True
+    shard = {IVFPQIndex: shard_ivfpq_index, PQIndex: shard_pq_index, IVFIndex: shard_ivf_index}.get(type(index))
+    if shard is None:
+        raise ValueError(f"codec {cfg.codec!r} does not support sharding (flat/int8/pq/ivf/ivfpq do)")
+    return shard(same_on_every_rank(index, axis_group(mesh, axis)), mesh, axis=axis, device=device)
 
 
 def build_dense_from_config(
@@ -116,8 +138,11 @@ def build_dense_from_config(
     when given, receives the pq and ivfpq builds' wall ms by stage
     (`build_pq_index`, `build_ivfpq_index`), and "load_ms" when the index
     comes from the cache. With `cfg.sharded` and `mesh`, flat and int8
-    build this rank's shard (`ShardedDenseIndex`) and skip the cache."""
-    if _sharded(cfg, mesh):
+    build this rank's shard (`ShardedDenseIndex`) and skip the cache; the
+    other codecs build (or load) the unsharded index and keep this rank's
+    shard of it."""
+    sharded = _sharded(cfg, mesh)
+    if sharded and cfg.codec in ("flat", "int8"):
         from .sharded import build_sharded_dense_index
 
         return build_sharded_dense_index(
@@ -131,7 +156,7 @@ def build_dense_from_config(
             clock = dense_module._StageClock(timings, torch.device(device))
             with clock("load_ms"):
                 index = _load_index(cache_path, device)
-            return index
+            return _shard_from_config(cfg, index, vectors, subset_ids, mesh, device) if sharded else index
 
     if cfg.codec in ("flat", "int8"):
         # flat/int8 + refine='float32' keeps exact f32 rows for a k_factor*k re-rank
@@ -186,6 +211,8 @@ def build_dense_from_config(
             keep_codes=cfg.keep_codes,
             subset_ids=subset_ids,
             approx_recall=cfg.approx_recall,
+            mesh=mesh if cfg.sharded else None,
+            mesh_axis=cfg.shard_axis,
             aniso_eta=cfg.aniso_eta,
             spill=cfg.spill,
             soar_lambda=cfg.soar_lambda,
@@ -201,9 +228,9 @@ def build_dense_from_config(
     else:
         raise ValueError(f"Unknown dense codec {cfg.codec!r}")
 
-    if cache_path is not None:
+    if cache_path is not None and is_main_process():
         _save_index(cache_path, index)
-    return index
+    return _shard_from_config(cfg, index, vectors, subset_ids, mesh, device) if sharded else index
 
 
 def _host_store(kind: str, value: str) -> str:
@@ -245,8 +272,9 @@ def build_dense_from_host(
       * flat  -> refused: it cannot fit by definition.
 
     Draws come from `generator` (default: seed 0 on the device). `timings`
-    receives the wall ms by stage. With `cfg.sharded` and `mesh` (int8
-    only), each rank encodes its own block of rows into its shard."""
+    receives the wall ms by stage. With `cfg.sharded` and `mesh`, each rank
+    encodes its own block of int8 rows into its shard; pq and ivfpq build the
+    unsharded index and keep this rank's shard of it, as JAX does."""
     from .dense import _auto_pad_multiple, _slab_on, build_pq_index_from_host
 
     sharded = _sharded(cfg, mesh)
@@ -256,7 +284,7 @@ def build_dense_from_host(
     n, d = (int(s) for s in vectors_np.shape)
 
     if cfg.codec == "pq":
-        return build_pq_index_from_host(
+        index = build_pq_index_from_host(
             vectors_np,
             n_subquantizers=cfg.n_subquantizers,
             code_bits=cfg.code_bits,
@@ -280,6 +308,7 @@ def build_dense_from_host(
             device=dev,
             timings=timings,
         )
+        return _shard_from_config(cfg, index, vectors_np, subset_ids, mesh, dev) if sharded else index
 
     clock = dense_module._StageClock(timings, dev)
     if cfg.codec == "int8":
@@ -401,7 +430,7 @@ def build_dense_from_host(
                 max_windows=cfg.max_windows, code_bits=cfg.code_bits, approx_recall=cfg.approx_recall,
                 row_ids_np=row_ids_np, n_real=n, spilled=cfg.spill, device=dev,
             )
-        return index
+        return _shard_from_config(cfg, index, vectors_np, subset_ids, mesh, dev) if sharded else index
 
     raise ValueError(
         f"host-slab build supports codecs pq|int8|ivfpq; {cfg.codec!r} requires the "

@@ -5,8 +5,9 @@ per row, the gold lookup rides along with score 0 and label 1, and the results
 are merged by weighted score sum. `hybrid_search_and_sample` adds the
 truncation to the prefetch width and labeled priority sampling: the retrieval
 segment of the training collate. The dense engine is a flat/int8
-`DenseIndex`, a `PQIndex`, an `IVFIndex`, an `IVFPQIndex` or a
-`ShardedDenseIndex`; the sparse engine is a BM25 `SparseIndex` or a
+`DenseIndex`, a `PQIndex`, an `IVFIndex`, an `IVFPQIndex` or one of their
+sharded forms (`ShardedDenseIndex`, `ShardedPQIndex`, `ShardedIVFIndex`,
+`ShardedIVFPQIndex`); the sparse engine is a BM25 `SparseIndex` or a
 `ShardedSparseIndex`. A sharded engine merges over its mesh axis, and
 `batch_axis` names the axis the query rows are split over (a data-parallel
 batch), so a shard group that splits the batch first gathers it
@@ -28,26 +29,39 @@ from .base import SearchQueries
 from .dense import DenseIndex, IVFIndex, PQIndex, dense_search, ivf_search, pq_search
 from .ivfpq import IVFPQIndex, ivfpq_search
 from .lookup import lookup_search
-from .sharded import ShardedDenseIndex, ShardedSparseIndex, sharded_dense_search, sharded_sparse_search
+from .sharded import (
+    ShardedDenseIndex,
+    ShardedIVFIndex,
+    ShardedIVFPQIndex,
+    ShardedPQIndex,
+    ShardedSparseIndex,
+    sharded_dense_search,
+    sharded_ivf_search,
+    sharded_ivfpq_search,
+    sharded_pq_search,
+    sharded_sparse_search,
+)
 from .sparse import SparseIndex, sparse_search
 
 
 @dataclasses.dataclass
 class HybridEngines:
     """Named engine bundle. The dense engine is a `DenseIndex`, `PQIndex`,
-    `IVFIndex`, `IVFPQIndex` or `ShardedDenseIndex`, the sparse engine a
+    `IVFIndex`, `IVFPQIndex` or a sharded one, the sparse engine a
     `SparseIndex` or `ShardedSparseIndex`; any other engine raises
     `NotImplementedError` when searched."""
 
-    dense: typ.Optional[typ.Union[DenseIndex, PQIndex, IVFIndex, IVFPQIndex, ShardedDenseIndex]] = None
+    dense: typ.Any = None
     sparse: typ.Optional[typ.Union[SparseIndex, ShardedSparseIndex]] = None
 
 
 def _dense_dispatch(
     index: typ.Any, queries: SearchQueries, top_k: int, batch_axis: typ.Optional[str] = None
 ) -> RetrievalBatch:
-    if isinstance(index, ShardedDenseIndex):
-        return sharded_dense_search(index, queries, top_k, batch_axis=batch_axis)
+    sharded = {ShardedDenseIndex: sharded_dense_search, ShardedPQIndex: sharded_pq_search,
+               ShardedIVFIndex: sharded_ivf_search, ShardedIVFPQIndex: sharded_ivfpq_search}.get(type(index))
+    if sharded is not None:
+        return sharded(index, queries, top_k, batch_axis=batch_axis)
     if isinstance(index, IVFPQIndex):
         return ivfpq_search(index, queries, top_k)
     if isinstance(index, PQIndex):

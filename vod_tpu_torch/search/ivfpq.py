@@ -45,7 +45,10 @@ Differences from the JAX package, all declared:
   * Random draws come from the `torch.Generator` the caller gives: PQ/OPQ
     training first, then the coarse k-means (JAX folds 17 into its key for
     the latter).
-  * `mesh` (multi-device k-means) raises `NotImplementedError`.
+
+With a `mesh`, the coarse quantizer trains by `ops/kmeans.py:kmeans_sharded`
+over the ranks of `mesh_axis` (every rank passes the same training rows and
+the same generator state); the rest of the build runs on every rank.
 """
 
 from __future__ import annotations
@@ -397,6 +400,7 @@ def train_ivfpq_stages(
     n_clusters: typ.Optional[int],
     n_total: int,
     mesh: typ.Any = None,
+    mesh_axis: str = "shard",
     aniso_eta: pq_ops.AnisoEta = None,
     generator: torch.Generator,
 ) -> tuple[typ.Optional[torch.Tensor], torch.Tensor, torch.Tensor, typ.Optional[float]]:
@@ -405,13 +409,10 @@ def train_ivfpq_stages(
     Returns `(rotation, codebooks, centroids, resolved_aniso_eta)`; the last
     goes to `encode_pq_auto`. One place pins what both builds must agree
     on: the OPQ inner k-means budget, the draw order (PQ/OPQ, then the coarse
-    k-means) and `IVFauto` from the total row count, not the sample's."""
-    from vod_tpu_torch.ops.kmeans import infer_n_clusters, kmeans
+    k-means) and `IVFauto` from the total row count, not the sample's. With
+    `mesh`, the coarse k-means runs over the ranks of `mesh_axis`."""
+    from vod_tpu_torch.ops.kmeans import infer_n_clusters, kmeans, kmeans_sharded
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device k-means (mesh) is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
-        )
     d = int(train.shape[-1])
     rotation = None
     aniso_resolved = None
@@ -427,7 +428,10 @@ def train_ivfpq_stages(
         set_full_f32_matmul()
         train_rot = train if rotation is None else train @ rotation
     c = n_clusters or infer_n_clusters(n_total)
-    centroids, _ = kmeans(train_rot, n_clusters=c, n_iters=kmeans_iters, generator=generator)
+    if mesh is not None:
+        centroids, _ = kmeans_sharded(train_rot, c, mesh, axis=mesh_axis, n_iters=kmeans_iters, generator=generator)
+    else:
+        centroids, _ = kmeans(train_rot, n_clusters=c, n_iters=kmeans_iters, generator=generator)
     return rotation, codebooks, centroids, aniso_resolved
 
 
@@ -470,6 +474,7 @@ def build_ivfpq_index(
     offset: int = 0,
     approx_recall: typ.Optional[float] = 0.95,
     mesh: typ.Any = None,
+    mesh_axis: str = "shard",
     aniso_eta: pq_ops.AnisoEta = None,
     spill: bool = False,
     soar_lambda: float = 1.0,
@@ -484,6 +489,7 @@ def build_ivfpq_index(
     store, `keep_codes=False` skips PQ training and drops the codes: IVF +
     (PCA-)SQ at R + 4 bytes a row. `rerank` adds the second-stage store.
     `spill=True` also stores every row under its SOAR secondary cell.
+    With `mesh`, the coarse k-means runs over the ranks of `mesh_axis`.
     Draws come from `generator` (default: seed 0 on the device). With
     `timings`, the wall ms of each stage is added under "train_ms",
     "assign_ms", "encode_ms", "refine_ms" and "layout_ms"."""
@@ -495,10 +501,6 @@ def build_ivfpq_index(
         raise ValueError("code_bits=4 requires an even n_subquantizers (nibble packing)")
     if not keep_codes and refine == "none":
         raise ValueError("keep_codes=False requires a refine store to score against")
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device k-means (mesh) is not ported to vod_tpu_torch yet (ROADMAP §A item 5b)"
-        )
     vectors = torch.as_tensor(vectors, device=device)
     dev = vectors.device
     if generator is None:
@@ -512,7 +514,7 @@ def build_ivfpq_index(
         rotation, codebooks, centroids, aniso_resolved = train_ivfpq_stages(
             train, n_subquantizers=n_subquantizers, code_bits=code_bits, kmeans_iters=kmeans_iters,
             opq_iters=opq_iters, use_opq=use_opq, keep_codes=keep_codes, n_clusters=n_clusters, n_total=n_real,
-            aniso_eta=aniso_eta, generator=generator,
+            mesh=mesh, mesh_axis=mesh_axis, aniso_eta=aniso_eta, generator=generator,
         )
     with clock("assign_ms"):
         set_full_f32_matmul()
