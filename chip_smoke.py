@@ -344,7 +344,36 @@ checked, none caught:
     and learned index re-embedded over the ranks equal one process's;
 13d. with two or more cards, 13a under NCCL at world size = their count;
     with one, a line says it did not run and why;
-14. the script's wall time, the `kernels` JSON line, the card line, and
+14. model parallelism (`MOE_CLI`, `PARALLEL`):
+14a. the MoE encoder through the CLI, in process through `cli.main` (each
+    `main` its own main path: launch counts zeroed just before it and read
+    just after): phase 9's inputs and `configs/msmarco_pq_realm.yaml` with
+    `model: {moe_experts: 8, moe_top_k: 2}` over 2^14 harvested passages, 3
+    optimizer steps and a checkpoint, then a resume to step 6. Checked:
+    every encoder layer an 8-expert top-2 `MoEFFN`; every loss finite, with
+    the weighted aux term in it (its value and share printed); every
+    layer's `wi` and `wo` moved; the checkpoint written; two
+    `fused_mips_binned` launches a step, all `wgmma`, and the loop's first
+    call against its plain version at its shape, timed beside the library
+    and the bound. Printed: each step's ms on the card (CUDA events) beside
+    the host's call, and one layer's MoE FFN forward beside a dense FFN of
+    its width;
+14b. `parallel_rank` on two gloo ranks of the card (`--rank-job parallel`,
+    torchrun) at e5-large's widths in bf16, B = 8, T = 512: the
+    tensor-parallel encoder forward (`shard_params_tp`), GPipe forward and
+    gradients (`pp_encoder_forward`), ring attention (`sp_encoder_forward`)
+    and an 8-expert top-2 `MoEFFN` split over the ranks
+    (`shard_params_ep`). Checked: with f32 activations, tp, pp and sp
+    within 1e-3 of the same port's one-rank f32 forward; with bf16 ones, pp
+    within 6e-2 of the one-rank bf16 forward, tp and sp no farther from the
+    f32 forward than the bf16 forward is, plus 6e-2; ep within 6e-2 of the
+    replicated module (its aux within 1e-5); pp's gradients finite on the
+    rank's own layers. Printed: each bf16 leg's ms beside the one-rank
+    forward's, its distances from the bf16 and the f32 forwards, and the
+    collectives' share of a call;
+14c. with two or more cards, 14b under NCCL at world size = their count;
+    with one, a line says it did not run and why;
+15. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -693,6 +722,34 @@ PQ_CLI = dict(CLI, held_out=0, max_steps=6, period=3, resume_steps=9, seed=41, r
 # the activations dominate, so about 30 GiB a rank: both fit in 80 GB at
 # phase 11a's length (200).
 SPLADE_DP = dict(SPLADE, seed=43, ranks=2, loss_rtol=1e-3, timeout=900)
+# Phase 14a: phase 9's inputs and YAML (`configs/msmarco_pq_realm.yaml` at
+# hidden 384, 6 layers, 6 heads, intermediate 1536; flat bf16, `kernel:
+# fused`, 512 bins; `tokenizer.max_length` 96) with `model: {moe_experts: 8,
+# moe_top_k: 2}`: every encoder FFN a routed MoE (capacity factor 1.25, aux
+# weight 1e-2). Cuts: the harvest 2^16 -> 2^14 passages and 8,192 -> 2,048
+# train queries, 3 steps (one period) and a resume to step 6, so that phase
+# 14 fits the script's time. A fused row of 96 tokens fills ceil(2 · 96 / 8
+# · 1.25) = 30 slots an expert: the dispatch of a 288-row pass is
+# [288, 96, 8, 30].
+MOE_CLI = dict(CLI, n=1 << 14, queries=2048, held_out=0, max_steps=3, period=3, resume_steps=6, seed=45,
+               moe_experts=8, moe_top_k=2, ffn_rows=256, ffn_reps=10)
+# Phase 14b: e5-large's widths (hidden 1024, 24 layers, 16 heads,
+# intermediate 4096: the encoder of `arch/v5e-8-fsdp-tp`) in bf16 with
+# seeded random weights, at B = 8 and T = 512, on two gloo ranks of the one
+# card (NCCL refuses two ranks on one GPU); 14c the same under NCCL where
+# the machine has two or more cards. Each leg is held to the same port's
+# one-rank forward within JAX's dryrun tolerance (6e-2 absolute in bf16,
+# `__graft_entry__.py:240`, set there at hidden 64). The bf16 tp and sp
+# legs re-associate bf16 sums (split products, an f32 ring), and at this
+# width they land 2-3 bf16 ulps (0.0625-0.094 where |h| >= 4) from the bf16
+# forward at every depth from 4 to 24 layers, as far as the bf16 forward
+# itself lands from an f32 one (0.072-0.081; an H100 80GB HBM3 at 700 W).
+# So each leg also runs with f32 activations, held to the f32 forward
+# within `f32_tol`; bf16 pp and ep are held to 6e-2, and bf16 tp and sp to
+# the f32 forward, no farther than the bf16 forward is plus 6e-2. ep runs
+# 8 experts, top-2, on [8, 512, 1024].
+PARALLEL = dict(vocab=30522, hidden=1024, layers=24, heads=16, inter=4096, b=8, t=512, experts=8, top_k=2,
+                pad_from=384, seed=47, ranks=2, tol=6e-2, f32_tol=1e-3, reps=2, timeout=600)
 
 
 def fail(msg: str) -> None:
@@ -4639,8 +4696,375 @@ def batchwide_phase(dev, card: str, ta: dict, tb: dict, tc: dict) -> dict:
     return out
 
 
+def moe_cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
+    """Phase 14a: the MoE encoder through the CLI (module constant MOE_CLI),
+    in process through `vod_tpu_torch.exps.cli.main`: `main(["--config",
+    yaml])` (3 optimizer steps and a checkpoint), then `main(["--resume_from",
+    run, "--max_steps", "6"])`. Each `main` is a main path of its own:
+    launch counts are zeroed just before it and read just after. Returns
+    the numbers."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.exps import cli
+    from vod_tpu_torch.models.encoder import _dense, _gelu
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.parallel.moe import MoEFFN
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+    from vod_tpu_torch.search import dense as dense_mod
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    inputs = cli_inputs(root, t)
+    with open(inputs["yaml"], "a") as f:
+        f.write(f"model: {{moe_experts: {t['moe_experts']}, moe_top_k: {t['moe_top_k']}}}\n")
+    log(f"14a inputs: {t['n']} harvested passages, {t['queries']} train queries, in "
+        f"{time.perf_counter() - started:.2f} s")
+
+    rec: dict = dict(steps=[], losses=[], call=None, initial=None)
+    real = dict(build=cli.build_model, step=RealmTrainStep.train_step_accum, loss=RealmTrainStep.loss,
+                kernel=dense_mod.fused_mips_binned)
+
+    def build_model(cfg, **kw):
+        model = real["build"](cfg, **kw)
+        if rec["initial"] is None:
+            rec["initial"] = {n: p.detach().clone() for n, p in model.named_parameters() if ".moe." in n}
+        return model
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        events = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+        before = fused_mips_binned.launches
+        events[0].record()
+        t0 = time.perf_counter()
+        out = real["step"](self, engines, corpus, micro, generator, weights, **kw)
+        host = (time.perf_counter() - t0) * 1e3
+        events[1].record()
+        rec["steps"].append((events, host, fused_mips_binned.launches - before))
+        return out
+
+    def loss(self, batch, dp=None):
+        total, out = real["loss"](self, batch, dp)
+        rec["losses"].append((total.detach(), out.loss.detach()))
+        return total, out
+
+    def kernel(vectors, queries, **kw):
+        if rec["call"] is None:
+            rec["call"] = (vectors, queries.detach().clone(), dict(kw))
+        return real["kernel"](vectors, queries, **kw)
+
+    patches = [(cli, "build_model", build_model), (RealmTrainStep, "train_step_accum", step),
+               (RealmTrainStep, "loss", loss), (dense_mod, "fused_mips_binned", kernel)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out1 = cli.main(["--config", str(inputs["yaml"])])
+        torch.cuda.synchronize()
+        launches1, bodies1 = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        run1_s = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps1, losses1, initial = rec["steps"], rec["losses"], rec["initial"]
+        model = out1["model"]
+        rec.update(steps=[], losses=[])
+
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out2 = cli.main(["--resume_from", str(inputs["run"]), "--max_steps", str(t["resume_steps"])])
+        torch.cuda.synchronize()
+        launches2, bodies2 = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        run2_s = time.perf_counter() - t_run
+        steps2, losses2 = rec["steps"], rec["losses"]
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+    layers = model.encoder.backbone.layers
+    check(len(layers) == 6 and all(isinstance(layer.moe, MoEFFN) and layer.moe.n_experts == t["moe_experts"]
+                                   and layer.moe.top_k == t["moe_top_k"] for layer in layers),
+          "14a: the encoder's layers are not 8-expert top-2 MoE FFNs")
+    check(out1["state"].step == t["max_steps"] and out2["state"].step == t["resume_steps"],
+          f"14a: the runs ended at steps {out1['state'].step} and {out2['state'].step}")
+    check((inputs["run"] / "period-0" / "trainer_state.json").is_file(), "14a: no checkpoint after run 1")
+    totals = [(float(a), float(b)) for a, b in losses1 + losses2]
+    check(all(math.isfinite(a) and math.isfinite(b) for a, b in totals), f"14a: a loss is not finite: {totals}")
+    aux = [a - b for a, b in totals]
+    check(all(x > 0.0 for x in aux), f"14a: the MoE aux term is missing from a loss: {aux}")
+    share = [x / a for x, (a, _) in zip(aux, totals)]
+    moved = {n: float((p.detach() - initial[n]).abs().max()) for n, p in model.named_parameters() if n in initial}
+    check(all(moved[f"encoder.backbone.layers.{i}.moe.{w}"] > 0 for i in range(len(layers)) for w in ("wi", "wo")),
+          f"14a: an expert weight did not move: {moved}")
+    check(launches1 == bodies1["wgmma"] == 2 * t["max_steps"] and bodies1["fma"] == 0,
+          f"14a run 1 launched fused_mips_binned {launches1} times, by body {bodies1}, not twice a step on wgmma")
+    check(launches2 == bodies2["wgmma"] == 2 * (t["resume_steps"] - t["max_steps"]),
+          f"14a run 2 launched fused_mips_binned {launches2} times, by body {bodies2}")
+    step_ms = [(s.elapsed_time(e), host) for (s, e), host, _ in steps1 + steps2]
+
+    # the loop's first call against the plain version, at its shape
+    vv, q, kw = rec["call"]
+    b, d = q.shape
+    body = _binned_body(vv.dtype, d, kw["bins"], (vv.data_ptr(), q.data_ptr()))
+    check(body == "wgmma", f"14a: the loop's call takes the {body} body")
+    ks, ki = fused_mips_binned(vv, q, **kw)
+    rs, ri = fused_mips_binned_reference(vv, q, **kw)
+    tol = 2 * d * 2.0**-24 * q.float().norm(dim=-1).max().item() * vv.float().norm(dim=-1).max().item()
+    err, swaps = check_against_plain(f"14a loop binned B={b} D={d}", ks, ki, rs, ri, q, vv, tol)
+    n_real, k = kw["n_real"], kw["k"]
+    ms = time_ms(lambda: fused_mips_binned(vv, q, **kw), 20)
+    plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, q, **kw), 2)
+    library_ms = time_ms(lambda: torch.topk(q @ vv[:n_real].T, k, dim=-1), 20)
+    nbytes, ops = (n_real + b) * d * 2 + b * k * 8, 2 * b * n_real * d
+    bound = max(nbytes / hbm, ops / peak_bf16) * 1e3
+    bound_by = "bytes" if nbytes / hbm >= ops / peak_bf16 else "operations"
+    log(f"14a loop call bf16 B={b} D={d} N={n_real} bins={kw['bins']} k={k} ({body}): max |kernel - plain| = "
+        f"{err:.3g} (tol {tol:.3g}), {swaps} id swaps inside the band; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
+    del vv, q, ks, ki, rs, ri
+
+    # one layer's MoE FFN beside a dense FFN of its width, forward (CUDA events)
+    moe = layers[0].moe
+    h_in = torch.randn((t["ffn_rows"], t["max_length"], moe.gate.shape[0]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(t["seed"])).to(torch.bfloat16)
+    dense_up = torch.nn.Linear(moe.gate.shape[0], moe.intermediate_size, device=dev)
+    dense_down = torch.nn.Linear(moe.intermediate_size, moe.gate.shape[0], device=dev)
+    with torch.no_grad():
+        moe_ms = time_ms(lambda: moe(h_in), t["ffn_reps"])
+        dense_ms = time_ms(lambda: _dense(_gelu(_dense(h_in, dense_up, torch.bfloat16)), dense_down, torch.bfloat16),
+                           t["ffn_reps"])
+    del h_in, dense_up, dense_down
+    wall = time.perf_counter() - started
+    result = dict(
+        run1_s=run1_s, run2_s=run2_s, launches=launches1, body_launches=bodies1, resume_launches=launches2,
+        resume_body_launches=bodies2, losses=[a for a, _ in totals], aux=aux, aux_share=share,
+        step_ms=[s for s, _ in step_ms], step_host_ms=[h for _, h in step_ms], peak_mem_bytes=peak,
+        max_abs_err=err, call=dict(shape=f"bfloat16 B={b} N={n_real} D={d} bins={kw['bins']} k={k}", ms=ms,
+                                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by),
+        moe_ffn_ms=moe_ms, dense_ffn_ms=dense_ms, ffn_shape=f"[{t['ffn_rows']}, {t['max_length']}, {d}] bf16",
+        wall_s=wall,
+    )
+    log(f"14a runs [{card}]: run 1 {run1_s:.2f} s ({launches1} fused_mips_binned launches, by body {bodies1}); "
+        f"resume {run2_s:.2f} s ({launches2}, by body {bodies2}); losses {json.dumps([round(a, 6) for a, _ in totals])}"
+        f"; MoE aux in each {json.dumps([round(x, 6) for x in aux])} ({', '.join(f'{s:.4f}' for s in share)} of "
+        f"the loss); peak memory {peak / 2**30:.4f} GiB")
+    log(f"14a steps [{card}]: card {json.dumps([round(s, 3) for s, _ in step_ms])} ms (CUDA events), host call "
+        f"{json.dumps([round(h, 3) for _, h in step_ms])} ms; one layer's FFN forward on {result['ffn_shape']}: "
+        f"MoE {moe_ms:.4f} ms, dense {dense_ms:.4f} ms ({moe_ms / dense_ms:.2f}x)")
+    log(f"phase 14a wall time: {wall:.1f} s")
+    del out1, out2, model, layers, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    return result
+
+
+def parallel_rank(dev, card: str, t: dict) -> dict:
+    """One rank of phase 14b/14c (module constant PARALLEL): the tp, pp and
+    sp legs at e5-large's widths and depth, with bf16 activations (timed)
+    and with f32 ones, each against this rank's own one-rank forward of the
+    same seeded weights in the same dtype; each bf16 leg also against the
+    f32 forward, beside the bf16 forward's own distance from it; then the
+    ep leg. Returns each leg's largest differences, its ms (CUDA events, the
+    mean of `reps` calls after a warm-up) beside the one-rank forward's, and
+    the collectives' share of one instrumented call (each collective timed
+    between two synchronizes, over that call's wall time)."""
+    import torch
+    import torch.distributed as dist
+
+    from vod_tpu_torch.models.encoder import TransformerEncoder, TransformerEncoderConfig, _materialise
+    from vod_tpu_torch.parallel import (
+        MoEFFN,
+        axis_index,
+        make_mesh,
+        pp_encoder_forward,
+        shard_params_ep,
+        shard_params_tp,
+        sp_encoder_forward,
+    )
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    g = torch.Generator(device=dev).manual_seed(t["seed"] + 1)
+    ids = torch.randint(1, t["vocab"], (t["b"], t["t"]), generator=g, device=dev)
+    mask = torch.ones((t["b"], t["t"]), dtype=torch.int32, device=dev)
+    mask[1, t["pad_from"]:] = 0  # a padded row
+    x_moe = torch.randn((t["b"], t["t"], t["hidden"]), generator=g, device=dev).to(torch.bfloat16)
+    meshes = {axis: make_mesh((world,), (axis,)) for axis in ("tp", "sp", "pp", "ep")}
+    per, r_sp = t["t"] // world, axis_index(meshes["sp"], "sp")
+    cfg = TransformerEncoderConfig(vocab_size=t["vocab"], hidden_size=t["hidden"], num_layers=t["layers"],
+                                   num_heads=t["heads"], intermediate_size=t["inter"])
+
+    coll = [0.0, 0]
+    real = dict(all_reduce=dist.all_reduce, broadcast=dist.broadcast, p2p=dist.batch_isend_irecv)
+
+    def counted(fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if isinstance(out, list):
+                for req in out:
+                    req.wait()
+            torch.cuda.synchronize()
+            coll[0] += time.perf_counter() - t0
+            coll[1] += 1
+            return out
+
+        return wrapped
+
+    def measured(fn, reps: int) -> dict:
+        """ms a call, and the collectives' share of one instrumented call and their count."""
+        ms = time_ms(fn, reps)
+        coll[:] = [0.0, 0]
+        dist.all_reduce, dist.broadcast, dist.batch_isend_irecv = (counted(real["all_reduce"]),
+                                                                   counted(real["broadcast"]), counted(real["p2p"]))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            dist.all_reduce, dist.broadcast, dist.batch_isend_irecv = (real["all_reduce"], real["broadcast"],
+                                                                       real["p2p"])
+        return dict(ms=ms, coll_share=coll[0] / wall, collectives=coll[1])
+
+    def encoder(dtype):
+        enc = TransformerEncoder(dataclasses.replace(cfg, dtype=dtype), device="meta")
+        _materialise(enc, dev, torch.Generator(device=dev).manual_seed(t["seed"]))
+        return enc
+
+    def legs_in(dtype, timed: bool) -> dict:
+        """The one-rank forward and the three legs' outputs (sp's: this rank's block)."""
+        enc = encoder(dtype)
+        out: dict = dict(legs={})
+        with torch.no_grad():
+            out["ref"] = enc(ids, mask).float()
+            tp_enc = shard_params_tp(encoder(dtype), meshes["tp"], "tp")
+            calls = dict(tp=lambda: tp_enc(ids, mask),
+                         sp=lambda: sp_encoder_forward(enc, ids, mask, mesh=meshes["sp"], axis="sp"),
+                         pp=lambda: pp_encoder_forward(enc, ids, mask, mesh=meshes["pp"], axis="pp"))
+            for name, fn in calls.items():
+                out["legs"][name] = dict(out=fn().float(), **(measured(fn, t["reps"]) if timed else {}))
+            out["legs"]["tp"]["split"] = sum(hasattr(p, "tp_group") for p in tp_enc.parameters())
+            if timed:
+                out["one_rank_ms"] = time_ms(lambda: enc(ids, mask), t["reps"])
+        if timed:  # pp's backward: each stage's gradients on its own layers only
+            h = pp_encoder_forward(enc, ids, mask, mesh=meshes["pp"], axis="pp")
+            h.float().pow(2).mean().backward()
+            stage = axis_index(meshes["pp"], "pp")
+            own = range(stage * t["layers"] // world, (stage + 1) * t["layers"] // world)
+            grads = {n: p.grad for n, p in enc.named_parameters()}
+            mine = {n for n in grads if not n.startswith("layers.") or int(n.split(".")[1]) in own}
+            out["grads_finite"] = all(grads[n] is not None and bool(torch.isfinite(grads[n]).all()) for n in mine)
+            out["other_stages_none"] = all(grads[n] is None for n in grads if n not in mine)
+        return out
+
+    def err(a: torch.Tensor, name: str, ref: torch.Tensor) -> float:
+        return float((a - (ref[:, r_sp * per : (r_sp + 1) * per] if name == "sp" else ref)).abs().max())
+
+    bf, f32 = legs_in(torch.bfloat16, True), legs_in(torch.float32, False)
+    legs = {}
+    for name, leg in bf["legs"].items():
+        legs[name] = {k: v for k, v in leg.items() if k != "out"} | dict(
+            err=err(leg["out"], name, bf["ref"]), err_f32=err(leg["out"], name, f32["ref"]),
+            f32_err=err(f32["legs"][name]["out"], name, f32["ref"]))
+    legs["pp"].update(grads_finite=bf["grads_finite"], other_stages_none=bf["other_stages_none"])
+    bf16_vs_f32 = float((bf["ref"] - f32["ref"]).abs().max())
+    one_ms = bf["one_rank_ms"]
+    del bf, f32
+
+    def moe_module():
+        moe = MoEFFN(t["hidden"], t["experts"], t["inter"], t["top_k"], dtype=torch.bfloat16, device=dev)
+        moe.reset_parameters(torch.Generator(device=dev).manual_seed(t["seed"] + 2))
+        return moe
+
+    with torch.no_grad():
+        rep = moe_module()
+        y_rep, aux_rep = rep(x_moe)
+        moe_one_ms = time_ms(lambda: rep(x_moe), t["reps"])
+        ep = shard_params_ep(moe_module(), meshes["ep"], "ep")
+        y_ep, aux_ep = ep(x_moe)
+        legs["ep"] = dict(err=float((y_ep.float() - y_rep.float()).abs().max()),
+                          aux_err=float((aux_ep - aux_rep).abs()), one_rank_ms=moe_one_ms,
+                          local_experts=int(ep.wi.shape[0]), **measured(lambda: ep(x_moe), t["reps"]))
+    print(f"[rank {rank}] bf16 forward from f32 {bf16_vs_f32:.4g}; {json.dumps(legs)[:1500]}", flush=True)
+    return dict(rank=rank, world=world, backend=dist.get_backend(), card=card, one_rank_ms=one_ms, legs=legs,
+                bf16_vs_f32=bf16_vs_f32, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def model_parallel_phase(dev, card: str, t: dict) -> dict:
+    """Phase 14b/14c: `parallel_rank` on `t["ranks"]` gloo ranks of the one
+    card under torchrun (`--rank-job parallel`), then under NCCL over every
+    card where the machine has two or more. Checked: with f32 activations,
+    the tp, pp and sp legs within `t["f32_tol"]` of the one-rank f32
+    forward; with bf16 ones, pp within `t["tol"]` (JAX's dryrun bound) of
+    the one-rank bf16 forward, and tp and sp, which re-associate bf16 sums,
+    no farther from the f32 forward than the bf16 forward is, plus
+    `t["tol"]`; ep within `t["tol"]` of the replicated module and its aux
+    within 1e-5; pp's gradients finite on the rank's own layers and absent
+    on the others'; every rank exits 0. Returns the numbers."""
+    import tempfile
+
+    import torch
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    out: dict = {}
+
+    def run(world: int, backend: str) -> list:
+        ranks, wall = torchrun("parallel", world, root, dict(t, backend=backend), t["timeout"])
+        for r in ranks:
+            log(f"14 rank {r['rank']}/{r['world']} ({backend}) [{card}], {t['layers']} layers: one-rank bf16 forward "
+                f"{r['one_rank_ms']:.3f} ms, {r['bf16_vs_f32']:.4g} from the f32 one; "
+                + "; ".join(f"{n} {leg['ms']:.3f} ms (bf16 err {leg['err']:.4g}, from f32 {leg['err_f32']:.4g}; f32 "
+                            f"err {leg['f32_err']:.3g}; {leg['collectives']} collectives, {leg['coll_share']:.3f} of "
+                            "a call)" for n, leg in r["legs"].items() if n != "ep"))
+            e = r["legs"]["ep"]
+            log(f"14 rank {r['rank']}/{r['world']} ({backend}) [{card}]: ep {e['ms']:.3f} ms beside one rank's "
+                f"{e['one_rank_ms']:.3f} ms (err {e['err']:.4g}, aux err {e['aux_err']:.3g}, {e['local_experts']} "
+                f"experts a rank, {e['collectives']} collectives, {e['coll_share']:.3f} of a call); peak "
+                f"{r['peak_gib']:.3f} GiB")
+        for r in ranks:
+            where, legs = f"14 {backend} rank {r['rank']}", r["legs"]
+            for name in ("tp", "sp", "pp"):
+                check(legs[name]["f32_err"] <= t["f32_tol"], f"{where}: the f32 {name} leg is "
+                      f"{legs[name]['f32_err']:.4g} from the one-rank f32 forward (tol {t['f32_tol']})")
+            check(legs["pp"]["err"] <= t["tol"], f"{where}: the bf16 pp leg is {legs['pp']['err']:.4g} from the "
+                  f"one-rank bf16 forward (tol {t['tol']})")
+            for name in ("tp", "sp"):
+                check(legs[name]["err_f32"] <= r["bf16_vs_f32"] + t["tol"], f"{where}: the bf16 {name} leg is "
+                      f"{legs[name]['err_f32']:.4g} from the f32 forward, the bf16 forward {r['bf16_vs_f32']:.4g}")
+            check(legs["pp"]["grads_finite"] and legs["pp"]["other_stages_none"],
+                  f"{where}: pp's gradients are not finite, or not only its own layers'")
+            check(legs["tp"]["split"] > 0 and legs["ep"]["local_experts"] == t["experts"] // world,
+                  f"{where}: the tp or ep split did not happen")
+            check(legs["ep"]["err"] <= t["tol"] and legs["ep"]["aux_err"] <= 1e-5, f"{where}: ep differs from "
+                  "the replicated module")
+        log(f"14 over {world} {backend} ranks: torchrun wall {wall:.1f} s")
+        return ranks
+
+    out["gloo"] = run(t["ranks"], "gloo")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out["nccl"] = run(n_cards, "nccl")
+    else:
+        out["nccl"] = None
+        log(f"14c not run: NCCL at world size 2 or more needs 2 or more cards, and this machine has {n_cards}")
+    tmp.cleanup()
+    out["wall_s"] = time.perf_counter() - started
+    log(f"phase 14b/14c wall time: {out['wall_s']:.1f} s")
+    return out
+
+
 def rank_job(job: str, out_dir: Path, params: dict) -> None:
-    """One rank of a phase-12 or phase-13 group under torchrun (`chip_smoke.py --rank-job
+    """One rank of a phase-12, 13 or 14 group under torchrun (`chip_smoke.py --rank-job
     <job> <out_dir> <params json>`): joins the group from torchrun's
     environment on `cuda:{LOCAL_RANK % device_count}` with `params["backend"]`,
     runs the job and writes its result to `out_dir/<job>-rank<r>.json`. A
@@ -4662,6 +5086,8 @@ def rank_job(job: str, out_dir: Path, params: dict) -> None:
             res = compressed_search_rank(dev, card, params)
         elif job in ("pq_cli", "splade_cli"):
             res = batchwide_cli_rank(dev, card, params, out_dir)
+        elif job == "parallel":
+            res = parallel_rank(dev, card, params)
         else:
             res = cli_rank(dev, card, params, out_dir)
         (out_dir / f"{job}-rank{rank}.json").write_text(json.dumps(res))
@@ -4881,7 +5307,7 @@ def main() -> None:
     if not all((ROOT / "vod_tpu_torch" / "csrc" / f"{name}.cu").is_file() for name in kernel_names):
         fail(f"no vod_tpu_torch checkout around {ROOT}")
     sys.path.insert(0, str(ROOT))
-    if len(sys.argv) == 5 and sys.argv[1] == "--rank-job":  # one rank of phase 12 or 13, under torchrun
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank-job":  # one rank of phase 12, 13 or 14, under torchrun
         rank_job(sys.argv[2], Path(sys.argv[3]), json.loads(sys.argv[4]))
         return
     from vod_tpu_torch.examples import mips_kernel_bench
@@ -5357,7 +5783,30 @@ def main() -> None:
         splade_cli=[r["launches"] for r in batchwide["splade_cli"]["ranks"]],
     )
 
-    # 14. result lines
+    # 14. the MoE encoder through the CLI (14a); model parallelism on two gloo
+    # ranks of the card (14b); under NCCL over two or more cards where there are (14c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    moe_cli = moe_cli_phase(dev, card, hbm, peak_bf16, MOE_CLI)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_parallel = model_parallel_phase(dev, card, PARALLEL)
+    leg_keys = ("err", "ms", "coll_share", "collectives")
+    phase14 = dict(
+        moe_cli={k: moe_cli[k] for k in ("run1_s", "run2_s", "losses", "aux", "aux_share", "step_ms", "step_host_ms",
+                                         "moe_ffn_ms", "dense_ffn_ms", "ffn_shape", "peak_mem_bytes", "wall_s")},
+        parallel=[dict(rank=r["rank"], world=r["world"], backend=r["backend"], one_rank_ms=r["one_rank_ms"],
+                       bf16_vs_f32=r["bf16_vs_f32"], peak_gib=r["peak_gib"],
+                       legs={n: {k: leg[k] for k in (*leg_keys, "err_f32", "f32_err", "one_rank_ms", "aux_err")
+                                 if k in leg} for n, leg in r["legs"].items()})
+                  for r in model_parallel["gloo"] + (model_parallel["nccl"] or [])],
+        nccl_cards=None if model_parallel["nccl"] is None else len(model_parallel["nccl"]),
+        wall_s=time.perf_counter() - t14,
+    )
+    log(f"phase 14 wall time: {phase14['wall_s']:.1f} s")
+
+    # 15. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -5366,7 +5815,7 @@ def main() -> None:
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches,
         max_abs_err=max(max_err, train["train_max_abs_err"], seq2seq["train_call"]["max_abs_err"], cli["max_abs_err"],
-                        large["max_abs_err"]),
+                        large["max_abs_err"], moe_cli["max_abs_err"]),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
         shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
@@ -5391,6 +5840,8 @@ def main() -> None:
         second_stage_launches=second_stage["launches"]["fused_mips_binned"],
         phase11=dict(splade=splade, second_stage=second_stage, dynamic=dynamic, wall_s=phase11_s),
         sharded_launches=sharded_launches, sharded=sharded, phase13_launches=phase13_launches, phase13=phase13,
+        moe_cli_launches=moe_cli["launches"], moe_cli_body_launches=moe_cli["body_launches"],
+        moe_cli_resume_launches=moe_cli["resume_launches"], moe_cli_call=moe_cli["call"], phase14=phase14,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

@@ -235,9 +235,11 @@ def test_main_runs_and_resumes_from_a_config_file(tmp_path: Path, capsys) -> Non
 
 
 UNPORTED = {
-    "moe": ({"model": {"moe_experts": 4}}, "item 6"),
+    "moe": ({"model": {"moe_experts": 4, "moe_top_k": 2, "moe_capacity_factor": 2.0}}, "item 6"),
     "profile": ({"sys": {"profile_dir": "trace"}}, "item 7"),
 }
+# items of UNPORTED that have since been ported: the option reaches the model
+PORTED = {"item 6"}
 
 
 @pytest.mark.parametrize("over,item", UNPORTED.values(), ids=UNPORTED.keys())
@@ -245,6 +247,15 @@ def test_unported_option_raises_before_data_loads(over: dict, item: str) -> None
     raw = _raw()
     for k, v in over.items():
         raw[k] = {**raw.get(k, {}), **v}
+    if item in PORTED:  # MoE: the three options reach every encoder layer
+        from vod_tpu_torch.parallel.moe import MoEFFN
+
+        exp = Experiment.parse(raw)
+        cli.check_ported(exp, "cpu")
+        enc = cli.build_model(exp.model, device="cpu").encoder
+        assert (enc.cfg.moe_experts, enc.cfg.moe_top_k, enc.cfg.moe_capacity_factor) == (4, 2, 2.0)
+        assert all(isinstance(layer.moe, MoEFFN) and layer.moe.top_k == 2 for layer in enc.backbone.layers)
+        return
 
     def loader(**kw):
         raise AssertionError("data was loaded before the option was refused")

@@ -1013,3 +1013,62 @@ def test_sharded_compressed_engines_on_card_match_cpu(cuda_device, world: int, b
         np.testing.assert_array_equal(gi[gap > 1e-4], ci[gap > 1e-4])
         np.testing.assert_array_equal(r["maxsim"][1], r["maxsim"][0])
         np.testing.assert_array_equal(r["ivfpq"][1][1], out[0]["ivfpq"][1][1])  # the same merged answer on every rank
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda_device) -> None:
+    """`MoEFFN` in f32 on the card against the same module on the CPU: the
+    same experts routed (the smallest top-2 gap printed), outputs and aux
+    within 1e-5, gradients within 1e-4 (TF32 off)."""
+    from tests.torch_helpers import moe_module
+    from vod_tpu_torch.ops.numpy_ops import topk_lowest_first
+
+    rng = np.random.default_rng(0)
+    state = {"gate": (rng.standard_normal((64, 8)) / 8).astype(np.float32),
+             "wi": (rng.standard_normal((8, 64, 96)) / 8).astype(np.float32),
+             "wo": (rng.standard_normal((8, 96, 64)) / 8).astype(np.float32)}
+    x = rng.standard_normal((4, 24, 64)).astype(np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for dev in (torch.device("cpu"), cuda_device):
+            moe = moe_module(state, 2, 1.0).to(dev)
+            xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+            probs = torch.softmax(torch.einsum("bth,he->bte", xt.detach(), moe.gate.detach()), -1)
+            y, aux = moe(xt)
+            (y.pow(2).sum() + aux).backward()
+            outs.append((topk_lowest_first(probs, 2)[1].cpu(), probs.cpu(), y.detach().cpu(), aux.detach().cpu(),
+                         {n: p.grad.cpu() for n, p in moe.named_parameters()}, xt.grad.cpu()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (e0, p0, y0, a0, g0, x0), (e1, _, y1, a1, g1, x1) = outs
+    srt = p0.sort(-1, descending=True).values
+    print(f"smallest gap between the 2nd and 3rd gate probability: {float((srt[..., 1] - srt[..., 2]).min()):.3e}")
+    assert torch.equal(e0, e1)
+    torch.testing.assert_close(y1, y0, atol=1e-5, rtol=0)
+    torch.testing.assert_close(a1, a0, atol=1e-5, rtol=0)
+    for name in g0:
+        torch.testing.assert_close(g1[name], g0[name], atol=1e-4, rtol=0)
+    torch.testing.assert_close(x1, x0, atol=1e-4, rtol=0)
+
+
+def test_ring_and_pipeline_at_w1_on_card_equal_the_plain_encoder(cuda_device) -> None:
+    """`sp_encoder_forward` and `pp_encoder_forward` with no mesh (one rank)
+    on the card against the encoder's own forward, bf16 and f32."""
+    from vod_tpu_torch.models.encoder import TransformerEncoder, TransformerEncoderConfig, init_weights
+    from vod_tpu_torch.parallel import pp_encoder_forward, sp_encoder_forward
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.randint(1, 512, (8, 64), generator=g, device=cuda_device)
+    mask = (torch.rand((8, 64), generator=g, device=cuda_device) > 0.2).to(torch.int32)
+    mask[0] = 0
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
+        enc = TransformerEncoder(TransformerEncoderConfig(vocab_size=512, hidden_size=128, num_layers=4, num_heads=4,
+                                                          intermediate_size=256, dtype=dtype), device=cuda_device)
+        init_weights(enc, torch.Generator(device=cuda_device).manual_seed(1))
+        with torch.no_grad():
+            ref = enc(ids, mask).float()
+            sp = sp_encoder_forward(enc, ids, mask).float()
+            pp = pp_encoder_forward(enc, ids, mask, n_micro=4).float()
+        assert (sp - ref).abs().max().item() <= tol
+        assert (pp - ref).abs().max().item() <= (1e-5 if dtype == torch.float32 else tol)

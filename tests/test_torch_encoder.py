@@ -142,5 +142,11 @@ def test_random_init_is_seeded_and_finite() -> None:
 
 
 def test_unported_options_raise() -> None:
-    with pytest.raises(NotImplementedError, match="MoE"):
-        VodEncoder(TransformerEncoderConfig(moe_experts=2, **SIZES), device="cpu")
+    """MoE is ported: an MoE encoder builds, each layer with its routed FFN;
+    MoE with LoRA raises `ValueError`, as JAX's `_Layer` does."""
+    from vod_tpu_torch.parallel.moe import MoEFFN
+
+    enc = VodEncoder(TransformerEncoderConfig(moe_experts=2, **SIZES), device="cpu")
+    assert all(isinstance(layer.moe, MoEFFN) and layer.moe.n_experts == 2 for layer in enc.backbone.layers)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        VodEncoder(TransformerEncoderConfig(moe_experts=2, lora_rank=2, **SIZES), device="cpu")

@@ -628,3 +628,127 @@ def job_compressed_on_card(rank: int, world: int, n: int, d: int, b: int, k: int
                                                          qt.to(device), qm.to(device), cand.to(device)))
                      for device in (CPU, dev)]
     return out
+
+
+# ---- model parallelism: MoE / ep, ring attention, GPipe, tensor parallelism --------
+
+
+def moe_module(state: dict, top_k: int, capacity_factor: float):
+    """A float32 `MoEFFN` from `state` ({gate, wi, wo} as numpy arrays)."""
+    from vod_tpu_torch.parallel.moe import MoEFFN
+
+    h, e = state["gate"].shape
+    moe = MoEFFN(h, e, state["wi"].shape[2], top_k, capacity_factor, torch.float32, device=CPU)
+    moe.load_state_dict(_tensors(state))
+    return moe
+
+
+def job_moe_ep(rank: int, world: int, state: dict, x: np.ndarray, top_k: int, capacity_factor: float) -> dict:
+    """An `MoEFFN` with its experts split over an `ep` mesh of the world
+    (`shard_params_ep`); tokens replicated. Returns the output, the aux,
+    this rank's expert block, the gradients of sum(y²) + aux (the gate's,
+    this rank's `wi`/`wo` blocks', x's) and `ep_sharding`'s dims."""
+    from vod_tpu_torch.parallel import ep_sharding, make_mesh, shard_params_ep
+
+    mesh = make_mesh((world,), ("ep",))
+    moe = moe_module(state, top_k, capacity_factor)
+    dims = ep_sharding(moe, mesh, "ep")
+    shard_params_ep(moe, mesh, "ep")
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, aux = moe(xt)
+    (y.pow(2).sum() + aux).backward()
+    return dict(y=np_of(y), aux=float(aux), dims=dims, wi=np_of(moe.wi), x_grad=np_of(xt.grad),
+                grads={n: np_of(p.grad) for n, p in moe.named_parameters()})
+
+
+def plain_encoder(sizes: dict, state: dict):
+    """A float32 `TransformerEncoder` of `sizes` from `state` (numpy arrays
+    under `backbone.*`, `convert.flax_to_state_dict`'s names)."""
+    from vod_tpu_torch.models.encoder import TransformerEncoder, TransformerEncoderConfig
+
+    enc = TransformerEncoder(TransformerEncoderConfig(dtype=torch.float32, **sizes), device=CPU)
+    enc.load_state_dict({k.removeprefix("backbone."): torch.as_tensor(v) for k, v in state.items()
+                         if k.startswith("backbone.")})
+    return enc
+
+
+def job_ring(rank: int, world: int, q: np.ndarray, k: np.ndarray, v: np.ndarray, mask: np.ndarray) -> dict:
+    """`ring_attention` over an `sp` mesh of the world on this rank's block
+    of the sequence; returns its output block and the gradients of
+    sum(out²) summed over the ranks for its q, k and v blocks."""
+    from vod_tpu_torch.parallel import make_mesh, ring_attention
+
+    mesh = make_mesh((world,), ("sp",))
+    per = q.shape[1] // world
+    block = slice(rank * per, (rank + 1) * per)
+    qt, kt, vt = (torch.from_numpy(np.ascontiguousarray(a[:, block])).requires_grad_(True) for a in (q, k, v))
+    out = ring_attention(qt, kt, vt, mesh=mesh, axis="sp", kv_mask=torch.from_numpy(mask[:, block]))
+    out.pow(2).sum().backward()
+    return dict(out=np_of(out), q=np_of(qt.grad), k=np_of(kt.grad), v=np_of(vt.grad))
+
+
+def job_sp_encoder(rank: int, world: int, sizes: dict, state: dict, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """This rank's block of `sp_encoder_forward` over an `sp` mesh of the world."""
+    from vod_tpu_torch.parallel import make_mesh, sp_encoder_forward
+
+    enc = plain_encoder(sizes, state)
+    with torch.no_grad():
+        return np_of(sp_encoder_forward(enc, torch.from_numpy(ids), torch.from_numpy(mask),
+                                        mesh=make_mesh((world,), ("sp",)), axis="sp"))
+
+
+def job_pp(rank: int, world: int, sizes: dict, state: dict, ids: np.ndarray, mask: np.ndarray,
+           n_micro: typ.Optional[int]) -> dict:
+    """`pp_encoder_forward` over a `pp` mesh of the world, then mean(h²)
+    differentiated: the output and every parameter's gradient this rank
+    holds (None for the layers of other stages)."""
+    from vod_tpu_torch.parallel import make_mesh, pp_encoder_forward
+
+    enc = plain_encoder(sizes, state)
+    h = pp_encoder_forward(enc, torch.from_numpy(ids), torch.from_numpy(mask), mesh=make_mesh((world,), ("pp",)),
+                           axis="pp", n_micro=n_micro)
+    h.pow(2).mean().backward()
+    return dict(h=np_of(h), grads={f"backbone.{n}": None if p.grad is None else np_of(p.grad)
+                                   for n, p in enc.named_parameters()})
+
+
+def realm_system(sizes: dict, lm_sizes: dict, state: dict):
+    """A float32 `Realm` (VOD gradients, alpha 0.5) of `_toy_setup`'s layout from `state`."""
+    from vod_tpu_torch.models import CausalLMConfig, Realm, TransformerEncoderConfig, VodGradients, VodPoolerConfig
+
+    cfg = TransformerEncoderConfig(dtype=torch.float32, pooler=VodPoolerConfig(
+        agg_method="mean", output_norm="l2", scaler=8.0, learn_scaler=True), **sizes)
+    model = Realm(cfg, CausalLMConfig(dtype=torch.float32, **lm_sizes), VodGradients(alpha=0.5), device=CPU)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return model
+
+
+def job_tp(rank: int, world: int, sizes: dict, lm_sizes: dict, state: dict, batch: dict, extras: dict,
+           mesh_shape: tuple, axes: tuple, combined: bool) -> dict:
+    """A `Realm` from `state` split by `shard_params_tp` over the mesh's `tp`
+    axis (or by `shard_params_combined`), its evaluate loss on the whole
+    `batch` (a `RealmBatch`'s fields) differentiated. Returns the loss, the
+    retriever scores, the query encodings, each parameter's local gradient
+    and the split dims."""
+    from vod_tpu_torch.parallel import combined_sharding, make_mesh, shard_params_combined, shard_params_tp, tp_sharding
+    from vod_tpu_torch.types.batch import RealmBatch
+
+    mesh = make_mesh(mesh_shape, axes)
+    model = realm_system(sizes, lm_sizes, state)
+    plan = combined_sharding(model, mesh) if combined else tp_sharding(model, mesh)
+    (shard_params_combined if combined else shard_params_tp)(model, mesh)
+    b = RealmBatch(**_tensors(batch), extras=extras)
+    out = model(b, mode="evaluate")
+    out.loss.backward()
+    with torch.no_grad():
+        enc = model.encode_field(b.query__input_ids, b.query__attention_mask)
+    return dict(loss=float(out.loss), scores=np_of(out.retriever_scores), enc=np_of(enc), plan=plan,
+                grads={n: np_of(p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad)
+                       for n, p in model.named_parameters()})
+
+
+def job_multichip_dryrun(rank: int, world: int, dtype: str) -> dict:
+    """`examples/multichip_dryrun.py:dryrun` on this rank (the CPU)."""
+    from vod_tpu_torch.examples.multichip_dryrun import dryrun
+
+    return dryrun(world, CPU, getattr(torch, dtype))

@@ -24,6 +24,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import types
 import typing as typ
 
@@ -31,6 +32,9 @@ M = typ.TypeVar("M", bound="StrictModel")
 
 _TRUE_STRINGS = {"1", "on", "t", "true", "y", "yes"}
 _FALSE_STRINGS = {"0", "off", "f", "false", "n", "no"}
+# pydantic's int string: ASCII digits, single underscores between them, and
+# a fraction of zeros only after a digit ("1.0" yes; "1.", "٣", "1__0" no)
+_INT_STRING = re.compile(r"([+-]?[0-9]+(?:_[0-9]+)*)(?:\.0+)?")
 
 
 class _Invalid(ValueError):
@@ -108,15 +112,14 @@ def validate(tp: typ.Any, value: typ.Any, path: str = "") -> typ.Any:
                 return int(value)
             _fail(path, "expected an integer (a float with no fraction)", value)
         if isinstance(value, str):
-            s = value.strip().replace("_", "")
-            head, dot, frac = s.partition(".")
-            if head.lstrip("+-").isdigit() and (not dot or frac.strip("0") == ""):
-                return int(head)
+            m = _INT_STRING.fullmatch(value.strip())
+            if m:
+                return int(m.group(1))
         _fail(path, "expected an integer", value)
     if tp is float:
         if isinstance(value, (bool, int, float)):
             return float(value)
-        if isinstance(value, str):
+        if isinstance(value, str) and value.strip().isascii():  # Python's float reads other scripts' digits too
             try:
                 return float(value.strip())
             except ValueError:

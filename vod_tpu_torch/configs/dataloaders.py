@@ -2,8 +2,10 @@
 `vod_tpu/configs/dataloaders.py`).
 
 `TokenizerConfig.instantiate()` builds the port's own WordPiece tokenizer
-(`data/tokenizer.py`) from a local directory that holds `vocab.txt`; a hub
-name with no such directory raises, since nothing is downloaded.
+(`data/tokenizer.py`) from a local directory that holds `vocab.txt`, with
+the normalizer flags of its `tokenizer_config.json` where it has one (as
+`AutoTokenizer` reads them); a hub name with no such directory raises,
+since nothing is downloaded.
 """
 
 from __future__ import annotations

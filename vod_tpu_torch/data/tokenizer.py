@@ -1,16 +1,19 @@
 """A BERT WordPiece tokenizer read from `vocab.txt`, giving the ids, masks and
 offsets that `transformers.BertTokenizerFast` gives for the same vocabulary
-(lower-cased, accents stripped). The card's machine has no `transformers`
-and no `tokenizers`.
+and the same normalizer flags (`do_lower_case`, `strip_accents`,
+`tokenize_chinese_chars`; by default lower-cased with accents stripped, and
+read from the directory's `tokenizer_config.json` where it has one). The
+card's machine has no `transformers` and no `tokenizers`.
 
 The pipeline is the fast tokenizer's:
  1. the special tokens (`[PAD] [UNK] [CLS] [SEP] [MASK]`) are matched in the
     raw text first and kept whole;
  2. normalization: NUL, U+FFFD and control or other `C*` characters (but
     tab, newline and carriage return) are dropped, whitespace becomes a
-    space, each CJK ideograph is set apart by spaces, accents are stripped
-    (NFD, then nonspacing marks `Mn` dropped), and each character is
-    lower-cased on its own;
+    space, each CJK ideograph is set apart by spaces (`tokenize_chinese_chars`),
+    accents are stripped (NFD, then nonspacing marks `Mn` dropped;
+    `strip_accents`, which follows `do_lower_case` when None), and each
+    character is lower-cased on its own (`do_lower_case`);
  3. pre-tokenization: split on whitespace, each punctuation character
     (ASCII punctuation or Unicode `P*`) a word of its own;
  4. WordPiece: the longest vocabulary prefix first, then `##` pieces; a
@@ -26,6 +29,7 @@ expression and a per-word cache) to the same result.
 
 from __future__ import annotations
 
+import json
 import pathlib
 import re
 import typing as typ
@@ -48,6 +52,9 @@ _CJK = (
 _ASCII_PUNCT = frozenset("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
 _ASCII_CONTROL = re.compile(r"[\x00-\x08\x0b\x0c\x0e-\x1f\x7f\[]")
 _ASCII_WORD = re.compile(r"[a-z0-9]+|[!-/:-@\[-`{-~]")
+_ASCII_WORD_CASED = re.compile(r"[A-Za-z0-9]+|[!-/:-@\[-`{-~]")
+# the normalizer flags a `tokenizer_config.json` may set (`BertTokenizerFast`'s)
+_CONFIG_FLAGS = ("do_lower_case", "strip_accents", "tokenize_chinese_chars")
 
 
 def _is_control(c: str) -> bool:
@@ -64,8 +71,9 @@ def _is_punct(c: str) -> bool:
 
 
 class WordPieceTokenizer:
-    """The tokenizer of a BERT `vocab.txt` (uncased). `__call__` follows the
-    `transformers` calling convention for the arguments the port uses."""
+    """The tokenizer of a BERT `vocab.txt` (uncased unless `do_lower_case` is
+    False). `__call__` follows the `transformers` calling convention for the
+    arguments the port uses."""
 
     def __init__(
         self,
@@ -77,6 +85,9 @@ class WordPieceTokenizer:
         cls_token: str = "[CLS]",
         mask_token: str = "[MASK]",
         max_input_chars_per_word: int = 100,
+        do_lower_case: bool = True,
+        strip_accents: typ.Optional[bool] = None,
+        tokenize_chinese_chars: bool = True,
     ):
         if not isinstance(vocab, typ.Mapping):
             vocab = {tok: i for i, tok in enumerate(vocab)}  # a repeated token keeps its last line
@@ -85,6 +96,10 @@ class WordPieceTokenizer:
         self.unk_token, self.sep_token, self.pad_token = unk_token, sep_token, pad_token
         self.cls_token, self.mask_token = cls_token, mask_token
         self.max_input_chars_per_word = max_input_chars_per_word
+        self.do_lower_case = bool(do_lower_case)
+        self.strip_accents = self.do_lower_case if strip_accents is None else bool(strip_accents)
+        self.tokenize_chinese_chars = bool(tokenize_chinese_chars)
+        self._ascii_word = _ASCII_WORD if self.do_lower_case else _ASCII_WORD_CASED
         for attr in _SPECIAL_ATTRS:
             if getattr(self, attr) not in self.vocab:
                 raise ValueError(f"the vocabulary has no {attr} {getattr(self, attr)!r}")
@@ -110,7 +125,9 @@ class WordPieceTokenizer:
     @classmethod
     def from_pretrained(cls, name_or_path: typ.Union[str, pathlib.Path], **kw: typ.Any) -> "WordPieceTokenizer":
         """From a local directory holding `vocab.txt`, or a `vocab.txt` path.
-        A hub name is not looked up: nothing is downloaded."""
+        A hub name is not looked up: nothing is downloaded. The normalizer
+        flags come from the directory's `tokenizer_config.json` where it has
+        one, and `kw` overrides them."""
         p = pathlib.Path(name_or_path)
         vocab = p / "vocab.txt" if p.is_dir() else p
         if not vocab.is_file():
@@ -118,6 +135,11 @@ class WordPieceTokenizer:
                 f"no vocab.txt at {str(name_or_path)!r}: the tokenizer reads a local directory holding "
                 "vocab.txt and uses no network, so a hub name needs its files on disk"
             )
+        config = vocab.parent / "tokenizer_config.json"
+        if config.is_file():
+            with open(config, encoding="utf-8") as f:
+                flags = {k: v for k, v in json.load(f).items() if k in _CONFIG_FLAGS}
+            kw = {**flags, **kw}
         return cls.from_vocab_file(vocab, **kw)
 
     # -- vocabulary ----------------------------------------------------------
@@ -184,14 +206,14 @@ class WordPieceTokenizer:
                 chars.append(" ")
                 where.append(base + j)
                 continue
-            if _is_cjk(c):
+            if self.tokenize_chinese_chars and _is_cjk(c):
                 chars += [" ", c, " "]
                 where += [base + j] * 3
                 continue
-            for d in unicodedata.normalize("NFD", c):
-                if unicodedata.category(d) == "Mn":
+            for d in unicodedata.normalize("NFD", c) if self.strip_accents else c:
+                if self.strip_accents and unicodedata.category(d) == "Mn":
                     continue
-                for low in d.lower():
+                for low in d.lower() if self.do_lower_case else d:
                     chars.append(low)
                     where.append(base + j)
         word: list[str] = []
@@ -218,14 +240,14 @@ class WordPieceTokenizer:
             ids: list[int] = []
             offsets: list[tuple[int, int]] = []
             if not with_offsets:
-                words = _ASCII_WORD.findall(text.lower())
+                words = self._ascii_word.findall(text.lower() if self.do_lower_case else text)
                 try:
                     return list(chain.from_iterable(map(self._ids_cache.__getitem__, words))), offsets
                 except KeyError:
                     for w in words:
                         self._wordpiece(w)
                     return list(chain.from_iterable(map(self._ids_cache.__getitem__, words))), offsets
-            for m in _ASCII_WORD.finditer(text.lower()):
+            for m in self._ascii_word.finditer(text.lower() if self.do_lower_case else text):
                 wids, ends = self._wordpiece(m.group())
                 ids += wids
                 s0 = m.start()

@@ -23,7 +23,8 @@ quantization groups (`models/kbit.py`) and Adafactor's factored moments
 (`runtime/optim.py`) follow flax's axes, not torch's.
 
 A LoRA FFN layer (`intermediate: {base: {kernel, bias}, lora_a, lora_b}`)
-comes over with its adapters as they are; `kbit_flax_to_state_dict` carries
+comes over with its adapters as they are, and an MoE FFN (`moe: {gate, wi,
+wo}`) in flax's layout, which `flax_layout` calls `same`; `kbit_flax_to_state_dict` carries
 a JAX `KbitParams` (trainable leaves, int8 codes and scales) into the
 `state_dict` of a kbit-prepared port model.
 
@@ -102,8 +103,12 @@ def flax_to_state_dict(params: typ.Mapping) -> dict[str, torch.Tensor]:
             _attention_in(f"{prefix}.attention.{name}", attn[name], sd)
         _dense(f"{prefix}.attention.out", attn["out"], sd)  # [heads, head_dim, H] -> [H, H]
         _norm(f"{prefix}.attention_norm", layer["attention_norm"], sd)
-        _ffn(f"{prefix}.intermediate", layer["intermediate"], sd)
-        _ffn(f"{prefix}.output", layer["output"], sd)
+        if "moe" in layer:  # gate [H, E], wi [E, H, I], wo [E, I, H]: kept in flax's layout
+            for name in ("gate", "wi", "wo"):
+                sd[f"{prefix}.moe.{name}"] = _t(layer["moe"][name])
+        else:
+            _ffn(f"{prefix}.intermediate", layer["intermediate"], sd)
+            _ffn(f"{prefix}.output", layer["output"], sd)
         _norm(f"{prefix}.output_norm", layer["output_norm"], sd)
         i += 1
     return sd

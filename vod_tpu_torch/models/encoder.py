@@ -22,6 +22,10 @@ plain XLA, outside any Pallas kernel. The dense products stay `F.linear`.
 With `lora_rank > 0` the FFN's `intermediate` and `output` are `LoraDense`
 (attention keeps plain kernels, as in JAX); `lora_trainable_mask` names the
 adapters and the pooler, which `models/kbit.py` keeps trainable. With
+`moe_experts > 0` each layer's FFN is a routed `parallel/moe.py:MoEFFN`
+(`moe`), and the layer appends `moe_aux_weight * aux` to its `sown` slot
+when a caller collects losses (`systems.collect_losses`, flax's `sow` into
+`"losses"`); MoE and LoRA exclude each other, as in JAX. With
 `remat` each layer runs under `torch.utils.checkpoint` (non-reentrant) when
 a gradient is recorded: the same outputs and gradients, with a layer's
 activations recomputed in the backward pass instead of kept.
@@ -55,7 +59,10 @@ class TransformerEncoderConfig:
     remat: bool = False  # recompute each layer's activations in the backward pass
     lora_rank: int = 0  # > 0: LoRA adapters on the FFN's two dense layers
     lora_alpha: float = 16.0
-    moe_experts: int = 0  # routed-MoE FFN: not ported yet
+    moe_experts: int = 0  # > 0: each FFN is a top-k routed MoE (`parallel/moe.py`)
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
     pooler: VodPoolerConfig = dataclasses.field(default_factory=VodPoolerConfig)
 
 
@@ -133,11 +140,14 @@ class _Embeddings(nn.Module):
         )
         self.LayerNorm = _LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, device)
 
+    def words(self, input_ids: torch.Tensor) -> torch.Tensor:
+        # flax `nn.Embed(dtype=...)` looks up in the table cast to dtype (the same
+        # values as casting after the lookup)
+        return self.word_embeddings(input_ids).to(self.cfg.dtype)
+
     def forward(self, input_ids: torch.Tensor, token_type_ids: typ.Optional[torch.Tensor]) -> torch.Tensor:
         dt = self.cfg.dtype
-        # flax `nn.Embed(dtype=...)` looks up in the table cast to dtype (the same
-        # values as casting after the lookup); the sums stay in dtype
-        h = self.word_embeddings(input_ids).to(dt)
+        h = self.words(input_ids)  # the sums stay in dtype
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
         h = h + self.position_embeddings(pos).to(dt)[None]
         if self.token_type_embeddings is not None:
@@ -159,13 +169,18 @@ class _Attention(nn.Module):
         self.out = nn.Linear(h, h, device=device)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return _dense(self.attend(x, mask), self.out, self.cfg.dtype)
+
+    def attend(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The heads' outputs before the out projection, `[B, L, heads * head_dim]`
+        for the heads this module holds (all of them, or a tensor-parallel
+        block: the count comes from the query's rows)."""
         cfg, dt = self.cfg, self.cfg.dtype
-        b, length, hidden = x.shape
-        heads = cfg.num_heads
-        depth = hidden // heads
-        q = _dense(x, self.query, dt).view(b, length, heads, depth)
-        k = _dense(x, self.key, dt).view(b, length, heads, depth)
-        v = _dense(x, self.value, dt).view(b, length, heads, depth)
+        b, length, _ = x.shape
+        depth = cfg.hidden_size // cfg.num_heads
+        q = _dense(x, self.query, dt).view(b, length, -1, depth)
+        k = _dense(x, self.key, dt).view(b, length, -1, depth)
+        v = _dense(x, self.value, dt).view(b, length, -1, depth)
         # the query is scaled by 1/sqrt(head_dim), rounded to dt, before the
         # product (`torch.full` fills on the device: a host-made scalar tensor
         # would be a copy that waits for the card)
@@ -174,8 +189,7 @@ class _Attention(nn.Module):
         # the mask fills with finfo(dtype).min, not -inf
         w = torch.where(mask, w, torch.finfo(dt).min)
         w = torch.softmax(w, dim=-1).to(dt)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, length, hidden)
-        return _dense(o, self.out, dt)
+        return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, length, -1)
 
 
 class _Layer(nn.Module):
@@ -185,7 +199,20 @@ class _Layer(nn.Module):
         self.attention = _Attention(cfg, device)
         self.attention_norm = _LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, device)
         h, inter, r = cfg.hidden_size, cfg.intermediate_size, cfg.lora_rank
-        if r > 0:
+        if cfg.moe_experts > 0:
+            if r > 0:
+                raise ValueError(
+                    "moe_experts and lora_rank are mutually exclusive: the MoE FFN replaces the dense "
+                    "layers LoRA would adapt"
+                )
+            from vod_tpu_torch.parallel.moe import MoEFFN
+
+            self.moe = MoEFFN(h, cfg.moe_experts, inter, cfg.moe_top_k, cfg.moe_capacity_factor, cfg.dtype, device)
+            # set by `systems.collect_losses`
+            self.sown: typ.Optional[list[torch.Tensor]] = None
+            self.sown_group: typ.Any = None
+            self.sown_rows: typ.Optional[torch.Tensor] = None
+        elif r > 0:
             self.intermediate = LoraDense(h, inter, r, cfg.lora_alpha, cfg.dtype, device)
             self.output = LoraDense(inter, h, r, cfg.lora_alpha, cfg.dtype, device)
         else:
@@ -196,9 +223,17 @@ class _Layer(nn.Module):
     def _ffn_dense(self, x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
         return layer(x) if isinstance(layer, LoraDense) else _dense(x, layer, self.cfg.dtype)
 
-    def forward(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, mask: torch.Tensor, group: typ.Any = None,
+                rows: typ.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`group` and `rows`: the MoE auxiliary loss's (`MoEFFN.forward`),
+        passed as arguments so that a recomputed layer sees them too."""
         h = self.attention_norm(h + self.attention(h, mask))
-        ff = self._ffn_dense(_gelu(self._ffn_dense(h, self.intermediate)), self.output)
+        if self.cfg.moe_experts > 0:
+            ff, aux = self.moe(h, group=group, rows=rows)
+            if self.sown is not None:
+                self.sown.append(self.cfg.moe_aux_weight * aux)
+        else:
+            ff = self._ffn_dense(_gelu(self._ffn_dense(h, self.intermediate)), self.output)
         return self.output_norm(h + ff)
 
 
@@ -207,8 +242,6 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, cfg: TransformerEncoderConfig, device: typ.Any = None):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("the MoE FFN (moe_experts > 0) is not ported to vod_tpu_torch yet")
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg, device)
         self.layers = nn.ModuleList(_Layer(cfg, device) for _ in range(cfg.num_layers))
@@ -223,7 +256,9 @@ class TransformerEncoder(nn.Module):
         mask = attention_mask[:, None, None, :] > 0  # [B, 1, 1(=Lq), L]
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = torch.utils.checkpoint.checkpoint(layer, h, mask, use_reentrant=False) if remat else layer(h, mask)
+            aux = (getattr(layer, "sown_group", None), getattr(layer, "sown_rows", None))
+            h = torch.utils.checkpoint.checkpoint(layer, h, mask, *aux, use_reentrant=False) if remat \
+                else layer(h, mask, *aux)
         return h
 
 
@@ -231,9 +266,14 @@ class TransformerEncoder(nn.Module):
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random-initialise every parameter from `generator` (BERT's scheme:
     normal(0, 0.02) weights, zero biases, unit LayerNorm scales; the pooler's
-    log-scaler at log(scaler); LoRA's `lora_a` normal(0, 0.02), `lora_b` 0)."""
+    log-scaler at log(scaler); LoRA's `lora_a` normal(0, 0.02), `lora_b` 0;
+    an MoE FFN's `lecun_normal`)."""
+    from vod_tpu_torch.parallel.moe import MoEFFN
+
     for m in module.modules():
-        if isinstance(m, LoraDense):
+        if isinstance(m, MoEFFN):
+            m.reset_parameters(generator)
+        elif isinstance(m, LoraDense):
             m.lora_a.normal_(0.0, 0.02, generator=generator)
             m.lora_b.zero_()
         elif isinstance(m, nn.Linear):

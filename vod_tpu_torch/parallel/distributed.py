@@ -15,8 +15,17 @@ raises.
 
 The collectives here (`all_gather_tensor`, `all_reduce_`) use only the calls
 that both backends take on CUDA tensors (`broadcast`, `all_reduce`), so one
-code path serves NCCL and gloo. Declared difference: where JAX assembles a
-global array from the processes' rows (`make_array_from_process_local_data`),
+code path serves NCCL and gloo. The differentiable ones for model
+parallelism: `ppermute` (JAX's `lax.ppermute` on a ring: batched send and
+receive under NCCL, broadcasts under gloo; its backward is the opposite
+shift), `sum_over` (an all_reduce whose backward is the identity: the
+partial outputs of a split layer, summed into a result every rank holds)
+and `copy_over` (the identity, whose backward sums the gradients over the
+group: a replicated input of a split layer). These three take the group of
+a mesh axis, and None means no group: one rank, no communication.
+
+Declared difference: where JAX assembles a global array from the
+processes' rows (`make_array_from_process_local_data`),
 `global_batch_from_local` returns the rows of every rank, in rank order, as
 one tensor on each rank.
 """
@@ -181,3 +190,86 @@ def global_batch_from_local(local: typ.Any, group: typ.Any = None) -> torch.Tens
     padded = torch.cat([x, x.new_zeros((top - x.shape[0],) + tuple(x.shape[1:]))]) if x.shape[0] < top else x
     every = all_gather_tensor(padded, group)
     return torch.cat([every[r, :c] for r, c in enumerate(counts)])
+
+
+def _group_size(group: typ.Any) -> int:
+    """The size of `group`, where None means no group (not the world's)."""
+    return dist.get_world_size(group) if group is not None and dist.is_initialized() else 1
+
+
+def _shift(t: torch.Tensor, group: typ.Any, shift: int) -> torch.Tensor:
+    """Rank r's `t` lands on rank (r + shift) mod W of `group`."""
+    w, me = dist.get_world_size(group), dist.get_rank(group)
+    if shift % w == 0:
+        return t.clone()
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t.contiguous(), global_rank(group, (me + shift) % w), group),
+               dist.P2POp(dist.irecv, out, global_rank(group, (me - shift) % w), group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+    return all_gather_tensor(t, group)[(me - shift) % w].clone()
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: typ.Any, t: torch.Tensor, group: typ.Any, shift: int) -> torch.Tensor:
+        ctx.group, ctx.shift = group, shift
+        return _shift(t, group, shift)
+
+    @staticmethod
+    def backward(ctx: typ.Any, g: torch.Tensor) -> tuple:
+        return _shift(g.contiguous(), ctx.group, -ctx.shift), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: typ.Any, t: torch.Tensor, group: typ.Any) -> torch.Tensor:
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx: typ.Any, g: torch.Tensor) -> tuple:
+        return g, None
+
+
+class _CopyOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: typ.Any, t: torch.Tensor, group: typ.Any) -> torch.Tensor:
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx: typ.Any, g: torch.Tensor) -> tuple:
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def ppermute(t: torch.Tensor, group: typ.Any, shift: int = 1) -> torch.Tensor:
+    """Differentiable ring shift over `group`: rank r receives the `t` of rank
+    (r - shift) mod W (every rank sends a tensor of the same shape and
+    dtype). The backward shifts the gradients the other way. With no group
+    (None), or in a group of one, a copy of `t`."""
+    if _group_size(group) == 1:
+        return t.clone()
+    return _Shift.apply(t, group, shift)
+
+
+def sum_over(t: torch.Tensor, group: typ.Any) -> torch.Tensor:
+    """The sum of every rank's `t` over `group`, on every rank; the backward
+    passes each rank's gradient through unchanged (each rank computes the
+    same loss from the sum). `t` itself in a group of one."""
+    if _group_size(group) == 1:
+        return t
+    return _SumOver.apply(t, group)
+
+
+def copy_over(t: torch.Tensor, group: typ.Any) -> torch.Tensor:
+    """`t` (the same on every rank of `group`) whose gradient is summed over
+    the group: each rank differentiates its part of what reads it."""
+    if _group_size(group) == 1:
+        return t
+    return _CopyOver.apply(t, group)

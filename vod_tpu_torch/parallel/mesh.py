@@ -11,9 +11,14 @@ process group, one device a rank:
              the axis size (and at least 8 times it) is split over `fsdp`
              (`shard_params`, through FSDP2's `fully_shard`).
 
+  * `tp`   — tensor parallelism: JAX's key rules split whole heads of the
+             encoder's attention and the intermediate axis of every FFN
+             (`tp_sharding`); `shard_params_tp` keeps each rank's block and
+             gives the layers Megatron's forwards (`parallel/tp.py`).
+
 `make_mesh((dp, fsdp), ("dp", "fsdp"))` builds the 2-D mesh; either axis may
-be 1. `tp_sharding` and `combined_sharding` are not ported (ROADMAP §A item
-6).
+be 1. `combined_sharding` takes TP where the TP rule splits a parameter and
+FSDP for the rest, as JAX's does.
 """
 
 from __future__ import annotations
@@ -70,6 +75,18 @@ def axis_index(mesh: typ.Any, axis: str) -> int:
 def axis_group(mesh: typ.Any, axis: str) -> typ.Any:
     """The process group of this rank's line along `axis`."""
     return mesh.get_group(axis)
+
+
+def axis_group_of(mesh: typ.Any, axis: str, what: str) -> typ.Any:
+    """The process group of `axis` for a model-parallel call (`what`), None
+    at size 1. An axis of size > 1 without a process group raises: such a
+    call never runs as one rank."""
+    size = axis_size(mesh, axis)
+    if size == 1:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError(f"{what} over {axis!r} of size {size} needs its process group")
+    return axis_group(mesh, axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,17 +178,21 @@ def _torch_dim(kind: str, flax_dim: int) -> int:
     return flax_dim
 
 
+def flax_leaves(model: torch.nn.Module) -> typ.Iterator[tuple[str, str, typ.Any, tuple[int, ...]]]:
+    """(name, flax path, layout, flax shape) of each parameter of `model`:
+    the leaf JAX's sharding rules read (`models/convert.py:flax_layout`)."""
+    from vod_tpu_torch.models.convert import flax_layout, flax_path
+
+    for name, p in model.named_parameters():
+        layout = flax_layout(model, name)
+        yield name, flax_path(name), layout, tuple(layout.to_flax(torch.empty(p.shape, device="meta")).shape)
+
+
 def fsdp_flax_dims(model: torch.nn.Module, size: int) -> dict[str, typ.Optional[int]]:
     """JAX's rule applied to each parameter of `model` as its flax leaf
     (`models/convert.py:flax_layout`): name -> the flax axis split over an
     fsdp axis of `size`, or None."""
-    from vod_tpu_torch.models.convert import flax_layout
-
-    out = {}
-    for name, p in model.named_parameters():
-        like = torch.empty(p.shape, device="meta")
-        out[name] = fsdp_dim(tuple(flax_layout(model, name).to_flax(like).shape), size)
-    return out
+    return {name: fsdp_dim(shape, size) for name, _, _, shape in flax_leaves(model)}
 
 
 def fsdp_sharding(model: torch.nn.Module, mesh: typ.Any, axis: str = "fsdp") -> dict[str, typ.Optional[int]]:
@@ -205,6 +226,102 @@ def shard_params(model: torch.nn.Module, mesh: typ.Any, axis: str = "fsdp") -> t
     by_param = {p: dims[n] for n, p in model.named_parameters()}
     ignored = {p for p, d in by_param.items() if d is None}
     sub = mesh[axis] if len(mesh.mesh_dim_names) > 1 else mesh
+    fully_shard(model, mesh=sub, shard_placement_fn=lambda p: Shard(by_param[p]), ignored_params=ignored)
+    if hasattr(model, "encode_field"):
+        register_fsdp_forward_method(model, "encode_field")
+    return model
+
+
+# ---- tp ---------------------------------------------------------------------
+
+
+def tp_flax_dim(key: str, shape: typ.Sequence[int], size: int) -> typ.Optional[int]:
+    """JAX's tensor-parallel key rules (`vod_tpu/parallel/mesh.py:tp_sharding`)
+    on one leaf, by its flax path `key` and shape: the flax axis split over
+    a tp axis of `size`, or None. FFN up-projections split their fan-out,
+    down-projections their fan-in, attention q/k/v kernels and biases their
+    heads axis, the attention output kernel its heads axis."""
+    nd = len(shape)
+
+    def on(dim: int) -> typ.Optional[int]:
+        return dim if shape[dim] % size == 0 else None
+
+    if "attention" in key and nd == 3 and "kernel" in key:
+        return on(0) if "out" in key else on(1)
+    if "attention" in key and nd == 2 and "bias" in key:
+        return on(0) if "out" not in key else None
+    if "intermediate" in key and nd == 2:
+        return on(1)
+    if "intermediate" in key and nd == 1:
+        return on(0)
+    if ("output" in key or "fc_out" in key or "wo" in key) and nd == 2:
+        return on(0)
+    if "fc_in" in key and nd == 2:
+        return on(1)
+    return None
+
+
+def tp_sharding(model: torch.nn.Module, mesh: typ.Any, axis: str = "tp") -> dict[str, typ.Optional[int]]:
+    """Per parameter: the torch dim split over the mesh's `axis`, or None
+    (replicated). JAX's key rules (`tp_flax_dim`) on the flax leaf each
+    parameter stands for, as `fsdp_sharding` applies its rule; without the
+    axis, or at size 1, everything is replicated."""
+    size = axis_size(mesh, axis)
+    if size == 1:
+        return {name: None for name, _ in model.named_parameters()}
+    out: dict[str, typ.Optional[int]] = {}
+    for name, key, layout, shape in flax_leaves(model):
+        d = tp_flax_dim(key, shape, size)
+        out[name] = None if d is None else _torch_dim(layout.kind, d)
+    return out
+
+
+def shard_params_tp(model: torch.nn.Module, mesh: typ.Any, axis: str = "tp") -> torch.nn.Module:
+    """Keep this rank's block of every parameter `tp_sharding` splits, and
+    give the encoder's embeddings and layers and the reader's layers the
+    tensor-parallel forwards (in place; returns `model`). Raises where the
+    rule splits a parameter that none of those holds."""
+    from .tp import split_layers
+
+    if axis_size(mesh, axis) == 1:
+        return model
+    dims = tp_sharding(model, mesh, axis)
+    split_layers(model, dims, axis_group(mesh, axis), axis_index(mesh, axis), axis_size(mesh, axis))
+    left = sorted(n for n, p in model.named_parameters() if dims.get(n) is not None and not hasattr(p, "tp_group"))
+    if left:
+        raise ValueError(f"tensor-parallel splits that no tensor-parallel forward runs: {left}")
+    return model
+
+
+def combined_sharding(model: torch.nn.Module, mesh: typ.Any, *, tp_axis: str = "tp",
+                      fsdp_axis: str = "fsdp") -> dict[str, typ.Optional[tuple[str, int]]]:
+    """Per parameter: (axis, torch dim) of its split, or None (replicated):
+    the TP rule where it splits the parameter, FSDP's for the rest."""
+    tp = tp_sharding(model, mesh, tp_axis)
+    fsdp = fsdp_sharding(model, mesh, fsdp_axis)
+    return {
+        name: (tp_axis, tp[name]) if tp[name] is not None else (fsdp_axis, fsdp[name]) if fsdp[name] is not None
+        else None
+        for name in tp
+    }
+
+
+def shard_params_combined(model: torch.nn.Module, mesh: typ.Any, *, tp_axis: str = "tp",
+                          fsdp_axis: str = "fsdp") -> torch.nn.Module:
+    """`combined_sharding` applied (in place; returns `model`): the TP
+    blocks by `shard_params_tp`, then FSDP2 over the mesh's `fsdp_axis` for
+    the parameters FSDP's rule splits, with the TP blocks and the
+    replicated parameters among `ignored_params`."""
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+    from torch.distributed.tensor import Shard
+
+    plan = combined_sharding(model, mesh, tp_axis=tp_axis, fsdp_axis=fsdp_axis)
+    shard_params_tp(model, mesh, tp_axis)
+    if axis_size(mesh, fsdp_axis) == 1:
+        return model
+    by_param = {p: plan[n][1] for n, p in model.named_parameters() if plan[n] is not None and plan[n][0] == fsdp_axis}
+    ignored = {p for p in model.parameters() if p not in by_param}
+    sub = mesh[fsdp_axis] if len(mesh.mesh_dim_names) > 1 else mesh
     fully_shard(model, mesh=sub, shard_placement_fn=lambda p: Shard(by_param[p]), ignored_params=ignored)
     if hasattr(model, "encode_field"):
         register_fsdp_forward_method(model, "encode_field")

@@ -93,24 +93,36 @@ def _local(g: torch.Tensor) -> torch.Tensor:
     return g.to_local() if hasattr(g, "to_local") else g
 
 
-def _global_norm(grads: typ.Sequence[torch.Tensor]) -> torch.Tensor:
+def _global_norm(grads: typ.Sequence[torch.Tensor], groups: typ.Optional[typ.Sequence[typ.Any]] = None) -> torch.Tensor:
     """L2 norm of all `grads`; a sharded (DTensor) gradient's squares are
-    summed over its shards first."""
-    plain = [g for g in grads if not hasattr(g, "to_local")]
+    summed over its shards first, and so are those of a gradient split over
+    the process group `groups[i]` (a tensor-parallel block; None: whole)."""
+    groups = [None] * len(grads) if groups is None else list(groups)
+    plain = [g for g, grp in zip(grads, groups) if not hasattr(g, "to_local") and grp is None]
+    split = [(g, grp) for g, grp in zip(grads, groups) if not hasattr(g, "to_local") and grp is not None]
     sharded = [g for g in grads if hasattr(g, "to_local")]
     norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in plain])) if plain else None
-    if not sharded:
+    if not sharded and not split:
         return norm
-    sq = torch.stack([torch.linalg.vector_norm(g.to_local()) ** 2 for g in sharded]).sum()
-    all_reduce_(sq, group=sharded[0].device_mesh.get_group())
-    return torch.sqrt(sq + (norm**2 if norm is not None else 0.0))
+    buckets = [(sharded[0].device_mesh.get_group(), sharded)] if sharded else []
+    by_group: dict[int, tuple[typ.Any, list[torch.Tensor]]] = {}
+    for g, grp in split:
+        by_group.setdefault(id(grp), (grp, []))[1].append(g)
+    buckets += list(by_group.values())
+    sq = norm**2 if norm is not None else torch.zeros((), device=grads[0].device)
+    for group, part in buckets:
+        sq = sq + all_reduce_(torch.stack([torch.linalg.vector_norm(_local(g)) ** 2 for g in part]).sum(), group=group)
+    return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads: typ.Sequence[torch.Tensor], max_norm: typ.Optional[float]) -> torch.Tensor:
+def clip_by_global_norm(grads: typ.Sequence[torch.Tensor], max_norm: typ.Optional[float],
+                        groups: typ.Optional[typ.Sequence[typ.Any]] = None) -> torch.Tensor:
     """Scale `grads` in place by min(1, max_norm / max(|g|, 1e-9)), where |g|
     is their global L2 norm (optax's formula; `clip_grad_norm_` divides by
-    |g| + 1e-6 instead). Returns |g| before scaling, on the card."""
-    norm = _global_norm(grads)
+    |g| + 1e-6 instead). `groups[i]`: the process group `grads[i]` is split
+    over (a tensor-parallel block), whose squares count once over it.
+    Returns |g| before scaling, on the card."""
+    norm = _global_norm(grads, groups)
     if max_norm:
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
         for g in grads:
@@ -241,7 +253,8 @@ class RealmTrainStep:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm([p.grad for p in params], self.gradient_clip_val)
+        norm = clip_by_global_norm([p.grad for p in params], self.gradient_clip_val,
+                                   [getattr(p, "tp_group", None) for p in params])
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         return norm
