@@ -197,7 +197,7 @@ checked, none caught:
     per step, the step median and peak memory; then phase 8's wall time;
  9. the experiment CLI from text to a train step (`CLI`), in process
     through `vod_tpu_torch.exps.cli.main`, each `main` its own main path
-    (counts zeroed before, read after): 2^16 passages harvested from the
+    (counts zeroed before, read after): 2^15 passages harvested from the
     interpreter's site-packages, 8,192 generated queries and a 30,522-entry
     vocab.txt written as a BeIR directory, and a YAML extending
     `configs/msmarco_pq_realm.yaml` (flat bf16 `kernel: fused` at 512 bins,
@@ -207,7 +207,7 @@ checked, none caught:
     section tokenizes to all `[UNK]`; finite losses; the logged weights
     follow the yaml's schedules; period 1's index differs from period 0's;
     2 `fused_mips_binned` launches a step, all `wgmma`; one CLI-loop call
-    (B = 32, D = 384, N = 2^16, 512 bins, k = 100) against its plain
+    (B = 32, D = 384, N = 2^15, 512 bins, k = 100) against its plain
     version; BM25's top 100 holds the gold passage for at least
     `CLI["bm25_recall_floor"]` of 256 held-out queries; the resume starts at
     step 6 and ends at 9; one optimizer step with its dataloader batches
@@ -373,7 +373,34 @@ checked, none caught:
     collectives' share of a call;
 14c. with two or more cards, 14b under NCCL at world size = their count;
     with one, a line says it did not run and why;
-15. the script's wall time, the `kernels` JSON line, the card line, and
+15. the slice of the leftovers (`PROFILED_CLI`, `ROBERTA_CLI`, `TOKENIZE`;
+    15d in 13c's job, `SPLADE_DP["gradcache_rows"]`):
+15a. the CLI with `sys.profile_dir` (`profiled_cli_phase`, its own main
+    path): phase 14a's inputs without MoE, two periods of 6 steps. Checked:
+    one trace file (none for the second period), which parses, with one
+    `train_step` span for each step of the window [3, 6), and as many
+    `binned_wgmma_kernel` events and `fused_mips_binned` spans as the loop
+    launched in those steps (2 a step). Printed from the trace: the device's
+    busy share over the window, the kernels that took the most, and the
+    device's longest idle gaps with the host op that overlaps each the most;
+15b. a roberta-base-width encoder (a `RobertaModel` checkpoint of seeded
+    random weights the phase writes) through the CLI with scifact's body
+    and a byte-level BPE of 50,265 entries that the phase builds from the
+    harvest (vocab.json + merges.txt, read by the port's own tokenizer), 3
+    steps (its own main path). Checked: finite losses, the backbone loaded
+    with its one token type, every `fused_mips_binned` launch at D = 768 on
+    `wgmma` and the loop's first call held to its plain version, timed
+    beside the library and the bound;
+15c. the host tokenizers' sections/s (WordPiece, byte-level BPE, Unigram)
+    on the same passages, cold; `block_topk` over [64, 2^20] f32 on the card
+    against `torch.topk` and against the CPU (ids and scores exactly
+    equal), timed;
+15d. in 13c's rank job after its CLI run: two GradCache steps with the
+    FLOPS term over the split batch (100 rows a chunk). Checked: the first
+    loss over the ranks within 1e-3 (relative) of one process's GradCache
+    on the global batch, the parameters equal on both ranks after each
+    step;
+16. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -549,7 +576,7 @@ IVFPQ_SERVE = dict(
 IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRESET, autotune_target_recall=0.9))
 
 # Phase 9: the experiment CLI from text to a train step. Everything comes
-# from the card machine's own files, nothing downloaded: 2^16 passages of 48
+# from the card machine's own files, nothing downloaded: 2^15 passages of 48
 # words harvested from the running interpreter's site-packages (stride 48,
 # windows that do not overlap), 8,192 train queries of 6-10 consecutive
 # words of one seeded passage each (that passage their qrel) and 256 more
@@ -567,14 +594,15 @@ IVFPQ_PERIODIC = dict(TRAIN, n=1 << 18, periods=2, steps=3, dense=dict(IVFPQ_PRE
 # the first step; at 96 the rows hold 256 tokens, phase 5's 248. Harvested
 # passages of 48 words average about 74 tokens, so few are truncated (the
 # phase prints the share). The harvest is cut from 2^17 to 2^16 so that
-# phase 13 fits the script's time (12b and 13b take phase 9's harvest too).
+# phase 13 fits the script's time (12b and 13b take phase 9's harvest too),
+# and from 2^16 to 2^15 so that phase 15 does.
 CLI = dict(
-    n=1 << 16, passage_words=48, stride=48, queries=8192, held_out=256, query_words=(6, 10), vocab=30522,
+    n=1 << 15, passage_words=48, stride=48, queries=8192, held_out=256, query_words=(6, 10), vocab=30522,
     max_length=96, max_steps=6, period=3, resume_steps=9, bins=512, seed=11,
     # the share of held-out queries whose gold passage is in BM25's top 100:
     # 0.9453 on an H100 80GB HBM3 at 700 W (256 literal spans; a binomial
     # spread of ~0.014; at 2^18 passages, before phase 10 took the time that
-    # halved the corpus). A broken analyzer, build or scorer finds ~100 / 2^16
+    # halved the corpus). A broken analyzer, build or scorer finds ~100 / 2^15
     bm25_recall_floor=0.85,
 )
 
@@ -663,7 +691,7 @@ SHARDED = dict(n=1 << 20, d=768, b=64, k=10, bins=512, seed=29, ranks=2, recall_
 # 12b: `configs/scifact_ranker.yaml` at its own widths (hidden 256, 4 layers,
 # 4 heads, FFN 1024, max_length 200, B = 32 global, 8 sections of a prefetch
 # of 100, lr 1e-4, clip 1.0) composed with `strategy/dp` and `search/sharded`
-# (int8, sharded over `dp`, `kernel: fused`), over phase 9's harvest (2^16
+# (int8, sharded over `dp`, `kernel: fused`), over phase 9's harvest (2^15
 # passages, 8,192 queries), under torchrun with two ranks on the one card
 # (gloo): 6 steps with a period every 3, then a resume to step 9. The first
 # step's loss is held against one process's loss of the same global batch
@@ -721,12 +749,17 @@ PQ_CLI = dict(CLI, held_out=0, max_steps=6, period=3, resume_steps=9, seed=41, r
 # GiB in 11a; a rank holds half the rows (16 queries and 128 sections), and
 # the activations dominate, so about 30 GiB a rank: both fit in 80 GB at
 # phase 11a's length (200).
-SPLADE_DP = dict(SPLADE, seed=43, ranks=2, loss_rtol=1e-3, timeout=900)
+# 15d rides this job (`gradcache_rows`): after the CLI run, two GradCache
+# steps with the FLOPS term over the split batch at 100 rows a chunk (the
+# global 32 queries and 256 sections: the chunks straddle the ranks and the
+# query/section boundary, and the last is padded), held to one process's
+# GradCache on the global batch within `loss_rtol`.
+SPLADE_DP = dict(SPLADE, seed=43, ranks=2, loss_rtol=1e-3, timeout=900, gradcache_rows=100)
 # Phase 14a: phase 9's inputs and YAML (`configs/msmarco_pq_realm.yaml` at
 # hidden 384, 6 layers, 6 heads, intermediate 1536; flat bf16, `kernel:
 # fused`, 512 bins; `tokenizer.max_length` 96) with `model: {moe_experts: 8,
 # moe_top_k: 2}`: every encoder FFN a routed MoE (capacity factor 1.25, aux
-# weight 1e-2). Cuts: the harvest 2^16 -> 2^14 passages and 8,192 -> 2,048
+# weight 1e-2). Cuts: phase 9's harvest -> 2^14 passages and 8,192 -> 2,048
 # train queries, 3 steps (one period) and a resume to step 6, so that phase
 # 14 fits the script's time. A fused row of 96 tokens fills ceil(2 · 96 / 8
 # · 1.25) = 30 slots an expert: the dispatch of a 288-row pass is
@@ -750,6 +783,39 @@ MOE_CLI = dict(CLI, n=1 << 14, queries=2048, held_out=0, max_steps=3, period=3, 
 # 8 experts, top-2, on [8, 512, 1024].
 PARALLEL = dict(vocab=30522, hidden=1024, layers=24, heads=16, inter=4096, b=8, t=512, experts=8, top_k=2,
                 pad_from=384, seed=47, ranks=2, tol=6e-2, f32_tol=1e-3, reps=2, timeout=600)
+# Phase 15a: phase 14a's inputs without MoE (configs/msmarco_pq_realm.yaml at
+# its widths, 2^14 harvested passages, 2,048 train queries, length 96) with
+# `sys.profile_dir`: two periods of 6 steps, so that the trace window (the
+# loop-local steps [3, 6), JAX's default) lies in the first period and the
+# second could hold one too (the recipe traces the first period only).
+PROFILED_CLI = dict(CLI, n=1 << 14, queries=2048, held_out=0, max_steps=12, period=6, seed=53, window=(3, 6),
+                    top_kernels=8, top_gaps=6)
+# Phase 15b: roberta-base's architecture (`hf`: its published config.json,
+# written beside seeded random f32 weights in `RobertaModel`'s key layout)
+# through the CLI with `configs/scifact_ranker.yaml`'s body (B = 32, 8
+# sections of a prefetch of 100, length 200), `model.name_or_path` the
+# checkpoint and a byte-level BPE of roberta-base's vocabulary size built
+# by this script from the harvest (vocab.json + merges.txt; nothing is
+# fetched). Cuts: 2^14 harvested passages, 2,048 queries, 3 steps in one
+# period; `search_defaults.dense` gains `kernel: fused` (512 bins).
+ROBERTA_CLI = dict(
+    n=1 << 14, passage_words=48, stride=48, queries=2048, held_out=0, query_words=(6, 10), vocab=30522,
+    max_steps=3, period=3, bins=512, seed=59, max_length=200,
+    hf=dict(architectures=["RobertaModel"], model_type="roberta", vocab_size=50265, hidden_size=768,
+            num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072, max_position_embeddings=514,
+            type_vocab_size=1, layer_norm_eps=1e-5, hidden_act="gelu", hidden_dropout_prob=0.1,
+            attention_probs_dropout_prob=0.1, initializer_range=0.02, pad_token_id=1, bos_token_id=0,
+            eos_token_id=2, position_embedding_type="absolute", torch_dtype="float32"),
+)
+# Phase 15c: the host tokenizers' throughput on the same 2,048 harvested
+# passages (WordPiece from phase 15a's vocab.txt, the byte-level BPE of 15b,
+# a Unigram of `unigram_size` pieces this script scores from the harvest's
+# word counts, over XLM-R's normalizer and Metaspace), each cold (a fresh
+# tokenizer: no word cache), padded to 200; then `block_topk` over a
+# [64, 2^20] f32 row block on the card against `torch.topk` and against
+# itself on the CPU, k = 100.
+TOKENIZE = dict(texts=2048, max_length=200, unigram_size=32000, topk_rows=64, topk_width=1 << 20, topk_k=100,
+                topk_block=1024, seed=61)
 
 
 def fail(msg: str) -> None:
@@ -2488,7 +2554,7 @@ def cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
     """Phase 9: the experiment CLI on the card (module constant CLI), in
     process through `vod_tpu_torch.exps.cli.main`, the function `python -m
     vod_tpu_torch.exps.cli` runs: `main(["--config", yaml])` (2 periods of 3
-    optimizer steps, each period re-embedding the 2^16 sections), then
+    optimizer steps, each period re-embedding the 2^15 sections), then
     `main(["--resume_from", run, "--max_steps", "9"])` (one more period).
     Each `main` is a main path of its own: launch counts are zeroed just
     before it and read just after. The runner's stages are timed by
@@ -2821,8 +2887,9 @@ def write_hf_checkpoint(directory: Path, t: dict, dev, head: str = "") -> dict:
     "" is `BertModel`'s (phase 10: e5-large-v2), "mlm" `BertForMaskedLM`'s
     (`bert.*` without a pooler, and `cls.predictions.*`), "classifier"
     `BertForSequenceClassification`'s (`bert.*` with the pooler, and
-    `classifier.*`). Returns CPU copies of the tensors the load checks read,
-    under their `BertModel` names (and the heads' own)."""
+    `classifier.*`), "roberta" `RobertaModel`'s (`roberta.*` with the
+    pooler; phase 15b). Returns CPU copies of the tensors the load checks
+    read, under their `BertModel` names (and the heads' own)."""
     import torch
 
     from vod_tpu_torch.models.hf_import import write_safetensors
@@ -2830,7 +2897,7 @@ def write_hf_checkpoint(directory: Path, t: dict, dev, head: str = "") -> dict:
     hf = t["hf"]
     h, inter = hf["hidden_size"], hf["intermediate_size"]
     g = torch.Generator(device=dev).manual_seed(t["seed"])
-    prefix = "bert." if head else ""
+    prefix = {"": "", "roberta": "roberta."}.get(head, "bert.")
 
     def rnd(*shape, mean: float = 0.0):
         return (mean + 0.02 * torch.randn(shape, generator=g, device=dev)).cpu()
@@ -4296,7 +4363,9 @@ def batchwide_cli_rank(dev, card: str, t: dict, out_dir: Path) -> dict:
     first in-loop `sharded_pq_search` call, run again directly after the
     runs; 13c the first impact re-embed (its inputs and terms) and learned
     table (to `out_dir`). The first step's collated batch (and, on rank 0,
-    the weights before it) go to `out_dir` for the one-process checks."""
+    the weights before it) go to `out_dir` for the one-process checks. With
+    `t["gradcache_rows"]`, phase 15d's GradCache steps follow the CLI run
+    (`gradcache_dp_steps`)."""
     import torch
     import torch.distributed as dist
 
@@ -4410,6 +4479,9 @@ def batchwide_cli_rank(dev, card: str, t: dict, out_dir: Path) -> dict:
     for kern in (fused_mips_binned, fused_mips_topk):
         kern.launches = 0
     first = cli.main(["--config", t["yaml"], "--backend", t["backend"]])
+    gradcache = None
+    if t.get("gradcache_rows"):  # phase 15d
+        gradcache = gradcache_dp_steps(dev, first, t, out_dir, real["step"], checksum)
     resumed = None
     if t.get("run"):
         resumed = cli.main(["--resume_from", t["run"], "--max_steps", str(t["resume_steps"]), "--backend",
@@ -4421,7 +4493,7 @@ def batchwide_cli_rank(dev, card: str, t: dict, out_dir: Path) -> dict:
                autotune=[h.get("autotune", {}).get("params") for h in first["history"]],
                autotune_met=[h.get("autotune", {}).get("met") for h in first["history"]],
                n_params=sum(p.numel() for p in first["model"].parameters()),
-               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=card)
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=card, gradcache=gradcache)
     if "search" in rec:  # the collate's sharded PQ search, run again directly (a collective: every rank)
         index, queries, top_k, kw, scores, ids = rec["search"]
         again = real["search"](index, queries, top_k, **kw)
@@ -4478,6 +4550,7 @@ def batchwide_phase(dev, card: str, ta: dict, tb: dict, tc: dict) -> dict:
     from vod_tpu_torch.models import collect_losses
     from vod_tpu_torch.models.splade import encode_corpus_terms
     from vod_tpu_torch.parallel import init_distributed
+    from vod_tpu_torch.runtime.gradcache import gradcache_backward
     from vod_tpu_torch.search import build_impact_index
 
     started = time.perf_counter()
@@ -4670,10 +4743,32 @@ def batchwide_phase(dev, card: str, ta: dict, tb: dict, tc: dict) -> dict:
     for tb_ in table:
         check(torch.equal(tb_["docs"], learned.postings_docs) and torch.equal(tb_["impacts"], learned.postings_impacts),
               "13c: a rank's learned impact index != the one-process index")
-    del model
+    # 15d: GradCache with the FLOPS term over the split batch against one process's GradCache
+    for r in ranks:
+        check(len(r["gradcache"]) == 2 and all(math.isfinite(s_["loss"]) and s_["checksum_ok"] for s_ in r["gradcache"]),
+              f"15d rank {r['rank']}: GradCache steps {r['gradcache']}")
+    model.load_state_dict(torch.load(d / "state-gradcache.pt", weights_only=True))
+    batch = one_process_batch(d, tc["ranks"], dev, 0)
+    t0 = time.perf_counter()
+    single = float(gradcache_backward(model, batch, chunk_rows=tc["gradcache_rows"]).loss)
+    torch.cuda.synchronize()
+    gc_one_ms = (time.perf_counter() - t0) * 1e3
+    gc_first = sum(r["gradcache"][0]["loss"] for r in ranks) / len(ranks)
+    gc_rel = abs(gc_first - single) / max(abs(single), 1e-12)
+    check(gc_rel <= tc["loss_rtol"], f"15d: GradCache's first loss over the ranks {gc_first:.6f} != one process's "
+          f"{single:.6f} (rel {gc_rel:.2e})")
+    gradcache = dict(first_loss=gc_first, one_process_loss=single, first_loss_rel=gc_rel, chunk_rows=tc["gradcache_rows"],
+                     losses=[[s_["loss"] for s_ in r["gradcache"]] for r in ranks],
+                     step_ms=[[s_["ms"] for s_ in r["gradcache"]] for r in ranks], one_process_ms=gc_one_ms)
+    log(f"15d [{card}]: GradCache at {tc['gradcache_rows']} rows a chunk with the FLOPS term over two gloo ranks: "
+        f"first loss over the ranks {gc_first:.6f}, one process's GradCache on the global batch {single:.6f} (rel "
+        f"{gc_rel:.2e}); losses {gradcache['losses']}; steps {[[round(x, 1) for x in r] for r in gradcache['step_ms']]} "
+        f"ms, one process {gc_one_ms:.1f} ms; parameters equal on both ranks after each step")
+    del model, batch
     gc.collect()
     torch.cuda.empty_cache()
-    out["splade_cli"].update(one_process_reembed_s=one_s, table_width=int(learned.postings_docs.shape[1]))
+    out["splade_cli"].update(one_process_reembed_s=one_s, table_width=int(learned.postings_docs.shape[1]),
+                             gradcache=gradcache)
     step_summary("13c", ranks, tc["period"])
     log(f"13c: the learned index ({learned.postings_docs.shape[1]} postings a term) over the ranks equals one "
         f"process's (one-process re-embed {one_s:.2f} s); first-step loss (FLOPS term included) over the ranks "
@@ -5060,6 +5155,472 @@ def model_parallel_phase(dev, card: str, t: dict) -> dict:
     tmp.cleanup()
     out["wall_s"] = time.perf_counter() - started
     log(f"phase 14b/14c wall time: {out['wall_s']:.1f} s")
+    return out
+
+
+def trace_breakdown(path: Path, top_kernels: int, top_gaps: int) -> dict:
+    """The first trace-based breakdown of a CLI step, from one Chrome trace of
+    `training_loop(profile_dir=...)`: the steps' spans, the device's busy
+    share over the window (from the first step's start to the later of the
+    last step's end and the last device event's), the kernels that took the
+    most (summed by name), and the device's longest idle gaps, each with the
+    host op that overlaps it the most."""
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    steps = sorted((e for e in spans if e["name"] == "train_step" and e.get("cat") == "user_annotation"),
+                   key=lambda e: e["ts"])
+    calls = [e for e in spans if e["name"] == "fused_mips_binned" and e.get("cat") == "user_annotation"]
+    device = sorted((e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    kernels = [e for e in device if e.get("cat") == "kernel"]
+    check(steps and kernels, f"15a: the trace holds {len(steps)} step spans and {len(kernels)} kernels")
+    lo = steps[0]["ts"]
+    hi = max(steps[-1]["ts"] + steps[-1]["dur"], max(e["ts"] + e["dur"] for e in device))
+    busy, gaps, cur = 0.0, [], None  # union of the device intervals inside the window
+    for e in device:
+        a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
+        if b <= a:
+            continue
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+                gaps.append((cur[1], a))
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += cur[1] - cur[0]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    host = [e for e in spans if e.get("cat") in ("cpu_op", "user_annotation") and e["name"] != "train_step"]
+
+    def host_op(a: float, b: float) -> str:
+        """The host op that overlaps the gap [a, b) the most (the shorter on a tie)."""
+        best = max(((min(b, e["ts"] + e["dur"]) - max(a, e["ts"]), -e["dur"], e["name"]) for e in host
+                    if e["ts"] < b and e["ts"] + e["dur"] > a), default=None)
+        return best[2][:80] if best else "(no host op)"
+
+    longest = sorted(gaps, key=lambda g: g[0] - g[1])[:top_gaps]
+    return dict(
+        steps=len(steps), step_ms=[e["dur"] / 1e3 for e in steps], fused_mips_binned_spans=len(calls),
+        binned_wgmma_kernels=sum("binned_wgmma_kernel" in e["name"] for e in kernels), kernels=len(kernels),
+        window_ms=(hi - lo) / 1e3, busy_ms=busy / 1e3, busy_share=busy / (hi - lo),
+        top_kernels_ms=[(n[:80], d / 1e3) for n, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:top_kernels]],
+        longest_gaps_ms=[((b - a) / 1e3, host_op(a, b)) for a, b in longest],
+        gaps_total_ms=sum(b - a for a, b in gaps) / 1e3,
+    )
+
+
+def profiled_cli_phase(dev, card: str, t: dict) -> dict:
+    """Phase 15a: the experiment CLI with `sys.profile_dir` (module constant
+    PROFILED_CLI), in process through `cli.main` (its own main path: launch
+    counts zeroed just before it and read just after): two periods of 6
+    optimizer steps, the loop's trace window at its default (3, 6). Checked:
+    one trace file, which parses; one `train_step` span for each of the
+    window's 3 steps; its `binned_wgmma_kernel` events equal to the loop's
+    own launch counter over those steps (2 a step), and its
+    `fused_mips_binned` spans too; none for the second period. Printed: the
+    trace's breakdown (`trace_breakdown`). Returns the numbers."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.exps import cli
+    from vod_tpu_torch.ops.mips import fused_mips_binned
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    inputs = cli_inputs(root, t)
+    trace_dir = root / "trace"
+    text = inputs["yaml"].read_text()
+    check(text.count("sys: {mesh_shape: [1]}\n") == 1, "15a: phase 9's YAML has no sys line to extend")
+    inputs["yaml"].write_text(text.replace("sys: {mesh_shape: [1]}\n",
+                                          f"sys: {{mesh_shape: [1], profile_dir: '{trace_dir}'}}\n"))
+    rec: dict = dict(steps=[])
+    real_step = RealmTrainStep.train_step_accum
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        before = dict(fused_mips_binned.body_launches)
+        out = real_step(self, engines, corpus, micro, generator, weights, **kw)
+        rec["steps"].append({k: v - before[k] for k, v in fused_mips_binned.body_launches.items()})
+        return out
+
+    RealmTrainStep.train_step_accum = step
+    try:
+        torch.cuda.synchronize()
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out = cli.main(["--config", str(inputs["yaml"])])
+        torch.cuda.synchronize()
+        launches, bodies = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        run_s = time.perf_counter() - t_run
+    finally:
+        RealmTrainStep.train_step_accum = real_step
+    lo, hi = t["window"]
+    check(out["state"].step == t["max_steps"] and [h["period"] for h in out["history"]] == [0, 1],
+          f"15a: the run ended at step {out['state'].step}, periods {[h['period'] for h in out['history']]}")
+    check(launches == bodies["wgmma"] == 2 * t["max_steps"] and all(b == {"wgmma": 2, "fma": 0} for b in rec["steps"]),
+          f"15a: fused_mips_binned launched {launches} times, by body {bodies}, not twice a step on wgmma")
+    files = sorted(trace_dir.iterdir()) if trace_dir.is_dir() else []
+    check(len(files) == 1 and files[0].name.startswith("trace-rank0-") and files[0].suffix == ".json",
+          f"15a: the traces written are {[f.name for f in files]}, not one for the first period")
+    parse_t0 = time.perf_counter()
+    bd = trace_breakdown(files[0], t["top_kernels"], t["top_gaps"])
+    parse_s = time.perf_counter() - parse_t0
+    window_launches = sum(b["wgmma"] for b in rec["steps"][lo:hi])
+    check(bd["steps"] == hi - lo, f"15a: {bd['steps']} step spans, not {hi - lo}")
+    check(bd["binned_wgmma_kernels"] == window_launches == 2 * (hi - lo) == bd["fused_mips_binned_spans"],
+          f"15a: the trace holds {bd['binned_wgmma_kernels']} binned_wgmma_kernel events and "
+          f"{bd['fused_mips_binned_spans']} fused_mips_binned spans; the loop launched {window_launches} in the window")
+    size_mb = files[0].stat().st_size / 2**20
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    wall = time.perf_counter() - started
+    log(f"15a [{card}]: the CLI with sys.profile_dir ran {t['max_steps']} steps in two periods in {run_s:.2f} s; one "
+        f"trace ({size_mb:.1f} MiB, parsed in {parse_s:.2f} s) with {bd['steps']} train_step spans "
+        f"({', '.join(f'{x:.2f}' for x in bd['step_ms'])} ms on the host), {bd['binned_wgmma_kernels']} "
+        f"binned_wgmma_kernel events = {window_launches} launches of the loop in steps [{lo}, {hi}), "
+        f"{bd['fused_mips_binned_spans']} fused_mips_binned spans; no trace for the second period")
+    log(f"15a breakdown [{card}]: window {bd['window_ms']:.2f} ms, device busy {bd['busy_ms']:.2f} ms "
+        f"({bd['busy_share']:.4f}), idle {bd['gaps_total_ms']:.2f} ms in gaps; {bd['kernels']} kernels; largest "
+        + "; ".join(f"{n} {d:.3f} ms" for n, d in bd["top_kernels_ms"]))
+    log("15a longest device gaps [" + card + "]: " + "; ".join(f"{d:.3f} ms over {op}" for d, op in bd["longest_gaps_ms"]))
+    log(f"phase 15a wall time: {wall:.1f} s")
+    return dict(run_s=run_s, launches=launches, body_launches=bodies, window_launches=window_launches,
+                trace_mib=size_mb, parse_s=parse_s, wall_s=wall, **bd)
+
+
+def write_byte_bpe(directory: Path, texts: list, size: int) -> dict:
+    """A byte-level BPE of `size` entries from `texts`, by this script's own
+    code: RoBERTa's special tokens (`<s> <pad> </s> <unk>` first, `<mask>`
+    last), the 256 byte characters, then, word by word from the most
+    frequent (GPT-2's pre-tokenizer pieces in byte characters), each prefix
+    of the word as a token with the merge that makes it from the one before
+    (`<unusedN>` fill the rest, if the words run out). Writes `vocab.json`,
+    `merges.txt` and a `tokenizer_config.json` naming `RobertaTokenizerFast`;
+    returns the counts."""
+    import collections
+
+    from vod_tpu_torch.data.tokenizer_json import _gpt2_pattern, bytes_to_unicode
+
+    chars = bytes_to_unicode()
+    counts: collections.Counter = collections.Counter()
+    for text in texts:
+        for piece in _gpt2_pattern().findall(text):
+            counts["".join(chars[b] for b in piece.encode("utf-8"))] += 1
+    vocab = {tok: i for i, tok in enumerate(["<s>", "<pad>", "</s>", "<unk>", *[chars[b] for b in range(256)]])}
+    merges = []
+    for word, _ in counts.most_common():
+        for j in range(2, len(word) + 1):
+            if len(vocab) >= size - 1:
+                break
+            if word[:j] not in vocab:
+                vocab[word[:j]] = len(vocab)
+                merges.append(f"{word[: j - 1]} {word[j - 1]}")
+        if len(vocab) >= size - 1:
+            break
+    filler = size - 1 - len(vocab)
+    vocab.update({f"<unused{i}>": len(vocab) + i for i in range(filler)})
+    vocab["<mask>"] = size - 1
+    directory.mkdir(parents=True)
+    (directory / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False))
+    (directory / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    (directory / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "RobertaTokenizerFast"}))
+    return dict(vocab=len(vocab), merges=len(merges), filler=filler, words=len(counts))
+
+
+def write_unigram(directory: Path, texts: list, size: int) -> dict:
+    """A Unigram `tokenizer.json` of `size` pieces from `texts`, by this
+    script's own code: XLM-R's special tokens, the characters seen and the
+    most frequent `▁`-prefixed words and words, each scored by the log of
+    its count's share; XLM-R's NFKC and space-run normalizer, `Metaspace`
+    (prepend "always") and `<s> $A </s>` templates; `tokenizer_config.json`
+    names `XLMRobertaTokenizerFast`. Returns the counts."""
+    import collections
+
+    counts: collections.Counter = collections.Counter()
+    for text in texts:
+        words = text.split()
+        counts.update("▁" + w for w in words)
+        counts.update(words)
+        counts.update(text)
+    specials = ["<s>", "<pad>", "</s>", "<unk>"]
+    chars = sorted({c for c in counts if len(c) == 1 and not c.isspace()} | {"▁"})
+    pieces = chars + [w for w, _ in counts.most_common() if len(w) > 1][: max(0, size - 5 - len(chars))]
+    total = sum(counts[p] for p in pieces)
+    vocab = [[tok, 0.0] for tok in specials] + [[p, math.log(max(counts[p], 1) / total)] for p in pieces] + [["<mask>", 0.0]]
+    ids = {tok: i for i, (tok, _) in enumerate(vocab)}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [dict(id=ids[tok], content=tok, single_word=False, lstrip=False, rstrip=False,
+                              normalized=False, special=True) for tok in (*specials, "<mask>")],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "NFKC"}, {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}},
+                                      {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                           "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                    {"Sequence": {"id": "A", "type_id": 0}},
+                                    {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                                    {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                                    {"Sequence": {"id": "B", "type_id": 0}},
+                                    {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                           "special_tokens": {tok: {"id": tok, "ids": [ids[tok]], "tokens": [tok]}
+                                              for tok in ("<s>", "</s>")}},
+        "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+        "model": {"type": "Unigram", "unk_id": ids["<unk>"], "vocab": vocab, "byte_fallback": False},
+    }
+    directory.mkdir(parents=True)
+    (directory / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False))
+    (directory / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "XLMRobertaTokenizerFast"}))
+    return dict(pieces=len(vocab), chars=len(chars))
+
+
+def roberta_cli_phase(dev, card: str, hbm: float, peak_bf16: float, t: dict) -> dict:
+    """Phase 15b: a roberta-base-width encoder through the CLI (module
+    constant ROBERTA_CLI), in process through `cli.main` (its own main path:
+    launch counts zeroed just before it and read just after), its tokenizer
+    the byte-level BPE that `write_byte_bpe` builds from the harvest, read by
+    the port's own code (`load_tokenizer`: vocab.json + merges.txt).
+    Checked: the tokenizer is the port's BPE with roberta-base's size; the
+    checkpoint's backbone loaded (one token type); every loss finite; every
+    `fused_mips_binned` launch at D = 768 on `wgmma`, at least one a step,
+    and the loop's first call held to its plain version at its shape, timed
+    beside the library and the bound. Returns the numbers and the harvest's
+    directory (phase 15c reads its passages)."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.data.tokenizer_json import JsonTokenizer
+    from vod_tpu_torch.exps import cli
+    from vod_tpu_torch.exps.structconf import Experiment
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.runtime.train import RealmTrainStep
+    from vod_tpu_torch.search import dense as dense_mod
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    h = harvest_beir(root, t)
+    texts = [f"{r['title']} {r['text']}" for r in map(json.loads, (h["beir"] / "corpus.jsonl").read_text().splitlines())]
+    hf = t["hf"]
+    t0 = time.perf_counter()
+    bpe = write_byte_bpe(root / "bpe", texts, hf["vocab_size"])
+    bpe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_hf_checkpoint(root / "ckpt", t, dev, head="roberta")
+    ckpt_s = time.perf_counter() - t0
+    yaml_path = root / "exp.yaml"
+    yaml_path.write_text(
+        f"extends: ['{ROOT / 'configs' / 'scifact_ranker.yaml'}']\n"
+        f"model: {{name_or_path: '{root / 'ckpt'}', hf_fallback: error, vocab_size: {hf['vocab_size']}, "
+        f"hidden_size: {hf['hidden_size']}, num_layers: {hf['num_hidden_layers']}, "
+        f"num_heads: {hf['num_attention_heads']}, intermediate_size: {hf['intermediate_size']}}}\n"
+        f"tokenizer: {{name_or_path: '{root / 'bpe'}', max_length: {t['max_length']}}}\n"
+        "search_defaults:\n"
+        f"  dense: {{codec: flat, dtype: bfloat16, kernel: fused, fused_bins: {t['bins']}}}\n"
+        f"trainer: {{max_steps: {t['max_steps']}, period: {t['period']}, log_interval: 1}}\n"
+        "sys: {mesh_shape: [1]}\n"
+        "datasets:\n"
+        "  queries:\n"
+        f"    - {{identifier: harvest-train, name_or_path: beir, subsets: ['{h['beir']}'], split: train, "
+        "link: harvest-corpus}\n"
+        "  sections:\n"
+        f"    - {{identifier: harvest-corpus, name_or_path: beir, subsets: ['{h['beir']}']}}\n"
+    )
+    exp = Experiment.from_file(str(yaml_path))
+    tok = exp.tokenizer.instantiate()
+    check(isinstance(tok, JsonTokenizer) and tok.model_type == "BPE" and len(tok) == hf["vocab_size"]
+          and tok.pad_token_id == 1 and tok.mask_token_id == hf["vocab_size"] - 1,
+          f"15b: the tokenizer is {type(tok).__name__} of {len(tok)} entries")
+    log(f"15b inputs: {t['n']} passages harvested in {h['harvest_s']:.2f} s; byte-level BPE of {bpe['vocab']} entries "
+        f"({bpe['merges']} merges from {bpe['words']} distinct words, {bpe['filler']} filler) in {bpe_s:.2f} s; "
+        f"roberta-base checkpoint written in {ckpt_s:.2f} s")
+
+    rec: dict = dict(steps=[], losses=[], call=None, model=None)
+    real = dict(step=RealmTrainStep.train_step_accum, kernel=dense_mod.fused_mips_binned, build=cli.build_model)
+
+    def step(self, engines, corpus, micro, generator, weights, **kw):
+        events = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+        before = dict(fused_mips_binned.body_launches)
+        events[0].record()
+        metrics, rel, scores = real["step"](self, engines, corpus, micro, generator, weights, **kw)
+        events[1].record()
+        rec["steps"].append((events, {k: v - before[k] for k, v in fused_mips_binned.body_launches.items()}))
+        rec["losses"].append(metrics["loss"].detach())
+        return metrics, rel, scores
+
+    def kernel(vectors, queries, **kw):
+        if rec["call"] is None:
+            rec["call"] = (vectors, queries.detach().clone(), dict(kw))
+        return real["kernel"](vectors, queries, **kw)
+
+    patches = [(RealmTrainStep, "train_step_accum", step), (dense_mod, "fused_mips_binned", kernel)]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t_run = time.perf_counter()
+        out = cli.main(["--config", str(yaml_path)])
+        torch.cuda.synchronize()
+        launches, bodies = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        run_s = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        for obj, name, fn in [(RealmTrainStep, "train_step_accum", real["step"]),
+                              (dense_mod, "fused_mips_binned", real["kernel"])]:
+            setattr(obj, name, fn)
+    model = out["model"]
+    enc = model.encoder.backbone
+    check(out["state"].step == t["max_steps"], f"15b: the run ended at step {out['state'].step}")
+    check(enc.embeddings.token_type_embeddings.weight.shape[0] == 1 and len(enc.layers) == hf["num_hidden_layers"]
+          and enc.embeddings.word_embeddings.weight.shape == (hf["vocab_size"], hf["hidden_size"]),
+          "15b: the encoder is not the checkpoint's roberta-base backbone")
+    losses = [float(x) for x in rec["losses"]]
+    check(len(losses) == t["max_steps"] and all(math.isfinite(x) for x in losses), f"15b: losses {losses}")
+    check(launches > 0 and bodies == {"wgmma": launches, "fma": 0}
+          and all(b["wgmma"] >= 1 and b["fma"] == 0 for _, b in rec["steps"]),
+          f"15b: fused_mips_binned launched {launches} times, by body {bodies}, per step "
+          f"{[b for _, b in rec['steps']]}")
+    step_ms = [s.elapsed_time(e) for (s, e), _ in rec["steps"]]
+
+    vv, q, kw = rec["call"]
+    b, d = q.shape
+    check(d == hf["hidden_size"], f"15b: the loop's call is at D = {d}")
+    body = _binned_body(vv.dtype, d, kw["bins"], (vv.data_ptr(), q.data_ptr()))
+    check(body == "wgmma", f"15b: the loop's call takes the {body} body")
+    ks, ki = fused_mips_binned(vv, q, **kw)
+    rs, ri = fused_mips_binned_reference(vv, q, **kw)
+    tol = 2 * d * 2.0**-24 * q.float().norm(dim=-1).max().item() * vv.float().norm(dim=-1).max().item()
+    err, swaps = check_against_plain(f"15b loop binned B={b} D={d}", ks, ki, rs, ri, q, vv, tol)
+    n_real, k = kw["n_real"], kw["k"]
+    ms = time_ms(lambda: fused_mips_binned(vv, q, **kw), 20)
+    plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, q, **kw), 2)
+    library_ms = time_ms(lambda: torch.topk(q @ vv[:n_real].T, k, dim=-1), 20)
+    nbytes, ops = (n_real + b) * d * 2 + b * k * 8, 2 * b * n_real * d
+    bound = max(nbytes / hbm, ops / peak_bf16) * 1e3
+    bound_by = "bytes" if nbytes / hbm >= ops / peak_bf16 else "operations"
+    log(f"15b loop call bf16 B={b} D={d} N={n_real} bins={kw['bins']} k={k} ({body}): max |kernel - plain| = "
+        f"{err:.3g} (tol {tol:.3g}), {swaps} id swaps inside the band; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
+    del vv, q, ks, ki, rs, ri, out, model, enc, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - started
+    log(f"15b run [{card}]: {t['max_steps']} steps in {run_s:.2f} s ({launches} fused_mips_binned launches, by body "
+        f"{bodies}); steps {json.dumps([round(x, 3) for x in step_ms])} ms (CUDA events); losses "
+        f"{json.dumps([round(x, 6) for x in losses])}; peak memory {peak / 2**30:.4f} GiB")
+    log(f"phase 15b wall time: {wall:.1f} s")
+    return dict(run_s=run_s, launches=launches, body_launches=bodies, losses=losses, step_ms=step_ms,
+                peak_mem_bytes=peak, max_abs_err=err, bpe=bpe, wall_s=wall, texts=texts, tmp=tmp, root=root,
+                call=dict(shape=f"bfloat16 B={b} N={n_real} D={d} bins={kw['bins']} k={k}", ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound, bound_by=bound_by))
+
+
+def tokenize_topk_phase(dev, card: str, hbm: float, t: dict, texts: list, root: Path) -> dict:
+    """Phase 15c (module constant TOKENIZE): the host tokenizers' throughput
+    on the same passages (sections/s; WordPiece from `harvest_beir`'s
+    vocab.txt under `root`, the byte-level BPE of 15b, a Unigram of
+    `write_unigram`), each built fresh so that its first pass is timed
+    cold, padded to `max_length`; then `block_topk` on the card over a
+    [rows, width] f32 block against `torch.topk` (scores exactly equal) and
+    against itself on the CPU (ids and scores exactly equal; both select the
+    lowest id among ties). Returns the numbers."""
+    import torch
+
+    from vod_tpu_torch.data.tokenizer import WordPieceTokenizer, load_tokenizer
+    from vod_tpu_torch.ops.topk import block_topk
+
+    started = time.perf_counter()
+    sample = texts[: t["texts"]]
+    uni = write_unigram(root / "unigram", texts, t["unigram_size"])
+    rates = {}
+    for name, path in (("wordpiece", root / "vocab"), ("bpe", root / "bpe"), ("unigram", root / "unigram")):
+        tok = load_tokenizer(path)
+        check((name == "wordpiece") == isinstance(tok, WordPieceTokenizer), f"15c: {name} read as {type(tok).__name__}")
+        t0 = time.perf_counter()
+        enc = tok(sample, max_length=t["max_length"], truncation=True, padding="max_length", return_tensors="np")
+        seconds = time.perf_counter() - t0
+        check(enc["input_ids"].shape == (len(sample), t["max_length"]), f"15c: {name} gave {enc['input_ids'].shape}")
+        tokens = int(enc["attention_mask"].sum())
+        rates[name] = dict(sections_per_s=len(sample) / seconds, tokens_per_section=tokens / len(sample))
+    log(f"15c host tokenizers [{card}]: " + "; ".join(
+        f"{n} {r['sections_per_s']:.1f} sections/s ({r['tokens_per_section']:.1f} tokens each)" for n, r in rates.items())
+        + f" over {len(sample)} harvested passages, cold, padded to {t['max_length']} (Unigram of {uni['pieces']} pieces)")
+
+    g = torch.Generator(device=dev).manual_seed(t["seed"])
+    x = torch.randn((t["topk_rows"], t["topk_width"]), generator=g, device=dev)
+    k, block = t["topk_k"], t["topk_block"]
+    s, i = block_topk(x, k, block=block)
+    ts, ti = torch.topk(x, k)
+    cs, ci = block_topk(x.cpu(), k, block=block)
+    check(torch.equal(s, ts) and torch.equal(i, ti), "15c: block_topk on the card != torch.topk")
+    check(torch.equal(s.cpu(), cs) and torch.equal(i.cpu(), ci), "15c: block_topk on the card != on the CPU")
+    ms = time_ms(lambda: block_topk(x, k, block=block), 10)
+    topk_ms = time_ms(lambda: torch.topk(x, k), 10)
+    nbytes = x.numel() * 4 + x.shape[0] * k * 12
+    bound = nbytes / hbm * 1e3
+    log(f"15c block_topk [{card}]: [{t['topk_rows']}, {t['topk_width']}] f32, k = {k}, blocks of {block}: ids and "
+        f"scores equal torch.topk's and the CPU's; {ms:.4f} ms, torch.topk {topk_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    del x, s, i, ts, ti
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - started
+    log(f"phase 15c wall time: {wall:.1f} s")
+    return dict(tokenizers=rates, unigram=uni, block_topk=dict(ms=ms, torch_topk_ms=topk_ms, bound_ms=bound,
+                                                               shape=f"[{t['topk_rows']}, {t['topk_width']}] f32 k={k}"),
+                wall_s=wall)
+
+
+def gradcache_dp_steps(dev, run: dict, t: dict, out_dir: Path, train_step, checksum) -> list:
+    """Phase 15d on this rank (rides 13c's rank job, after its CLI run): two
+    optimizer steps of the CLI's train step with GradCache at
+    `t["gradcache_rows"]` rows a chunk over the split batch, on the first
+    step's collated micro-batch (saved by the job) in place of live
+    retrieval; the SPLADE encoder sows its FLOPS term, so each global chunk's
+    statistics meet over the ranks. Rank 0 saves the weights before them
+    for the one-process check. Returns each step's loss, ms and whether the
+    parameters equal rank 0's after it."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from vod_tpu_torch.parallel import data_parallel, make_mesh
+    from vod_tpu_torch.types.batch import RealmBatch
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    step_fn, model = run["step_fn"], run["model"]
+    saved = torch.load(out_dir / f"batch-rank{rank}-0.pt", weights_only=False)
+    batch = RealmBatch(**{k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in saved.items()})
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, out_dir / "state-gradcache.pt")
+    dist.barrier()
+    dp = data_parallel(make_mesh((world,), ("dp",)), "dp", int(batch.query__input_ids.shape[0]) * world)
+    step_fn.gradcache_chunk_rows = t["gradcache_rows"]
+    step_fn.collate = lambda *args, **kw: batch  # the saved micro-batch in place of live retrieval
+    out = []
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, _, _ = train_step(step_fn, None, None, [types.SimpleNamespace(input_ids=batch.query__input_ids)],
+                                       torch.Generator(device=dev), {}, dp=dp)
+            torch.cuda.synchronize()
+            out.append(dict(loss=float(metrics["loss"]), ms=(time.perf_counter() - t0) * 1e3,
+                            checksum_ok=checksum(model)))
+    finally:
+        del step_fn.collate
+        step_fn.gradcache_chunk_rows = None
     return out
 
 
@@ -5806,7 +6367,27 @@ def main() -> None:
     )
     log(f"phase 14 wall time: {phase14['wall_s']:.1f} s")
 
-    # 15. result lines
+    # 15. profiler traces through the CLI (15a), a roberta-base-width encoder
+    # with the port's byte-level BPE through the CLI (15b), the host
+    # tokenizers' throughput and block_topk on the card (15c); 15d (GradCache
+    # with the FLOPS term over two ranks) ran in 13c's rank job
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    profiled = profiled_cli_phase(dev, card, PROFILED_CLI)
+    gc.collect()
+    torch.cuda.empty_cache()
+    roberta = roberta_cli_phase(dev, card, hbm, peak_bf16, ROBERTA_CLI)
+    tokenize = tokenize_topk_phase(dev, card, hbm, TOKENIZE, roberta.pop("texts"), roberta["root"])
+    roberta.pop("tmp").cleanup()
+    del roberta["root"]
+    phase15 = dict(profiled_cli={k: v for k, v in profiled.items() if k not in ("launches", "body_launches")},
+                   roberta_cli={k: v for k, v in roberta.items() if k not in ("launches", "body_launches", "call")},
+                   tokenize=tokenize, gradcache_dp=batchwide["splade_cli"]["gradcache"],
+                   wall_s=time.perf_counter() - t15)
+    log(f"phase 15 wall time: {phase15['wall_s']:.1f} s")
+
+    # 16. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -5815,7 +6396,7 @@ def main() -> None:
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches,
         max_abs_err=max(max_err, train["train_max_abs_err"], seq2seq["train_call"]["max_abs_err"], cli["max_abs_err"],
-                        large["max_abs_err"], moe_cli["max_abs_err"]),
+                        large["max_abs_err"], moe_cli["max_abs_err"], roberta["max_abs_err"]),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape=f"bfloat16 B=64 N={N_KERNEL} D={D} bins=1024 k={K_POOL}",
         shapes=shapes, serving=results, shootout_launches=shootout_launches["fused_mips_binned"],
@@ -5842,6 +6423,9 @@ def main() -> None:
         sharded_launches=sharded_launches, sharded=sharded, phase13_launches=phase13_launches, phase13=phase13,
         moe_cli_launches=moe_cli["launches"], moe_cli_body_launches=moe_cli["body_launches"],
         moe_cli_resume_launches=moe_cli["resume_launches"], moe_cli_call=moe_cli["call"], phase14=phase14,
+        profiled_cli_launches=profiled["launches"], profiled_cli_body_launches=profiled["body_launches"],
+        roberta_cli_launches=roberta["launches"], roberta_cli_body_launches=roberta["body_launches"],
+        roberta_cli_call=roberta["call"], phase15=phase15,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

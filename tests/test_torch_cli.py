@@ -239,14 +239,26 @@ UNPORTED = {
     "profile": ({"sys": {"profile_dir": "trace"}}, "item 7"),
 }
 # items of UNPORTED that have since been ported: the option reaches the model
-PORTED = {"item 6"}
+# (item 6) or the run (item 7)
+PORTED = {"item 6", "item 7"}
 
 
 @pytest.mark.parametrize("over,item", UNPORTED.values(), ids=UNPORTED.keys())
-def test_unported_option_raises_before_data_loads(over: dict, item: str) -> None:
+def test_unported_option_raises_before_data_loads(over: dict, item: str, tmp_path: Path) -> None:
     raw = _raw()
     for k, v in over.items():
         raw[k] = {**raw.get(k, {}), **v}
+    if item == "item 7":  # profile traces: 4 steps reach the loop's default window (3, 6)
+        from tests.test_exps import _toy_data
+
+        raw["sys"]["profile_dir"] = str(tmp_path / "trace")
+        raw["trainer"] = {**raw["trainer"], "max_steps": 4, "period": 4}
+        sections, queries = _toy_data(n_sections=16, n_queries=16)
+        exp = Experiment.parse(raw)
+        cli.check_ported(exp, "cpu")
+        out = cli.run_experiment(exp, sections=sections, queries=queries, tokenizer=_port_tok(), device="cpu")
+        assert out["state"].step == 4 and len(list((tmp_path / "trace").glob("trace-rank0-*.json"))) == 1
+        return
     if item in PORTED:  # MoE: the three options reach every encoder layer
         from vod_tpu_torch.parallel.moe import MoEFFN
 

@@ -1072,3 +1072,20 @@ def test_ring_and_pipeline_at_w1_on_card_equal_the_plain_encoder(cuda_device) ->
             pp = pp_encoder_forward(enc, ids, mask, n_micro=4).float()
         assert (sp - ref).abs().max().item() <= tol
         assert (pp - ref).abs().max().item() <= (1e-5 if dtype == torch.float32 else tol)
+
+
+def test_block_topk_on_card_equals_torch_topk_and_the_cpu(cuda_device) -> None:
+    """`ops/topk.py:block_topk` over wide f32 rows: the values equal
+    `torch.topk`'s and the CPU's exactly, and the ids equal the CPU's (both
+    take the lowest index among ties; the rows hold ties on purpose)."""
+    from vod_tpu_torch.ops.topk import block_topk
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((8, 300_001), generator=g, device=cuda_device)
+    x[:, 1000:1100] = x[:, :100]  # duplicated values: ties inside and across blocks
+    for k, block in ((10, 1024), (100, 4096)):
+        s, i = block_topk(x, k, block=block)
+        ts, _ = torch.topk(x, k)
+        cs, ci = block_topk(x.cpu(), k, block=block)
+        assert torch.equal(s, ts) and torch.equal(s.cpu(), cs) and torch.equal(i.cpu(), ci)
+        assert torch.equal(torch.gather(x, -1, i), s)

@@ -64,7 +64,10 @@ def test_every_module_imports_with_jax_and_vod_tpu_blocked() -> None:
         "vod_tpu_torch.search.dynamic", "vod_tpu_torch.types.lazy", "vod_tpu_torch.utils.cache",
         "vod_tpu_torch.examples.maxsim_bench", "vod_tpu_torch.examples.predict_and_index",
         "vod_tpu_torch.parallel.distributed", "vod_tpu_torch.parallel.mesh", "vod_tpu_torch.search.sharded",
-        "vod_tpu_torch.examples.multiprocess_dryrun",
+        "vod_tpu_torch.examples.multiprocess_dryrun", "vod_tpu_torch.data.tokenizer_json",
+        "vod_tpu_torch.ops.topk", "vod_tpu_torch.runtime.callbacks", "vod_tpu_torch.utils.pretty",
+        "vod_tpu_torch.utils.arguantic", "vod_tpu_torch.utils.exceptions", "vod_tpu_torch.utils.chrono",
+        "vod_tpu_torch.utils.validation",
     } <= set(modules)
     code = (
         "import sys, importlib\n"

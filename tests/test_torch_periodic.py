@@ -231,14 +231,17 @@ def test_checkpoint_round_trip_resumes_bit_for_bit(tmp_path) -> None:
 
 
 @pytest.mark.parametrize("change", [dict(profile_dir="trace")], ids=["profile"])
-def test_unported_options_raise(change: dict) -> None:
+def test_unported_options_raise(change: dict, tmp_path) -> None:
+    """Profile traces are ported: two one-step periods run and write no
+    trace, as the loop's default window (3, 6) is never reached
+    (`tests/test_torch_profile.py` checks a trace)."""
     _, _, _, tmodel, tcorpus, make_queries = _setup()
-    cfg = dataclasses.replace(PeriodicTrainingConfig(), **change)
-    with pytest.raises(NotImplementedError):
-        periodic_training(step_fn=make_train_step(tmodel, adamw(tmodel, 1e-3, weight_decay=0.0), **STEP),
-                          corpus=tcorpus, state=TrainerState(max_steps=2, period=1),
-                          train_queries_fn=lambda p: _batches(make_queries, p, 1)[1],
-                          generator=torch.Generator(), config=cfg)
+    cfg = dataclasses.replace(PeriodicTrainingConfig(), **{k: str(tmp_path / v) for k, v in change.items()})
+    state, history = periodic_training(
+        step_fn=make_train_step(tmodel, adamw(tmodel, 1e-3, weight_decay=0.0), **STEP),
+        corpus=tcorpus, state=TrainerState(max_steps=2, period=1),
+        train_queries_fn=lambda p: _batches(make_queries, p, 1)[1], generator=torch.Generator(), config=cfg)
+    assert state.step == 2 and len(history) == 2 and not (tmp_path / "trace").exists()
 
 
 def test_defaults_match_jax_and_the_host_path_defaults_to_the_card() -> None:

@@ -403,14 +403,17 @@ def test_training_loop_counts_steps_like_jax(accum: int, max_steps: int, n_batch
     assert tval == jval
 
 
-def test_unported_options_raise() -> None:
+def test_unported_options_raise(tmp_path) -> None:
+    """A mesh (tests/test_torch_train_dp.py) and profiler traces are ported:
+    a one-step window over the Realm writes one trace."""
     a, _, _, _, _, params = _init()
     tmodel, tcorpus, teng = _torch_side(a, params)
     opt = adamw(tmodel, 1e-3, weight_decay=0.0)
-    # a mesh is ported (tests/test_torch_train_dp.py); profiler traces are not
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        training_loop(step_fn=make_train_step(tmodel, opt), engines=teng, corpus=tcorpus, train_queries=[],
-                      state=TrainerState(), generator=torch.Generator(), profile_dir="trace")
+    state, _ = training_loop(step_fn=make_train_step(tmodel, opt, **STEP), engines=teng, corpus=tcorpus,
+                             train_queries=[_torch_queries(a)], state=TrainerState(max_steps=1, period=1),
+                             generator=torch.Generator(), prefetch_batches=0, profile_dir=str(tmp_path / "trace"),
+                             profile_steps=(0, 1))
+    assert state.step == 1 and len(list((tmp_path / "trace").glob("trace-rank0-*.json"))) == 1
 
 
 def test_new_entry_points_default_to_the_card() -> None:

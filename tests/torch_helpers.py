@@ -752,3 +752,52 @@ def job_multichip_dryrun(rank: int, world: int, dtype: str) -> dict:
     from vod_tpu_torch.examples.multichip_dryrun import dryrun
 
     return dryrun(world, CPU, getattr(torch, dtype))
+
+
+def job_gradcache_dp(rank: int, world: int, cases: list) -> list:
+    """GradCache over a batch split by a `dp` mesh of the world, one call per
+    case `(kind, sizes, state, fields, extras, chunk_rows)`: a float32 SPLADE
+    or MoE `Ranker` from `state`, this rank's rows of the global batch
+    `fields` (numpy; the sections of its queries, or the whole pool with
+    `extras["flat_sections"]`). Returns per case the loss and the gradients
+    averaged over the axis (`average_gradients`)."""
+    import torch.distributed as dist
+
+    from vod_tpu_torch.models import Ranker, RetrievalGradients, TransformerEncoderConfig, VodPoolerConfig
+    from vod_tpu_torch.parallel import data_parallel, make_mesh
+    from vod_tpu_torch.runtime.gradcache import gradcache_backward
+    from vod_tpu_torch.runtime.train import average_gradients
+    from vod_tpu_torch.types.batch import RealmBatch
+
+    mesh = make_mesh((world,), ("dp",))
+    out = []
+    for kind, sizes, state, fields, extras, chunk_rows in cases:
+        pooler = VodPoolerConfig(agg_method="mean", output_norm="l2", scaler=8.0)
+        if kind == "splade":
+            model = splade_ranker(sizes, state)
+        else:
+            cfg = TransformerEncoderConfig(dtype=torch.float32, pooler=pooler, **sizes)
+            model = Ranker(cfg, RetrievalGradients(), device=CPU)
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+        b = fields["query__input_ids"].shape[0]
+        dp = data_parallel(mesh, "dp", b)
+        per = b // world
+        mine = {}
+        for k, v in fields.items():
+            if k.startswith("section__input_ids") or k.startswith("section__attention_mask"):
+                n = v.shape[0] // b
+                v = v if extras.get("flat_sections", False) else v[rank * per * n : (rank + 1) * per * n]
+            else:
+                v = v[rank * per : (rank + 1) * per]
+            mine[k] = torch.from_numpy(np.ascontiguousarray(v))
+        model.zero_grad(set_to_none=True)
+        res = gradcache_backward(model, RealmBatch(**mine, extras=dict(extras)), chunk_rows=chunk_rows, dp=dp)
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        average_gradients(params, dp.group, world)
+        loss = res.loss.detach().clone()
+        dist.all_reduce(loss)
+        out.append(dict(loss=float(loss) / world, grads={n: np_of(p.grad) for n, p in model.named_parameters()}))
+    return out

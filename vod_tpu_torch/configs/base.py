@@ -35,6 +35,14 @@ _FALSE_STRINGS = {"0", "off", "f", "false", "n", "no"}
 # pydantic's int string: ASCII digits, single underscores between them, and
 # a fraction of zeros only after a digit ("1.0" yes; "1.", "٣", "1__0" no)
 _INT_STRING = re.compile(r"([+-]?[0-9]+(?:_[0-9]+)*)(?:\.0+)?")
+# pydantic-core's float string: Rust's `f64::from_str` grammar (ASCII only, no
+# whitespace, no underscores; inf / infinity / nan in any case) on the string
+# trimmed of Unicode White_Space, else on the untrimmed string with single
+# underscores removed, none at either end ("-_1", "1e_3" yes; "_1", "1__0" no)
+_RUST_FLOAT = re.compile(r"[+-]?(?:inf|infinity|nan|(?:[0-9]+\.?[0-9]*|\.[0-9]+)(?:e[+-]?[0-9]+)?)",
+                         re.IGNORECASE | re.ASCII)
+_UNICODE_WHITE_SPACE = "\t\n\x0b\x0c\r \x85\xa0\u1680" + "".join(map(chr, range(0x2000, 0x200B))) + \
+    "\u2028\u2029\u202f\u205f\u3000"
 
 
 class _Invalid(ValueError):
@@ -59,6 +67,17 @@ def _exact(tp: typ.Any, value: typ.Any) -> bool:
     if isinstance(tp, type) and dataclasses.is_dataclass(tp):
         return isinstance(value, tp)
     return False
+
+
+def _float_string(s: str) -> float | None:
+    """pydantic's float of the string `s`, or None where pydantic refuses it."""
+    trimmed = s.strip(_UNICODE_WHITE_SPACE)
+    if _RUST_FLOAT.fullmatch(trimmed):
+        return float(trimmed)
+    if s.startswith("_") or s.endswith("_") or "__" in s:
+        return None
+    stripped = s.replace("_", "")
+    return float(stripped) if _RUST_FLOAT.fullmatch(stripped) else None
 
 
 def validate(tp: typ.Any, value: typ.Any, path: str = "") -> typ.Any:
@@ -119,11 +138,10 @@ def validate(tp: typ.Any, value: typ.Any, path: str = "") -> typ.Any:
     if tp is float:
         if isinstance(value, (bool, int, float)):
             return float(value)
-        if isinstance(value, str) and value.strip().isascii():  # Python's float reads other scripts' digits too
-            try:
-                return float(value.strip())
-            except ValueError:
-                pass
+        if isinstance(value, str):
+            parsed = _float_string(value)
+            if parsed is not None:
+                return parsed
         _fail(path, "expected a number", value)
     if origin is list or tp is list:
         if isinstance(value, (str, bytes, dict)) or not isinstance(value, (list, tuple, set, frozenset)):

@@ -1,11 +1,13 @@
 """Dataloader, collate, template and tokenizer configs (the port's copy of
 `vod_tpu/configs/dataloaders.py`).
 
-`TokenizerConfig.instantiate()` builds the port's own WordPiece tokenizer
-(`data/tokenizer.py`) from a local directory that holds `vocab.txt`, with
-the normalizer flags of its `tokenizer_config.json` where it has one (as
-`AutoTokenizer` reads them); a hub name with no such directory raises,
-since nothing is downloaded.
+`TokenizerConfig.instantiate()` builds the port's own tokenizer for a local
+directory by what it holds (`data/tokenizer.py:load_tokenizer`):
+`tokenizer.json` by its model (byte-level BPE or Unigram,
+`data/tokenizer_json.py`), `vocab.txt` as WordPiece with the normalizer
+flags of its `tokenizer_config.json`, `vocab.json` with `merges.txt` as a
+byte-level BPE, as `AutoTokenizer` reads them; a hub name with no such
+directory raises, since nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ class TokenizerConfig(StrictModel):
     use_fast: bool = True
 
     def instantiate(self) -> typ.Any:
-        from vod_tpu_torch.data.tokenizer import WordPieceTokenizer
+        from vod_tpu_torch.data.tokenizer import load_tokenizer
 
-        return WordPieceTokenizer.from_pretrained(self.name_or_path)
+        return load_tokenizer(self.name_or_path)
 
 
 class RealmCollateConfig(StrictModel):

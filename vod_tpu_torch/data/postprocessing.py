@@ -11,15 +11,15 @@ from .sectioning import FixedLengthSectionizer, SentenceSectionizer
 
 def make_sectionizer(cfg: typ.Mapping[str, typ.Any]) -> typ.Callable[[str, str], list[str]]:
     """The sectionizer a config names; the fixed-length one tokenizes with the
-    port's tokenizer, read from `tokenizer_name_or_path` (a local directory
-    holding vocab.txt)."""
+    port's tokenizer, read from `tokenizer_name_or_path` (a local directory,
+    `tokenizer.load_tokenizer`)."""
     mode = cfg.get("mode", "fixed_length")
     if mode == "sentence":
         return SentenceSectionizer(delimiter=cfg.get("delimiter", ". "))
     if mode == "fixed_length":
-        from .tokenizer import WordPieceTokenizer
+        from .tokenizer import load_tokenizer
 
-        tok = WordPieceTokenizer.from_pretrained(cfg.get("tokenizer_name_or_path", "bert-base-uncased"))
+        tok = load_tokenizer(cfg.get("tokenizer_name_or_path", "bert-base-uncased"))
         return FixedLengthSectionizer(
             tok,
             section_length=cfg.get("section_length", 200),

@@ -24,7 +24,15 @@ The pipeline is the fast tokenizer's:
 Offsets are character offsets into the input text, as the fast tokenizer
 gives them; `[CLS]`, `[SEP]` and padding have (0, 0). Text that is ASCII
 with no control character and no `[` takes a faster route (a regular
-expression and a per-word cache) to the same result.
+expression and a per-word cache) to the same result. `decode` is the fast
+tokenizer's WordPiece decoder, and `save_pretrained` writes what
+`from_pretrained` reads.
+
+`load_tokenizer` picks the port's tokenizer for a local directory by what
+it holds, as `AutoTokenizer` would read it: `tokenizer.json` (byte-level BPE
+and Unigram: `tokenizer_json.py`), `vocab.txt` (WordPiece), or `vocab.json`
+with `merges.txt` (byte-level BPE). `batch_output` is the `transformers`
+output of encoded rows, shared by both modules.
 """
 
 from __future__ import annotations
@@ -90,7 +98,10 @@ class WordPieceTokenizer:
         tokenize_chinese_chars: bool = True,
     ):
         if not isinstance(vocab, typ.Mapping):
-            vocab = {tok: i for i, tok in enumerate(vocab)}  # a repeated token keeps its last line
+            self._lines = list(vocab)
+            vocab = {tok: i for i, tok in enumerate(self._lines)}  # a repeated token keeps its last line
+        else:
+            self._lines = None
         self.vocab: dict[str, int] = dict(vocab)
         self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
         self.unk_token, self.sep_token, self.pad_token = unk_token, sep_token, pad_token
@@ -277,6 +288,31 @@ class WordPieceTokenizer:
     def tokenize(self, text: str) -> list[str]:
         return self.convert_ids_to_tokens(self._encode(text, False)[0])
 
+    def decode(self, ids: typ.Iterable[int], skip_special_tokens: bool = False) -> str:
+        """Text of `ids` as the fast tokenizer's WordPiece decoder gives it:
+        `##` pieces joined to the word before them, the others after a space,
+        then the spaces before punctuation and contractions cleaned up."""
+        specials = {self.vocab[getattr(self, a)] for a in _SPECIAL_ATTRS} if skip_special_tokens else set()
+        out = []
+        for tok in self.convert_ids_to_tokens([int(i) for i in ids if int(i) not in specials]):
+            out.append(tok[2:] if tok.startswith("##") else (" " + tok if out else tok))
+        return _clean_up_tokenization("".join(out))
+
+    def save_pretrained(self, directory: typ.Union[str, pathlib.Path]) -> None:
+        """`vocab.txt` and `tokenizer_config.json` (the normalizer flags), which
+        `from_pretrained` and `transformers.AutoTokenizer` read back."""
+        d = pathlib.Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        lines = self._lines
+        if lines is None:  # a mapping's ids, each on its line (an id it skips: an unused token)
+            lines = [self.ids_to_tokens.get(i, f"[unused-{i}]") for i in range(max(self.ids_to_tokens) + 1)]
+        with open(d / "vocab.txt", "w", encoding="utf-8") as f:
+            f.write("".join(f"{t}\n" for t in lines))
+        config = {"tokenizer_class": "BertTokenizer", "do_lower_case": self.do_lower_case,
+                  "strip_accents": self.strip_accents, "tokenize_chinese_chars": self.tokenize_chinese_chars,
+                  **self.special_tokens_map}
+        (d / "tokenizer_config.json").write_text(json.dumps(config, indent=2))
+
     def __call__(
         self,
         text: typ.Union[str, typ.Sequence[str]],
@@ -326,51 +362,86 @@ class WordPieceTokenizer:
             rows.append(cls + ids + sep + ids_b + sep)
             types.append([0] * (len(cls) + len(ids) + len(sep)) + [1] * (len(ids_b) + len(sep)))
             offs.append(edge + offsets + edge + offsets_b + edge)
-        lengths = np.fromiter((len(r) for r in rows), dtype=np.int64, count=len(rows))
-        if padding in (True, "longest") or (padding == "max_length" and max_length is None):
-            width = int(lengths.max(initial=0))
-        elif padding == "max_length":
-            width = max_length
-        else:
-            width = None
-        if width is None:
-            if return_tensors is not None and len(set(lengths.tolist())) > 1:
-                raise ValueError("rows of different lengths need padding to become a tensor")
-            if return_tensors is None:
-                out: dict[str, typ.Any] = {
-                    "input_ids": rows,
-                    "token_type_ids": types,
-                    "attention_mask": [[1] * int(n) for n in lengths],
-                }
-                if return_offsets_mapping:
-                    out["offset_mapping"] = offs
-                return {k: v[0] for k, v in out.items()} if single else out
-            width = int(lengths.max(initial=0))
-        ids_arr = np.full((len(rows), width), self.pad_token_id, dtype=np.int64)
-        type_arr = np.zeros((len(rows), width), dtype=np.int64)
-        for i, (r, tt) in enumerate(zip(rows, types)):
-            ids_arr[i, : len(r)] = r
-            type_arr[i, : len(tt)] = tt
-        mask = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int64)
-        out = {"input_ids": ids_arr, "token_type_ids": type_arr, "attention_mask": mask}
-        if return_offsets_mapping:
-            om = np.zeros((len(rows), width, 2), dtype=np.int64)
-            for i, o in enumerate(offs):
-                if o:
-                    om[i, : len(o)] = o
-            out["offset_mapping"] = om
-        if return_tensors is None:
-            lists = {k: v.tolist() for k, v in out.items()}
-            if return_offsets_mapping:
-                lists["offset_mapping"] = [[tuple(p) for p in row] for row in lists["offset_mapping"]]
-            return {k: v[0] for k, v in lists.items()} if single else lists
-        if return_tensors == "pt":
-            import torch
+        return batch_output(rows, types, offs, pad_id=self.pad_token_id, single=single, max_length=max_length,
+                            padding=padding, return_tensors=return_tensors, offsets=return_offsets_mapping)
 
-            return {k: torch.from_numpy(v) for k, v in out.items()}
-        if return_tensors != "np":
-            raise ValueError(f"unsupported return_tensors {return_tensors!r}")
-        return out
+
+def batch_output(
+    rows: list[list[int]],
+    types: list[list[int]],
+    offs: list[list[tuple[int, int]]],
+    *,
+    pad_id: int,
+    single: bool,
+    max_length: typ.Optional[int],
+    padding: typ.Union[bool, str],
+    return_tensors: typ.Optional[str],
+    offsets: bool,
+    token_types: bool = True,
+) -> dict[str, typ.Any]:
+    """The `transformers` output of encoded rows (ids, token types, offsets
+    each): `input_ids`, `token_type_ids` (with `token_types`),
+    `attention_mask` and `offset_mapping` (with `offsets`), padded with
+    `pad_id` as `padding` says, as lists (one row's for a `single` text) or
+    int64 arrays (`return_tensors="np"`) or tensors (`"pt"`)."""
+    if padding not in (False, True, "longest", "max_length", "do_not_pad"):
+        raise ValueError(f"unsupported padding {padding!r}")
+    lengths = np.fromiter((len(r) for r in rows), dtype=np.int64, count=len(rows))
+    if padding in (True, "longest") or (padding == "max_length" and max_length is None):
+        width = int(lengths.max(initial=0))
+    elif padding == "max_length":
+        width = max_length
+    else:
+        width = None
+    if width is None:
+        if return_tensors is not None and len(set(lengths.tolist())) > 1:
+            raise ValueError("rows of different lengths need padding to become a tensor")
+        if return_tensors is None:
+            out: dict[str, typ.Any] = {"input_ids": rows}
+            if token_types:
+                out["token_type_ids"] = types
+            out["attention_mask"] = [[1] * int(n) for n in lengths]
+            if offsets:
+                out["offset_mapping"] = offs
+            return {k: v[0] for k, v in out.items()} if single else out
+        width = int(lengths.max(initial=0))
+    ids_arr = np.full((len(rows), width), pad_id, dtype=np.int64)
+    type_arr = np.zeros((len(rows), width), dtype=np.int64)
+    for i, (r, tt) in enumerate(zip(rows, types)):
+        ids_arr[i, : len(r)] = r
+        type_arr[i, : len(tt)] = tt
+    mask = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int64)
+    out = {"input_ids": ids_arr}
+    if token_types:
+        out["token_type_ids"] = type_arr
+    out["attention_mask"] = mask
+    if offsets:
+        om = np.zeros((len(rows), width, 2), dtype=np.int64)
+        for i, o in enumerate(offs):
+            if o:
+                om[i, : len(o)] = o
+        out["offset_mapping"] = om
+    if return_tensors is None:
+        lists = {k: v.tolist() for k, v in out.items()}
+        if offsets:
+            lists["offset_mapping"] = [[tuple(p) for p in row] for row in lists["offset_mapping"]]
+        return {k: v[0] for k, v in lists.items()} if single else lists
+    if return_tensors == "pt":
+        import torch
+
+        return {k: torch.from_numpy(v) for k, v in out.items()}
+    if return_tensors != "np":
+        raise ValueError(f"unsupported return_tensors {return_tensors!r}")
+    return out
+
+
+def _clean_up_tokenization(text: str) -> str:
+    """The WordPiece decoder's clean-up of spaces before punctuation and
+    English contractions."""
+    for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"),
+                 (" do not", " don't"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re")):
+        text = text.replace(a, b)
+    return text
 
 
 def _longest_first(n_a: int, n_b: int, budget: int) -> tuple[int, int]:
@@ -385,3 +456,43 @@ def _longest_first(n_a: int, n_b: int, budget: int) -> tuple[int, int]:
         keep_short = budget // 2
         keep_long = keep_short + budget % 2
     return (keep_short, keep_long) if n_a <= n_b else (keep_long, keep_short)
+
+
+def load_tokenizer(name_or_path: typ.Union[str, pathlib.Path]) -> typ.Any:
+    """The port's tokenizer for a local directory, by what it holds (as
+    `transformers.AutoTokenizer` would read it; nothing is downloaded):
+    `tokenizer.json` -> its model (`BPE` or `Unigram`: `tokenizer_json.
+    JsonTokenizer`; `WordPiece`: `WordPieceTokenizer` from `vocab.txt`, or
+    from the file's vocabulary and `BertNormalizer` flags); else
+    `vocab.txt` -> `WordPieceTokenizer`; else `vocab.json` with
+    `merges.txt` -> a byte-level BPE. A `vocab.txt` path is read as
+    WordPiece."""
+    p = pathlib.Path(name_or_path)
+    if p.is_file():
+        return WordPieceTokenizer.from_pretrained(p)
+    if (p / "tokenizer.json").is_file():
+        from .tokenizer_json import JsonTokenizer
+
+        with open(p / "tokenizer.json", encoding="utf-8") as f:
+            spec = json.load(f)
+        if spec["model"].get("type") != "WordPiece":
+            return JsonTokenizer.from_pretrained(p)
+        if not (p / "vocab.txt").is_file():
+            norm = spec.get("normalizer") or {}
+            flags = {k: norm[j] for k, j in (("do_lower_case", "lowercase"), ("strip_accents", "strip_accents"),
+                                             ("tokenize_chinese_chars", "handle_chinese_chars")) if j in norm}
+            config = p / "tokenizer_config.json"
+            if config.is_file():
+                with open(config, encoding="utf-8") as f:
+                    flags.update({k: v for k, v in json.load(f).items() if k in _CONFIG_FLAGS})
+            return WordPieceTokenizer(spec["model"]["vocab"], **flags)
+    if (p / "vocab.txt").is_file():
+        return WordPieceTokenizer.from_pretrained(p)
+    if (p / "vocab.json").is_file() and (p / "merges.txt").is_file():
+        from .tokenizer_json import JsonTokenizer
+
+        return JsonTokenizer.from_vocab_and_merges(p)
+    raise FileNotFoundError(
+        f"no tokenizer at {str(name_or_path)!r}: looked for tokenizer.json, vocab.txt, or vocab.json with "
+        "merges.txt in a local directory (nothing is downloaded, so a hub name needs its files on disk)"
+    )

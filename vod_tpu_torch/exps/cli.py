@@ -41,8 +41,11 @@ Declared differences from the JAX package:
    adapters kept from their init (`lora_b` is 0, so the encoder at step 0 is
    the checkpoint's); JAX grafts the plain tree there, which a LoRA encoder
    cannot apply;
- - options not ported yet raise `NotImplementedError` naming their ROADMAP
-   item, before any data is loaded.
+ - `check_ported` refuses, before any data is loaded, each option not ported
+   yet with a `NotImplementedError` naming its ROADMAP item (none is left);
+ - `sys.profile_dir` traces the first period's loop (`training_loop`);
+ - `model.name_or_path` of a RoBERTa-family checkpoint keeps its one token
+   type: the encoder takes the checkpoint's table, as JAX's graft does.
 
 With `model.splade_encoder` the Ranker encodes with SPLADE: live retrieval
 searches the queries' top `splade_query_k` impact terms, and each period
@@ -114,10 +117,7 @@ def check_ported(exp: Experiment, device: typ.Union[str, torch.device] = "cuda")
     """Raise `NotImplementedError` for each option of `exp` the port lacks
     (`device` is where the run would go; every option below runs on both)."""
     del device
-    unported = _unported_model_options(exp.model) + [
-        (exp.sys.profile_dir is not None, "sys.profile_dir (profiler traces)", "7"),
-    ]
-    _raise_unported(unported)
+    _raise_unported(_unported_model_options(exp.model))
 
 
 def _make_distillation(cfg: ModelConfig) -> typ.Any:
@@ -263,6 +263,12 @@ def _maybe_port_hf_encoder(model: torch.nn.Module, cfg: ModelConfig) -> torch.nn
             f"hidden={hf_cfg.hidden_size} layers={hf_cfg.num_layers}"
         )
     target = model.encoder.backbone
+    # JAX's graft takes the checkpoint's leaves whole: a RoBERTa-family
+    # checkpoint has one token type where the config builds two
+    types, emb = backbone.get("embeddings.token_type_embeddings.weight"), target.embeddings.token_type_embeddings
+    if types is not None and emb is not None and types.shape[0] != emb.weight.shape[0]:
+        target.embeddings.token_type_embeddings = torch.nn.Embedding(*types.shape, device=emb.weight.device,
+                                                                     dtype=emb.weight.dtype)
     if cfg.lora_rank > 0:
         backbone = {re.sub(r"\.(intermediate|output)\.", r".\1.base.", k): v for k, v in backbone.items()}
     missing, unexpected = target.load_state_dict(backbone, strict=False)
@@ -475,6 +481,7 @@ def run_experiment(
             metrics=tuple(exp.trainer.metrics),
             mesh=mesh,
             dp_axis=dp_axis,
+            profile_dir=exp.sys.profile_dir,
         ),
         on_log=on_log,
     )

@@ -23,8 +23,8 @@ between periods searches the queries' top `splade_query_k` impact terms.
 
 Random draws: where the JAX version splits its key into a build key, a tune
 key and a loop key each period, the port draws all three from the one
-`torch.Generator` it is given, in that order. Not ported yet, raising
-`NotImplementedError`: profiler traces (`profile_dir`).
+`torch.Generator` it is given, in that order. `profile_dir` traces the
+first period's loop only (`training_loop`'s window), as JAX does.
 
 Over a mesh (`mesh`; `dp_axis` names the data-parallel axis, None for
 none): the re-embed splits its chunks over `dp_axis` (or the mesh's `dp`
@@ -100,11 +100,6 @@ class PeriodicTrainingConfig:
     profile_dir: typ.Optional[str] = None
 
 
-def _check_ported(cfg: PeriodicTrainingConfig) -> None:
-    if cfg.profile_dir is not None:
-        raise NotImplementedError("profiler traces (profile_dir) are not ported to vod_tpu_torch yet")
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -130,7 +125,6 @@ def periodic_training(
     `callbacks` go to each period's `training_loop`. Returns (state, one
     summary per period)."""
     cfg = config or PeriodicTrainingConfig()
-    _check_ported(cfg)
     model = step_fn.model
     device = corpus.input_ids.device
     history: list[dict] = []
@@ -231,6 +225,7 @@ def periodic_training(
             until_step=state.next_period_start_step,
             mesh=cfg.mesh if cfg.dp_axis else None,
             dp_axis=cfg.dp_axis or "dp",
+            profile_dir=cfg.profile_dir if pidx == 0 else None,
         )
         if state.step == start_step and not state.completed:
             raise RuntimeError(f"period {pidx} took no optimizer step: train_queries_fn({pidx}) yielded too few batches")

@@ -66,8 +66,9 @@ def expand_vars(configs: typ.Sequence[typ.Mapping[str, typ.Any]]) -> list[dict[s
 
 
 class ModelConfig(StrictModel):
-    """Flagship-model knobs (encoder + optional reader). The port raises
-    `NotImplementedError` for the options it has not ported (`exps/cli.py`)."""
+    """Flagship-model knobs (encoder + optional reader). The port would raise
+    `NotImplementedError` for an option it has not ported (`exps/cli.py:
+    check_ported`); every option is ported."""
 
     kind: typ.Literal["ranker", "realm"] = "ranker"
     gradients: typ.Literal["retrieval", "marginal_likelihood", "vod", "distillation"] = "retrieval"

@@ -21,6 +21,7 @@ function, which the CPU tests compare with JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 import typing as typ
@@ -285,15 +286,26 @@ def fused_mips_binned(
     to the tensor cores and that cannot build or launch there raises; it never
     runs on the other body. Each call that launches adds one to
     `fused_mips_binned.launches` and to `fused_mips_binned.body_launches[body]`,
-    under the module's launch lock; the plain version never adds to them."""
-    q, bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
-    if vectors.device.type == "cuda":
-        cells = _kernel_cells(vectors, q, bins_eff, n_real)
-    elif vectors.device.type == "cpu":
-        cells = binned_cells_reference(vectors, q, bins_eff, n_real)
-    else:
-        raise ValueError(f"fused_mips_binned runs on cuda or cpu, not {vectors.device}")
-    return _select(*cells, k, int8)
+    under the module's launch lock; the plain version never adds to them.
+    While a profiler records, the call is one `fused_mips_binned` span."""
+    with _span("fused_mips_binned"):
+        q, bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
+        if vectors.device.type == "cuda":
+            cells = _kernel_cells(vectors, q, bins_eff, n_real)
+        elif vectors.device.type == "cpu":
+            cells = binned_cells_reference(vectors, q, bins_eff, n_real)
+        else:
+            raise ValueError(f"fused_mips_binned runs on cuda or cpu, not {vectors.device}")
+        return _select(*cells, k, int8)
+
+
+def _span(name: str) -> typ.ContextManager:
+    """A profiler span named `name` while a profiler records (the kernels
+    launch through ctypes, with no aten op of their own to name them), else
+    a null context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 # One count per call that launches the CUDA kernels: the body's

@@ -124,6 +124,11 @@ def quantize_int8(x: torch.Tensor, dim: int = 0) -> tuple[torch.Tensor, torch.Te
     return q, scale
 
 
+def dequantize_scale(scale: torch.Tensor) -> torch.Tensor:
+    """The scale of `quantize_int8`'s codes as stored (an identity, as in JAX)."""
+    return scale
+
+
 def decode_pq(codebooks: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Reconstruct vectors from PQ codes: [n, M] -> [n, d] f32."""
     m, _, dsub = codebooks.shape

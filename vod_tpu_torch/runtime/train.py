@@ -56,16 +56,26 @@ rows receive the term's gradient W times, which the average over the axis
 divides back to once, JAX's gradient. With in-batch negatives the pooled
 sections count for the term only in the rank's own block of the pool (each
 is encoded on every rank). GradCache with a sown loss over a split batch
-raises `NotImplementedError` (ROADMAP §A item 7): its per-chunk term would
-cover other rows than JAX's chunks of the global batch.
+takes JAX's chunks of the global batch's rows: each rank encodes its pieces
+of each global chunk and the chunk's sums are reduced over the axis
+(`runtime/gradcache.py`).
 
-Not ported yet (raises `NotImplementedError`): profiler traces.
+Profiler traces: `training_loop(profile_dir=...)` records the loop-local
+steps `[profile_steps[0], profile_steps[1])` with `torch.profiler` (CPU
+activity, and CUDA activity when the model lives on the card) and writes one
+Chrome/Perfetto trace JSON per rank under `profile_dir` (JAX writes
+`plugins/profile/*/*.xplane.pb`). Inside the window each optimizer step is
+one `train_step` span, and each `fused_mips_binned` call one span of its
+own, which ties the ctypes-launched kernel to its call. Without
+`profile_dir` the loop makes no profiler and no span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 import time
 import typing as typ
 
@@ -297,12 +307,6 @@ class RealmTrainStep:
         one micro-batch the metrics also hold the estimator's diagnostics, as
         the JAX `train_step`'s do. With `dp` the gradients are then averaged
         over its axis, once, before the clip; the metrics stay this rank's."""
-        if (dp is not None and dp.split and self.gradcache_chunk_rows is not None
-                and any(hasattr(m, "sown") for m in self.model.modules())):
-            raise NotImplementedError(
-                "GradCache with a sown auxiliary loss over a data-parallel batch is not ported to vod_tpu_torch yet "
-                "(ROADMAP §A item 7)"
-            )
         n_micro = len(micro_batches)
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=micro_batches[0].input_ids.device)
@@ -310,7 +314,7 @@ class RealmTrainStep:
         for i, q in enumerate(micro_batches):
             batch = self.collate(engines, corpus, q, generator, weights, None if noise is None else noise[i], dp)
             if self.gradcache_chunk_rows is not None:
-                out = gradcache_backward(self.model, batch, chunk_rows=self.gradcache_chunk_rows)
+                out = gradcache_backward(self.model, batch, chunk_rows=self.gradcache_chunk_rows, dp=dp)
                 loss = out.loss
             else:
                 loss, out = self.loss(batch, dp)
@@ -375,6 +379,7 @@ def training_loop(
     mesh: typ.Any = None,
     dp_axis: str = "dp",
     profile_dir: typ.Optional[str] = None,
+    profile_steps: tuple[int, int] = (3, 6),
 ) -> tuple[TrainerState, dict]:
     """One period of training: until `until_step` (default
     `state.next_period_start_step`) or until the query iterator is exhausted.
@@ -383,10 +388,9 @@ def training_loop(
     until a log step (every `log_interval` steps, and the last). With `mesh`,
     every rank iterates the same global batches and keeps its rows over
     `dp_axis` (see the module); the logged metrics are the axis's, and rank 0
-    calls `on_log`. Returns (state, the last logged metrics)."""
-    if profile_dir is not None:
-        raise NotImplementedError("profiler traces (profile_dir) are not ported to vod_tpu_torch yet")
-
+    calls `on_log`. With `profile_dir`, the loop-local steps
+    `[profile_steps[0], profile_steps[1])` are traced (see the module).
+    Returns (state, the last logged metrics)."""
     until = until_step if until_step is not None else state.next_period_start_step
     call_callbacks(callbacks, "on_fit_start", model=step_fn.model, state=state)
     monitor = RetrievalMonitor(list(metrics))
@@ -400,10 +404,12 @@ def training_loop(
     accum = max(1, int(step_fn.accumulate_grad_batches))
     train_iter = iter(train_queries)
     group = _dp_group(mesh, dp_axis)
+    trace = _StepTrace(profile_dir, profile_steps, step_fn.model) if profile_dir is not None else None
     try:
         for queries in train_iter:
             if state.step >= until or state.completed:
                 break
+            span = trace.step() if trace is not None else contextlib.nullcontext()
             weights = state.get_parameters()
             dp = data_parallel(mesh, dp_axis, int(queries.input_ids.shape[0]))
             if accum > 1:
@@ -419,12 +425,14 @@ def training_loop(
                     break
                 call_callbacks(callbacks, "on_train_batch_start", batch=queries, step=state.step)
                 micro = [shard_batch(q, mesh, dp_axis) for q in micro]
-                m, rel, scores = step_fn.train_step_accum(engines, corpus, micro, generator, weights, dp=dp)
+                with span:
+                    m, rel, scores = step_fn.train_step_accum(engines, corpus, micro, generator, weights, dp=dp)
             else:
                 call_callbacks(callbacks, "on_train_batch_start", batch=queries, step=state.step)
-                m, rel, scores = step_fn.train_step(
-                    engines, corpus, shard_batch(queries, mesh, dp_axis), generator, weights, dp=dp
-                )
+                with span:
+                    m, rel, scores = step_fn.train_step(
+                        engines, corpus, shard_batch(queries, mesh, dp_axis), generator, weights, dp=dp
+                    )
             monitor.update(relevances=rel, scores=scores)
             call_callbacks(callbacks, "on_train_batch_end", metrics=m, step=state.step)
             state.step += 1
@@ -454,8 +462,46 @@ def training_loop(
                     on_checkpoint(step_fn.model, step_fn.optimizer, state)
     except KeyboardInterrupt:
         pass
+    finally:
+        if trace is not None:  # the loop may end inside the window
+            trace.stop()
     call_callbacks(callbacks, "on_fit_end", model=step_fn.model, state=state)
     return state, last_logged
+
+
+class _StepTrace:
+    """The profiler window of `training_loop`: `step()` is called at the top
+    of each loop step, starts the trace before the loop-local step `steps[0]`,
+    stops it before `steps[1]` (JAX's window), and returns the step's span
+    (a `record_function("train_step")` inside the window, else a null
+    context). `stop()` ends a trace still open and writes it."""
+
+    def __init__(self, profile_dir: str, steps: tuple[int, int], model: nn.Module):
+        self.dir, self.steps, self.n, self.prof = profile_dir, (int(steps[0]), int(steps[1])), 0, None
+        self.cuda = any(p.device.type == "cuda" for p in model.parameters())
+
+    def step(self) -> typ.ContextManager:
+        if self.n == self.steps[0] and self.prof is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.cuda:
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        elif self.n == self.steps[1] and self.prof is not None:
+            self.stop()
+        self.n += 1
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function("train_step")
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        prof.stop()
+        rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+        os.makedirs(self.dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.dir, f"trace-rank{rank}-{time.time_ns()}.json"))
 
 
 def validation_loop(
