@@ -85,8 +85,8 @@ checked, none caught:
     (`PERIODIC_SPARSE`: BM25, max_postings 4096, k1 1.2, b 0.75) and its
     weight schedules (`PERIODIC_PARAMETERS`: dense linear from 0.0 over
     20,000 steps, sparse constant 1.0, through `TrainerState.parameters`),
-    2 periods of 3 optimizer steps: each period re-embeds the 2^20 sections
-    and rebuilds the PQ index; the BM25 index is built once before the
+    2 periods of 3 optimizer steps: each period re-embeds the 2^19 sections
+    (2^20 before phase 16 was added) and rebuilds the PQ index; the BM25 index is built once before the
     first period and searched in every one. The text is synthetic, from the
     seed (`TEXT`: a Zipf vocabulary of 100,000 words, sections of 40-80
     words, queries of 4-8 words of their first gold section and 0-2 random
@@ -222,7 +222,7 @@ checked, none caught:
     remat; GradCache at 128 rows; B = 32 as 8 micro-batches of 4;
     Adafactor), `model.name_or_path` a directory the phase writes
     (e5-large-v2's config.json beside 1.34 GB of seeded random f32 weights
-    in `model.safetensors`; `hf_fallback: error`), over 2^15 harvested
+    in `model.safetensors`; `hf_fallback: error`), over 2^14 harvested
     passages (a flat bf16 `kernel: fused` index at D = 1024; 6 steps, a
     period every 3). Checked: the parsed config; the written tensors load
     bit for bit; at step 0 the LoRA encoder's pooled output equals the same
@@ -339,8 +339,8 @@ checked, none caught:
     first batch pools the global batch's sections; the collate's sharded
     search equals a direct call; the first step's loss within 1e-3 relative
     of one process's on the same global batch;
-13c. phase 11a's SPLADE composition under `strategy/dp` on two gloo ranks:
-    as 13b, the first loss with the FLOPS term; the period-0 impact terms
+13c. phase 11a's SPLADE composition under `strategy/dp` on two gloo ranks
+    (over 2^14 passages): as 13b, the first loss with the FLOPS term; the period-0 impact terms
     and learned index re-embedded over the ranks equal one process's;
 13d. with two or more cards, 13a under NCCL at world size = their count;
     with one, a line says it did not run and why;
@@ -400,7 +400,21 @@ checked, none caught:
     loss over the ranks within 1e-3 (relative) of one process's GradCache
     on the global batch, the parameters equal on both ranks after each
     step;
-16. the script's wall time, the `kernels` JSON line, the card line, and
+16. the root `examples/` scripts' ports (`EXAMPLES`):
+16a. `serving_latency_bench` and `serving_codec_bench` (`serving_examples_phase`,
+    each its own main path) at full width and 2^20 rows: every
+    `fused_mips_binned` launch on `wgmma`, launches counted per script; the
+    codec sweep's rows above a recall floor; one coarse call at bins 2048
+    and one at 4096 equal to the plain version on the card, timed beside
+    the library and the bound. Printed: p50/p99 with the batcher on and
+    off, each sweep row's recall@10 and ms a block;
+16b. the other 17 scripts' `main`s at small sizes (`small_examples_phase`):
+    finite numbers and each one's floor; `hub_checkpoint_eval` skips without
+    a cache and runs over a checkpoint written into a local HF cache;
+16c. `Precompiled` tokenization on the host (`precompiled_phase`): a
+    Unigram `tokenizer.json` with and without a `Precompiled` charsmap, its
+    sections/s beside the plain one's on the same harvested passages;
+17. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -461,8 +475,8 @@ TRAIN = dict(
 )
 
 # Phase 6: periodic training with the index codec of configs/msmarco_pq_realm.yaml
-# (`search_defaults.dense`, exactly), at phase 5's widths and corpus cut (2^20
-# sections of 200 random ids; MS MARCO has 8.8M): two periods of `steps`
+# (`search_defaults.dense`, exactly), at phase 5's widths and a corpus of 2^19
+# sections of 200 random ids (MS MARCO has 8.8M): two periods of `steps`
 # optimizer steps, so the index is built twice from two encoders. Then the PQ
 # coarse route on the last period's embeddings: the `pq` preset
 # (configs/presets/search/pq.yaml) and the factory default (coarse_dim 32),
@@ -486,8 +500,10 @@ PERIODIC_SPARSE = dict(max_postings=4096)
 PERIODIC_PARAMETERS = dict(
     dense=dict(mode="linear", start=0.0, value=1.0, period=20000), sparse=dict(mode="constant", value=1.0),
 )
+# Cut for phase 16: 2^20 -> 2^19 sections (each period's re-embed took 62 s
+# of the 129.6 s run at 2^20 on an H100 80GB HBM3 at 700 W).
 PERIODIC = dict(
-    TRAIN, periods=2, steps=3, held_out=256, dense=PERIODIC_DENSE, coarse_batches=(32, 64),
+    TRAIN, n=1 << 19, periods=2, steps=3, held_out=256, dense=PERIODIC_DENSE, coarse_batches=(32, 64),
     coarse={
         "pq-preset": dict(codec="pq", n_subquantizers=32, use_opq=True, coarse_dim=64, n_candidates=4096,
                           kernel="fused", fused_bins=512),
@@ -569,7 +585,7 @@ IVFPQ_SERVE = dict(
     recall_floor=0.85, adc_recall_floor=0.25,
 )
 # Phase 8b: periodic training over the `ivfpq` preset from host slabs at phase
-# 5's model widths: 2^18 sections of 200 random ids (phase 6 holds the 2^20
+# 5's model widths: 2^18 sections of 200 random ids (phase 6 holds the 2^19
 # re-embed), `embed_hbm_budget_bytes` half the [N, 384] f32 embeddings, so the
 # host-slab branch builds every period, and the knobs re-tuned each period
 # against a recall target of 0.9; 2 periods of 3 optimizer steps.
@@ -615,10 +631,12 @@ CLI = dict(
 # r 8 and alpha 16 over an int8-frozen base, remat, GradCache at 128 rows,
 # a batch of 32 as 8 micro-batches of 4, Adafactor. Cuts, each an override
 # in the phase's YAML: `search_defaults.dense` gains `kernel: fused`;
-# `trainer` runs 6 steps, a period every 3; the corpus is 2^15 harvested
-# passages (SciFact's is 5,183, FiQA's 57,638).
+# `trainer` runs 6 steps, a period every 3; the corpus is 2^14 harvested
+# passages (SciFact's is 5,183, FiQA's 57,638; 2^15 before phase 16, cut to
+# make room for it: each period's re-embed took 25.9 s at 2^15 on an H100 80GB HBM3 at
+# 700 W).
 LARGE = dict(
-    n=1 << 15, passage_words=48, stride=48, queries=2048, held_out=0, query_words=(6, 10), vocab=30522,
+    n=1 << 14, passage_words=48, stride=48, queries=2048, held_out=0, query_words=(6, 10), vocab=30522,
     max_steps=6, period=3, bins=512, seed=13, max_length=200, micro_batch=4, accumulate=8, chunk_rows=128,
     lora_rank=8, probe_rows=8, gradcache_probe_chunk=8, model_overrides={},
     hf=dict(architectures=["BertModel"], model_type="bert", vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
@@ -642,7 +660,7 @@ LARGE = dict(
 # JAX's defaults (`vod_tpu/exps/structconf.py`: splade_query_k 64,
 # splade_doc_k 128, splade_max_postings 4096) and splade_flops_weight 1e-4
 # (`tests/test_splade.py`). Cuts, each an override in the phase's YAML: 2^15
-# harvested passages (as phase 10), 6 steps, a period every 3, `sys.mesh_shape`
+# harvested passages, 6 steps, a period every 3, `sys.mesh_shape`
 # [1]. `chunk_rows` None keeps the config's fused step (no GradCache).
 # `impact_tol` bounds one chunk's impacts on the card against the CPU's, both
 # in bf16 activations through 12 layers.
@@ -743,7 +761,10 @@ COMPRESSED = dict(
 PQ_CLI = dict(CLI, held_out=0, max_steps=6, period=3, resume_steps=9, seed=41, ranks=2, batch_size=4,
               target_recall=0.9, loss_rtol=1e-3, timeout=900)
 # 13c: phase 11a's composition (scifact's body, the bert-base SPLADE encoder
-# from a written checkpoint, 2^15 passages, 6 steps, a period every 3) under
+# from a written checkpoint, 6 steps, a period every 3) over 2^14 passages
+# (2^15 before phase 16, cut to make room for it: each rank's re-embeds
+# took 12.2-12.8 s, one process's 10.9 s, at 2^15 on an H100 80GB HBM3 at
+# 700 W) under
 # `strategy/dp` on two gloo ranks: the FLOPS term over the global batch and
 # the learned reindex split over the ranks. One process peaked at 56.0322
 # GiB in 11a; a rank holds half the rows (16 queries and 128 sections), and
@@ -754,7 +775,7 @@ PQ_CLI = dict(CLI, held_out=0, max_steps=6, period=3, resume_steps=9, seed=41, r
 # global 32 queries and 256 sections: the chunks straddle the ranks and the
 # query/section boundary, and the last is padded), held to one process's
 # GradCache on the global batch within `loss_rtol`.
-SPLADE_DP = dict(SPLADE, seed=43, ranks=2, loss_rtol=1e-3, timeout=900, gradcache_rows=100)
+SPLADE_DP = dict(SPLADE, n=1 << 14, seed=43, ranks=2, loss_rtol=1e-3, timeout=900, gradcache_rows=100)
 # Phase 14a: phase 9's inputs and YAML (`configs/msmarco_pq_realm.yaml` at
 # hidden 384, 6 layers, 6 heads, intermediate 1536; flat bf16, `kernel:
 # fused`, 512 bins; `tokenizer.max_length` 96) with `model: {moe_experts: 8,
@@ -816,6 +837,49 @@ ROBERTA_CLI = dict(
 # itself on the CPU, k = 100.
 TOKENIZE = dict(texts=2048, max_length=200, unigram_size=32000, topk_rows=64, topk_width=1 << 20, topk_k=100,
                 topk_block=1024, seed=61)
+
+
+# Phase 16: the root examples/ scripts' ports. 16a: the two serving scripts
+# at full width (D = 768 sources, pca128 int8 coarse, pca256 int8 refine,
+# B = 64, bins 2048 and 4096) and 2^20 rows of depth (the msmarco cell has
+# 8,841,823); `recall_floor` holds the codec sweep's rows (0.9656 each on an
+# H100 80GB HBM3 at 700 W). 16b: the other 17 scripts at small sizes, each
+# checked for finite numbers and its floors (`SMALL_FLOORS`); 16c:
+# Precompiled tokenization on the host beside Unigram without it.
+EXAMPLES = dict(
+    n=1 << 20, train=65_536, latency_requests=128, latency_clients=16, window_ms=25.0, codec_blocks=9, codec_reps=3,
+    recall_floor=0.93, small_n=1 << 18, small_train=65_536, flat_recall_floor=0.97, real_recall_floor=0.97,
+    real_n=8192, hub=dict(hidden_size=64, num_hidden_layers=3, num_attention_heads=2, intermediate_size=128,
+                          max_position_embeddings=512, type_vocab_size=2, vocab_size=30522, model_type="bert"),
+    texts=2048, unigram_size=8000, seed=59,
+)
+# Phase 16b's recall floors per sweep row, each a few points under the recall
+# the row reached at `small_n` rows on an H100 80GB HBM3 at 700 W (in
+# brackets), with room for the card's k-means and training noise.
+SMALL_FLOORS = dict(
+    pq_codec_sweep={"int8-flat": 0.97,  # [0.9955]
+                    "pq64x8-exh": 0.74,  # [0.7926]
+                    "pq64x8-exh+ref16": 0.97, "pq64x8-exh+ref32": 0.97,  # [0.9959, 0.9961]
+                    "pq64-exh+ref32-d128": 0.87, "pq32-exh+ref32-d128": 0.87},  # [0.9113, 0.9113]
+    pq_geometry_sweep={"pq16+pca128:exh+ref": 0.77, "pq32+pca128:exh+ref": 0.90},  # [0.8188, 0.9391]
+    pq_decode_variants_bench={"bf16-oh": 0.57, "i8-oh/bf16-scan": 0.57, "i8-oh/i8-scan": 0.57},  # [0.6125 each]
+    pq4_adc_variants_bench={"prod": 0.97, "blockdiag": 0.97, "direct": 0.97},  # pool recall [1.0 each]
+    pq4_fastscan_bench={"pq64x8-i8": 0.57, "pq128x4-i8": 0.54, "pq128x4-g8": 0.54,  # ADC [0.6125, 0.5813,
+                        "pq128x4-lutmm": 0.54},  # 0.5813, 0.5844]; the pool of 160 holds >= 0.96 [0.9938-1.0]
+    pq_8m8_bench={"pq64:exh-onehot": 0.57, "pq64+pca128:dual0.3": 0.84,  # [0.6125, 0.8875]
+                  "pq64+pca128:dual0.5": 0.77, "pq64+pca128:exh": 0.57,  # [0.8141, 0.6125]
+                  "pq64+pca128:exh+ref8": 0.93, "pq64+pca128:exh+ref": 0.93, "int8-flat": 0.96},  # [0.9656,
+    # 0.9719, 0.9906]
+    ivfpq_8m_bench={16: 0.83, 64: 0.93},  # by nprobe [0.8734, 0.9625]
+    ivfpq_crossover_bench={"serving-direct": 0.93, "ivfpq-soar-np16": 0.83, "ivfpq-soar-np64": 0.92},  # [0.9656,
+    # 0.8719, 0.9609]
+    real_embedding_eval=0.6,  # every other recall key [0.6574-0.9959]
+)
+
+
+def _rows_at_least(rows: list, label: str, key: str, floors: dict) -> bool:
+    """Every row has a floor under its `label` and reaches it in `key`."""
+    return all(r[label] in floors and r[key] >= floors[r[label]] for r in rows)
 
 
 def fail(msg: str) -> None:
@@ -5857,6 +5921,286 @@ def multi_device_phase(dev, card: str, hbm: float, peak_int8: float, t: dict, tc
     return out
 
 
+
+def _finite_numbers(label: str, obj) -> int:
+    """Every number in a script's returned structure is finite; returns their count."""
+    if isinstance(obj, bool) or obj is None or isinstance(obj, str):
+        return 0
+    if isinstance(obj, (int, float)):
+        check(math.isfinite(obj), f"{label}: a non-finite number {obj}")
+        return 1
+    if isinstance(obj, dict):
+        return sum(_finite_numbers(label, v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_finite_numbers(label, v) for v in obj)
+    return 0
+
+
+def serving_examples_phase(dev, card: str, hbm: float, peak_int8: float, t: dict) -> dict:
+    """Phase 16a (module constant EXAMPLES): the ports of
+    `serving_latency_bench` and `serving_codec_bench`, their `main`s in
+    process at full width and 2^20 rows, each its own main path (launch
+    counts zeroed just before it, read just after). Checked: each launched
+    `fused_mips_binned`, every launch on `wgmma`; the codec sweep's rows
+    recall at least `recall_floor`; one recorded coarse call at each of bins
+    2048 and 4096 equal to `fused_mips_binned_reference` on the card in
+    every returned id and int32 score, timed beside the plain version, the
+    library (`topk(_int_mm)`) and the bound. Printed: p50/p99 with the batcher
+    on and off, each sweep row's recall and ms. Returns the numbers."""
+    import torch
+
+    from vod_tpu_torch.examples import serving_codec_bench, serving_latency_bench
+    from vod_tpu_torch.ops.mips import _binned_body, fused_mips_binned, fused_mips_binned_reference
+    from vod_tpu_torch.search import dense as dense_module
+
+    started = time.perf_counter()
+    calls, real_kernel = [], dense_module.fused_mips_binned
+
+    def recording_kernel(vectors, queries, **kw):
+        out = real_kernel(vectors, queries, **kw)
+        if len(calls) < 4096:
+            calls.append((vectors, queries.clone(), kw, out))
+        return out
+
+    runs = {}
+    for name, script, argv in (
+        ("serving_latency_bench", serving_latency_bench,
+         ["--n", str(t["n"]), "--train", str(t["train"]), "--requests", str(t["latency_requests"]),
+          "--clients", str(t["latency_clients"]), "--window_ms", str(t["window_ms"])]),
+        ("serving_codec_bench", serving_codec_bench,
+         ["--n", str(t["n"]), "--train", str(t["train"]), "--blocks", str(t["codec_blocks"]),
+          "--reps", str(t["codec_reps"])]),
+    ):
+        dense_module.fused_mips_binned = recording_kernel
+        first = len(calls)
+        torch.cuda.synchronize()
+        fused_mips_binned.launches = 0
+        fused_mips_binned.body_launches.update(wgmma=0, fma=0)  # main path starts
+        t0 = time.perf_counter()
+        try:
+            result = script.main(argv + ["--device", "cuda"])
+        finally:
+            dense_module.fused_mips_binned = real_kernel
+        torch.cuda.synchronize()
+        launches, bodies = fused_mips_binned.launches, dict(fused_mips_binned.body_launches)  # main path ends
+        wall = time.perf_counter() - t0
+        check(launches > 0 and bodies == {"wgmma": launches, "fma": 0},
+              f"16a {name}: fused_mips_binned launches {launches}, by body {bodies}")
+        check(_finite_numbers(name, result) > 0, f"16a {name}: no numbers returned")
+        runs[name] = dict(result=result, launches=launches, body_launches=bodies, wall_s=wall,
+                          calls=calls[first:])
+        log(f"16a {name} [{card}]: {wall:.1f} s; fused_mips_binned launches {launches}, by body {bodies}")
+
+    lat = runs["serving_latency_bench"]["result"]
+    for label in ("uncoalesced", "coalesced"):
+        r = lat[label]
+        log(f"16a latency {label} (window {0.0 if label == 'uncoalesced' else t['window_ms']} ms) [{card}]: sequential "
+            f"p50 {r['seq_p50_ms']:.4f} ms; {lat['clients']} clients p50 {r['conc_p50_ms']:.4f} ms, p99 "
+            f"{r['conc_p99_ms']:.4f} ms; dispatches {r['dispatches']} for requests {r['requests']}")
+    log(f"16a latency device ms per dispatch [{card}]: {json.dumps(lat['device_ms'])}")
+    codec = runs["serving_codec_bench"]["result"]
+    for row in codec["results"]:
+        tag = row["kernel"] + (f" bins={row['fused_bins']} tile={row['fused_tile'] or 'auto'}"
+                               if row["kernel"] == "fused" else "")
+        check(row["recall"] >= t["recall_floor"], f"16a codec {tag} kf={row['k_factor']}: recall {row['recall']}")
+        log(f"16a codec B={codec['B']} N={codec['n']} kf={row['k_factor']} [{tag}] [{card}]: recall@10 "
+            f"{row['recall']:.4f}, {row['ms_block']:.4f} ms a block, {row['qps']:.1f} QPS")
+
+    # one coarse kernel call at each bin count, held to the plain version on the card
+    shapes = []
+    for bins in (2048, 4096):
+        vv, qq, kw, (ks, ki) = next(c for c in runs["serving_codec_bench"]["calls"]
+                                    if c[2]["bins"] == bins and c[1].shape[0] == codec["B"])
+        bq, dc = (int(x) for x in qq.shape)
+        body = _binned_body(vv.dtype, dc, kw["bins"], (vv.data_ptr(), qq.data_ptr()))
+        check(body == "wgmma", f"16a coarse call at bins {bins}: body {body}")
+        rs, ri = fused_mips_binned_reference(vv, qq, **kw)
+        check(torch.equal(ks, rs) and torch.equal(ki, ri), f"16a coarse int8 B={bq} bins={bins}: kernel != plain")
+        ms = time_ms(lambda: fused_mips_binned(vv, qq, **kw), 20)
+        plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qq, **kw), 2)
+        library_ms = time_ms(lambda: torch.topk(torch._int_mm(qq, vv.T), kw["k"], dim=-1), 20)
+        nbytes = (int(vv.shape[0]) + bq) * dc + bq * kw["k"] * 8
+        ops = 2 * bq * int(vv.shape[0]) * dc
+        bound = max(nbytes / hbm, ops / peak_int8) * 1e3
+        shapes.append(dict(dtype="int8", body="wgmma", B=bq, N=int(vv.shape[0]), D=dc, bins=kw["bins"], k=kw["k"],
+                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                           bound_by="bytes" if nbytes / hbm >= ops / peak_int8 else "operations"))
+        log(f"check 16a coarse int8 B={bq} N={vv.shape[0]} D={dc} bins={bins} k={kw['k']} (wgmma): ids and scores "
+            f"equal the plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({shapes[-1]['bound_by']}) [{card}]")
+    for r in runs.values():
+        r.pop("calls")
+    del calls
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - started
+    log(f"phase 16a wall time: {wall:.1f} s")
+    return dict(runs=runs, shapes=shapes, wall_s=wall)
+
+
+def small_examples_phase(dev, card: str, t: dict) -> dict:
+    """Phase 16b (module constant EXAMPLES): the other 17 scripts' `main`s in
+    process on the card at small sizes. Checked for each: it returns
+    numbers, all finite; the floors where a script has one (search_flat's
+    recall against numpy's exact ranking, real_embedding_eval's flat and
+    int8 recall and its other recalls, hub_checkpoint_eval's skip without a
+    cache and its run over a checkpoint the phase writes into a local HF
+    cache layout; each sweep row's recall at its `SMALL_FLOORS` entry).
+    Returns each script's wall time and result."""
+    import importlib
+    import os
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.ops.mips import fused_mips_binned
+
+    started = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    n, tr = str(t["small_n"]), str(t["small_train"])
+    emb = root / "emb.npy"
+    hf_home = root / "hf"
+    snapshot = hf_home / "hub" / "models--vod--tiny-bert" / "snapshots" / "0"
+    write_hf_checkpoint(snapshot, dict(hf=t["hub"], seed=t["seed"]), dev)
+    (hf_home / "hub" / "models--vod--tiny-bert" / "refs").mkdir(parents=True)
+    (hf_home / "hub" / "models--vod--tiny-bert" / "refs" / "main").write_text("0")
+    (snapshot / "vocab.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                                                  + [f"w{i}" for i in range(t["hub"]["vocab_size"] - 5)]))
+    beir = str(ROOT / "tests" / "fixtures" / "beir_tiny")
+    sweep = ["--n", n, "--train", tr, "--block", "1024", "--blocks", "2", "--reps", "1"]
+    f = SMALL_FLOORS
+    scripts = [
+        ("search_flat", [], lambda r: r["recall"] >= t["flat_recall_floor"]),
+        ("search_hybrid", [], lambda r: [row[0] for row in r["merged_labels"]] == [1, 1]),
+        ("search_sparse_bench", [], lambda r: r["native"]),
+        ("serving_batch_bench", [], lambda r: 0 < r["dispatches"] <= r["requests"]),
+        ("realm_dataloader", [], lambda r: r["shapes"]["section__score"] == [2, 3]),
+        ("train_periodic", [], lambda r: r["steps"] == 30),
+        ("gradcache_bench", ["--b", "64", "--n_sections", "4", "--chunk", "64", "--ls", "64", "--n_corpus", "4096",
+                             "--also_monolithic"], lambda r: all("loss1" in c for c in r["configs"])),
+        ("real_embedding_eval", ["--n", str(t["real_n"]), "--steps", "20", "--batch", "128", "--q", "512",
+                                 "--n_candidates", "1024", "--out", str(emb)],
+         lambda r: min(r["bf16_recall10"], r["int8_recall10"]) >= t["real_recall_floor"]
+         and min(v for k, v in r.items() if k.endswith("recall10")) >= f["real_embedding_eval"]),
+        ("pq_codec_sweep", ["--emb", str(emb), "--q", "512", "--configs", "int8-flat,pq64x8-exh,d128"],
+         lambda r: _rows_at_least(r, "name", "recall10", f["pq_codec_sweep"])),
+        ("hub_checkpoint_eval", ["--model", "vod/tiny-bert", "--beir", beir, "--max_length", "64"],
+         lambda r: "skipped" not in r and 0.0 <= r["recall_10"] <= 1.0),
+        ("pq_geometry_sweep", sweep + ["--m_list", "16,32", "--k_factors", "16", "--kmeans_iters", "4"],
+         lambda r: _rows_at_least(r, "codec", "recall10", f["pq_geometry_sweep"])),
+        ("pq_decode_variants_bench", sweep + ["--chunks", "16384", "--kmeans_iters", "4"],
+         lambda r: _rows_at_least(r, "variant", "recall10", f["pq_decode_variants_bench"])),
+        ("pq4_adc_variants_bench", sweep + ["--chunk", "65536", "--big", "2048"],
+         lambda r: _rows_at_least([x for x in r if "pool_recall10" in x], "variant", "pool_recall10",
+                                  f["pq4_adc_variants_bench"])),
+        ("pq4_fastscan_bench", sweep + ["--chunks", "32768", "--kmeans_iters", "4"],
+         lambda r: _rows_at_least(r, "variant", "adc_recall10", f["pq4_fastscan_bench"])
+         and min(x["pool160_containment"] for x in r) >= 0.96),
+        ("pq_8m8_bench", sweep + ["--kmeans_iters", "4"],
+         lambda r: _rows_at_least(r, "codec", "recall10", f["pq_8m8_bench"])),
+        ("ivfpq_8m_bench", sweep + ["--c", "512", "--nprobes", "16,64", "--kmeans_iters", "4", "--spill"],
+         lambda r: _rows_at_least(r, "nprobe", "recall10", f["ivfpq_8m_bench"])),
+        ("ivfpq_crossover_bench", ["--n", n, "--train", tr, "--c", "512", "--nprobes", "16,64", "--blocks", "3",
+                                   "--reps", "1", "--http_requests", "8"],
+         lambda r: _rows_at_least(r["points"], "engine", "recall10", f["ivfpq_crossover_bench"])),
+    ]
+    out = {}
+    hf_before = os.environ.get("HF_HOME")
+    for name, argv, floor in scripts:
+        module = importlib.import_module(f"vod_tpu_torch.examples.{name}")
+        if name == "hub_checkpoint_eval":  # the skip path first: an empty cache
+            os.environ["HF_HOME"] = str(root / "empty-hf")
+            skip = module.main(argv + ["--device", "cuda"])
+            check(set(skip) == {"skipped"}, f"16b hub_checkpoint_eval without a cache: {skip}")
+            os.environ["HF_HOME"] = str(hf_home)
+        fused_mips_binned.launches = 0
+        t0 = time.perf_counter()
+        try:
+            result = module.main(argv + ["--device", "cuda"])
+        finally:
+            if hf_before is None:
+                os.environ.pop("HF_HOME", None)
+            else:
+                os.environ["HF_HOME"] = hf_before
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count = _finite_numbers(name, result)
+        check(count > 0, f"16b {name}: no numbers returned")
+        check(bool(floor(result)), f"16b {name}: its floor failed: {json.dumps(result)[:600]}")
+        out[name] = dict(wall_s=wall, result=result, launches=fused_mips_binned.launches)
+        log(f"16b {name} [{card}]: {wall:.1f} s, {count} finite numbers, floor held; fused_mips_binned launches "
+            f"{fused_mips_binned.launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    wall = time.perf_counter() - started
+    log(f"phase 16b wall time: {wall:.1f} s")
+    return dict(scripts=out, wall_s=wall)
+
+
+
+def precompiled_phase(card: str, t: dict) -> dict:
+    """Phase 16c (module constant EXAMPLES): `Precompiled` tokenization on the
+    host. A Unigram `tokenizer.json` (`write_unigram`, over harvested
+    passages) and a copy whose normalizer starts with a `Precompiled`
+    charsmap of NFKC over the Basic Multilingual Plane
+    (`data/precompiled.py:build_charsmap`), each read fresh by the port
+    and timed cold over the same passages. Checked: the charsmap normalizes
+    a known string, and both tokenizers give the same shapes. Printed:
+    sections/s of each. Returns the numbers."""
+    import base64
+    import tempfile
+    import unicodedata
+
+    from vod_tpu_torch.data.loaders.local_text import harvest_text_passages
+    from vod_tpu_torch.data.precompiled import CharsMap, build_charsmap
+    from vod_tpu_torch.data.tokenizer import load_tokenizer
+
+    started = time.perf_counter()
+    texts = [p["content"] for p in harvest_text_passages(t["texts"])]
+    rules = {}
+    for cp in range(0xA0, 0x10000):
+        c = chr(cp)
+        if unicodedata.category(c) in ("Cs", "Co", "Cn"):
+            continue
+        n = unicodedata.normalize("NFKC", c)
+        if n != c:
+            rules[c] = n
+    t0 = time.perf_counter()
+    blob = build_charsmap(rules)
+    build_s = time.perf_counter() - t0
+    check(CharsMap(blob).normalize_str("ﬁ① Ａ\u00a0x") == "fi1 A x", "16c: the charsmap does not normalize")
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    uni = write_unigram(root / "unigram", texts, t["unigram_size"])
+    spec = json.loads((root / "unigram" / "tokenizer.json").read_text())
+    spec["normalizer"]["normalizers"][0] = {"type": "Precompiled",
+                                            "precompiled_charsmap": base64.b64encode(blob).decode()}
+    (root / "precompiled").mkdir()
+    (root / "precompiled" / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False))
+    (root / "precompiled" / "tokenizer_config.json").write_text(
+        (root / "unigram" / "tokenizer_config.json").read_text())
+    rates, shapes = {}, {}
+    for name in ("unigram", "precompiled"):
+        tok = load_tokenizer(root / name)
+        t0 = time.perf_counter()
+        enc = tok(texts, max_length=200, truncation=True, padding="max_length", return_tensors="np")
+        seconds = time.perf_counter() - t0
+        shapes[name] = enc["input_ids"].shape
+        rates[name] = dict(sections_per_s=len(texts) / seconds,
+                           tokens_per_section=int(enc["attention_mask"].sum()) / len(texts))
+    check(shapes["unigram"] == shapes["precompiled"] == (len(texts), 200), f"16c: shapes {shapes}")
+    tmp.cleanup()
+    wall = time.perf_counter() - started
+    log(f"16c Precompiled [{card} host]: a charsmap of {len(rules)} NFKC rules ({len(blob)} bytes, built in "
+        f"{build_s:.2f} s); over {len(texts)} harvested passages, cold, padded to 200: Unigram "
+        f"{rates['unigram']['sections_per_s']:.1f} sections/s ({rates['unigram']['tokens_per_section']:.1f} tokens "
+        f"each), with Precompiled {rates['precompiled']['sections_per_s']:.1f} sections/s "
+        f"({rates['precompiled']['tokens_per_section']:.1f} tokens each); Unigram of {uni['pieces']} pieces")
+    log(f"phase 16c wall time: {wall:.1f} s")
+    return dict(rules=len(rules), blob_bytes=len(blob), tokenizers=rates, wall_s=wall)
+
+
 def main() -> None:
     started = time.perf_counter()
     import numpy as np
@@ -6387,7 +6731,25 @@ def main() -> None:
                    wall_s=time.perf_counter() - t15)
     log(f"phase 15 wall time: {phase15['wall_s']:.1f} s")
 
-    # 16. result lines
+    # 16. the root examples/ scripts' ports: the two serving scripts on the
+    # binned kernel at full width (16a), the other 17 at small sizes (16b),
+    # Precompiled tokenization on the host (16c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    serving16 = serving_examples_phase(dev, card, hbm, peak_int8, EXAMPLES)
+    small16 = small_examples_phase(dev, card, EXAMPLES)
+    precompiled16 = precompiled_phase(card, EXAMPLES)
+    phase16 = dict(
+        serving={name: {k: r[k] for k in ("result", "launches", "body_launches", "wall_s")}
+                 for name, r in serving16["runs"].items()},
+        coarse_shapes=serving16["shapes"],
+        scripts={name: dict(wall_s=r["wall_s"], launches=r["launches"]) for name, r in small16["scripts"].items()},
+        precompiled=precompiled16, wall_s=time.perf_counter() - t16,
+    )
+    log(f"phase 16 wall time: {phase16['wall_s']:.1f} s")
+
+    # 17. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -6426,6 +6788,9 @@ def main() -> None:
         profiled_cli_launches=profiled["launches"], profiled_cli_body_launches=profiled["body_launches"],
         roberta_cli_launches=roberta["launches"], roberta_cli_body_launches=roberta["body_launches"],
         roberta_cli_call=roberta["call"], phase15=phase15,
+        examples_launches={name: r["launches"] for name, r in serving16["runs"].items()},
+        examples_body_launches={name: r["body_launches"] for name, r in serving16["runs"].items()},
+        examples_coarse_shapes=serving16["shapes"], phase16=phase16,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

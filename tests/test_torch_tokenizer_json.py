@@ -194,14 +194,29 @@ def test_directories_dispatch_by_what_they_hold(dirs, tmp_path: Path) -> None:
     ("normalizer", {"type": "Precompiled", "precompiled_charsmap": "AAAA"}),
     ("pre_tokenizer", {"type": "Digits", "individual_digits": True}),
     ("model", {"type": "WordLevel", "vocab": {"a": 0}, "unk_token": "a"}),
+    ("normalizer", {"type": "NotANormalizer"}),
 ])
 def test_unread_components_raise_naming_the_item(part: str, spec: dict, dirs, tmp_path: Path) -> None:
-    """`Precompiled` (XLM-R's and CamemBERT's sentencepiece charsmap) and the
-    components the port does not read raise, naming ROADMAP §A item 8."""
+    """A `Precompiled` charsmap shorter than its 4-byte header ("AAAA" is 3
+    bytes) raises `ValueError`; the `Digits` pre-tokenizer and the
+    `WordLevel` model give the ids and offsets of `tokenizers` on the same
+    file; a component the port does not know raises `NotImplementedError`
+    naming ROADMAP §A item 8."""
     raw = json.loads((dirs["unigram"] / "tokenizer.json").read_text())
     raw[part] = spec
-    with pytest.raises(NotImplementedError, match="§A item 8"):
-        JsonTokenizer(raw)
+    if spec["type"] == "Precompiled":
+        with pytest.raises(ValueError, match="shorter than its 4-byte header"):
+            JsonTokenizer(raw)
+    elif spec["type"] in ("Digits", "WordLevel"):
+        from tokenizers import Tokenizer
+
+        lib, port = Tokenizer.from_str(json.dumps(raw)), JsonTokenizer(raw)
+        for text in _fixture_texts() + EDGE + ["a1b22c333 4.5 ①②Ⅻ", "x9", "12 <s>3"]:
+            enc, got = lib.encode(text), port(text, return_offsets_mapping=True)
+            assert (got["input_ids"], got["offset_mapping"]) == (enc.ids, [tuple(o) for o in enc.offsets]), text
+    else:
+        with pytest.raises(NotImplementedError, match="§A item 8"):
+            JsonTokenizer(raw)
 
 
 def test_cli_steps_with_a_roberta_encoder_and_the_bpe_directory(dirs, tmp_path: Path) -> None:

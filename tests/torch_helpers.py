@@ -801,3 +801,4 @@ def job_gradcache_dp(rank: int, world: int, cases: list) -> list:
         dist.all_reduce(loss)
         out.append(dict(loss=float(loss) / world, grads={n: np_of(p.grad) for n, p in model.named_parameters()}))
     return out
+

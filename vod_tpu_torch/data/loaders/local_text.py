@@ -87,3 +87,22 @@ def build_word_vocab(
     for w, _ in counts.most_common(vocab_size - 2):
         vocab[w] = len(vocab)
     return vocab
+
+
+def encode_passages(
+    passages: typ.Sequence[typ.Mapping],
+    vocab: typ.Mapping[str, int],
+    max_length: int = 64,
+):
+    """Word-level encode into (ids [n, L] int32, mask [n, L] int32) arrays."""
+    import numpy as np
+
+    n = len(passages)
+    ids = np.zeros((n, max_length), dtype=np.int32)
+    mask = np.zeros((n, max_length), dtype=np.int32)
+    unk = vocab["[UNK]"]
+    for i, row in enumerate(passages):
+        toks = [vocab.get(w.lower(), unk) for w in _WORD_RE.findall(row["content"])][:max_length]
+        ids[i, : len(toks)] = toks
+        mask[i, : len(toks)] = 1
+    return ids, mask

@@ -9,13 +9,15 @@ The pipeline is the `tokenizers` library's, step for step:
     their `lstrip` / `rstrip` / `single_word` flags), those marked
     `normalized` after normalization;
  2. the normalizer (`Sequence`, `NFC`/`NFD`/`NFKC`/`NFKD`, `Replace`,
-    `Strip`, `StripAccents`, `Lowercase`, `Prepend`) rewrites each piece,
-    every character keeping the original offsets it came from;
+    `Strip`, `StripAccents`, `Lowercase`, `Prepend`, `Precompiled`)
+    rewrites each piece, every character keeping the original offsets it
+    came from;
  3. the pre-tokenizer (`ByteLevel` with the GPT-2 regular expression and
     the byte-to-unicode map, `Metaspace` with its `prepend_scheme`,
-    `WhitespaceSplit`, `Sequence`) cuts the pieces into words;
- 4. the model: BPE merges by rank, or Unigram's Viterbi over the scored
-    pieces (unknown characters as `unk_id`, consecutive ones fused);
+    `WhitespaceSplit`, `Digits`, `Sequence`) cuts the pieces into words;
+ 4. the model: BPE merges by rank, Unigram's Viterbi over the scored
+    pieces (unknown characters as `unk_id`, consecutive ones fused, or
+    their bytes with `byte_fallback`), or `WordLevel`'s lookup;
  5. the post-processor (`RobertaProcessing` with `trim_offsets`,
     `TemplateProcessing`, `ByteLevel`) adds the special tokens; truncation
     (`longest_first` for pairs) and padding are `transformers`' calling
@@ -24,15 +26,19 @@ Offsets are character offsets into the input text, special tokens (0, 0).
 
 `tokenizer_config.json` names the class (`tokenizer_class`), whose special
 tokens `transformers` sets: the RoBERTa family's `<mask>` strips the space
-before it (`lstrip`). A `Precompiled` normalizer (sentencepiece's charsmap,
-as XLM-R's and CamemBERT's files carry) is not read: it raises
-`NotImplementedError` (ROADMAP §A item 8), as does any other component the
-pipeline does not know.
+before it (`lstrip`). sentencepiece's `Precompiled` charsmap (the
+normalizer of XLM-R's, CamemBERT's and T5's files) is read by
+`data/precompiled.py`, per extended grapheme cluster
+(`data/graphemes.py`); Unigram's `byte_fallback` gives unknown characters
+their `<0xXX>` byte pieces; the `Digits` pre-tokenizer and the `WordLevel`
+model are read too. Any other component raises `NotImplementedError`
+naming ROADMAP §A item 8, which lists what is read.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import pathlib
 import re
@@ -41,12 +47,13 @@ import unicodedata
 
 import numpy as np
 
+from .precompiled import CharsMap, apply_changes
 from .tokenizer import _WHITESPACE as _WS_SET  # Rust's `char::is_whitespace`: what `tokenizers` strips
 from .tokenizer import _longest_first, batch_output
 
 Piece = tuple[str, list[tuple[int, int]]]  # normalized text, each character's original (start, end)
 
-_NOT_READ = "is not read by vod_tpu_torch's tokenizers yet (ROADMAP §A item 8)"
+_NOT_READ = "is not read by vod_tpu_torch's tokenizers (ROADMAP §A item 8 lists the components that are)"
 _WHITESPACE = "".join(sorted(_WS_SET))
 _SPECIAL_ATTRS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token", "cls_token", "mask_token")
 _ROBERTA_SPECIALS = dict(bos_token="<s>", eos_token="</s>", unk_token="<unk>", sep_token="</s>", pad_token="<pad>",
@@ -148,14 +155,7 @@ def _unicode_form(form: str) -> typ.Callable[[Piece], Piece]:
                 out.append(item)
         if compose:
             out = _compose(out)
-        aligns, pos = [], 0
-        for _, change in out:
-            if change > 0:
-                aligns.append(align[pos - 1] if pos else (0, 0))
-            else:
-                aligns.append(align[pos])
-                pos += 1 - change
-        return "".join(c for c, _ in out), aligns
+        return apply_changes(align, out)
 
     return run
 
@@ -270,6 +270,8 @@ def _normalizer(spec: typ.Optional[dict]) -> typ.Callable[[Piece], Piece]:
         return _strip(spec.get("strip_left", True), spec.get("strip_right", True))
     if kind == "StripAccents":
         return _filter(lambda c: not unicodedata.category(c).startswith("M"))
+    if kind == "Precompiled":
+        return CharsMap.from_base64(spec["precompiled_charsmap"] or "").normalize
     raise NotImplementedError(f"the {kind!r} normalizer {_NOT_READ}")
 
 
@@ -325,6 +327,23 @@ def _metaspace(replacement: str, prepend_scheme: str, split: bool) -> typ.Callab
     return run
 
 
+def _digits(individual: bool) -> typ.Callable[[Piece], list[Piece]]:
+    """Numeric characters (Rust's `char::is_numeric`: Nd, Nl, No) split off,
+    each alone (`individual_digits`) or in runs, the rest kept between."""
+    def numeric(c: str) -> bool:
+        return unicodedata.category(c) in ("Nd", "Nl", "No")
+
+    def run(piece: Piece) -> list[Piece]:
+        spans, pos = [], 0
+        for is_num, group in itertools.groupby(piece[0], numeric):
+            n = len(list(group))
+            spans += [(pos + i, pos + i + 1) for i in range(n)] if is_num and individual else [(pos, pos + n)]
+            pos += n
+        return _split_on(piece, spans)
+
+    return run
+
+
 def _pre_tokenizer(spec: typ.Optional[dict]) -> typ.Callable[[Piece], list[Piece]]:
     if spec is None:
         return lambda p: [p] if p[0] else []
@@ -346,6 +365,8 @@ def _pre_tokenizer(spec: typ.Optional[dict]) -> typ.Callable[[Piece], list[Piece
         if scheme is None:  # files older than `prepend_scheme`
             scheme = "always" if spec.get("add_prefix_space", True) else "never"
         return _metaspace(spec.get("replacement", "▁"), scheme, spec.get("split", True))
+    if kind == "Digits":
+        return _digits(spec.get("individual_digits", False))
     if kind == "WhitespaceSplit":
         return lambda p: _split_behaviour(p, [m.span() for m in re.finditer(f"[{re.escape(_WHITESPACE)}]+", p[0])],
                                           "Removed")
@@ -422,8 +443,7 @@ class _Unigram:
     _UNK_PENALTY = 10.0
 
     def __init__(self, spec: dict):
-        if spec.get("byte_fallback"):
-            raise NotImplementedError(f"a Unigram model with byte_fallback {_NOT_READ}")
+        self.byte_fallback = bool(spec.get("byte_fallback"))
         pieces = [(p, float(s)) for p, s in spec["vocab"]]
         self.vocab = {p: i for i, (p, _) in reversed(list(enumerate(pieces)))}
         self.scores = [s for _, s in pieces]
@@ -469,10 +489,35 @@ class _Unigram:
                 out.append((ids[e], s, e))
             e = s
         out.reverse()
-        # a fused run of unknown characters that spells a piece is that piece
-        out = [(vocab.get(word[s:e], tid) if tid == self.unk_id else tid, s, e) for tid, s, e in out]
-        self.cache[word] = out
-        return out
+        # a fused run of unknown characters that spells a piece is that piece;
+        # with byte_fallback one that does not is its UTF-8 bytes' `<0xXX>`
+        # pieces (each spanning the run), where all of them exist
+        tokens = []
+        for tid, s, e in out:
+            if tid == self.unk_id:
+                tid = vocab.get(word[s:e], tid)
+                if tid == self.unk_id and self.byte_fallback:
+                    byte_ids = [vocab.get(f"<0x{b:02X}>") for b in word[s:e].encode("utf-8")]
+                    if None not in byte_ids:
+                        tokens += [(b, s, e) for b in byte_ids]
+                        continue
+            tokens.append((tid, s, e))
+        self.cache[word] = tokens
+        return tokens
+
+
+class _WordLevel:
+    """A word is its vocabulary id, else the `unk_token`'s."""
+
+    def __init__(self, spec: dict):
+        self.vocab = {t: int(i) for t, i in spec["vocab"].items()}
+        self.unk_id = self.vocab.get(spec.get("unk_token", "<unk>"))
+
+    def __call__(self, word: str) -> list[tuple[int, int, int]]:
+        tid = self.vocab.get(word, self.unk_id)
+        if tid is None:
+            raise ValueError(f"the WordLevel model has no unk_token for {word!r}")
+        return [(tid, 0, len(word))]
 
 
 # -- post-processors -------------------------------------------------------------------------
@@ -583,15 +628,28 @@ class JsonTokenizer:
         elif kind == "Unigram":
             self.model = _Unigram(model)
             vocab = dict(self.model.vocab)
+        elif kind == "WordLevel":
+            self.model = _WordLevel(model)
+            vocab = dict(self.model.vocab)
         else:
             raise NotImplementedError(f"a tokenizer.json with a {kind!r} model {_NOT_READ}")
         self.model_type = kind
         self.tokenizer_class = config.get("tokenizer_class")
         self._model_vocab_size = len(vocab)
-        added = {int(t["id"]): _AddedToken(int(t["id"]), t["content"], bool(t.get("single_word", False)),
-                                           bool(t.get("lstrip", False)), bool(t.get("rstrip", False)),
-                                           bool(t.get("normalized", False)), bool(t.get("special", False)))
-                 for t in spec.get("added_tokens") or []}
+        # `tokenizers` gives an added token the model's id of its content, else
+        # the next id past the model's vocabulary (special tokens first), what
+        # the file says notwithstanding
+        added, top = {}, len(vocab)
+        spec_added = spec.get("added_tokens") or []
+        for t in [t for t in spec_added if t.get("special")] + [t for t in spec_added if not t.get("special")]:
+            if any(a.content == t["content"] for a in added.values()):
+                continue
+            tid = vocab.get(t["content"])
+            if tid is None:
+                tid, top = top, top + 1
+            added[tid] = _AddedToken(tid, t["content"], bool(t.get("single_word", False)),
+                                     bool(t.get("lstrip", False)), bool(t.get("rstrip", False)),
+                                     bool(t.get("normalized", False)), bool(t.get("special", False)))
         for tid, t in (config.get("added_tokens_decoder") or {}).items():
             added[int(tid)] = _AddedToken(int(tid), t["content"], bool(t.get("single_word", False)),
                                           bool(t.get("lstrip", False)), bool(t.get("rstrip", False)),

@@ -193,16 +193,13 @@ def build_model(
 
 def _causal_lm_config(cfg: ModelConfig) -> CausalLMConfig:
     """Reader config: from the pretrained checkpoint's config when
-    `lm_name_or_path` is set (the hub LM's dims win; reading it needs
-    `transformers`), else from the ModelConfig knobs."""
+    `lm_name_or_path` is set (the local or cached checkpoint's `config.json`:
+    its dims win), else from the ModelConfig knobs."""
     if cfg.lm_name_or_path is not None:
         try:
-            import transformers
+            from vod_tpu_torch.models.lm import gpt2_config_from_hf, read_hf_config
 
-            from vod_tpu_torch.models.lm import gpt2_config_from_hf
-
-            hf_cfg = transformers.AutoConfig.from_pretrained(cfg.lm_name_or_path)
-            return gpt2_config_from_hf(hf_cfg)
+            return gpt2_config_from_hf(read_hf_config(cfg.lm_name_or_path))
         except Exception as exc:  # noqa: BLE001 - hub/cache errors surface here
             if cfg.hf_fallback != "random":
                 raise

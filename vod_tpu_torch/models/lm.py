@@ -30,7 +30,9 @@ never ends early. The caches are written in place.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import types
 import typing as typ
 
 import torch
@@ -311,14 +313,23 @@ def port_gpt2_weights(state_dict: typ.Mapping[str, typ.Any], cfg: CausalLMConfig
     return out
 
 
-def load_hf_causal_lm(name_or_path: str, dtype: torch.dtype = torch.float32) -> tuple[CausalLMConfig, dict]:
-    """Load a local GPT-2-family checkpoint with `transformers` and port it:
-    returns (config, `CausalLM.state_dict`). Needs `transformers` (ImportError
-    where it is missing) and the checkpoint on disk or in the HF cache."""
-    import transformers
+def read_hf_config(name_or_path: str) -> types.SimpleNamespace:
+    """A local or cached checkpoint's `config.json` as attributes (GPT-2's
+    optional `n_inner` and `layer_norm_epsilon` default as `GPT2Config`'s)."""
+    from vod_tpu_torch.models.hf_import import resolve_checkpoint
 
-    hf = transformers.AutoModelForCausalLM.from_pretrained(name_or_path)
-    if getattr(hf.config, "model_type", None) != "gpt2":
-        raise ValueError(f"decoder-only port supports the gpt2 layout; got {hf.config.model_type!r}")
-    cfg = gpt2_config_from_hf(hf.config, dtype=dtype)
-    return cfg, port_gpt2_weights(hf.state_dict(), cfg)
+    raw = json.loads((resolve_checkpoint(name_or_path) / "config.json").read_text())
+    return types.SimpleNamespace(**{"n_inner": None, "layer_norm_epsilon": 1e-5, **raw})
+
+
+def load_hf_causal_lm(name_or_path: str, dtype: torch.dtype = torch.float32) -> tuple[CausalLMConfig, dict]:
+    """Read a local or cached GPT-2-family checkpoint (`config.json` with
+    `model.safetensors` or `pytorch_model.bin`, `models/hf_import.py`) and
+    port it: returns (config, `CausalLM.state_dict`)."""
+    from vod_tpu_torch.models.hf_import import load_hf_state_dict, resolve_checkpoint
+
+    hf_config = read_hf_config(name_or_path)
+    if getattr(hf_config, "model_type", None) != "gpt2":
+        raise ValueError(f"decoder-only port supports the gpt2 layout; got {getattr(hf_config, 'model_type', None)!r}")
+    cfg = gpt2_config_from_hf(hf_config, dtype=dtype)
+    return cfg, port_gpt2_weights(load_hf_state_dict(resolve_checkpoint(name_or_path)), cfg)

@@ -586,20 +586,31 @@ def _int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(dt) @ b.to(dt).T).to(torch.float32)
 
 
+def _int8_codebooks(codebooks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-subspace symmetric int8 codebooks and the scale vector that expands
+    each subspace's scale over its dims: (cb_i8 [M, n_codes, dsub], [D])."""
+    cb_absmax = torch.amax(torch.abs(codebooks), dim=(1, 2), keepdim=True)
+    cb_scale = torch.clamp(cb_absmax, min=1e-8) / 127.0
+    cb_i8 = torch.clamp(torch.round(codebooks / cb_scale), -127, 127).to(torch.int8)
+    return cb_i8, cb_scale[:, 0, 0].repeat_interleave(codebooks.shape[-1])
+
+
+def _int8_queries(q_eff: torch.Tensor, scale_vec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-quantized int8 queries with the codebook scale folded in:
+    (q_i8 [B, D], q_row_scale [B, 1])."""
+    q_f = q_eff.to(torch.float32) * scale_vec
+    q_row = torch.clamp(torch.amax(torch.abs(q_f), dim=-1, keepdim=True), min=1e-8) / 127.0
+    return torch.clamp(torch.round(q_f / q_row), -127, 127).to(torch.int8), q_row
+
+
 def _int8_adc_scan_inputs(
     codebooks: torch.Tensor, q_eff: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The int8 exhaustive-ADC scan's inputs: per-subspace-quantized codebooks
     and row-quantized queries with the codebook scale folded in. Returns
     (cb_i8 [M, n_codes, dsub], q_i8 [B, D], q_row_scale [B, 1])."""
-    cb_absmax = torch.amax(torch.abs(codebooks), dim=(1, 2), keepdim=True)
-    cb_scale = torch.clamp(cb_absmax, min=1e-8) / 127.0
-    cb_i8 = torch.clamp(torch.round(codebooks / cb_scale), -127, 127).to(torch.int8)
-    scale_vec = cb_scale[:, 0, 0].repeat_interleave(codebooks.shape[-1])
-    q_f = q_eff.to(torch.float32) * scale_vec
-    q_row = torch.clamp(torch.amax(torch.abs(q_f), dim=-1, keepdim=True), min=1e-8) / 127.0
-    q_i8 = torch.clamp(torch.round(q_f / q_row), -127, 127).to(torch.int8)
-    return cb_i8, q_i8, q_row
+    cb_i8, scale_vec = _int8_codebooks(codebooks)
+    return (cb_i8, *_int8_queries(q_eff, scale_vec))
 
 
 def _int8_onehot_adc_chunk(
