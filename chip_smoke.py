@@ -222,8 +222,8 @@ checked, none caught:
     remat; GradCache at 128 rows; B = 32 as 8 micro-batches of 4;
     Adafactor), `model.name_or_path` a directory the phase writes
     (e5-large-v2's config.json beside 1.34 GB of seeded random f32 weights
-    in `model.safetensors`; `hf_fallback: error`), over 2^14 harvested
-    passages (a flat bf16 `kernel: fused` index at D = 1024; 6 steps, a
+    in `model.safetensors`; `hf_fallback: error`), over 2^13 harvested
+    passages (2^14 before phase 17; a flat bf16 `kernel: fused` index at D = 1024; 6 steps, a
     period every 3). Checked: the parsed config; the written tensors load
     bit for bit; at step 0 the LoRA encoder's pooled output equals the same
     checkpoint's without adapters; finite losses; 8 `fused_mips_binned`
@@ -317,11 +317,12 @@ checked, none caught:
     data-parallel group (`COMPRESSED`, `PQ_CLI`, `SPLADE_DP`), each path
     checked to launch neither kernel (JAX launches none there):
 13a. `compressed_search_rank` on each rank, at world size 1 under NCCL in
-    this process, then on two gloo ranks of the card: phase 8a's 2^20 x 768
-    corpus through the factory with `sharded: true` (msmarco_pq_realm.yaml's
-    4-bit PQ with an int8 refine, the `ivf` preset, the `ivfpq` preset with
-    its coarse k-means over the ranks) and MaxSim at `maxsim_bench`'s
-    defaults, 64 held-out queries, k = 10. Checked: an `all_reduce` (MAX) of
+    this process, then on two gloo ranks of the card: phase 8a's corpus
+    cut to 2^19 x 768 (2^20 before phase 17) through the factory with
+    `sharded: true` (msmarco_pq_realm.yaml's 4-bit PQ with an int8 refine,
+    the `ivf` preset, the `ivfpq` preset with its coarse k-means over the
+    ranks) and MaxSim at `maxsim_bench`'s widths over 2^19 documents (1M
+    before phase 17), 64 held-out queries, k = 10. Checked: an `all_reduce` (MAX) of
     -inf on a CUDA tensor; the ranks' answers equal; IVF and untruncated
     IVF-PQ give the unsharded ids outside the score band; PQ and the
     preset's IVF-PQ reach the unsharded recall@10 less 0.01; `kmeans_sharded`
@@ -340,7 +341,7 @@ checked, none caught:
     search equals a direct call; the first step's loss within 1e-3 relative
     of one process's on the same global batch;
 13c. phase 11a's SPLADE composition under `strategy/dp` on two gloo ranks
-    (over 2^14 passages): as 13b, the first loss with the FLOPS term; the period-0 impact terms
+    (over 2^13 passages, 2^14 before phase 17): as 13b, the first loss with the FLOPS term; the period-0 impact terms
     and learned index re-embedded over the ranks equal one process's;
 13d. with two or more cards, 13a under NCCL at world size = their count;
     with one, a line says it did not run and why;
@@ -414,7 +415,18 @@ checked, none caught:
 16c. `Precompiled` tokenization on the host (`precompiled_phase`): a
     Unigram `tokenizer.json` with and without a `Precompiled` charsmap, its
     sections/s beside the plain one's on the same harvested passages;
-17. the script's wall time, the `kernels` JSON line, the card line, and
+17. the last two root scripts' ports (`REALTEXT`):
+17a. `real_text_1m_bench` (`realtext_phase`, its own main path) at its
+    widths over 2^18 passages harvested from the machine's site-packages, in
+    a fresh cache directory: finite numbers, the loss falling, each codec's
+    recall@10 at its floor, stemmed BM25 above unstemmed on inflected
+    queries, no kernel launch. Printed: the corpus fingerprint, each stage's
+    seconds, recall and QPS per codec, the four gold-hit numbers;
+17b. `hybrid_sharded_bench` (`hybrid_sharded_phase`) at the JAX script's
+    size on two gloo ranks of the card that the script launches: the
+    filter and the agreement (the script's checks), rank 0's kernel
+    launches (none). Printed: QPS and the unsharded / sharded time ratio;
+18. the script's wall time, the `kernels` JSON line, the card line, and
     the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -631,12 +643,13 @@ CLI = dict(
 # r 8 and alpha 16 over an int8-frozen base, remat, GradCache at 128 rows,
 # a batch of 32 as 8 micro-batches of 4, Adafactor. Cuts, each an override
 # in the phase's YAML: `search_defaults.dense` gains `kernel: fused`;
-# `trainer` runs 6 steps, a period every 3; the corpus is 2^14 harvested
+# `trainer` runs 6 steps, a period every 3; the corpus is 2^13 harvested
 # passages (SciFact's is 5,183, FiQA's 57,638; 2^15 before phase 16, cut to
 # make room for it: each period's re-embed took 25.9 s at 2^15 on an H100 80GB HBM3 at
-# 700 W).
+# 700 W; 2^14 before phase 17, cut to make room for it: 13.0 s a re-embed
+# at 2^14, the whole script 1,101.3 s with phase 17 at 2^14).
 LARGE = dict(
-    n=1 << 14, passage_words=48, stride=48, queries=2048, held_out=0, query_words=(6, 10), vocab=30522,
+    n=1 << 13, passage_words=48, stride=48, queries=2048, held_out=0, query_words=(6, 10), vocab=30522,
     max_steps=6, period=3, bins=512, seed=13, max_length=200, micro_batch=4, accumulate=8, chunk_rows=128,
     lora_rank=8, probe_rows=8, gradcache_probe_chunk=8, model_overrides={},
     hf=dict(architectures=["BertModel"], model_type="bert", vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
@@ -719,13 +732,13 @@ MULTI_CLI = dict(CLI, held_out=0, max_length=200, max_steps=6, period=3, resume_
                  loss_rtol=1e-3, timeout=900)
 
 # Phase 13: the sharded compressed indexes and batch-wide training over a
-# data-parallel group. 13a: phase 8a's corpus (2^20 x 768 unit rows around
-# 4,096 centres), 64 held-out queries, k = 10, through the factory with
+# data-parallel group. 13a: phase 8a's corpus cut to 2^19 x 768 unit rows
+# around 4,096 centres, 64 held-out queries, k = 10, through the factory with
 # `sharded: true` over a "shard" axis of every rank: msmarco_pq_realm.yaml's
 # codec (`pq`: 4-bit PQ of 128 subquantizers, exhaustive ADC, int8 refine at
 # 128 PCA dims, k_factor 32), the `ivf` preset, the `ivfpq` preset (its
 # coarse k-means over the axis, `kmeans_sharded`), and MaxSim at
-# `maxsim_bench`'s defaults (1M docs x 32 tokens x 128-d int8, 256
+# `maxsim_bench`'s widths (2^19 docs x 32 tokens x 128-d int8, 256
 # candidates a query); first at world size 1 under NCCL in this process,
 # then two gloo ranks on the one card. `tol`: the score band inside which
 # IVF and untruncated IVF-PQ may order ids otherwise (f32 sums of bf16 /
@@ -739,14 +752,17 @@ MULTI_CLI = dict(CLI, held_out=0, max_length=200, max_steps=6, period=3, resume_
 # k-means objective: on the card `index_add_` sums in no fixed order, so a
 # row on a tie changes cells and the iterates drift apart, one process's
 # from itself too; the centroids' distances are printed beside a control,
-# `kmeans` run twice).
+# `kmeans` run twice). Cut for phase 17: the corpus from 2^20 to 2^19 rows
+# and MaxSim's documents from 1,000,000 to 2^19 (the whole script read
+# 1,015.4 s before phase 17, which took 101.3 s alone, on an H100 80GB HBM3
+# at 700 W).
 COMPRESSED = dict(
-    n=1 << 20, d=768, centres=4096, noise=0.1, decay=64.0, b=64, k=10, seed=37, ranks=2, timeout=600,
+    n=1 << 19, d=768, centres=4096, noise=0.1, decay=64.0, b=64, k=10, seed=37, ranks=2, timeout=600,
     pq=dict(codec="pq", n_subquantizers=128, code_bits=4, coarse_dim=None, refine="int8", refine_dim=128,
             k_factor=32, train_size=1_000_000),
     ivf=dict(codec="ivf", nprobe=32),
     ivfpq=IVFPQ_PRESET,
-    maxsim=dict(n=1_000_000, lt=32, d=128, lq=8, n_candidates=256, n_topics=4096),
+    maxsim=dict(n=1 << 19, lt=32, d=128, lq=8, n_candidates=256, n_topics=4096),
     tol=1e-4, recall_slack=0.01, kmeans_rtol=1e-4, target_recall=0.9,
 )
 # 13b: configs/msmarco_pq_realm.yaml at its own widths (hidden 384, 6
@@ -761,11 +777,11 @@ COMPRESSED = dict(
 PQ_CLI = dict(CLI, held_out=0, max_steps=6, period=3, resume_steps=9, seed=41, ranks=2, batch_size=4,
               target_recall=0.9, loss_rtol=1e-3, timeout=900)
 # 13c: phase 11a's composition (scifact's body, the bert-base SPLADE encoder
-# from a written checkpoint, 6 steps, a period every 3) over 2^14 passages
-# (2^15 before phase 16, cut to make room for it: each rank's re-embeds
-# took 12.2-12.8 s, one process's 10.9 s, at 2^15 on an H100 80GB HBM3 at
-# 700 W) under
-# `strategy/dp` on two gloo ranks: the FLOPS term over the global batch and
+# from a written checkpoint, 6 steps, a period every 3) over 2^13 passages
+# (2^15 before phase 16 and 2^14 before phase 17, each cut to make room for
+# the new phase: each rank's re-embeds took 12.2-12.8 s at 2^15, one
+# process's 10.9 s, and 6.2-6.8 s at 2^14, on an H100 80GB HBM3 at 700 W)
+# under `strategy/dp` on two gloo ranks: the FLOPS term over the global batch and
 # the learned reindex split over the ranks. One process peaked at 56.0322
 # GiB in 11a; a rank holds half the rows (16 queries and 128 sections), and
 # the activations dominate, so about 30 GiB a rank: both fit in 80 GB at
@@ -775,7 +791,7 @@ PQ_CLI = dict(CLI, held_out=0, max_steps=6, period=3, resume_steps=9, seed=41, r
 # global 32 queries and 256 sections: the chunks straddle the ranks and the
 # query/section boundary, and the last is padded), held to one process's
 # GradCache on the global batch within `loss_rtol`.
-SPLADE_DP = dict(SPLADE, n=1 << 14, seed=43, ranks=2, loss_rtol=1e-3, timeout=900, gradcache_rows=100)
+SPLADE_DP = dict(SPLADE, n=1 << 13, seed=43, ranks=2, loss_rtol=1e-3, timeout=900, gradcache_rows=100)
 # Phase 14a: phase 9's inputs and YAML (`configs/msmarco_pq_realm.yaml` at
 # hidden 384, 6 layers, 6 heads, intermediate 1536; flat bf16, `kernel:
 # fused`, 512 bins; `tokenizer.max_length` 96) with `model: {moe_experts: 8,
@@ -875,6 +891,21 @@ SMALL_FLOORS = dict(
     # 0.8719, 0.9609]
     real_embedding_eval=0.6,  # every other recall key [0.6574-0.9959]
 )
+
+
+# Phase 17: the last two root scripts' ports. 17a: `real_text_1m_bench` at
+# its widths (dim 384, the 4 x 256 encoder, batch 512, 300 steps, 2,048
+# queries) over 2^18 harvested passages (its default is 2^20, run by hand:
+# the harvest, vocabulary and encode of 2^20 take about 70 s of host time),
+# in a fresh cache directory so that the encoder trains and embeds; each
+# codec's recall@10 at least its `recall_floors` entry, a few points under
+# the recall it reached in its first run (in brackets; 262,144 passages of
+# the card machine's site-packages, fingerprint b811966c..., on an H100 80GB
+# HBM3 at 700 W). 17b:
+# `hybrid_sharded_bench` at the JAX script's full size (100,000 x 256,
+# 30,000 terms, B = 256) on two gloo ranks of the card.
+REALTEXT = dict(n=1 << 18, recall_floors={"int8": 0.97,  # [0.9903]
+                                          "pq96x4fs+ref": 0.93, "serving-direct": 0.92})  # [0.9517, 0.9486]
 
 
 def _rows_at_least(rows: list, label: str, key: str, floors: dict) -> bool:
@@ -6201,6 +6232,79 @@ def precompiled_phase(card: str, t: dict) -> dict:
     return dict(rules=len(rules), blob_bytes=len(blob), tokenizers=rates, wall_s=wall)
 
 
+def realtext_phase(card: str, t: dict) -> dict:
+    """Phase 17a (module constant REALTEXT): `real_text_1m_bench.main` over
+    `t["n"]` harvested passages at the script's widths, in a fresh cache
+    directory, its own main path (launch counts zeroed just before it, read
+    just after). Checked: every number finite; all `t["n"]` passages
+    harvested; the loss's last value under its first; each codec's
+    recall@10 at least its floor; stemmed BM25 finds more gold passages than
+    unstemmed on the inflected queries; neither kernel launched (the codecs
+    scan, as in JAX). Printed: the corpus fingerprint, each stage's
+    seconds, each codec's recall, block and B = 64 QPS and build seconds,
+    and the four gold-hit numbers. Returns the result and the launches."""
+    import tempfile
+
+    import torch
+
+    from vod_tpu_torch.examples import real_text_1m_bench
+    from vod_tpu_torch.ops.mips import fused_mips_binned, fused_mips_topk
+
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="realtext_") as cache:
+        fused_mips_binned.launches = 0
+        fused_mips_topk.launches = 0  # main path starts
+        r = real_text_1m_bench.main(["--n", str(t["n"]), "--device", "cuda"], cache_dir=cache)
+        torch.cuda.synchronize()
+        launches = {"fused_mips_binned": fused_mips_binned.launches, "fused_mips_topk": fused_mips_topk.launches}
+    count = _finite_numbers("17a", r)
+    check(r["n"] == t["n"], f"17a: harvested {r['n']} passages, not {t['n']}")
+    log(f"17a real text [{card}]: {r['n']} passages, corpus fingerprint {r['corpus_fingerprint']} (under "
+        f"{', '.join(r['harvest_root'])}); stages (s) {json.dumps(r['stages_s'])}; {count} finite numbers")
+    losses = r["losses"]
+    check(list(losses) == [0, 100, 200, 299] and losses[299] < losses[0], f"17a: the loss did not fall: {losses}")
+    log(f"17a losses by step {', '.join(f'{s}: {v:.4f}' for s, v in losses.items())}; top-64 variance share "
+        f"{r['top64_variance_share']:.4f}; encoder self-hit@10 {r['encoder_self_hit10']:.4f}")
+    for name, floor in t["recall_floors"].items():
+        c = r[name]
+        check(c["recall10"] >= floor, f"17a {name}: recall@10 {c['recall10']} < {floor}")
+        log(f"17a {name} [{card}]: recall@10 {c['recall10']:.4f} (floor {floor}), block QPS {c['block_qps']:.1f}, "
+            f"B=64 serving QPS {c['serve64_qps']:.1f}, build {c['build_s']:.2f} s")
+    plain, stemmed = r["bm25_unstemmed"], r["bm25_stemmed"]
+    log(f"17a BM25 gold-hit@10 [{card}]: unstemmed {plain['gold_hit10']:.4f} / inflected "
+        f"{plain['gold_hit10_inflected']:.4f} (build {plain['build_s']:.1f} s); stemmed {stemmed['gold_hit10']:.4f} / "
+        f"inflected {stemmed['gold_hit10_inflected']:.4f} (build {stemmed['build_s']:.1f} s)")
+    check(stemmed["gold_hit10_inflected"] > plain["gold_hit10_inflected"],
+          "17a: stemming did not help the inflected queries")
+    check(launches == {"fused_mips_binned": 0, "fused_mips_topk": 0}, f"17a launched a kernel: {launches}")
+    wall = time.perf_counter() - started
+    log(f"phase 17a wall time: {wall:.1f} s; launches {launches}")
+    return dict(result=r, launches=launches, wall_s=wall)
+
+
+def hybrid_sharded_phase(card: str) -> dict:
+    """Phase 17b: `hybrid_sharded_bench.main` at the JAX script's full size,
+    its two ranks launched by the script on the card (gloo: NCCL refuses two
+    ranks on one GPU). The script checks the subset filter on every id and
+    the sharded ids' agreement with the unsharded ones (>= 0.9); checked
+    here too, with rank 0's launches of either kernel (none: every query
+    carries a subset filter). Printed: QPS, the unsharded / sharded time
+    ratio (not bounded on a card), each run's seconds. Returns the result."""
+    from vod_tpu_torch.examples import hybrid_sharded_bench
+
+    started = time.perf_counter()
+    r = hybrid_sharded_bench.main(["--device", "cuda"])
+    _finite_numbers("17b", r)
+    check(r["agreement"] >= hybrid_sharded_bench.MIN_AGREEMENT, f"17b: agreement {r['agreement']}")
+    check(r["kernel_launches"] == {"fused_mips_binned": 0, "fused_mips_topk": 0},
+          f"17b: rank 0 launched a kernel: {r['kernel_launches']}")
+    wall = time.perf_counter() - started
+    log(f"17b hybrid sharded [{card}]: {r['metric']}; {r['value']:.1f} {r['unit']}; vs_baseline (unsharded / "
+        f"sharded time) {r['vs_baseline']:.4f}; unsharded s {r['unsharded_s']}, sharded s {r['sharded_s']}")
+    log(f"phase 17b wall time: {wall:.1f} s")
+    return dict(result=r, wall_s=wall)
+
+
 def main() -> None:
     started = time.perf_counter()
     import numpy as np
@@ -6749,7 +6853,18 @@ def main() -> None:
     )
     log(f"phase 16 wall time: {phase16['wall_s']:.1f} s")
 
-    # 17. result lines
+    # 17. the last two root scripts' ports: real text at 2^18 passages (17a),
+    # the sharded hybrid on two gloo ranks of the card (17b)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    realtext17 = realtext_phase(card, REALTEXT)
+    hybrid17 = hybrid_sharded_phase(card)
+    phase17 = dict(realtext=realtext17["result"], hybrid=hybrid17["result"], wall_s=time.perf_counter() - t17)
+    phase17_launches = dict(realtext=realtext17["launches"], hybrid_rank0=hybrid17["result"]["kernel_launches"])
+    log(f"phase 17 wall time: {phase17['wall_s']:.1f} s")
+
+    # 18. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
@@ -6791,6 +6906,7 @@ def main() -> None:
         examples_launches={name: r["launches"] for name, r in serving16["runs"].items()},
         examples_body_launches={name: r["body_launches"] for name, r in serving16["runs"].items()},
         examples_coarse_shapes=serving16["shapes"], phase16=phase16,
+        phase17_launches=phase17_launches, phase17=phase17,
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],
@@ -6800,7 +6916,7 @@ def main() -> None:
         body=exact_main["body"], body_launches=body_launches, corpus_read_ms=read_ms,
         body_ms={body: {f"{s['dtype']} B={s['B']} k={s['k']}": s["ms"] for s in exact_shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
-        phase13_launches=phase13_launches,
+        phase13_launches=phase13_launches, phase17_launches=phase17_launches,
     )]
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s, the kernels' build included")
     log(json.dumps({"kernels": kernels}))

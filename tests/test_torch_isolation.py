@@ -121,7 +121,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path: Path) -> None:
 EXAMPLES = ("serving_latency_bench", "serving_codec_bench", "search_flat", "search_hybrid", "search_sparse_bench",
             "serving_batch_bench", "realm_dataloader", "train_periodic", "gradcache_bench", "real_embedding_eval",
             "hub_checkpoint_eval", "pq_codec_sweep", "pq_geometry_sweep", "pq_decode_variants_bench",
-            "pq4_adc_variants_bench", "pq4_fastscan_bench", "pq_8m8_bench", "ivfpq_8m_bench", "ivfpq_crossover_bench")
+            "pq4_adc_variants_bench", "pq4_fastscan_bench", "pq_8m8_bench", "ivfpq_8m_bench", "ivfpq_crossover_bench",
+            "real_text_1m_bench", "hybrid_sharded_bench")
 TOKENIZER_LIBRARIES = ("regex", "tokenizers", "transformers")
 
 

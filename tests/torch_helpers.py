@@ -802,3 +802,19 @@ def job_gradcache_dp(rank: int, world: int, cases: list) -> list:
         out.append(dict(loss=float(loss) / world, grads={n: np_of(p.grad) for n, p in model.named_parameters()}))
     return out
 
+
+
+def job_hybrid_sharded(rank: int, world: int, sizes: dict) -> tuple:
+    """`hybrid_sharded_bench.run` on this rank over the script's data at
+    `sizes`, then the unsharded and sharded ids of its queries. Returns (rank
+    0's result or None, unsharded ids, sharded ids)."""
+    from vod_tpu_torch.examples import hybrid_sharded_bench as hb
+    from vod_tpu_torch.parallel import make_mesh
+
+    cpu = torch.device("cpu")
+    data = hb.make_data(**sizes)
+    result = hb.run(cpu, data)
+    unsharded, _ = hb.build_unsharded(data, cpu)
+    sharded = hb.build_sharded(data, unsharded, make_mesh((world,), ("shard",)), cpu)
+    q = hb.queries_on(data, cpu)
+    return result, np_of(hb.search_ids(unsharded, q)), np_of(hb.search_ids(sharded, q))

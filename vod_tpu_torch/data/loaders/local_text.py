@@ -16,7 +16,7 @@ import re
 import sysconfig
 import typing as typ
 
-_DEFAULT_ROOTS = (sysconfig.get_paths()["purelib"],)
+DEFAULT_ROOTS = (sysconfig.get_paths()["purelib"],)
 _EXTS = (".md", ".rst", ".txt", ".py")
 _WORD_RE = re.compile(r"[A-Za-z][A-Za-z0-9_]+")
 
@@ -34,7 +34,7 @@ def _iter_files(roots: typ.Sequence[str], exts: typ.Sequence[str]) -> typ.Iterat
 def harvest_text_passages(
     n_passages: int,
     *,
-    roots: typ.Sequence[str] = _DEFAULT_ROOTS,
+    roots: typ.Sequence[str] = DEFAULT_ROOTS,
     exts: typ.Sequence[str] = _EXTS,
     passage_words: int = 48,
     min_words: int = 16,
