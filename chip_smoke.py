@@ -34,6 +34,18 @@ checked, none caught:
     3-9 at -1/-inf; three equal rows in different splits tie to the lowest
     id. Then times: kernel, plain version, the library yardstick
     `torch.topk(q @ Vᵀ, k)`, and the bound;
+ 3c. the select kernel (`select_kernel`, launched by every CUDA call of
+    `fused_mips_binned` after its body) alone through `merge_select` against
+    `merge_select_reference`, bit for bit, on partials at the main paths'
+    shapes (`SELECT_CASES`: the CLI loop's 33 splits x 32 queries x 512
+    bins at k = 100, the serving call's 16 x 64 x 1024 at k = 40, 4096 bins
+    at k = 160, int8 scores in [-2, 2] and floats with -inf cells), timed
+    beside its plain version with its bound; then the narrow calls of the
+    CLI loops (`vod_tpu_torch.examples.narrow_call_bench.SHAPES`), each held
+    against the plain version and timed: wall per call (CUDA events), host
+    enqueue, device time and launches per call (`torch.profiler`; checked:
+    2, `binned_wgmma_kernel` and `select_kernel`), `topk(matmul)` /
+    `topk(_int_mm)` and the bound;
  4. the serving path, end to end (the main path: launch counts are zeroed just
     before it and read just after): an e5-base-width `VodEncoder` (bf16
     activations, f32 params, seed 0) encodes 64 queries of 64 seeded tokens;
@@ -904,6 +916,11 @@ SMALL_FLOORS = dict(
 # HBM3 at 700 W). 17b:
 # `hybrid_sharded_bench` at the JAX script's full size (100,000 x 256,
 # 30,000 terms, B = 256) on two gloo ranks of the card.
+# Phase 3c: the select kernel alone on partials (splits, B, bins, k), and the
+# narrow calls' repetitions (host enqueue over `reps` calls, the profiler over
+# `profile_reps`).
+SELECT_CASES = ((33, 32, 512, 100), (16, 64, 1024, 40), (4, 64, 4096, 160))
+NARROW = dict(reps=200, profile_reps=50)
 REALTEXT = dict(n=1 << 18, recall_floors={"int8": 0.97,  # [0.9903]
                                           "pq96x4fs+ref": 0.93, "serving-direct": 0.92})  # [0.9517, 0.9486]
 
@@ -6305,6 +6322,80 @@ def hybrid_sharded_phase(card: str) -> dict:
     return dict(result=r, wall_s=wall)
 
 
+def narrow_phase(dev, card: str, hbm: float, peak_bf16: float, peak_int8: float, t: dict) -> dict:
+    """Phase 3c: the select kernel against its plain version on partials at
+    the main paths' shapes, then the CLI loops' narrow calls (module
+    docstring). Returns the select kernel's row and the narrow calls' rows."""
+    import torch
+
+    from vod_tpu_torch.examples import narrow_call_bench
+    from vod_tpu_torch.ops.mips import (
+        _INT32_MIN,
+        fused_mips_binned,
+        fused_mips_binned_reference,
+        merge_select,
+        merge_select_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    select_rows = []
+    for splits, b, bins, k in SELECT_CASES:
+        for kind in ("int8", "float32"):
+            ids = torch.arange(splits * b * bins, device=dev, dtype=torch.int32).view(splits, b, bins)
+            if kind == "int8":  # heavy ties within and across splits, a few empty cells
+                part_s = torch.randint(-2, 3, (splits, b, bins), generator=g, device=dev, dtype=torch.int32)
+                empty = torch.rand((splits, b, bins), generator=g, device=dev) < 0.05
+                part_s = torch.where(empty, _INT32_MIN, part_s)
+            else:
+                part_s = torch.randn((splits, b, bins), generator=g, device=dev)
+                empty = torch.rand((splits, b, bins), generator=g, device=dev) < 0.1
+                part_s = torch.where(empty, float("-inf"), part_s)
+            part_i = torch.where(empty, -1, ids)
+            before = merge_select.launches
+            ks, ki = merge_select(part_s, part_i, k)
+            rs, ri = merge_select_reference(part_s, part_i, k, kind == "int8")
+            check(merge_select.launches == before + 1, "merge_select did not launch select_kernel")
+            same = torch.equal(ki, ri) and torch.equal(ks.view(torch.int32), rs.contiguous().view(torch.int32))
+            check(same, f"select {kind} splits={splits} B={b} bins={bins} k={k}: kernel != plain")
+            ms = time_ms(lambda: merge_select(part_s, part_i, k), 20)
+            device_ms, _, _ = narrow_call_bench.device_profile(lambda: merge_select(part_s, part_i, k), 20)
+            plain_ms = time_ms(lambda: merge_select_reference(part_s, part_i, k, kind == "int8"), 5)
+            # every partial score read once, the k winners' ids read once, [B, k] scores and ids written once
+            nbytes = splits * b * bins * 4 + b * k * 4 + b * k * 8
+            select_rows.append(dict(dtype=kind, splits=splits, B=b, bins=bins, k=k, max_abs_err=0.0, ms=ms,
+                                    device_ms=device_ms, plain_ms=plain_ms, bound_ms=nbytes / hbm * 1e3,
+                                    bound_by="bytes"))
+            log(f"check select {kind} splits={splits} B={b} bins={bins} k={k}: kernel == plain bit for bit; kernel "
+                f"{ms:.4f} ms a call ({device_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, bound "
+                f"{select_rows[-1]['bound_ms']:.4f} ms (bytes) [{card}]")
+
+    narrow = []
+    for shape in narrow_call_bench.SHAPES:
+        label, dtype, b, d, rows, bins, k = shape
+        v, q = narrow_call_bench.make_inputs(dtype, b, d, rows, dev)
+        ks, ki = fused_mips_binned(v, q, k=k, bins=bins)
+        rs, ri = fused_mips_binned_reference(v, q, k=k, bins=bins)
+        if dtype == "int8":
+            check(torch.equal(ks, rs) and torch.equal(ki, ri), f"narrow {label}: kernel != plain")
+            err = 0.0
+        else:
+            tol = 2 * d * 2.0**-24 * q.float().norm(dim=-1).max().item() * v.float().norm(dim=-1).max().item()
+            err, _ = check_against_plain(f"narrow {label}", ks, ki, rs, ri, q, v, tol)
+        del v, q, ks, ki, rs, ri
+        row, = narrow_call_bench.run(dev, reps=t["reps"], profile_reps=t["profile_reps"], hbm=hbm,
+                                     peak_bf16=peak_bf16, peak_int8=peak_int8, shapes=(shape,))
+        row["max_abs_err"] = err
+        names = sorted(row["by_kernel"])
+        check(row["kernels"] == 2 and len(names) == 2 and "binned_wgmma_kernel" in names[0]
+              and "select_kernel" in names[1], f"narrow {label}: {row['kernels']} launches a call, {names}")
+        narrow.append(row)
+        log(f"time narrow {label} ({dtype} B={b} D={d} rows={rows} bins={bins} k={k}): wall {row['wall_ms']:.4f} ms, "
+            f"host {row['host_ms']:.4f} ms, device {row['device_ms']:.4f} ms in {row['kernels']:g} launches "
+            f"{json.dumps(row['by_kernel'])}, {row['library']} {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) [{card}]")
+    return dict(select=select_rows, narrow=narrow)
+
+
 def main() -> None:
     started = time.perf_counter()
     import numpy as np
@@ -6548,6 +6639,11 @@ def main() -> None:
             f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({exact_shapes[-1]['bound_by']}) [{card}]")
     del vb, vb_odd, qb, q32, v32, exact_cases, edge_cases, vv, qq, qs
     torch.cuda.empty_cache()
+
+    # 3c. the select kernel alone, then the CLI loops' narrow calls
+    t3c = time.perf_counter()
+    phase3c = narrow_phase(dev, card, hbm, peak_bf16, peak_int8, NARROW)
+    log(f"phase 3c wall time: {time.perf_counter() - t3c:.1f} s")
 
     # 4. the serving path (main path)
     cfg = TransformerEncoderConfig(  # configs/presets/encoder/e5-base.yaml + pooler/mean-l2.yaml
@@ -6869,6 +6965,9 @@ def main() -> None:
                 and s["body"] == "wgmma")
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
                       and s["body"] == "wgmma")
+    select_main = next({k: v for k, v in r.items()
+                        if k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+                       for r in phase3c["select"] if r["dtype"] == "float32" and r["splits"] == 33)
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches,
@@ -6907,6 +7006,13 @@ def main() -> None:
         examples_body_launches={name: r["body_launches"] for name, r in serving16["runs"].items()},
         examples_coarse_shapes=serving16["shapes"], phase16=phase16,
         phase17_launches=phase17_launches, phase17=phase17,
+        # every CUDA call launches `select_kernel` after its body: the main
+        # path's launches are the wrapper's; the times are of the kernel alone
+        # at the CLI loop's partials (f32; 33 splits x 32 queries x 512 bins)
+        select=dict(select_main, name="select_kernel", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
+                    replaces="vod_tpu/ops/mips_pallas.py:286", launches=launches, library_ms=None,
+                    shapes=phase3c["select"]),
+        narrow_calls=phase3c["narrow"],
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
         replaces="vod_tpu/ops/mips_pallas.py:57", launches=shootout_launches["fused_mips_topk"],

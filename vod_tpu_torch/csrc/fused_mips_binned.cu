@@ -9,8 +9,11 @@
 //
 // with the lowest row id winning a tie (rows are folded in increasing order
 // with a strict `>`). An empty cell holds -inf (float path) or
-// -(2^31)+1 (int8 path) with id -1. Selecting k of the `bins` cells happens in
-// the Python wrapper (`vod_tpu_torch/ops/mips.py`), as on the TPU.
+// -(2^31)+1 (int8 path) with id -1. Then, on the same stream, `select_kernel`
+// writes the k best cells of each query: the TPU wrapper's `lax.top_k`
+// (`vod_tpu/ops/mips_pallas.py:286`), in its order (score descending, lower
+// cell first on ties), with id -1 where the score is -inf (float; NaN and
+// +inf too, as the wrapper's `isfinite`) or the int8 sentinel.
 //
 // Types: bf16 x bf16 or f32 x f32 rows and queries, accumulated in f32 (the
 // accumulator is never rounded to bf16); or int8 x int8, accumulated exactly
@@ -62,10 +65,25 @@
 // Shared by both bodies: the TPU grid walks the strides in order on one core;
 // GPU blocks run in parallel. So a third grid dimension splits the strides
 // into contiguous ranges, as many as fill the card with resident blocks in
-// one wave. Each split writes partial cells; a merge kernel folds the splits
-// in increasing order with the same strict `>`, which keeps the lowest-id rule
-// because split z only holds rows below those of split z + 1. Strides at or
+// one wave. Each split writes partial cells [splits, B, bins]. Strides at or
 // past n_real are never visited.
+//
+// The selection (`select_kernel`), one block per query, replaces a merge
+// kernel and a sort, gather and mask in PyTorch (five or more launches) by
+// one launch. It folds the query's splits cell by cell in increasing split
+// order with the same strict `>`, which keeps the lowest-id rule because split
+// z only holds rows below those of split z + 1, and makes each cell a 64-bit
+// key: the score's bits in an order-preserving form above the complement of
+// the cell index, so that one descending sort of the keys gives score
+// descending, then lower cell first, and no two keys tie. The keys, padded to
+// a power of two with zeros (below every cell), go through a bitonic sort in
+// shared memory (up to 8,192 cells: keys, folded scores and ids, 128 KB), or
+// in a workspace in device memory above that. The first k keys name the
+// cells, whose folded score (with its bits: a -0 stays -0 though it sorts as
+// +0) and id are written out. What bounds it: at a narrow call it reads
+// splits x B x bins partials (4.3 MB at B = 32, 512 bins, 33 splits), a few
+// microseconds of the card; of its log2(bins)^2 / 2 sort stages only those
+// of strides above 32, and the stage after each, wait on a block-wide barrier.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -95,6 +113,9 @@ constexpr int BOX_BYTES = WBT * KB;           // 16 KB: a ring box of 128 rows
 constexpr int MAX_CHUNKS = 24;                // query tile <= 192 KB: two ring boxes still fit beside it
 constexpr int MAX_STRIDES = 65535;            // strides per split: 16-bit winners, 0xFFFF = none
 constexpr uint32_t NO_WINNER = 0xFFFFFFFFu;   // both halves 0xFFFF
+// selection; SELECT_SMEM_CELLS has a twin in `ops/mips.py` (_SELECT_SMEM_CELLS)
+constexpr int SELECT_SMEM_CELLS = 8192;       // cells (16 bytes each) sorted in shared memory; more go to the workspace
+constexpr int SELECT_THREADS = 1024;          // at most; one a cell (padded) when fewer
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -267,21 +288,118 @@ binned_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
   }
 }
 
-// Fold the splits' partial cells in increasing split order (strict '>').
+// ---- selection: the splits folded and k of the cells chosen ------------------
+
+// The score's bits in an order-preserving form: a larger score gives a larger
+// key. NaN sorts above every number (as torch's descending sort puts it) and
+// -0 ties with +0.
+__device__ __forceinline__ uint32_t order_bits(int s) { return static_cast<uint32_t>(s) ^ 0x80000000u; }
+__device__ __forceinline__ uint32_t order_bits(float s) {
+  if (isnan(s)) return 0xFFFFFFFFu;
+  uint32_t u = __float_as_uint(s);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+// A cell the wrapper gives id -1: `isfinite` fails (float) or the int8 sentinel.
+__device__ __forceinline__ bool no_id(float s) { return !isfinite(s); }
+__device__ __forceinline__ bool no_id(int s) { return s <= INT8_NEG; }
+
+// Cell c of one query: its splits (`plane` apart) folded in increasing split
+// order with a strict `>`. The loads do not wait on the compares, so the
+// unrolled loop keeps several in flight.
 template <typename S>
-__global__ void merge_splits_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i,
-                                    S* __restrict__ out_s, int* __restrict__ out_i,
-                                    int cells, int splits) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cells) return;
-  S best = part_s[c];
-  int id = part_i[c];
+__device__ __forceinline__ void fold_cell(const S* __restrict__ ps, const int* __restrict__ pi, size_t plane,
+                                          int splits, S& best, int& id) {
+  best = ps[0];
+  id = pi[0];
+#pragma unroll 8
   for (int z = 1; z < splits; ++z) {
-    const S s = part_s[(size_t)z * cells + c];
-    if (s > best) { best = s; id = part_i[(size_t)z * cells + c]; }
+    const S s = ps[(size_t)z * plane];
+    const int i = pi[(size_t)z * plane];
+    if (s > best) { best = s; id = i; }
   }
-  out_s[c] = best;
-  out_i[c] = id;
+}
+
+// Block b: query b. Its n_pad keys, folded scores and ids (16 bytes a cell) go
+// to dynamic shared memory (GLOBAL false) or to the workspace's row b (GLOBAL
+// true); barriers order both for the block. Thread t folds cells t,
+// t + blockDim, ...; in the sort, thread t handles pairs t, t + blockDim, ...,
+// so a stage of stride <= 32 stays inside each warp's 64 keys and needs only
+// the warp's barrier, unless the stage before it crossed warps.
+template <typename S, bool GLOBAL>
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* __restrict__ out_s,
+              int* __restrict__ out_i, unsigned char* __restrict__ sort_ws, int B, int bins, int splits, int k,
+              int n_pad) {
+  extern __shared__ __align__(16) unsigned char smem_cells[];
+  const int b = blockIdx.x;
+  unsigned char* base = GLOBAL ? sort_ws + (size_t)b * n_pad * 16 : smem_cells;
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);
+  S* cell_s = reinterpret_cast<S*>(base + (size_t)n_pad * 8);
+  int* cell_i = reinterpret_cast<int*>(base + (size_t)n_pad * 12);
+  const size_t plane = (size_t)B * bins;
+  const S* ps = part_s + (size_t)b * bins;
+  const int* pi = part_i + (size_t)b * bins;
+  for (int c = threadIdx.x; c < n_pad; c += blockDim.x) {
+    unsigned long long key = 0ull;  // padding: below every cell
+    if (c < bins) {
+      S s;
+      int id;
+      fold_cell(ps + c, pi + c, plane, splits, s, id);
+      cell_s[c] = s;
+      cell_i[c] = id;
+      key = (static_cast<unsigned long long>(order_bits(s)) << 32) | (0xFFFFFFFFu - static_cast<uint32_t>(c));
+    }
+    keys[c] = key;
+  }
+  // bitonic sort, descending: pair (i, i + stride) runs descending where
+  // (i & size) == 0, so the last merge (size == n_pad) is descending throughout
+  bool wide = true;  // the keys were written block-wide
+  for (int size = 2; size <= n_pad; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (wide || stride > 32) __syncthreads(); else __syncwarp();
+      wide = stride > 32;
+      for (int t = threadIdx.x; t < n_pad / 2; t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1));
+        const unsigned long long lo = keys[i], hi = keys[i + stride];
+        if ((lo < hi) == ((i & size) == 0)) { keys[i] = hi; keys[i + stride] = lo; }
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < k; r += blockDim.x) {
+    const int c = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(keys[r]));
+    const S s = cell_s[c];
+    out_s[(size_t)b * k + r] = s;
+    out_i[(size_t)b * k + r] = no_id(s) ? -1 : cell_i[c];
+  }
+}
+
+template <typename S> struct SelectTag {};
+
+// The select kernel on `stream`: partials [splits, B, bins] in, [B, k] out.
+// `sort_ws` holds B * n_pad cells of 16 bytes where n_pad (bins padded to a
+// power of two) exceeds SELECT_SMEM_CELLS, and may be null otherwise.
+template <typename S>
+cudaError_t launch_select(const void* part_s, const void* part_i, void* out_s, void* out_i, void* sort_ws, int B,
+                          int bins, int splits, int k, cudaStream_t stream) {
+  if (B < 1 || bins < 1 || bins > (1 << 30) || splits < 1 || k < 1 || k > bins) return cudaErrorInvalidValue;
+  int n_pad = 1;
+  while (n_pad < bins) n_pad <<= 1;
+  const int threads = min(SELECT_THREADS, max(32, n_pad));  // a thread a cell while the fold lasts
+  if (n_pad <= SELECT_SMEM_CELLS) {
+    const cudaError_t err = allow_max_smem<SelectTag<S>>(select_kernel<S, false>);
+    if (err != cudaSuccess) return err;
+    select_kernel<S, false><<<B, threads, (size_t)n_pad * 16, stream>>>(
+        static_cast<const S*>(part_s), static_cast<const int*>(part_i), static_cast<S*>(out_s),
+        static_cast<int*>(out_i), nullptr, B, bins, splits, k, n_pad);
+  } else {
+    if (sort_ws == nullptr) return cudaErrorInvalidValue;
+    select_kernel<S, true><<<B, threads, 0, stream>>>(
+        static_cast<const S*>(part_s), static_cast<const int*>(part_i), static_cast<S*>(out_s),
+        static_cast<int*>(out_i), static_cast<unsigned char*>(sort_ws), B, bins, splits, k, n_pad);
+  }
+  return cudaGetLastError();
 }
 
 // ---- tensor-core body (TMA, mbarriers and wgmma from sm90.cuh) --------------
@@ -435,20 +553,20 @@ int wgmma_chunks(int D) { return (D + Body::KC - 1) / Body::KC; }
 
 // The tensor-core body's ring depth and dynamic shared memory: the query
 // tile, and as many 16 KB ring boxes as the rest of the card's per-block limit
-// holds (at D = 768 on an H100: 8 boxes bf16, 11 int8). One block per SM.
+// holds (at D = 768 on an H100: 8 boxes bf16, 11 int8). One block per SM. The
+// limit is read, and the kernel's opt-in set, once per card (sm90.cuh).
 template <typename Body>
 cudaError_t allow_wgmma(int D, int* stages, size_t* dyn) {
   // the refusal twin of `ops/mips.py:_binned_body`'s D rule: 16-byte rows, the query tile fits
   if (D <= 0 || D * Body::ELEM % 16 != 0 || wgmma_chunks<Body>(D) > MAX_CHUNKS) return cudaErrorInvalidValue;
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int limit = 0;
+  cudaError_t err = optin_smem(&limit);
   if (err != cudaSuccess) return err;
   const size_t fixed = wgmma_smem(wgmma_chunks<Body>(D), 0);
   *stages = limit > (long long)fixed ? (int)((limit - fixed) / (BOX_BYTES + 2 * sizeof(uint64_t))) : 0;
   if (*stages < 1) return cudaErrorInvalidValue;
   *dyn = wgmma_smem(wgmma_chunks<Body>(D), *stages);
-  return cudaFuncSetAttribute(binned_wgmma_kernel<Body>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*dyn);
+  return allow_max_smem<Body>(binned_wgmma_kernel<Body>);
 }
 
 template <typename Body>
@@ -473,23 +591,12 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
   return cudaGetLastError();
 }
 
-// After the body's launch (`err`), fold the splits into out, on the same stream.
-int merge(cudaError_t err, int dtype, void* part_s, void* part_i, void* out_s, void* out_i, int B, int bins,
-          int splits, cudaStream_t stream) {
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int cells = B * bins;
-  const int threads = 256;
-  const int blocks = (cells + threads - 1) / threads;
-  if (dtype == 2) {
-    merge_splits_kernel<int><<<blocks, threads, 0, stream>>>(
-        static_cast<const int*>(part_s), static_cast<const int*>(part_i),
-        static_cast<int*>(out_s), static_cast<int*>(out_i), cells, splits);
-  } else {
-    merge_splits_kernel<float><<<blocks, threads, 0, stream>>>(
-        static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-        static_cast<float*>(out_s), static_cast<int*>(out_i), cells, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+// After the body's launch (`err`), the select kernel on the same stream.
+int then_select(cudaError_t err, int dtype, const void* part_s, const void* part_i, void* out_s, void* out_i,
+           void* sort_ws, int B, int bins, int splits, int k, cudaStream_t stream) {
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 2) return static_cast<int>(launch_select<int>(part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream));
+  return static_cast<int>(launch_select<float>(part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream));
 }
 
 }  // namespace
@@ -514,17 +621,21 @@ extern "C" int vod_fused_mips_binned_blocks_per_sm(int body, int dtype, int D) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// The CUDA-core body. dtype: 0 = float32, 1 = bfloat16, 2 = int8 (then
-// out/part scores are int32). With splits == 1 the caller passes part == out
-// and no merge runs; otherwise part is [splits, B, bins]. The caller makes the
-// card that holds the tensors current; `stream_ptr` is PyTorch's current
-// stream there. Returns the CUDA error code of the launches (0 = success).
+// The CUDA-core body, then the select kernel. dtype: 0 = float32,
+// 1 = bfloat16, 2 = int8 (then part/out scores are int32). part is the
+// [splits, B, bins] partials' workspace (scores, ids), out the [B, k] result,
+// sort_ws the select kernel's workspace (B * n_pad 8-byte keys, or null where
+// the keys fit in shared memory). The caller makes the card that holds the
+// tensors current; `stream_ptr` is PyTorch's current stream there. Returns the
+// CUDA error code of the launches (0 = success).
 extern "C" int vod_fused_mips_binned_fma(int dtype, const void* q, const void* v,
-                                         void* part_s, void* part_i, void* out_s, void* out_i,
-                                         int B, int D, int bins, int n_real, int splits,
+                                         void* part_s, void* part_i, void* out_s, void* out_i, void* sort_ws,
+                                         int B, int D, int bins, int n_real, int splits, int k,
                                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t bound = bind_thread();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   const int n_strides = (n_real + bins - 1) / bins;
   const int per_split = (n_strides + splits - 1) / splits;
   const dim3 grid((bins + BT - 1) / BT, (B + QT - 1) / QT, splits);
@@ -546,22 +657,23 @@ extern "C" int vod_fused_mips_binned_fma(int dtype, const void* q, const void* v
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return merge(cudaGetLastError(), dtype, part_s, part_i, out_s, out_i, B, bins, splits, stream);
+  return then_select(cudaGetLastError(), dtype, part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream);
 }
 
-// The tensor-core body, the same arguments: bf16 (dtype 1) with D % 8 == 0 or
-// int8 (dtype 2) with D % 16 == 0, at most MAX_CHUNKS boxes of query tile,
-// bins % 128 == 0, at most 65,535 strides a split, q and v 16-byte aligned;
-// anything else is refused with cudaErrorInvalidValue, never run on another
-// body.
+// The tensor-core body, then the select kernel, the same arguments: bf16
+// (dtype 1) with D % 8 == 0 or int8 (dtype 2) with D % 16 == 0, at most
+// MAX_CHUNKS boxes of query tile, bins % 128 == 0, at most 65,535 strides a
+// split, q and v 16-byte aligned; anything else is refused with
+// cudaErrorInvalidValue, never run on another body.
 extern "C" int vod_fused_mips_binned_wgmma(int dtype, const void* q, const void* v,
-                                           void* part_s, void* part_i, void* out_s, void* out_i,
-                                           int B, int D, int bins, int n_real, int splits,
+                                           void* part_s, void* part_i, void* out_s, void* out_i, void* sort_ws,
+                                           int B, int D, int bins, int n_real, int splits, int k,
                                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (splits < 1 || reinterpret_cast<uintptr_t>(q) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
+  cudaError_t err = bind_thread();
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 1) {
     err = launch_wgmma<Bf16Body>(q, v, part_s, part_i, B, D, bins, n_real, splits, stream);
   } else if (dtype == 2) {
@@ -569,5 +681,15 @@ extern "C" int vod_fused_mips_binned_wgmma(int dtype, const void* q, const void*
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return merge(err, dtype, part_s, part_i, out_s, out_i, B, bins, splits, stream);
+  return then_select(err, dtype, part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream);
+}
+
+// The select kernel alone, on partials [splits, B, bins] that the caller made
+// (the wrapper `merge_select`): dtype 2 = int32 scores, else f32; the other
+// arguments as above.
+extern "C" int vod_fused_mips_binned_select(int dtype, const void* part_s, const void* part_i, void* out_s,
+                                            void* out_i, void* sort_ws, int B, int bins, int splits, int k,
+                                            void* stream_ptr) {
+  return then_select(bind_thread(), dtype, part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k,
+                     static_cast<cudaStream_t>(stream_ptr));
 }

@@ -384,31 +384,35 @@ merge_splits_kernel(const float* __restrict__ part_s, const int* __restrict__ pa
 int list_stride(int k) { return (k + 31) / 32 * 32; }
 int wgmma_chunks(int D) { return (D + KC - 1) / KC; }
 
+template <typename T> struct ListsTag {};
+struct WgmmaTag {};
+
 // The lists' dynamic shared memory (16-64 KB). With the 33 KB of static tiles
-// every k exceeds the 48 KB a block gets by default, so opt in.
+// every k exceeds the 48 KB a block gets by default, so opt in (once per card,
+// sm90.cuh).
 template <typename T>
 cudaError_t allow_lists(int k, size_t* dyn) {
   *dyn = (size_t)QT * list_stride(k) * (sizeof(float) + sizeof(int));
-  return cudaFuncSetAttribute(topk_float_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*dyn);
+  return allow_max_smem<ListsTag<T>>(topk_float_kernel<T>);
 }
 
 // The tensor-core body's ring depth and dynamic shared memory: the query
 // tile, score tile and lists, and as many 16 KB ring boxes as the rest of the
 // card's per-block limit holds, up to MAX_STAGES (at D = 768 on an H100: 5
-// boxes at k <= 32, 2 at k = 128; 226 KB either way). One block per SM.
+// boxes at k <= 32, 2 at k = 128; 226 KB either way). One block per SM. The
+// limit is read, and the kernel's opt-in set, once per card (sm90.cuh).
 cudaError_t allow_wgmma(int D, int k, int* stages, size_t* dyn) {
   // the refusal twin of `ops/mips.py:_topk_body`'s D rule
   if (D < 8 || D % 8 != 0 || wgmma_chunks(D) > MAX_CHUNKS) return cudaErrorInvalidValue;
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int limit = 0;
+  cudaError_t err = optin_smem(&limit);
   if (err != cudaSuccess) return err;
   const size_t fixed = wgmma_smem(wgmma_chunks(D), list_stride(k), 0);
   *stages = limit > (long long)fixed ? (int)((limit - fixed) / (BOX_BYTES + sizeof(uint64_t))) : 0;
   *stages = min(*stages, MAX_STAGES);
   if (*stages < 1) return cudaErrorInvalidValue;
   *dyn = wgmma_smem(wgmma_chunks(D), list_stride(k), *stages);
-  return cudaFuncSetAttribute(topk_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*dyn);
+  return allow_max_smem<WgmmaTag>(topk_wgmma_kernel);
 }
 
 // Rows of each split: whole tiles of `tile` rows, the last split ragged (or empty).
@@ -489,7 +493,8 @@ extern "C" int vod_fused_mips_topk_fma(int dtype, const void* q, const void* v,
                                        int B, int D, int k, int n_real, int splits, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (k < 1 || k > KMAX || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
+  cudaError_t err = bind_thread();
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 0) {
     err = launch_fma<float>(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
   } else if (dtype == 1) {
@@ -510,6 +515,7 @@ extern "C" int vod_fused_mips_topk_wgmma(int dtype, const void* q, const void* v
   if (dtype != 1 || k < 1 || k > KMAX || splits < 1 || reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(v) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = launch_wgmma(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
+  cudaError_t err = bind_thread();
+  if (err == cudaSuccess) err = launch_wgmma(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
   return merge(err, part_s, part_i, out_s, out_i, B, k, splits, stream);
 }

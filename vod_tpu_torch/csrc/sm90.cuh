@@ -1,7 +1,8 @@
 // sm90.cuh: the Hopper (sm_90a) pieces that both MIPS kernels' tensor-core
 // bodies build on: shared-memory addresses, `mbarrier`s, TMA loads of
-// 128-byte-swizzled boxes, `wgmma` descriptors and instructions, and the host
-// lookup of the driver's tensor-map encoder.
+// 128-byte-swizzled boxes, `wgmma` descriptors and instructions, the host
+// lookup of the driver's tensor-map encoder, and the host's once-per-card
+// set-up (the shared-memory opt-in of a kernel).
 //
 // Included by `fused_mips_topk.cu` and `fused_mips_binned.cu`, each built into
 // its own library; `ops/cuda_build.py` hashes this header into the build key
@@ -12,6 +13,8 @@
 #include <cuda.h>  // CUtensorMap and its enums only; the encoder is reached through the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace sm90 {
 
@@ -167,6 +170,75 @@ inline cudaError_t sw128_map(CUtensorMap* map, CUtensorMapDataType type, int ele
                               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Set-up done once per card: the first call from the current card runs
+// `setup(card)` under a lock, and every later call from that card returns its
+// result without calling the runtime again (but for `cudaGetDevice`, a read of
+// the thread's state). Each `Tag` type has a table of its own. The wrappers
+// call from several host threads at once (a server's).
+template <typename Tag, typename F>
+cudaError_t once_per_card(F setup) {
+  constexpr int MAX_CARDS = 64;
+  static std::mutex mu;
+  static bool done[MAX_CARDS];
+  static cudaError_t result[MAX_CARDS];
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return err;
+  if (card < 0 || card >= MAX_CARDS) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[card]) {
+    result[card] = setup(card);
+    done[card] = true;
+  }
+  return result[card];
+}
+
+// Make the current card's primary context current in the calling host thread
+// (`cudaSetDevice`), once per thread and card. A thread that never set a
+// device (a server's handler) has the card's index but no context of its own:
+// there, on an H100 with CUDA 12.8, a launch after the once-per-card set-up
+// below failed with "invalid argument". Every entry that launches calls it.
+inline cudaError_t bind_thread() {
+  thread_local int bound = -1;
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess || card == bound) return err;
+  err = cudaSetDevice(card);
+  if (err == cudaSuccess) bound = card;
+  return err;
+}
+
+struct OptinTag {};
+
+// The current card's opt-in shared memory per block (227 KB on an H100), read
+// once per card.
+inline cudaError_t optin_smem(int* limit) {
+  static int limits[64];
+  const cudaError_t err = once_per_card<OptinTag>([](int card) {
+    return cudaDeviceGetAttribute(&limits[card], cudaDevAttrMaxSharedMemoryPerBlockOptin, card);
+  });
+  int card = 0;
+  if (err == cudaSuccess && cudaGetDevice(&card) == cudaSuccess) *limit = limits[card];
+  return err;
+}
+
+// Let `kernel` take, on the current card, as much dynamic shared memory as
+// the card allows beside its static shared memory: once per card and `Tag`
+// (one tag per kernel). Each launch then asks for what it needs.
+template <typename Tag, typename K>
+cudaError_t allow_max_smem(K* kernel) {
+  return once_per_card<Tag>([kernel](int card) {
+    int limit = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, card);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 limit - static_cast<int>(attr.sharedSizeBytes));
+    return err;
+  });
 }
 
 }  // namespace sm90

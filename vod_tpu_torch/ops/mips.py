@@ -2,12 +2,12 @@
 
 `fused_mips_binned` (approximate): scores `s = q . v` are folded into `bins`
 running (score, id) cells per query, bin(j) = j mod bins over global row ids,
-with the lowest row id winning a tie. On the card the folding happens inside
-the hand-written CUDA kernel `csrc/fused_mips_binned.cu`, so no `[B, N]` score
-array exists in device memory; its tile product runs on the tensor cores or on
-CUDA cores by a fixed rule on dtype and shape (`_binned_body`). `k` of the
-`[B, bins]` cells are then selected here, in the order `lax.top_k` gives.
-Expected recall@k is about 1 - (k-1)/(2*bins).
+with the lowest row id winning a tie, and `k` of the `[B, bins]` cells are
+selected in the order `lax.top_k` gives. On the card both happen in the
+hand-written CUDA kernels of `csrc/fused_mips_binned.cu`, so no `[B, N]` score
+array exists in device memory: the body, whose tile product runs on the tensor
+cores or on CUDA cores by a fixed rule on dtype and shape (`_binned_body`),
+then `select_kernel`. Expected recall@k is about 1 - (k-1)/(2*bins).
 
 `fused_mips_topk` (exact): the k highest scores per query, by (score
 descending, row id ascending), from the CUDA kernel `csrc/fused_mips_topk.cu`,
@@ -17,6 +17,15 @@ on dtype and shape (`_topk_body`).
 Each wrapper launches its kernel for a CUDA tensor and raises if it cannot; for
 a CPU tensor it runs its `*_reference`, the plain PyTorch version of the same
 function, which the CPU tests compare with JAX.
+
+The host path of a CUDA call is a launch plan (`_Plan`), built once per card
+and shape under a lock and kept: the body, the splits from the body's
+occupancy (one C query per card, body, dtype and D, kept too) and the C entry
+with its ctypes argument types. The C side reads the card's shared-memory
+limit and sets each kernel's opt-in once per card (`csrc/sm90.cuh`). A call
+then checks its arguments, looks its plan up, makes one output and one
+workspace allocation and calls one C entry, which launches every kernel of the
+call on the current stream.
 """
 
 from __future__ import annotations
@@ -49,6 +58,10 @@ _BINNED_BIN_TILE = {"fma": 64, "wgmma": 128}  # bins per block of each body of t
 # the tensor-core body's resident query tile: at most 24 boxes of 128 bytes of K
 _BINNED_WGMMA_MAX_D = {torch.bfloat16: 1536, torch.int8: 3072}
 _BINNED_MAX_STRIDES = 65535  # strides per split of the tensor-core body: a cell keeps its winner in 16 bits
+# Twin of SELECT_SMEM_CELLS in `csrc/fused_mips_binned.cu`: the select kernel
+# sorts up to this many cells (the bins padded to a power of two; 16 bytes a
+# cell) in shared memory, and more in a workspace that the wrapper allocates.
+_SELECT_SMEM_CELLS = 8192
 _REF_CHUNK_ELEMS = 1 << 25  # score elements per chunk of the plain versions
 
 
@@ -86,7 +99,10 @@ def _check(
         raise TypeError("an int8 corpus needs int8-quantized queries, and int8 queries an int8 corpus")
     if not int8 and not queries.is_floating_point():
         raise TypeError(f"a float corpus takes float queries, got {queries.dtype}")
-    queries = queries.to(vectors.dtype).contiguous()
+    if queries.dtype != vectors.dtype:
+        queries = queries.to(vectors.dtype)
+    if not queries.is_contiguous():
+        queries = queries.contiguous()
     n = int(vectors.shape[0])
     tile = min(tile, n)
     bins_eff = min(bins, tile)  # the TPU kernel's clamp: bins never exceed one tile
@@ -134,64 +150,111 @@ def binned_cells_reference(
     return cell_s.to(torch.int32 if int8 else torch.float32), cell_i
 
 
-def _sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+class _Plan(typ.NamedTuple):
+    """The host's part of a CUDA call, worked out once per card and shape."""
+
+    entry: typ.Any  # the C entry (ctypes function, argument types set)
+    body: str  # "wgmma" or "fma"
+    splits: int  # row ranges across the grid
+    sort_cells: int  # 16-byte cells of the select kernel's workspace a query (0: it sorts in shared memory)
 
 
-def _launch(
-    wrapper: typ.Callable, vectors: torch.Tensor, queries: torch.Tensor, width: int, n_real: int,
-    score_dtype: torch.dtype, splits: int, body: typ.Optional[str] = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel of `wrapper` (C entry `vod_<name>`, or `vod_<name>_<body>`
-    for a kernel with several bodies, of `csrc/<name>.cu`) on the current stream
-    with the rows cut into `splits` ranges, count the launch on
-    `wrapper.launches` (and on `wrapper.body_launches[body]`), and return
-    outputs `[B, width]` (scores, int32 ids). Every entry takes the same C
-    arguments."""
-    from .cuda_build import load_library
+_plan_lock = threading.Lock()  # builds plans; server threads call concurrently
+_plans: dict[tuple, _Plan] = {}  # (kernel, card, dtype, B, D, width, n_real, 16-byte aligned) -> plan
+# Plans kept at most: a server that dispatches batches of many sizes builds
+# one plan per B; past this many the oldest goes (it is rebuilt, without an
+# occupancy query, if its shape comes back).
+_MAX_PLANS = 256
+_occupancy: dict[tuple, int] = {}  # (kernel, card, body, dtype, D[, k]) -> blocks an SM keeps resident
+_entries: dict[tuple[str, str], typ.Any] = {}  # (library, symbol) -> ctypes function
+# Plans built and occupancy queries made since import (a test reads them).
+plan_stats = {"plans": 0, "occupancy_queries": 0}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {  # every C entry's arguments; the stream comes last
+    "vod_fused_mips_binned_fma": [_INT] + [_PTR] * 7 + [_INT] * 6 + [_PTR],
+    "vod_fused_mips_binned_wgmma": [_INT] + [_PTR] * 7 + [_INT] * 6 + [_PTR],
+    "vod_fused_mips_binned_select": [_INT] + [_PTR] * 5 + [_INT] * 4 + [_PTR],
+    "vod_fused_mips_topk_fma": [_INT] + [_PTR] * 6 + [_INT] * 5 + [_PTR],
+    "vod_fused_mips_topk_wgmma": [_INT] + [_PTR] * 6 + [_INT] * 5 + [_PTR],
+}
 
-    name = wrapper.__name__
-    fn = getattr(load_library(name), f"vod_{name}_{body}" if body else f"vod_{name}")
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    b, d = (int(x) for x in queries.shape)
-    dev = vectors.device
-    out_s = torch.empty((b, width), dtype=score_dtype, device=dev)
-    out_i = torch.empty((b, width), dtype=torch.int32, device=dev)
-    if b == 0:
-        return out_s, out_i
-    if splits > 1:
-        part_s = torch.empty((splits, b, width), dtype=score_dtype, device=dev)
-        part_i = torch.empty((splits, b, width), dtype=torch.int32, device=dev)
+
+def _entry(name: str, symbol: str) -> typ.Any:
+    """C entry `symbol` of `csrc/<name>.cu`'s library (built at first use),
+    its argument types set once."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        from .cuda_build import load_library
+
+        fn = getattr(load_library(name), symbol)
+        fn.argtypes, fn.restype = _ARGTYPES[symbol], ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
+
+
+def _blocks_per_sm(name: str, card: int, *args: int) -> int:
+    """How many blocks of one body of kernel `name` an SM of card `card` keeps
+    resident (C entry `vod_<name>_blocks_per_sm(*args)`), asked once per card
+    and arguments. Called under the plan lock."""
+    key = (name, card, *args)
+    per_sm = _occupancy.get(key)
+    if per_sm is None:
+        from .cuda_build import load_library
+
+        fn = getattr(load_library(name), f"vod_{name}_blocks_per_sm")
+        fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+        with torch.cuda.device(card):
+            per_sm = fn(*args)
+        plan_stats["occupancy_queries"] += 1
+        if per_sm <= 0:
+            raise RuntimeError(f"{name} occupancy query failed with CUDA error {-per_sm}")
+        _occupancy[key] = per_sm
+    return per_sm
+
+
+def _plan(key: tuple, build: typ.Callable[[], _Plan]) -> _Plan:
+    """The plan of `key`, built by `build` under the lock the first time; the
+    oldest plan goes once `_MAX_PLANS` are kept."""
+    plan = _plans.get(key)
+    if plan is None:
+        with _plan_lock:
+            plan = _plans.get(key)
+            if plan is None:
+                plan = build()
+                while len(_plans) >= _MAX_PLANS:
+                    del _plans[next(iter(_plans))]
+                _plans[key] = plan
+                plan_stats["plans"] += 1
+    return plan
+
+
+# PyTorch's binding that reads the current stream's handle without building a
+# `Stream` object; a build that lacks it takes the public call.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(dev: torch.device) -> int:
+    """The handle of PyTorch's current stream on the card of `dev`."""
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch(wrapper: typ.Callable, plan: _Plan, dev: torch.device, *args) -> None:
+    """Call `plan.entry(*args, stream)` on the card of `dev` (made current only
+    if it is not) with PyTorch's current stream there; raise on a CUDA error,
+    else count the launch on `wrapper.launches` and `wrapper.body_launches`."""
+    if dev.index == torch.cuda.current_device():
+        err = plan.entry(*args, _current_stream(dev))
     else:
-        part_s, part_i = out_s, out_i
-    with torch.cuda.device(dev):  # the launch goes to the tensors' card; the caller's is restored
-        err = fn(
-            _DTYPE_CODES[vectors.dtype], queries.data_ptr(), vectors.data_ptr(),
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            b, d, width, n_real, splits, torch.cuda.current_stream(dev).cuda_stream,
-        )
+        with torch.cuda.device(dev):  # the launch goes to the tensors' card; the caller's is restored
+            err = plan.entry(*args, _current_stream(dev))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: {torch.cuda.CudaError(err)}")
     with _launch_lock:  # server threads may call concurrently
         wrapper.launches += 1
-        if body:
-            wrapper.body_launches[body] += 1
-    return out_s, out_i
-
-
-def _blocks_per_sm(name: str, vectors: torch.Tensor, *args: int) -> int:
-    """How many blocks of one body of kernel `name` an SM of the card holding
-    `vectors` keeps resident (C entry `vod_<name>_blocks_per_sm(*args)`)."""
-    from .cuda_build import load_library
-
-    fn = getattr(load_library(name), f"vod_{name}_blocks_per_sm")
-    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
-    with torch.cuda.device(vectors.device):
-        per_sm = fn(*args)
-    if per_sm <= 0:
-        raise RuntimeError(f"{name} occupancy query failed with CUDA error {-per_sm}")
-    return per_sm
+        if plan.body:
+            wrapper.body_launches[plan.body] += 1
 
 
 def _binned_body(dtype: torch.dtype, d: int, bins: int, ptrs: typ.Iterable[int]) -> str:
@@ -215,46 +278,140 @@ def _binned_body(dtype: torch.dtype, d: int, bins: int, ptrs: typ.Iterable[int])
     return "fma"
 
 
-def _binned_splits(vectors: torch.Tensor, queries: torch.Tensor, bins: int, n_real: int, body: str) -> int:
+def binned_splits(sms: int, per_sm: int, b: int, bins: int, n_real: int, body: str) -> int:
     """Stride splits of the binned kernel: as many as keep every block resident
-    in one wave (the body's occupancy at this dtype and D times the SMs), at
-    most one per stride, and for the tensor-core body enough that no split
-    holds more than 65,535 strides."""
-    per_sm = _blocks_per_sm(
-        "fused_mips_binned", vectors, _BODIES[body], _DTYPE_CODES[vectors.dtype], int(vectors.shape[1])
-    )
+    in one wave (`per_sm`, the body's occupancy at this dtype and D, times
+    `sms`), at most one per stride, and for the tensor-core body enough that
+    no split holds more than 65,535 strides."""
     strides = -(-n_real // bins)
-    tiles = -(-bins // _BINNED_BIN_TILE[body]) * -(-int(queries.shape[0]) // _QUERY_TILE)
-    splits = max(1, min(strides, per_sm * _sms(vectors.device) // max(1, tiles), 65535))
+    tiles = -(-bins // _BINNED_BIN_TILE[body]) * -(-b // _QUERY_TILE)
+    splits = max(1, min(strides, per_sm * sms // max(1, tiles), 65535))
     if body == "wgmma":
         splits = max(splits, -(-strides // _BINNED_MAX_STRIDES))
     return splits
 
 
-def _kernel_cells(
-    vectors: torch.Tensor, queries: torch.Tensor, bins: int, n_real: int
+def _select_cells(bins: int) -> int:
+    """The select kernel's workspace cells a query: 0 where the bins, padded
+    to a power of two, fit in shared memory."""
+    n_pad = 1 << max(0, bins - 1).bit_length()
+    return 0 if n_pad <= _SELECT_SMEM_CELLS else n_pad
+
+
+def _binned_plan(vectors: torch.Tensor, queries: torch.Tensor, bins: int, n_real: int) -> _Plan:
+    b, d = (int(x) for x in queries.shape)
+    dev = vectors.device
+    ptrs = (vectors.data_ptr(), queries.data_ptr())
+    aligned = all(p % 16 == 0 for p in ptrs)
+    key = ("fused_mips_binned", dev.index, vectors.dtype, b, d, bins, n_real, aligned)
+
+    def build() -> _Plan:
+        body = _binned_body(vectors.dtype, d, bins, ptrs)
+        per_sm = _blocks_per_sm("fused_mips_binned", dev.index, _BODIES[body], _DTYPE_CODES[vectors.dtype], d)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return _Plan(_entry("fused_mips_binned", f"vod_fused_mips_binned_{body}"), body,
+                     binned_splits(sms, per_sm, b, bins, n_real, body), _select_cells(bins))
+
+    return _plan(key, build)
+
+
+def _workspace(dev: torch.device, plan: _Plan, b: int, width: int) -> tuple[torch.Tensor, int, int, int]:
+    """One allocation for the partials [splits, B, width] (scores, ids) and the
+    select kernel's cells; returns it and the addresses of the three parts."""
+    cells = plan.splits * b * width
+    ws = torch.empty(2 * cells + 4 * b * plan.sort_cells, dtype=torch.int32, device=dev)
+    base = ws.data_ptr()
+    return ws, base, base + 4 * cells, base + 8 * cells if plan.sort_cells else 0
+
+
+def _outputs(b: int, k: int, score_dtype: torch.dtype, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, k] scores and int32 ids, views of one allocation."""
+    out_s, out_i = torch.empty((2, b, k), dtype=torch.int32, device=dev).unbind(0)
+    return (out_s if score_dtype == torch.int32 else out_s.view(score_dtype)), out_i
+
+
+def _kernel_topk(
+    vectors: torch.Tensor, queries: torch.Tensor, k: int, bins: int, n_real: int, int8: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the binned CUDA kernel on the body `_binned_body` names; outputs
-    `[B, bins]` cells."""
-    int8 = vectors.dtype == torch.int8
+    """Launch the binned body that `_binned_body` names, then the select
+    kernel, on the current stream; outputs `[B, k]`."""
     d = int(queries.shape[1])
     if int8 and (d % 4 or vectors.data_ptr() % 4 or queries.data_ptr() % 4):
         raise ValueError("the int8 kernel needs D % 4 == 0 and 4-byte aligned rows")
-    body = _binned_body(vectors.dtype, d, bins, (vectors.data_ptr(), queries.data_ptr()))
-    splits = _binned_splits(vectors, queries, bins, n_real, body)
-    score_dtype = torch.int32 if int8 else torch.float32
-    return _launch(fused_mips_binned, vectors, queries, bins, n_real, score_dtype, splits, body)
+    b = int(queries.shape[0])
+    dev = vectors.device
+    out_s, out_i = _outputs(b, k, torch.int32 if int8 else torch.float32, dev)
+    if b == 0:
+        return out_s, out_i
+    plan = _binned_plan(vectors, queries, bins, n_real)
+    ws, part_s, part_i, keys = _workspace(dev, plan, b, bins)
+    _launch(fused_mips_binned, plan, dev, _DTYPE_CODES[vectors.dtype], queries.data_ptr(), vectors.data_ptr(),
+            part_s, part_i, out_s.data_ptr(), out_i.data_ptr(), keys, b, d, bins, n_real, plan.splits, k)
+    return out_s, out_i
 
 
 def _select(
     cell_s: torch.Tensor, cell_i: torch.Tensor, k: int, int8: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """k of the `[B, bins]` cells, lowest cell first on ties (as `lax.top_k`);
-    id -1 where the score is -inf (float) or the int8 sentinel."""
+    id -1 where the score is -inf (float) or the int8 sentinel. The plain
+    versions' selection; on the card `select_kernel` does it."""
     top_s, pos = topk_lowest_first(cell_s, k)
     top_i = torch.gather(cell_i, -1, pos)
     valid = top_s > _INT32_MIN if int8 else torch.isfinite(top_s)
     return top_s, torch.where(valid, top_i, -1)
+
+
+def merge_select_reference(
+    part_s: torch.Tensor, part_i: torch.Tensor, k: int, int8: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `select_kernel`: the partial cells `[splits, B, bins]`
+    folded in increasing split order with a strict `>` (the lower split on equal
+    scores), then `_select`. The tests and the card script hold the kernel
+    against it; the main path never runs it."""
+    cell_s, cell_i = part_s[0], part_i[0]
+    for z in range(1, int(part_s.shape[0])):
+        better = part_s[z] > cell_s
+        cell_s = torch.where(better, part_s[z], cell_s)
+        cell_i = torch.where(better, part_i[z], cell_i)
+    return _select(cell_s, cell_i, k, int8)
+
+
+def merge_select(part_s: torch.Tensor, part_i: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`select_kernel` alone, on partial cells that the caller made: scores
+    `[splits, B, bins]` (int32 for int8, else float32) and int32 ids of the
+    same shape, contiguous; returns `[B, k]` scores and ids, as
+    `merge_select_reference`. On a CUDA tensor this launches the kernel or
+    raises, counted on `merge_select.launches`; on a CPU tensor it runs the
+    plain version. `fused_mips_binned` launches the same kernel itself."""
+    if part_s.ndim != 3 or part_s.shape != part_i.shape or part_i.dtype != torch.int32:
+        raise ValueError(f"expected [splits, B, bins] scores and int32 ids, got {tuple(part_s.shape)} and "
+                         f"{tuple(part_i.shape)} {part_i.dtype}")
+    if part_s.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"merge_select takes int32 or float32 scores, got {part_s.dtype}")
+    splits, b, bins = (int(x) for x in part_s.shape)
+    if not 0 < k <= bins or splits < 1:
+        raise ValueError(f"need 0 < k <= bins and a split, got k={k}, shape {tuple(part_s.shape)}")
+    int8 = part_s.dtype == torch.int32
+    dev = part_s.device
+    if dev.type == "cpu":
+        return merge_select_reference(part_s, part_i, k, int8)
+    if dev.type != "cuda" or part_i.device != dev:
+        raise ValueError(f"merge_select runs on cuda or cpu, with both tensors on one device, not {dev}")
+    if not (part_s.is_contiguous() and part_i.is_contiguous()):
+        raise ValueError("merge_select needs contiguous partials")
+    out_s, out_i = _outputs(b, k, part_s.dtype, dev)
+    if b == 0:
+        return out_s, out_i
+    plan = _plan(("merge_select", dev.index, bins), lambda: _Plan(  # the splits come with each call
+        _entry("fused_mips_binned", "vod_fused_mips_binned_select"), "", 0, _select_cells(bins)))
+    ws = torch.empty(4 * b * plan.sort_cells, dtype=torch.int32, device=dev)
+    _launch(merge_select, plan, dev, _DTYPE_CODES[torch.int8] if int8 else 0, part_s.data_ptr(), part_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), ws.data_ptr() if plan.sort_cells else 0, b, bins, splits, k)
+    return out_s, out_i
+
+
+merge_select.launches = 0
 
 
 def fused_mips_binned(
@@ -284,19 +441,19 @@ def fused_mips_binned(
     call (a misaligned `storage_offset` included), on CUDA cores
     (`binned_float_kernel`, `binned_int8_kernel`). A call that the rule gives
     to the tensor cores and that cannot build or launch there raises; it never
-    runs on the other body. Each call that launches adds one to
+    runs on the other body. Every CUDA call then selects on the card
+    (`select_kernel`, any bins and k): two launches a call, and one more to
+    cast float queries of another dtype. Each call that launches adds one to
     `fused_mips_binned.launches` and to `fused_mips_binned.body_launches[body]`,
     under the module's launch lock; the plain version never adds to them.
     While a profiler records, the call is one `fused_mips_binned` span."""
     with _span("fused_mips_binned"):
         q, bins_eff, n_real, int8 = _check(vectors, queries, k, bins, tile, n_real)
         if vectors.device.type == "cuda":
-            cells = _kernel_cells(vectors, q, bins_eff, n_real)
-        elif vectors.device.type == "cpu":
-            cells = binned_cells_reference(vectors, q, bins_eff, n_real)
-        else:
-            raise ValueError(f"fused_mips_binned runs on cuda or cpu, not {vectors.device}")
-        return _select(*cells, k, int8)
+            return _kernel_topk(vectors, q, k, bins_eff, n_real, int8)
+        if vectors.device.type == "cpu":
+            return _select(*binned_cells_reference(vectors, q, bins_eff, n_real), k, int8)
+        raise ValueError(f"fused_mips_binned runs on cuda or cpu, not {vectors.device}")
 
 
 def _span(name: str) -> typ.ContextManager:
@@ -309,9 +466,8 @@ def _span(name: str) -> typ.ContextManager:
 
 
 # One count per call that launches the CUDA kernels: the body's
-# `binned_*_kernel`, and after it on the same stream `merge_splits_kernel` when
-# the row strides are split (every call at serving batch). The plain version
-# never adds to them.
+# `binned_*_kernel`, and after it on the same stream `select_kernel`. The plain
+# version never adds to them.
 fused_mips_binned.launches = 0
 fused_mips_binned.body_launches = {body: 0 for body in _BODIES}
 _launch_lock = threading.Lock()
@@ -368,15 +524,42 @@ def _topk_body(dtype: torch.dtype, d: int, ptrs: typ.Iterable[int]) -> str:
     return "fma"
 
 
-def _topk_splits(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int, body: str) -> int:
-    """Row splits of the exact kernel: as many as keep every block resident in
-    one wave (the body's occupancy at this D and k times the SMs), at most one
-    per row tile."""
-    per_sm = _blocks_per_sm(
-        "fused_mips_topk", vectors, _BODIES[body], _DTYPE_CODES[vectors.dtype], int(vectors.shape[1]), k
-    )
-    tiles = -(-int(queries.shape[0]) // _QUERY_TILE)
-    return max(1, min(-(-n_real // _TOPK_ROW_TILE[body]), per_sm * _sms(vectors.device) // tiles, 65535))
+def _topk_plan(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int) -> _Plan:
+    b, d = (int(x) for x in queries.shape)
+    dev = vectors.device
+    ptrs = (vectors.data_ptr(), queries.data_ptr())
+    aligned = all(p % 16 == 0 for p in ptrs)
+    key = ("fused_mips_topk", dev.index, vectors.dtype, b, d, k, n_real, aligned)
+
+    def build() -> _Plan:
+        # row splits: as many as keep every block resident in one wave (the
+        # body's occupancy at this D and k times the SMs), at most one per row tile
+        body = _topk_body(vectors.dtype, d, ptrs)
+        per_sm = _blocks_per_sm("fused_mips_topk", dev.index, _BODIES[body], _DTYPE_CODES[vectors.dtype], d, k)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tiles = -(-b // _QUERY_TILE)
+        splits = max(1, min(-(-n_real // _TOPK_ROW_TILE[body]), per_sm * sms // tiles, 65535))
+        return _Plan(_entry("fused_mips_topk", f"vod_fused_mips_topk_{body}"), body, splits, 0)
+
+    return _plan(key, build)
+
+
+def _kernel_exact(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the exact kernel on the body `_topk_body` names (and its merge of
+    the splits) on the current stream; outputs `[B, k]`."""
+    b, d = (int(x) for x in queries.shape)
+    dev = vectors.device
+    out_s, out_i = _outputs(b, k, torch.float32, dev)
+    if b == 0:
+        return out_s, out_i
+    plan = _topk_plan(vectors, queries, k, n_real)
+    if plan.splits > 1:
+        ws, part_s, part_i, _ = _workspace(dev, plan, b, k)
+    else:  # one split writes the result itself
+        part_s, part_i = out_s.data_ptr(), out_i.data_ptr()
+    _launch(fused_mips_topk, plan, dev, _DTYPE_CODES[vectors.dtype], queries.data_ptr(), vectors.data_ptr(),
+            part_s, part_i, out_s.data_ptr(), out_i.data_ptr(), b, d, k, n_real, plan.splits)
+    return out_s, out_i
 
 
 def exact_topk_reference(
@@ -439,9 +622,7 @@ def fused_mips_topk(
     n_real = _check_topk(vectors, queries, k, tile, qblock, n_real)
     q = queries.to(vectors.dtype).contiguous()
     if vectors.device.type == "cuda":
-        body = _topk_body(vectors.dtype, int(vectors.shape[1]), (vectors.data_ptr(), q.data_ptr()))
-        splits = _topk_splits(vectors, q, k, n_real, body)
-        return _launch(fused_mips_topk, vectors, q, k, n_real, torch.float32, splits, body)
+        return _kernel_exact(vectors, q, k, n_real)
     if vectors.device.type == "cpu":
         return exact_topk_reference(vectors, q, k, n_real)
     raise ValueError(f"fused_mips_topk runs on cuda or cpu, not {vectors.device}")
