@@ -39,13 +39,16 @@ checked, none caught:
     `merge_select_reference`, bit for bit, on partials at the main paths'
     shapes (`SELECT_CASES`: the CLI loop's 33 splits x 32 queries x 512
     bins at k = 100, the serving call's 16 x 64 x 1024 at k = 40, 4096 bins
-    at k = 160, int8 scores in [-2, 2] and floats with -inf cells), timed
-    beside its plain version with its bound; then the narrow calls of the
-    CLI loops (`vod_tpu_torch.examples.narrow_call_bench.SHAPES`), each held
-    against the plain version and timed: wall per call (CUDA events), host
-    enqueue, device time and launches per call (`torch.profiler`; checked:
-    2, `binned_wgmma_kernel` and `select_kernel`), `topk(matmul)` /
-    `topk(_int_mm)` and the bound;
+    at k = 160, phase 10's 33 x 4 x 512 at k = 100, int8 scores in [-2, 2]
+    and floats with -inf cells; and the clustered scores that phase 9's
+    body writes), timed beside its plain version, `torch.topk` of the
+    folded cells (selection only: no fold, no tie order) and its bound;
+    then the narrow calls of the CLI loops
+    (`vod_tpu_torch.examples.narrow_call_bench.SHAPES`), each held against
+    the plain version and timed: wall per call (CUDA events), host enqueue,
+    device time and launches per call (`torch.profiler`; checked: 2,
+    `binned_wgmma_kernel` and `select_kernel`, whose share is read out),
+    `topk(matmul)` / `topk(_int_mm)` and the bound;
  4. the serving path, end to end (the main path: launch counts are zeroed just
     before it and read just after): an e5-base-width `VodEncoder` (bf16
     activations, f32 params, seed 0) encodes 64 queries of 64 seeded tokens;
@@ -919,7 +922,7 @@ SMALL_FLOORS = dict(
 # Phase 3c: the select kernel alone on partials (splits, B, bins, k), and the
 # narrow calls' repetitions (host enqueue over `reps` calls, the profiler over
 # `profile_reps`).
-SELECT_CASES = ((33, 32, 512, 100), (16, 64, 1024, 40), (4, 64, 4096, 160))
+SELECT_CASES = ((33, 32, 512, 100), (16, 64, 1024, 40), (4, 64, 4096, 160), (33, 4, 512, 100))
 NARROW = dict(reps=200, profile_reps=50)
 REALTEXT = dict(n=1 << 18, recall_floors={"int8": 0.97,  # [0.9903]
                                           "pq96x4fs+ref": 0.93, "serving-direct": 0.92})  # [0.9517, 0.9486]
@@ -1232,12 +1235,15 @@ def host_and_device_ms(fn, reps: int) -> tuple[float, float, dict]:
         fn()
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {e.key[:60]: e.self_device_time_total / 1e3 / reps
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    for _ in range(3):  # a profile that records no device event at all (seen on the card) is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key[:60]: e.self_device_time_total / 1e3 / reps
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if by_name:
+            break
     return host_ms, sum(by_name.values()), by_name
 
 
@@ -6329,6 +6335,7 @@ def narrow_phase(dev, card: str, hbm: float, peak_bf16: float, peak_int8: float,
     import torch
 
     from vod_tpu_torch.examples import narrow_call_bench
+    from vod_tpu_torch.ops import mips
     from vod_tpu_torch.ops.mips import (
         _INT32_MIN,
         fused_mips_binned,
@@ -6339,6 +6346,35 @@ def narrow_phase(dev, card: str, hbm: float, peak_bf16: float, peak_int8: float,
 
     g = torch.Generator(device=dev).manual_seed(61)
     select_rows = []
+
+    def select_row(kind: str, part_s, part_i, k: int) -> dict:
+        """The kernel on one case against its plain version, bit for bit, and
+        timed beside the plain version, `torch.topk` of the folded cells and
+        the bound."""
+        splits, b, bins = (int(x) for x in part_s.shape)
+        before = merge_select.launches
+        ks, ki = merge_select(part_s, part_i, k)
+        rs, ri = merge_select_reference(part_s, part_i, k, kind == "int8")
+        check(merge_select.launches == before + 1, "merge_select did not launch select_kernel")
+        same = torch.equal(ki, ri) and torch.equal(ks.view(torch.int32), rs.contiguous().view(torch.int32))
+        check(same, f"select {kind} splits={splits} B={b} bins={bins} k={k}: kernel != plain")
+        ms = time_ms(lambda: merge_select(part_s, part_i, k), 20)
+        device_ms, _, _ = narrow_call_bench.device_profile(lambda: merge_select(part_s, part_i, k), 20)
+        plain_ms = time_ms(lambda: merge_select_reference(part_s, part_i, k, kind == "int8"), 5)
+        cells = part_s[0].clone()  # the folded scores, as the plain version folds them
+        for z in range(1, splits):
+            cells = torch.where(part_s[z] > cells, part_s[z], cells)
+        library_ms = time_ms(lambda: torch.topk(cells, k, dim=-1), 20)
+        # every partial score read once, the k winners' ids read once, [B, k] scores and ids written once
+        nbytes = splits * b * bins * 4 + b * k * 4 + b * k * 8
+        row = dict(dtype=kind, splits=splits, B=b, bins=bins, k=k, max_abs_err=0.0, ms=ms, device_ms=device_ms,
+                   plain_ms=plain_ms, library="topk(folded cells): selection only, no fold, no tie order",
+                   library_ms=library_ms, bound_ms=nbytes / hbm * 1e3, bound_by="bytes")
+        log(f"check select {kind} splits={splits} B={b} bins={bins} k={k}: kernel == plain bit for bit; kernel "
+            f"{ms:.4f} ms a call ({device_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, topk of the folded "
+            f"cells {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes) [{card}]")
+        return row
+
     for splits, b, bins, k in SELECT_CASES:
         for kind in ("int8", "float32"):
             ids = torch.arange(splits * b * bins, device=dev, dtype=torch.int32).view(splits, b, bins)
@@ -6351,24 +6387,22 @@ def narrow_phase(dev, card: str, hbm: float, peak_bf16: float, peak_int8: float,
                 empty = torch.rand((splits, b, bins), generator=g, device=dev) < 0.1
                 part_s = torch.where(empty, float("-inf"), part_s)
             part_i = torch.where(empty, -1, ids)
-            before = merge_select.launches
-            ks, ki = merge_select(part_s, part_i, k)
-            rs, ri = merge_select_reference(part_s, part_i, k, kind == "int8")
-            check(merge_select.launches == before + 1, "merge_select did not launch select_kernel")
-            same = torch.equal(ki, ri) and torch.equal(ks.view(torch.int32), rs.contiguous().view(torch.int32))
-            check(same, f"select {kind} splits={splits} B={b} bins={bins} k={k}: kernel != plain")
-            ms = time_ms(lambda: merge_select(part_s, part_i, k), 20)
-            device_ms, _, _ = narrow_call_bench.device_profile(lambda: merge_select(part_s, part_i, k), 20)
-            plain_ms = time_ms(lambda: merge_select_reference(part_s, part_i, k, kind == "int8"), 5)
-            # every partial score read once, the k winners' ids read once, [B, k] scores and ids written once
-            nbytes = splits * b * bins * 4 + b * k * 4 + b * k * 8
-            select_rows.append(dict(dtype=kind, splits=splits, B=b, bins=bins, k=k, max_abs_err=0.0, ms=ms,
-                                    device_ms=device_ms, plain_ms=plain_ms, bound_ms=nbytes / hbm * 1e3,
-                                    bound_by="bytes"))
-            log(f"check select {kind} splits={splits} B={b} bins={bins} k={k}: kernel == plain bit for bit; kernel "
-                f"{ms:.4f} ms a call ({device_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, bound "
-                f"{select_rows[-1]['bound_ms']:.4f} ms (bytes) [{card}]")
+            select_rows.append(select_row(kind, part_s, part_i, k))
 
+    # clustered scores: the partials a real narrow body writes (phase 9's call)
+    _, dtype, b, d, rows, bins, k = next(s for s in narrow_call_bench.SHAPES if s[0] == "9 CLI loop")
+    v, q = narrow_call_bench.make_inputs(dtype, b, d, rows, dev)
+    plan = mips._binned_plan(v, q, bins, rows)
+    out_s, out_i = mips._outputs(b, k, torch.float32, dev)
+    ws, ps, pi, cells_ws = mips._workspace(dev, plan, b, bins)
+    mips._launch(fused_mips_binned, plan, dev, mips._DTYPE_CODES[v.dtype], q.data_ptr(), v.data_ptr(), ps, pi,
+                 out_s.data_ptr(), out_i.data_ptr(), cells_ws, b, d, bins, rows, plan.splits, k)
+    part = ws[: 2 * plan.splits * b * bins].view(2, plan.splits, b, bins)
+    part_s, part_i = part[0].view(torch.float32).clone(), part[1].clone()
+    check(torch.equal(out_i, merge_select_reference(part_s, part_i, k, False)[1]),
+          "select after phase 9's body: kernel != plain")
+    select_rows.append(dict(select_row("body-f32", part_s, part_i, k), source="phase 9's body"))
+    del v, q, ws, part, part_s, part_i
     narrow = []
     for shape in narrow_call_bench.SHAPES:
         label, dtype, b, d, rows, bins, k = shape
@@ -6388,9 +6422,13 @@ def narrow_phase(dev, card: str, hbm: float, peak_bf16: float, peak_int8: float,
         names = sorted(row["by_kernel"])
         check(row["kernels"] == 2 and len(names) == 2 and "binned_wgmma_kernel" in names[0]
               and "select_kernel" in names[1], f"narrow {label}: {row['kernels']} launches a call, {names}")
+        row["select_device_ms"] = row["by_kernel"][names[1]]
+        if label == "10 large CLI":  # the select case at phase 10's B = 4 takes this call's splits
+            check(row["splits"] == SELECT_CASES[3][0], f"narrow {label}: {row['splits']} splits, not SELECT_CASES'")
         narrow.append(row)
-        log(f"time narrow {label} ({dtype} B={b} D={d} rows={rows} bins={bins} k={k}): wall {row['wall_ms']:.4f} ms, "
-            f"host {row['host_ms']:.4f} ms, device {row['device_ms']:.4f} ms in {row['kernels']:g} launches "
+        log(f"time narrow {label} ({dtype} B={b} D={d} rows={rows} bins={bins} k={k}, {row['splits']} splits): wall "
+            f"{row['wall_ms']:.4f} ms, host {row['host_ms']:.4f} ms, device {row['device_ms']:.4f} ms in "
+            f"{row['kernels']:g} launches (select_kernel {row['select_device_ms']:.4f}) "
             f"{json.dumps(row['by_kernel'])}, {row['library']} {row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}) [{card}]")
     return dict(select=select_rows, narrow=narrow)
@@ -6966,8 +7004,8 @@ def main() -> None:
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
                       and s["body"] == "wgmma")
     select_main = next({k: v for k, v in r.items()
-                        if k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
-                       for r in phase3c["select"] if r["dtype"] == "float32" and r["splits"] == 33)
+                        if k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                       for r in phase3c["select"] if r["dtype"] == "float32" and r["splits"] == 33 and r["B"] == 32)
     kernels = [dict(
         name="fused_mips_binned", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
         replaces="vod_tpu/ops/mips_pallas.py:151", launches=launches,
@@ -7008,10 +7046,10 @@ def main() -> None:
         phase17_launches=phase17_launches, phase17=phase17,
         # every CUDA call launches `select_kernel` after its body: the main
         # path's launches are the wrapper's; the times are of the kernel alone
-        # at the CLI loop's partials (f32; 33 splits x 32 queries x 512 bins)
+        # at the CLI loop's partials (f32; 33 splits x 32 queries x 512 bins);
+        # library_ms is `torch.topk` of the folded cells (selection only)
         select=dict(select_main, name="select_kernel", route="cuda", source="vod_tpu_torch/csrc/fused_mips_binned.cu",
-                    replaces="vod_tpu/ops/mips_pallas.py:286", launches=launches, library_ms=None,
-                    shapes=phase3c["select"]),
+                    replaces="vod_tpu/ops/mips_pallas.py:286", launches=launches, shapes=phase3c["select"]),
         narrow_calls=phase3c["narrow"],
     ), dict(
         name="fused_mips_topk", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",

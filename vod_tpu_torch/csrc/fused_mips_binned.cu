@@ -68,22 +68,44 @@
 // one wave. Each split writes partial cells [splits, B, bins]. Strides at or
 // past n_real are never visited.
 //
-// The selection (`select_kernel`), one block per query, replaces a merge
-// kernel and a sort, gather and mask in PyTorch (five or more launches) by
-// one launch. It folds the query's splits cell by cell in increasing split
-// order with the same strict `>`, which keeps the lowest-id rule because split
-// z only holds rows below those of split z + 1, and makes each cell a 64-bit
-// key: the score's bits in an order-preserving form above the complement of
-// the cell index, so that one descending sort of the keys gives score
-// descending, then lower cell first, and no two keys tie. The keys, padded to
-// a power of two with zeros (below every cell), go through a bitonic sort in
-// shared memory (up to 8,192 cells: keys, folded scores and ids, 128 KB), or
-// in a workspace in device memory above that. The first k keys name the
-// cells, whose folded score (with its bits: a -0 stays -0 though it sorts as
-// +0) and id are written out. What bounds it: at a narrow call it reads
-// splits x B x bins partials (4.3 MB at B = 32, 512 bins, 33 splits), a few
-// microseconds of the card; of its log2(bins)^2 / 2 sort stages only those
-// of strides above 32, and the stage after each, wait on a block-wide barrier.
+// The selection (`select_kernel`) replaces a merge kernel and a sort, gather
+// and mask in PyTorch (five or more launches) by one launch. It folds each
+// cell's splits in increasing split order with the same strict `>`, which
+// keeps the lowest-id rule because split z only holds rows below those of
+// split z + 1, and writes k cells in `lax.top_k`'s order: score descending,
+// then lower cell first, one block a query. What bounds it: it must read
+// every partial score once and the k winners' ids (2.2 MB at the CLI loop's
+// 33 splits x 32 queries x 512 bins, under a microsecond of the card's memory
+// rate), so it is bound by latency: the loads of the fold and the barriers
+// of its steps, not by bytes. The design keeps both few:
+//   * the fold reads scores only, each cell keeping its winning split; only
+//     the k winners' ids are read, at the end, from that split. The scores
+//     reach shared memory by TMA bulk copies (a split's row of cells is
+//     contiguous; `cp.async` off the 16-byte grid), a whole chunk of splits
+//     in flight at once without holding registers, so the fold waits on
+//     memory once a chunk (once a call at the main paths' shapes);
+//   * radix passes over the scores' bits in an order-preserving form find
+//     the k-th score, 8 bits a pass (a 256-digit histogram, shared atomics
+//     aggregated a warp at a time) starting at the highest bit in which the
+//     block's cells differ (a clustered row skips its common bits); they
+//     stop once the digit that holds the k-th score holds exactly the cells
+//     still needed, or, for k <= 256, once at most 256 cells lie at or
+//     above it;
+//   * those cells are gathered in cell order (ballots and a block prefix,
+//     no atomics deciding which, so the lowest cells win a tie at the
+//     threshold) and only they are ordered: 64-bit keys (the bits above the
+//     complemented cell index, so no two tie), each placed by counting the
+//     keys above it (k <= 256: no barrier), else a bitonic sort of k keys
+//     padded to a power of two. The winners' own scores go out (a -0 stays
+//     -0, though it sorts as +0).
+// A thread-block cluster a query (its blocks folding slices of the cells, and
+// in a first version summing their histograms at every pass through
+// distributed shared memory) was built twice and measured slower (PERF.md,
+// PR 21): the cluster's launch and barrier cost more than spreading a query's
+// partials over more SMs saves, since the fold waits mostly on one round trip
+// to memory. Cells (order bits and winning split) and the candidates take 8
+// bytes each in shared memory up to 8,192 bins (padded), and sit in a
+// workspace in device memory above that.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -114,8 +136,11 @@ constexpr int MAX_CHUNKS = 24;                // query tile <= 192 KB: two ring 
 constexpr int MAX_STRIDES = 65535;            // strides per split: 16-bit winners, 0xFFFF = none
 constexpr uint32_t NO_WINNER = 0xFFFFFFFFu;   // both halves 0xFFFF
 // selection; SELECT_SMEM_CELLS has a twin in `ops/mips.py` (_SELECT_SMEM_CELLS)
-constexpr int SELECT_SMEM_CELLS = 8192;       // cells (16 bytes each) sorted in shared memory; more go to the workspace
-constexpr int SELECT_THREADS = 1024;          // at most; one a cell (padded) when fewer
+constexpr int SELECT_SMEM_CELLS = 8192;       // bins (padded) whose cells and candidates stay in shared memory; more: the workspace
+constexpr int SELECT_THREADS = 1024;          // at most a block
+constexpr int RADIX = 256;                    // digits of an 8-bit radix pass
+constexpr int RANK_SORT_MAX = 256;            // k up to this: at most this many candidates, each placed by counting
+constexpr int SELECT_STAGE_BYTES = 80 * 1024; // the fold's stage of partial scores in shared memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -304,100 +329,366 @@ __device__ __forceinline__ uint32_t order_bits(float s) {
 __device__ __forceinline__ bool no_id(float s) { return !isfinite(s); }
 __device__ __forceinline__ bool no_id(int s) { return s <= INT8_NEG; }
 
-// Cell c of one query: its splits (`plane` apart) folded in increasing split
-// order with a strict `>`. The loads do not wait on the compares, so the
-// unrolled loop keeps several in flight.
-template <typename S>
-__device__ __forceinline__ void fold_cell(const S* __restrict__ ps, const int* __restrict__ pi, size_t plane,
-                                          int splits, S& best, int& id) {
-  best = ps[0];
-  id = pi[0];
-#pragma unroll 8
-  for (int z = 1; z < splits; ++z) {
-    const S s = ps[(size_t)z * plane];
-    const int i = pi[(size_t)z * plane];
-    if (s > best) { best = s; id = i; }
+// 4 bytes from device memory to shared memory, asynchronously (no register
+// holds them); `cp_async_wait_all` waits for the thread's copies.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Inclusive sum over the warp's lanes up to this one.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+// The largest and smallest of a warp's values, in every lane.
+__device__ __forceinline__ void warp_max_min(uint32_t& hi, uint32_t& lo) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    hi = max(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, o));
+    lo = min(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, o));
   }
 }
 
-// Block b: query b. Its n_pad keys, folded scores and ids (16 bytes a cell) go
-// to dynamic shared memory (GLOBAL false) or to the workspace's row b (GLOBAL
-// true); barriers order both for the block. Thread t folds cells t,
-// t + blockDim, ...; in the sort, thread t handles pairs t, t + blockDim, ...,
-// so a stage of stride <= 32 stays inside each warp's 64 keys and needs only
-// the warp's barrier, unless the stage before it crossed warps.
+struct SelectState {
+  uint32_t prefix;  // the threshold's bits found so far
+  int need;         // cells still to take among those matching the prefix
+  int above;        // cells above every value with the prefix
+  int count;        // cells matching the prefix
+  int done;         // 1 once the candidates are settled
+};
+
+// Block b: query b. Shared memory (GLOBAL false) or the workspace's row b
+// (GLOBAL true) holds each cell's order bits and winning split, and the
+// candidate keys. Steps:
+//   1. fold: the query's partial scores (not their ids, which step 4 reads
+//      for the winners only) are copied to shared memory, as many splits at
+//      a time as the stage holds, by the TMA unit (a split's row of cells
+//      is contiguous), or by 4-byte `cp.async` where a row is off the
+//      16-byte grid, so that every load of a chunk is in flight at once and
+//      holds no register; then each thread folds its cells over them in
+//      split order. The block's largest and smallest order bits come with
+//      it;
+//   2. radix passes over the order bits, 8 bits a pass from the highest bit
+//      in which the largest and smallest differ (the bits above it are
+//      common): a 256-digit histogram of the cells matching the prefix (a
+//      warp's lanes on its first lane's digit add in one shared atomic), and
+//      the digit that holds the k-th cell. The passes stop once that digit's
+//      cells are all needed, or (k <= RANK_SORT_MAX) once the cells above it
+//      and in it number at most RANK_SORT_MAX, all of which become
+//      candidates;
+//   3. gather, in cell order (each warp a run of cells, ballots within it
+//      and a block prefix of the runs' counts): the cells above the prefix,
+//      and those matching it (all of them, or the first `need`: lowest cell
+//      first);
+//   4. order the candidates' keys (k <= RANK_SORT_MAX: each key's place is
+//      the count of keys above it, and places past k go nowhere; else a
+//      bitonic sort of k keys padded to a power of two) and write each
+//      winner's own score and id, read from its winning split.
 template <typename S, bool GLOBAL>
 __global__ void __launch_bounds__(SELECT_THREADS)
 select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* __restrict__ out_s,
-              int* __restrict__ out_i, unsigned char* __restrict__ sort_ws, int B, int bins, int splits, int k,
-              int n_pad) {
-  extern __shared__ __align__(16) unsigned char smem_cells[];
+              int* __restrict__ out_i, unsigned char* __restrict__ ws, int B, int bins, int splits, int k, int tile,
+              int planes, int n_keys, int n_pad) {
+  extern __shared__ __align__(16) unsigned char smem_sel[];
+  __shared__ uint32_t hist[2][RADIX];
+  __shared__ uint32_t warp_hi[32], warp_lo[32];
+  __shared__ int warp_up[32], warp_eq[32];
+  __shared__ SelectState st;
+  __shared__ uint64_t staged;  // the stage's mbarrier (TMA copies)
   const int b = blockIdx.x;
-  unsigned char* base = GLOBAL ? sort_ws + (size_t)b * n_pad * 16 : smem_cells;
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);
-  S* cell_s = reinterpret_cast<S*>(base + (size_t)n_pad * 8);
-  int* cell_i = reinterpret_cast<int*>(base + (size_t)n_pad * 12);
-  const size_t plane = (size_t)B * bins;
-  const S* ps = part_s + (size_t)b * bins;
-  const int* pi = part_i + (size_t)b * bins;
-  for (int c = threadIdx.x; c < n_pad; c += blockDim.x) {
-    unsigned long long key = 0ull;  // padding: below every cell
-    if (c < bins) {
-      S s;
-      int id;
-      fold_cell(ps + c, pi + c, plane, splits, s, id);
-      cell_s[c] = s;
-      cell_i[c] = id;
-      key = (static_cast<unsigned long long>(order_bits(s)) << 32) | (0xFFFFFFFFu - static_cast<uint32_t>(c));
-    }
-    keys[c] = key;
+  const int tid = threadIdx.x, T = blockDim.x, lane = tid % 32, warp = tid / 32, warps = T / 32;
+  unsigned long long* keys;  // the candidates' keys
+  uint32_t *cbits, *cz;      // the cells: order bits (the running score while folding), winning split
+  S* stage = reinterpret_cast<S*>(smem_sel);  // [planes][tile] partial scores
+  unsigned char* rest = smem_sel + ((size_t)planes * tile * 4 + 15) / 16 * 16;
+  if (GLOBAL) {
+    unsigned char* row = ws + (size_t)b * n_pad * 16;
+    cbits = reinterpret_cast<uint32_t*>(row);
+    cz = reinterpret_cast<uint32_t*>(row + (size_t)n_pad * 4);
+    keys = reinterpret_cast<unsigned long long*>(row + (size_t)n_pad * 8);
+  } else {
+    keys = reinterpret_cast<unsigned long long*>(rest);
+    cbits = reinterpret_cast<uint32_t*>(rest + (size_t)n_keys * 8);
+    cz = cbits + bins;
   }
-  // bitonic sort, descending: pair (i, i + stride) runs descending where
-  // (i & size) == 0, so the last merge (size == n_pad) is descending throughout
-  bool wide = true;  // the keys were written block-wide
-  for (int size = 2; size <= n_pad; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (wide || stride > 32) __syncthreads(); else __syncwarp();
-      wide = stride > 32;
-      for (int t = threadIdx.x; t < n_pad / 2; t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const unsigned long long lo = keys[i], hi = keys[i + stride];
-        if ((lo < hi) == ((i & size) == 0)) { keys[i] = hi; keys[i + stride] = lo; }
-      }
-    }
+  for (int d = tid; d < RADIX; d += T) hist[0][d] = 0u;
+  if (k > RANK_SORT_MAX)
+    for (int r = k + tid; r < n_keys; r += T) keys[r] = 0ull;  // the sort's padding: below every cell
+  // rows of 16-byte multiples on 16-byte addresses go by TMA, else by 4-byte `cp.async`
+  const bool bulk = reinterpret_cast<uintptr_t>(part_s) % 16 == 0 && bins % 4 == 0;
+  if (tid == 0 && bulk) {
+    mbar_init(&staged, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int r = threadIdx.x; r < k; r += blockDim.x) {
-    const int c = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(keys[r]));
-    const S s = cell_s[c];
-    out_s[(size_t)b * k + r] = s;
-    out_i[(size_t)b * k + r] = no_id(s) ? -1 : cell_i[c];
+
+  // 1. fold: `tile` cells and `planes` splits at a time are copied to shared
+  // memory, then each thread folds its cells over them in split order
+  const size_t plane = (size_t)B * bins;
+  const S* ps = part_s + (size_t)b * bins;
+  uint32_t hi = 0u, lo = 0xFFFFFFFFu;  // this thread's cells' largest and smallest order bits
+  uint32_t phase = 0u;
+  for (int c0 = 0; c0 < bins; c0 += tile) {
+    const int n = min(tile, bins - c0);
+    for (int z0 = 0; z0 < splits; z0 += planes) {
+      const int nz = min(planes, splits - z0);
+      if (bulk) {
+        if (tid == 0) {
+          mbar_expect_tx(&staged, static_cast<uint32_t>(nz * n * 4));
+          for (int z = 0; z < nz; ++z) bulk_load(stage + z * n, ps + (size_t)(z0 + z) * plane + c0, n * 4, &staged);
+        }
+        mbar_wait(&staged, phase);
+        phase ^= 1u;
+      } else {
+        for (int z = 0; z < nz; ++z)
+          for (int i = tid; i < n; i += T) cp_async4(stage + z * n + i, ps + (size_t)(z0 + z) * plane + c0 + i);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      for (int i = tid; i < n; i += T) {
+        S best = z0 == 0 ? stage[i] : reinterpret_cast<const S*>(cbits)[c0 + i];
+        int zb = z0 == 0 ? 0 : static_cast<int>(cz[c0 + i]);
+#pragma unroll 8
+        for (int z = z0 == 0 ? 1 : 0; z < nz; ++z) {
+          const S v = stage[z * n + i];
+          if (v > best) { best = v; zb = z0 + z; }
+        }
+        cz[c0 + i] = static_cast<uint32_t>(zb);
+        if (z0 + nz < splits) {
+          reinterpret_cast<S*>(cbits)[c0 + i] = best;
+        } else {
+          const uint32_t x = order_bits(best);
+          cbits[c0 + i] = x;
+          hi = max(hi, x);
+          lo = min(lo, x);
+        }
+      }
+      if (z0 + nz < splits || c0 + n < bins) __syncthreads();  // the stage is filled again
+    }
+  }
+  warp_max_min(hi, lo);
+  if (lane == 0) {
+    warp_hi[warp] = hi;
+    warp_lo[warp] = lo;
+  }
+  __syncthreads();
+  hi = lane < warps ? warp_hi[lane] : 0u;  // every warp reduces the warps' values
+  lo = lane < warps ? warp_lo[lane] : 0xFFFFFFFFu;
+  warp_max_min(hi, lo);
+
+  // 2. radix passes, from the highest bit in which the cells differ: the
+  // bits at and above `settled` are the prefix's
+  const int small = k <= RANK_SORT_MAX;
+  uint32_t prefix = hi;
+  int settled = 0, need = k, above = 0, count = bins;
+  if (hi != lo) {
+    settled = 32 - __clz(hi ^ lo);
+    prefix = settled > 31 ? 0u : hi & (0xFFFFFFFFu << settled);
+    for (int pass = 0;; ++pass) {
+      const int shift = max(0, settled - 8);
+      const uint32_t smask = settled > 31 ? 0u : 0xFFFFFFFFu << settled;
+      uint32_t* h = hist[pass & 1];
+      for (int i0 = 0; i0 < bins; i0 += T) {  // the same trip count in every warp
+        const int i = i0 + tid;
+        uint32_t x = 0u;
+        bool match = false;
+        if (i < bins) {
+          x = cbits[i];
+          match = (x & smask) == prefix;
+        }
+        // the first matching lane adds its digit's lanes at once (ties share
+        // a digit); each other lane adds itself
+        const uint32_t digit = (x >> shift) & (RADIX - 1);
+        const unsigned active = __ballot_sync(0xFFFFFFFFu, match);
+        if (active != 0u) {
+          const int first = __ffs(active) - 1;
+          const uint32_t lead = __shfl_sync(0xFFFFFFFFu, digit, first);
+          const unsigned same = __ballot_sync(0xFFFFFFFFu, match && digit == lead);
+          if (lane == first) atomicAdd(&h[lead], static_cast<uint32_t>(__popc(same)));
+          else if (match && digit != lead) atomicAdd(&h[digit], 1u);
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {  // lane l: digits 255 - 8l down to 248 - 8l
+        uint32_t cnt[8], sum = 0u;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += cnt[j] = h[RADIX - 1 - 8 * lane - j];
+        uint32_t incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const uint32_t v = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const uint32_t excl = incl - sum, want = static_cast<uint32_t>(need);
+        if (excl < want && want <= incl) {  // the lane whose digits hold the k-th cell
+          uint32_t up = excl, in = 0u;
+          int digit = 0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (up + cnt[j] >= want) {
+              digit = RADIX - 1 - 8 * lane - j;
+              in = cnt[j];
+              break;
+            }
+            up += cnt[j];
+          }
+          const int now_above = above + static_cast<int>(up), now_need = need - static_cast<int>(up);
+          st.prefix = prefix | (static_cast<uint32_t>(digit) << shift);
+          st.above = now_above;
+          st.need = now_need;
+          st.count = static_cast<int>(in);
+          st.done = shift == 0 || static_cast<int>(in) == now_need ||
+                    (small && now_above + static_cast<int>(in) <= RANK_SORT_MAX);
+        }
+        for (int d = lane; d < RADIX; d += 32) hist[(pass + 1) & 1][d] = 0u;  // the next pass's
+      }
+      __syncthreads();
+      prefix = st.prefix;
+      need = st.need;
+      above = st.above;
+      count = st.count;
+      settled = shift;
+      if (st.done) break;
+    }
+  }
+
+  // 3. gather: the cells above the prefix, and those matching it (all where
+  // they fit the count-ordering, else the first `need`)
+  const uint32_t mask = 0xFFFFFFFFu << settled;
+  const int take = small && above + count <= RANK_SORT_MAX ? count : need;
+  const int m = above + take;  // candidates
+  // warp w: cells [w * 32 * per, (w + 1) * 32 * per), 32 a round; counted,
+  // then each warp's first rank from the counts of the warps before it
+  const int per = (bins + T - 1) / T, c_warp = warp * 32 * per;
+  const unsigned before = (1u << lane) - 1u;
+  int up = 0, eq = 0;
+  for (int r = 0; r < per; ++r) {
+    const int c = c_warp + 32 * r + lane;
+    const uint32_t x = c < bins ? cbits[c] & mask : 0u;
+    up += __popc(__ballot_sync(0xFFFFFFFFu, c < bins && x > prefix));
+    eq += __popc(__ballot_sync(0xFFFFFFFFu, c < bins && x == prefix));
+  }
+  if (lane == 0) {
+    warp_up[warp] = up;
+    warp_eq[warp] = eq;
+  }
+  __syncthreads();
+  const int wu = lane < warps ? warp_up[lane] : 0, we = lane < warps ? warp_eq[lane] : 0;
+  int up_rank = __shfl_sync(0xFFFFFFFFu, warp_scan(wu, lane) - wu, warp);
+  int eq_rank = __shfl_sync(0xFFFFFFFFu, warp_scan(we, lane) - we, warp);
+  for (int r = 0; r < per; ++r) {
+    const int c = c_warp + 32 * r + lane;
+    const uint32_t x = c < bins ? cbits[c] : 0u;
+    const bool is_up = c < bins && (x & mask) > prefix, is_eq = c < bins && (x & mask) == prefix;
+    const unsigned up_bits = __ballot_sync(0xFFFFFFFFu, is_up), eq_bits = __ballot_sync(0xFFFFFFFFu, is_eq);
+    const int slot = is_up ? up_rank + __popc(up_bits & before)
+                           : is_eq && eq_rank + __popc(eq_bits & before) < take
+                                 ? above + eq_rank + __popc(eq_bits & before) : -1;
+    if (slot >= 0)
+      keys[slot] = (static_cast<unsigned long long>(x) << 32) | (0xFFFFFFFFu - static_cast<uint32_t>(c));
+    up_rank += __popc(up_bits);
+    eq_rank += __popc(eq_bits);
+  }
+  __syncthreads();
+
+  // 4. each key's place in the output; a winner's own score and id are read
+  // from its winning split
+  auto source = [&](unsigned long long key) {  // a key's cell, at its winning split
+    const int c = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
+    return (size_t)cz[c] * plane + (size_t)b * bins + c;
+  };
+  auto emit = [&](int place, S s, int id) {
+    out_s[(size_t)b * k + place] = s;
+    out_i[(size_t)b * k + place] = no_id(s) ? -1 : id;
+  };
+  if (small) {
+    // a key's place: the keys above it (no two keys tie), counted by `share`
+    // neighbouring lanes a key, four keys a step; only the k winners' scores
+    // and ids are read, and places past k go nowhere
+    int share = 1;
+    while (share < 32 && 2 * share * m <= T) share <<= 1;
+    for (int r0 = 0; r0 < m; r0 += T / share) {  // the same trip count in every warp
+      const int r = r0 + tid / share;
+      const unsigned long long key = r < m ? keys[r] : 0ull;
+      int place = 0, j = tid % share;
+      if (r < m) {
+        for (; j + 3 * share < m; j += 4 * share) {
+          const unsigned long long k0 = keys[j], k1 = keys[j + share], k2 = keys[j + 2 * share],
+                                   k3 = keys[j + 3 * share];
+          place += (k0 > key ? 1 : 0) + (k1 > key ? 1 : 0) + (k2 > key ? 1 : 0) + (k3 > key ? 1 : 0);
+        }
+        for (; j < m; j += share) place += keys[j] > key ? 1 : 0;
+      }
+      for (int o = share / 2; o > 0; o >>= 1) place += __shfl_xor_sync(0xFFFFFFFFu, place, o);
+      if (r < m && tid % share == 0 && place < k) {
+        const size_t o = source(key);
+        emit(place, part_s[o], part_i[o]);
+      }
+    }
+  } else {
+    // bitonic sort of the n_keys (k padded) keys, descending: pair
+    // (i, i + stride) runs descending where (i & size) == 0, so the last
+    // merge is descending throughout. Thread t handles pairs t, t + T, ...,
+    // so a stage of stride <= 32 stays inside each warp's 64 keys and needs
+    // only the warp's barrier, unless the stage before it crossed warps.
+    bool wide = true;
+    for (int size = 2; size <= n_keys; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        if (wide || stride > 32) __syncthreads(); else __syncwarp();
+        wide = stride > 32;
+        for (int t = tid; t < n_keys / 2; t += T) {
+          const int i = 2 * t - (t & (stride - 1));
+          const unsigned long long lo_key = keys[i], hi_key = keys[i + stride];
+          if ((lo_key < hi_key) == ((i & size) == 0)) { keys[i] = hi_key; keys[i + stride] = lo_key; }
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = tid; r < k; r += T) {
+      const size_t o = source(keys[r]);
+      emit(r, part_s[o], part_i[o]);
+    }
   }
 }
 
-template <typename S> struct SelectTag {};
+template <typename S, bool GLOBAL> struct SelectTag {};
 
 // The select kernel on `stream`: partials [splits, B, bins] in, [B, k] out.
-// `sort_ws` holds B * n_pad cells of 16 bytes where n_pad (bins padded to a
-// power of two) exceeds SELECT_SMEM_CELLS, and may be null otherwise.
+// `ws` holds B * n_pad cells of 16 bytes where n_pad (bins padded to a power
+// of two) exceeds SELECT_SMEM_CELLS, and may be null otherwise.
 template <typename S>
-cudaError_t launch_select(const void* part_s, const void* part_i, void* out_s, void* out_i, void* sort_ws, int B,
+cudaError_t launch_select(const void* part_s, const void* part_i, void* out_s, void* out_i, void* ws, int B,
                           int bins, int splits, int k, cudaStream_t stream) {
   if (B < 1 || bins < 1 || bins > (1 << 30) || splits < 1 || k < 1 || k > bins) return cudaErrorInvalidValue;
-  int n_pad = 1;
+  int n_pad = 1, kpad = 1;
   while (n_pad < bins) n_pad <<= 1;
-  const int threads = min(SELECT_THREADS, max(32, n_pad));  // a thread a cell while the fold lasts
-  if (n_pad <= SELECT_SMEM_CELLS) {
-    const cudaError_t err = allow_max_smem<SelectTag<S>>(select_kernel<S, false>);
+  while (kpad < k) kpad <<= 1;
+  const int n_keys = k <= RANK_SORT_MAX ? RANK_SORT_MAX : kpad;  // candidates' room
+  const int threads = min(SELECT_THREADS, (bins + 31) / 32 * 32);  // a thread a cell, rounded up to warps
+  // the fold's stage: `tile` cells of `planes` splits
+  const int tile = min(bins, SELECT_SMEM_CELLS);
+  const int planes = max(1, min(splits, SELECT_STAGE_BYTES / (tile * 4)));
+  size_t dyn = ((size_t)planes * tile * 4 + 15) / 16 * 16;
+  if (n_pad > SELECT_SMEM_CELLS) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    const cudaError_t err = allow_max_smem<SelectTag<S, true>>(select_kernel<S, true>);
     if (err != cudaSuccess) return err;
-    select_kernel<S, false><<<B, threads, (size_t)n_pad * 16, stream>>>(
+    select_kernel<S, true><<<B, threads, dyn, stream>>>(
         static_cast<const S*>(part_s), static_cast<const int*>(part_i), static_cast<S*>(out_s),
-        static_cast<int*>(out_i), nullptr, B, bins, splits, k, n_pad);
+        static_cast<int*>(out_i), static_cast<unsigned char*>(ws), B, bins, splits, k, tile, planes, n_keys, n_pad);
   } else {
-    if (sort_ws == nullptr) return cudaErrorInvalidValue;
-    select_kernel<S, true><<<B, threads, 0, stream>>>(
+    dyn += (size_t)n_keys * 8 + (size_t)bins * 8;
+    const cudaError_t err = allow_max_smem<SelectTag<S, false>>(select_kernel<S, false>);
+    if (err != cudaSuccess) return err;
+    select_kernel<S, false><<<B, threads, dyn, stream>>>(
         static_cast<const S*>(part_s), static_cast<const int*>(part_i), static_cast<S*>(out_s),
-        static_cast<int*>(out_i), static_cast<unsigned char*>(sort_ws), B, bins, splits, k, n_pad);
+        static_cast<int*>(out_i), nullptr, B, bins, splits, k, tile, planes, n_keys, n_pad);
   }
   return cudaGetLastError();
 }
@@ -593,7 +884,7 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
 
 // After the body's launch (`err`), the select kernel on the same stream.
 int then_select(cudaError_t err, int dtype, const void* part_s, const void* part_i, void* out_s, void* out_i,
-           void* sort_ws, int B, int bins, int splits, int k, cudaStream_t stream) {
+                void* sort_ws, int B, int bins, int splits, int k, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 2) return static_cast<int>(launch_select<int>(part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream));
   return static_cast<int>(launch_select<float>(part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream));
@@ -624,10 +915,10 @@ extern "C" int vod_fused_mips_binned_blocks_per_sm(int body, int dtype, int D) {
 // The CUDA-core body, then the select kernel. dtype: 0 = float32,
 // 1 = bfloat16, 2 = int8 (then part/out scores are int32). part is the
 // [splits, B, bins] partials' workspace (scores, ids), out the [B, k] result,
-// sort_ws the select kernel's workspace (B * n_pad 8-byte keys, or null where
-// the keys fit in shared memory). The caller makes the card that holds the
-// tensors current; `stream_ptr` is PyTorch's current stream there. Returns the
-// CUDA error code of the launches (0 = success).
+// sort_ws the select kernel's workspace (B * n_pad cells of 16 bytes, or
+// null where n_pad fits in shared memory). The caller makes the card that
+// holds the tensors current; `stream_ptr` is PyTorch's current stream there.
+// Returns the CUDA error code of the launches (0 = success).
 extern "C" int vod_fused_mips_binned_fma(int dtype, const void* q, const void* v,
                                          void* part_s, void* part_i, void* out_s, void* out_i, void* sort_ws,
                                          int B, int D, int bins, int n_real, int splits, int k,

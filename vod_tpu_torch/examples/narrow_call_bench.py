@@ -16,6 +16,7 @@ unit rows (bf16) or int8 codes, it measures:
   kernels     time per call and the kernel launches (copies included) per
               call, in all and by name (the wrapper's own span, which the
               profiler also puts on the device's timeline, left out);
+  splits      the stride splits of the call's launch plan (the card only);
   library_ms  `torch.topk(q @ Vᵀ, k)` (bf16) or `torch.topk(torch._int_mm(q,
               Vᵀ), k)` (int8, B > 16), 20 calls between CUDA events;
   bound_ms    the larger of the bytes (corpus rows below n_real and the
@@ -81,13 +82,16 @@ def device_profile(fn: typ.Callable, reps: int) -> tuple[float, float, dict]:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()  # kernels and copies, not the wrapper's span on the device's timeline
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-            and e.key != "fused_mips_binned"]
+    for _ in range(3):  # a profile that records no device event at all (seen on the card) is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()  # kernels and copies, not the wrapper's span on the device's timeline
+                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and e.key != "fused_mips_binned"]
+        if rows:
+            break
     by_name = {e.key[:60]: round(e.self_device_time_total / 1e3 / reps, 5) for e in rows}
     launches = sum(e.count for e in rows) / reps
     return sum(by_name.values()), launches, by_name
@@ -132,6 +136,7 @@ def run(device, *, reps: int = 200, profile_reps: int = 50, scale: int = 1, hbm:
         row["host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
         row["wall_ms"] = _events_ms(call, 20, device)
         if device.type == "cuda":
+            row["splits"] = mips._binned_plan(v, q, bins, rows).splits
             row["device_ms"], row["kernels"], row["by_kernel"] = device_profile(call, profile_reps)
             if dtype == "int8":
                 row["library"] = "topk(_int_mm)"

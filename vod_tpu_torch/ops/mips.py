@@ -59,8 +59,9 @@ _BINNED_BIN_TILE = {"fma": 64, "wgmma": 128}  # bins per block of each body of t
 _BINNED_WGMMA_MAX_D = {torch.bfloat16: 1536, torch.int8: 3072}
 _BINNED_MAX_STRIDES = 65535  # strides per split of the tensor-core body: a cell keeps its winner in 16 bits
 # Twin of SELECT_SMEM_CELLS in `csrc/fused_mips_binned.cu`: the select kernel
-# sorts up to this many cells (the bins padded to a power of two; 16 bytes a
-# cell) in shared memory, and more in a workspace that the wrapper allocates.
+# keeps its cells and candidates in shared memory up to this many bins (padded
+# to a power of two), and in a workspace that the wrapper allocates above (16
+# bytes a padded cell).
 _SELECT_SMEM_CELLS = 8192
 _REF_CHUNK_ELEMS = 1 << 25  # score elements per chunk of the plain versions
 
@@ -156,7 +157,7 @@ class _Plan(typ.NamedTuple):
     entry: typ.Any  # the C entry (ctypes function, argument types set)
     body: str  # "wgmma" or "fma"
     splits: int  # row ranges across the grid
-    sort_cells: int  # 16-byte cells of the select kernel's workspace a query (0: it sorts in shared memory)
+    sort_cells: int  # 16-byte cells of the select kernel's workspace a query (0: it works in shared memory)
 
 
 _plan_lock = threading.Lock()  # builds plans; server threads call concurrently
