@@ -12,19 +12,23 @@ checked, none caught:
     each, started together, with the time taken, registers and shared memory;
  3. `fused_mips_binned` against its plain PyTorch version on the card at
     N = 2^20, D = 768, bins 512 and 1024, B = 1, 64 and 2048, k = 40 (the
-    tensor-core body), and on rows off the 16-byte grid (bf16 2 bytes off at
-    B = 64, 1024 bins and B = 2048, 512 bins; int8 4 bytes off at B = 64,
-    512 bins: the CUDA-core body), each call checked to take the body that
-    `_binned_body` names: bf16 scores within twice the f32 sum-order bound
-    and ids equal wherever the margin exceeds it; int8 ids and scores exactly
-    equal (every cell); tensor-core edge cases B = 3 and 65 with
+    tensor-core body), and on the CUDA-core bodies: rows off the 16-byte grid
+    (bf16 2 bytes off at B = 64, 1024 bins and B = 2048, 512 bins; int8 4
+    bytes off at B = 64, 512 bins) and f32 rows (the bf16 rows widened) at
+    B = 64, 1024 bins, each call checked to take the body that
+    `_binned_body` names: bf16 and f32 scores within twice the f32 sum-order
+    bound and ids equal wherever the margin exceeds it; int8 ids and scores
+    exactly equal (every cell); tensor-core edge cases B = 3 and 65 with
     n_real = N - 77 (a ragged last stride); n_real masking; duplicate rows tie
     to the lowest id. Then times on both bodies: kernel, plain version, the
-    library yardstick (`torch.topk(q @ Vᵀ, k)` in bf16,
-    `torch.topk(torch._int_mm(q, Vᵀ), k)` in int8), and the bound;
+    library yardstick (`torch.topk(q @ Vᵀ, k)` in bf16 and f32 with TF32
+    off, `torch.topk(torch._int_mm(q, Vᵀ), k)` in int8), the bound, and for
+    each fma row the CUDA-core bound (2 B N D over the f32 peak beside the
+    bytes);
  3b. `fused_mips_topk` against its plain PyTorch version on the card at
     N = 2^20, D = 768: bf16 at B = 1, 64 and 2048 with k = 10 and 128 (the
-    tensor-core body), f32 at B = 64 with k = 128 and bf16 rows 2 bytes off
+    tensor-core body), f32 at B = 64 with k = 1 and 128 (the same product,
+    so the two times split product from selection) and bf16 rows 2 bytes off
     the 16-byte grid at B = 64, k = 10 and B = 2048, k = 128 (the CUDA-core
     body), each call checked to take the body that `_topk_body` names. One
     PyTorch read of the corpus is timed beside them. Scores within
@@ -33,7 +37,10 @@ checked, none caught:
     ragged last tile); n_real masking at N - 12345; n_real = 3 leaves slots
     3-9 at -1/-inf; three equal rows in different splits tie to the lowest
     id. Then times: kernel, plain version, the library yardstick
-    `torch.topk(q @ Vᵀ, k)`, and the bound;
+    `torch.topk(q @ Vᵀ, k)`, the bound, and for each fma row the CUDA-core
+    bound. The fma calls of both timing loops are the CUDA-core bodies'
+    path: their launch counts are zeroed before it and read after, and
+    phases 3 and 3b log their wall time;
  3c. the select kernel (`select_kernel`, launched by every CUDA call of
     `fused_mips_binned` after its body) alone through `merge_select` against
     `merge_select_reference`, bit for bit, on partials at the main paths'
@@ -441,8 +448,11 @@ checked, none caught:
     size on two gloo ranks of the card that the script launches: the
     filter and the agreement (the script's checks), rank 0's kernel
     launches (none). Printed: QPS and the unsharded / sharded time ratio;
-18. the script's wall time, the `kernels` JSON line, the card line, and
-    the last line `{"ok": true, "device": {...}}`.
+18. the script's wall time, the `kernels` JSON line (both kernels at their
+    main paths' shapes, and their CUDA-core bodies `topk_float_kernel` and
+    `binned_float_kernel` at phases 3 and 3b's fma shapes, with the launches
+    of those timing loops), the card line, and the last line
+    `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -6486,6 +6496,7 @@ def main() -> None:
     log(f"build: both kernels in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain version at the headline shape
+    t3 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(0)
     v32 = torch.randn((N_KERNEL, D), generator=g, device=dev)
     v32 /= v32.norm(dim=-1, keepdim=True)
@@ -6503,6 +6514,7 @@ def main() -> None:
     vb_odd.copy_(vb)
     vi8_odd = torch.empty(N_KERNEL * D + 4, dtype=torch.int8, device=dev)[4:].view(N_KERNEL, D)
     vi8_odd.copy_(vi8)
+    v32 = vb.float()  # the f32 case of both kernels: the bf16 corpus widened, summed in full f32
     # twice the f32 sum-order bound gamma_D * |q| * |v| for the bf16 inputs
     tol = 2 * D * 2.0**-24 * qb.float().norm(dim=-1).max().item() * vb.float().norm(dim=-1).max().item()
     max_err = 0.0
@@ -6530,19 +6542,23 @@ def main() -> None:
         ("bfloat16", vb_odd, qb, 64, 1024, "fma", N_KERNEL),
         ("bfloat16", vb_odd, qb, 2048, 512, "fma", N_KERNEL),
         ("int8", vi8_odd, qi8, 64, 512, "fma", N_KERNEL),
+        ("float32", v32, q32, 64, 1024, "fma", N_KERNEL),
     ] + [
         (dt, vv, qq, b, bins, "wgmma", N_KERNEL - 77)
         for dt, vv, qq, bins in (("bfloat16", vb, qb, 1024), ("int8", vi8, qi8, 512)) for b in (3, 65)
     ]
+    fma_err = 0.0  # the CUDA-core bodies' largest error against the plain versions
     for dtype, vv, qq, b, bins, expect, n_real in binned_cases:
         label = f"{dtype} B={b} bins={bins} n_real={n_real} ({expect})"
-        if dtype == "bfloat16":
+        if dtype != "int8":
             ks, ki = binned_call(vv, qq[:b], bins, expect, k=K_POOL, n_real=n_real)
             err, swaps = check_against_plain(
                 label, ks, ki, *fused_mips_binned_reference(vv, qq[:b], k=K_POOL, bins=bins, n_real=n_real),
                 qq[:b], vv, tol,
             )
             max_err = max(max_err, err)
+            if expect == "fma":
+                fma_err = max(fma_err, err)
             log(f"check {label}: max |kernel - plain| = {err:.3g} (tol {tol:.3g}), {swaps} id swaps inside the band")
         else:
             ks, ki = binned_call(vv, qq[:b], bins, expect, k=bins, n_real=n_real)  # every cell
@@ -6571,24 +6587,31 @@ def main() -> None:
     log(f"check edges: n_real={n_real} masked in bf16 and int8; duplicate rows tie to the lowest id")
 
     shapes = []
+    # the float CUDA-core bodies' path: the fma calls of the two timing loops
+    # (the int8 CUDA-core body counts on the same "fma" body, so the binned
+    # count is taken around its float calls)
+    fma_launches = dict(binned_float_kernel=0, topk_float_kernel=0)
     for dtype, vv, qq, b, bins, expect, n_real in binned_cases:
         if n_real != N_KERNEL:
             continue
         qs = qq[:b]
         body = binned_body_of(vv, qs, bins, expect)
         reps = 20 if b <= 64 else 3
+        before = fused_mips_binned.body_launches["fma"]
         ms = time_ms(lambda: fused_mips_binned(vv, qs, k=K_POOL, bins=bins), reps)
+        if body == "fma" and dtype != "int8":
+            fma_launches["binned_float_kernel"] += fused_mips_binned.body_launches["fma"] - before
         plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qs, k=K_POOL, bins=bins), 2)
         # the library yardstick: exact top-k over one library product
         # (cuBLAS bf16 GEMM, or cuBLASLt int8 x int8 -> int32 through
         # `torch._int_mm`, which takes only more than 16 rows; it reads the
         # aligned int8 corpus, since cuBLASLt may refuse rows off the grid)
         library_ms = None
-        if dtype == "bfloat16":
-            library_ms = time_ms(lambda: torch.topk(qs @ vv.T, K_POOL, dim=-1), reps)
+        if dtype != "int8":
+            library_ms = time_ms(lambda: torch.topk(qs.to(vv.dtype) @ vv.T, K_POOL, dim=-1), reps)
         elif b > 16:
             library_ms = time_ms(lambda: torch.topk(torch._int_mm(qs, vi8.T), K_POOL, dim=-1), reps)
-        peak = peak_bf16 if dtype == "bfloat16" else peak_int8
+        peak = {"bfloat16": peak_bf16, "int8": peak_int8, "float32": peak_f32}[dtype]
         nbytes = (N_KERNEL + b) * D * vv.element_size() + b * K_POOL * 8
         ops = 2 * b * N_KERNEL * D
         bound = max(nbytes / hbm, ops / peak) * 1e3
@@ -6597,14 +6620,17 @@ def main() -> None:
             library_ms=library_ms, bound_ms=bound,
             bound_by="bytes" if nbytes / hbm >= ops / peak else "operations",
         ))
+        if body == "fma":  # the CUDA cores' own ceiling
+            shapes[-1]["cuda_core_bound_ms"] = max(nbytes / hbm, ops / peak_f32) * 1e3
         log(f"time {dtype} B={b} bins={bins} ({body}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-            f"bound {bound:.4f} ms ({shapes[-1]['bound_by']}) [{card}]")
+            f"bound {bound:.4f} ms ({shapes[-1]['bound_by']})"
+            + (f", CUDA-core bound {shapes[-1]['cuda_core_bound_ms']:.4f} ms" if body == "fma" else "") + f" [{card}]")
     del vi8, qi8, vi8_odd, binned_cases
 
     # 3b. the exact kernel vs its plain version at the headline shape
-    v32 = vb.float()  # the f32 case: the bf16 corpus widened, summed in full f32
     exact_cases = [("bfloat16", vb, qb, b, k, "wgmma") for b in BATCHES for k in EXACT_KS] + [
+        ("float32", v32, q32, 64, 1, "fma"),
         ("float32", v32, q32, 64, 128, "fma"),
         ("bfloat16", vb_odd, qb, 64, 10, "fma"),
         ("bfloat16", vb_odd, qb, 2048, 128, "fma"),
@@ -6631,6 +6657,8 @@ def main() -> None:
         )
         check(ki.max().item() < n_real, f"exact {dtype} B={b} n_real={n_real}: a masked row was returned")
         exact_err = max(exact_err, err)
+        if expect == "fma":
+            fma_err = max(fma_err, err)
         log(f"check exact {dtype} B={b} k={k} n_real={n_real} ({body}): max |kernel - plain| = {err:.3g} "
             f"(tol {tol:.3g}), {swaps} id swaps inside the band")
     for n_real, k in ((N_KERNEL - 12345, 10), (3, 10)):
@@ -6658,6 +6686,7 @@ def main() -> None:
     read_ms = time_ms(lambda: vb.sum(dtype=torch.float32), 20)
     log(f"time corpus read (bf16 {N_KERNEL} x {D}, {vb.numel() * 2 / 1e9:.4f} GB): {read_ms:.4f} ms [{card}]")
     exact_shapes = []
+    fused_mips_topk.body_launches["fma"] = 0  # the checks above launched the fma body too
     for dtype, vv, qq, b, k, expect in exact_cases:
         qs = qq[:b].to(vv.dtype)
         body = body_of(vv, qs, expect)
@@ -6673,8 +6702,17 @@ def main() -> None:
             dtype=dtype, body=body, B=b, N=N_KERNEL, D=D, k=k, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound, bound_by="bytes" if nbytes / hbm >= ops / peak else "operations",
         ))
+        if body == "fma":  # the CUDA cores' own ceiling
+            exact_shapes[-1]["cuda_core_bound_ms"] = max(nbytes / hbm, ops / peak_f32) * 1e3
         log(f"time exact {dtype} B={b} k={k} ({body}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({exact_shapes[-1]['bound_by']}) [{card}]")
+            f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({exact_shapes[-1]['bound_by']})"
+            + (f", CUDA-core bound {exact_shapes[-1]['cuda_core_bound_ms']:.4f} ms" if body == "fma" else "")
+            + f" [{card}]")
+    fma_launches["topk_float_kernel"] = fused_mips_topk.body_launches["fma"]
+    log(f"fma path (the timing loops' CUDA-core calls): launches {fma_launches}")
+    check(all(n > 0 for n in fma_launches.values()), f"a CUDA-core body was never launched: {fma_launches}")
+    phase3_s = time.perf_counter() - t3
+    log(f"phase 3 wall time (3 and 3b): {phase3_s:.1f} s")
     del vb, vb_odd, qb, q32, v32, exact_cases, edge_cases, vv, qq, qs
     torch.cuda.empty_cache()
 
@@ -7062,6 +7100,23 @@ def main() -> None:
                  for body in ("wgmma", "fma")},
         phase13_launches=phase13_launches, phase17_launches=phase17_launches,
     )]
+    # the two kernels' CUDA-core bodies, each at its headline fma shape, with
+    # the launches of their path (phases 3 and 3b's timing loops)
+    for name, rows, source, replaces, pick in (
+        ("topk_float_kernel", exact_shapes, "vod_tpu_torch/csrc/fused_mips_topk.cu", "vod_tpu/ops/mips_pallas.py:57",
+         lambda r: r["dtype"] == "float32" and r["k"] == 128),
+        ("binned_float_kernel", shapes, "vod_tpu_torch/csrc/fused_mips_binned.cu", "vod_tpu/ops/mips_pallas.py:151",
+         lambda r: r["dtype"] == "bfloat16" and r["B"] == 64),
+    ):
+        fma_rows = [r for r in rows if r["body"] == "fma" and r["dtype"] != "int8"]
+        head = next(r for r in fma_rows if pick(r))
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=fma_launches[name],
+            max_abs_err=fma_err, **{key: head[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cuda_core_bound_ms")},
+            shape=" ".join(f"{key}={head[key]}" for key in ("dtype", "B", "N", "D", "k", "bins") if key in head),
+            shapes=fma_rows, body="fma", phase3_wall_s=phase3_s,
+        ))
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s, the kernels' build included")
     log(json.dumps({"kernels": kernels}))
     log(mips_kernel_bench.card_name(dev))

@@ -55,12 +55,14 @@
 //     B = 2048 each of the 32 query tiles re-reads the corpus, and that
 //     traffic, which L2 serves only in part, sets the pace.
 //   * "fma" (`binned_float_kernel`, `binned_int8_kernel`), f32 and every other
-//     call: a block owns 64 queries x 64 bins and stages k-slices of the query
-//     tile and of the stride's 64 rows in shared memory, computing the
-//     products with CUDA-core FMAs in f32 (or `__dp4a` for int8, D % 4 == 0),
-//     each thread owning a 4 x 4 micro-tile (queries ty + 16 i, bins
-//     tx + 16 j, which keeps the shared-memory reads free of bank conflicts);
-//     the running (score, id) cells stay in registers.
+//     call: a block owns 64 queries x 64 bins and walks its strides. The float
+//     body runs the product core of `sm90.cuh` (namespace `simt`: 4 warps
+//     multiply, 8 x 4 sums a thread, while 4 stage k-slices of rows at any
+//     alignment through a ring in shared memory) and each multiplying thread
+//     folds its sums into its own running cells in shared memory; the int8
+//     body stages k-slices in shared memory and sums with `__dp4a` (D % 4 ==
+//     0), a 4 x 4 micro-tile per thread (queries ty + 16 i, bins tx + 16 j),
+//     its running (score, id) cells in registers.
 //
 // Shared by both bodies: the TPU grid walks the strides in order on one core;
 // GPU blocks run in parallel. So a third grid dimension splits the strides
@@ -124,8 +126,9 @@ using namespace sm90;
 constexpr int QT = 64;       // queries per block
 constexpr int BT = 64;       // bins per block of the CUDA-core body
 constexpr int KT = 32;       // reduction slice staged in shared memory (elements)
-constexpr int THREADS = 256; // CUDA-core body: 16 x 16 threads, 4 x 4 cells each
+constexpr int THREADS = 256; // int8 CUDA-core body: 16 x 16 threads, 4 x 4 cells each (the float one's: simt::THREADS)
 constexpr int INT8_NEG = -2147483647;  // -(2^31) + 1, the TPU kernel's _INT32_MIN
+static_assert(simt::TILE == QT && simt::TILE == BT, "the product core's tile is the block's");
 // tensor-core body
 constexpr int WBT = 128;                      // bins per block: the wgmma's N
 constexpr int WTHREADS = 128;                 // the multiplying warpgroup (a loader warp comes on top)
@@ -142,88 +145,84 @@ constexpr int RADIX = 256;                    // digits of an 8-bit radix pass
 constexpr int RANK_SORT_MAX = 256;            // k up to this: at most this many candidates, each placed by counting
 constexpr int SELECT_STAGE_BYTES = 80 * 1024; // the fold's stage of partial scores in shared memory
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Float path (f32 or bf16 inputs, f32 accumulation): the product core of
+// `sm90.cuh` (namespace `simt`): warps 0-3 multiply a tile of the block's 64
+// queries x 64 bins a stride, warps 4-7 stage the strides' slices through
+// the ring. Sum acc[i][j] of a multiplying thread is the same (query, bin)
+// cell at every stride, so each thread folds its 32 sums into its own
+// running cells after each stride: a strict `>` in increasing row order, so
+// a tie keeps the lowest row id. The running cells (score and id) sit in
+// shared memory, cell m of thread t at m * THREADS + t, which only thread t
+// reads and writes: in registers, 64 beside the 32 sums, they would raise
+// every thread of the block, the staging warps' too, past 128 registers
+// and the SM from 3 blocks to 1, while in shared memory the fold reads 32
+// floats a stride against 32 D FMAs.
+constexpr int FLOAT_CELLS = simt::MQ * simt::MR;  // running cells a multiplying thread
+constexpr size_t FLOAT_SMEM = (simt::STAGE_FLOATS + 2 * FLOAT_CELLS * simt::THREADS) * sizeof(float);
 
-// Float path (f32 or bf16 inputs, f32 accumulation).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(simt::CORE_THREADS, 3)
 binned_float_kernel(const T* __restrict__ q, const T* __restrict__ v,
                     float* __restrict__ out_s, int* __restrict__ out_i,
                     int B, int D, int bins, int n_real, int strides_per_split, int n_strides) {
-  __shared__ float As[KT][QT + 1];
-  __shared__ float Bs[KT][BT + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  extern __shared__ float4 smem_float[];
+  float* ring_base = reinterpret_cast<float*>(smem_float);  // the product core's ring
+  float* cell_s = ring_base + simt::STAGE_FLOATS;             // [FLOAT_CELLS][THREADS]
+  int* cell_i = reinterpret_cast<int*>(cell_s + FLOAT_CELLS * simt::THREADS);
+  const int tid = threadIdx.x;
   const int bin0 = blockIdx.x * BT, q0 = blockIdx.y * QT;
   const int split = blockIdx.z;
   const int r_begin = split * strides_per_split;
   const int r_end = min(n_strides, r_begin + strides_per_split);
+  simt::Ring ring{ring_base, 0, max(0, r_end - r_begin) * simt::slices_of(D)};
 
-  float best[4][4];
-  int best_id[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) { best[i][j] = -INFINITY; best_id[i][j] = -1; }
+  if (tid >= simt::THREADS) {
+    // staging: the tile's queries, or the stride's rows at the block's bins
+    constexpr int CH = simt::Span<T>::CH;
+    const int first = simt::first_staged_row<T>(tid - simt::THREADS);
+    const int q_live = max(0, min(CH, B - q0 - first));
+    for (int r = r_begin; r < r_end; ++r) {
+      const long long j = (long long)r * bins + bin0 + first - QT;
+      const T* rows = first < QT ? q + (size_t)(q0 + first) * D : v + (size_t)j * D;
+      const int live = first < QT ? q_live
+                                  : (int)max(0ll, min((long long)min(CH, bins - (bin0 + first - QT)), n_real - j));
+      simt::stage_tile<T, ALIGNED>(rows, live, D, ring);
+    }
+    return;  // no block-wide barrier follows
+  }
 
+  const int row0 = simt::row_of(tid, 0);  // this thread's first bin in the tile
+#pragma unroll
+  for (int m = 0; m < FLOAT_CELLS; ++m) { cell_s[m * simt::THREADS + tid] = -INFINITY; cell_i[m * simt::THREADS + tid] = -1; }
   for (int r = r_begin; r < r_end; ++r) {
     const long long row_base = (long long)r * bins + bin0;
-    float acc[4][4];
+    float acc[simt::MQ][simt::MR];
+    simt::multiply_tile<T>(D, ring, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < simt::MR; ++j) {
+      const long long id = row_base + row0 + j;
+      if (bin0 + row0 + j < bins && id < n_real) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += KT) {
-      // stage q[q0 : q0+64, k0 : k0+32] and v[rows, k0 : k0+32], k-major
-      for (int e = threadIdx.x; e < QT * KT; e += THREADS) {
-        const int row = e / KT, kk = e % KT;
-        const int qb = q0 + row, kg = k0 + kk;
-        As[kk][row] = (qb < B && kg < D) ? to_f32(q[(size_t)qb * D + kg]) : 0.f;
-        const int bin = bin0 + row;
-        const long long j = row_base + row;
-        Bs[kk][row] = (bin < bins && j < n_real && kg < D) ? to_f32(v[(size_t)j * D + kg]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KT; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    // fold this stride's scores into the running cells: strict '>' in
-    // increasing row order, so a tie keeps the lowest row id
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bin = bin0 + tx + 16 * j;
-      const long long row = row_base + tx + 16 * j;
-      if (bin < bins && row < n_real) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (acc[i][j] > best[i][j]) { best[i][j] = acc[i][j]; best_id[i][j] = (int)row; }
+        for (int i = 0; i < simt::MQ; ++i) {
+          const int m = (i * simt::MR + j) * simt::THREADS + tid;
+          if (acc[i][j] > cell_s[m]) { cell_s[m] = acc[i][j]; cell_i[m] = (int)id; }
+        }
       }
     }
   }
 
   const size_t base = (size_t)split * B * bins;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qb = q0 + ty + 16 * i;
+  for (int i = 0; i < simt::MQ; ++i) {
+    const int qb = q0 + simt::query_of(tid, i);
     if (qb >= B) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bin = bin0 + tx + 16 * j;
+    for (int j = 0; j < simt::MR; ++j) {
+      const int bin = bin0 + row0 + j;
       if (bin >= bins) continue;
-      out_s[base + (size_t)qb * bins + bin] = best[i][j];
-      out_i[base + (size_t)qb * bins + bin] = best_id[i][j];
+      const int m = (i * simt::MR + j) * simt::THREADS + tid;
+      out_s[base + (size_t)qb * bins + bin] = cell_s[m];
+      out_i[base + (size_t)qb * bins + bin] = cell_i[m];
     }
   }
 }
@@ -882,6 +881,27 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
   return cudaGetLastError();
 }
 
+// The float CUDA-core body's shared memory (56.75 KB) exceeds the 48 KB a
+// block gets by default: opt in once per card (sm90.cuh).
+template <typename T, bool ALIGNED> struct FloatTag {};
+template <typename T, bool ALIGNED>
+cudaError_t allow_float() { return allow_max_smem<FloatTag<T, ALIGNED>>(binned_float_kernel<T, ALIGNED>); }
+
+// The float CUDA-core body, rows on the 16-byte grid or not (both pointers
+// and the row pitch).
+template <typename T>
+cudaError_t launch_float(const void* q, const void* v, void* part_s, void* part_i, int B, int D, int bins,
+                         int n_real, int per_split, int n_strides, const dim3& grid, cudaStream_t stream) {
+  const bool aligned = simt::on_grid(q, v, D * sizeof(T));
+  const cudaError_t err = aligned ? allow_float<T, true>() : allow_float<T, false>();
+  if (err != cudaSuccess) return err;
+  auto kernel = aligned ? binned_float_kernel<T, true> : binned_float_kernel<T, false>;
+  kernel<<<grid, simt::CORE_THREADS, FLOAT_SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(v), static_cast<float*>(part_s), static_cast<int*>(part_i),
+      B, D, bins, n_real, per_split, n_strides);
+  return cudaGetLastError();
+}
+
 // After the body's launch (`err`), the select kernel on the same stream.
 int then_select(cudaError_t err, int dtype, const void* part_s, const void* part_i, void* out_s, void* out_i,
                 void* sort_ws, int B, int bins, int splits, int k, cudaStream_t stream) {
@@ -899,10 +919,12 @@ extern "C" int vod_fused_mips_binned_blocks_per_sm(int body, int dtype, int D) {
   int blocks = 0, stages = 0;
   size_t dyn = 0;
   cudaError_t err = cudaErrorInvalidValue;
-  if (body == 0 && dtype == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_float_kernel<float>, THREADS, 0);
-  if (body == 0 && dtype == 1)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_float_kernel<__nv_bfloat16>, THREADS, 0);
+  if (body == 0 && dtype == 0 && (err = allow_float<float, false>()) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_float_kernel<float, false>,
+                                                        simt::CORE_THREADS, FLOAT_SMEM);
+  if (body == 0 && dtype == 1 && (err = allow_float<__nv_bfloat16, false>()) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_float_kernel<__nv_bfloat16, false>,
+                                                        simt::CORE_THREADS, FLOAT_SMEM);
   if (body == 0 && dtype == 2)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_int8_kernel, THREADS, 0);
   if (body == 1 && dtype == 1 && (err = allow_wgmma<Bf16Body>(D, &stages, &dyn)) == cudaSuccess)
@@ -930,25 +952,21 @@ extern "C" int vod_fused_mips_binned_fma(int dtype, const void* q, const void* v
   const int n_strides = (n_real + bins - 1) / bins;
   const int per_split = (n_strides + splits - 1) / splits;
   const dim3 grid((bins + BT - 1) / BT, (B + QT - 1) / QT, splits);
+  cudaError_t err = cudaSuccess;
   if (dtype == 0) {
-    binned_float_kernel<float><<<grid, THREADS, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(v),
-        static_cast<float*>(part_s), static_cast<int*>(part_i),
-        B, D, bins, n_real, per_split, n_strides);
+    err = launch_float<float>(q, v, part_s, part_i, B, D, bins, n_real, per_split, n_strides, grid, stream);
   } else if (dtype == 1) {
-    binned_float_kernel<__nv_bfloat16><<<grid, THREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(v),
-        static_cast<float*>(part_s), static_cast<int*>(part_i),
-        B, D, bins, n_real, per_split, n_strides);
+    err = launch_float<__nv_bfloat16>(q, v, part_s, part_i, B, D, bins, n_real, per_split, n_strides, grid, stream);
   } else if (dtype == 2) {
     binned_int8_kernel<<<grid, THREADS, 0, stream>>>(
         static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
         static_cast<int*>(part_s), static_cast<int*>(part_i),
         B, D, bins, n_real, per_split, n_strides);
+    err = cudaGetLastError();
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return then_select(cudaGetLastError(), dtype, part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream);
+  return then_select(err, dtype, part_s, part_i, out_s, out_i, sort_ws, B, bins, splits, k, stream);
 }
 
 // The tensor-core body, then the select kernel, the same arguments: bf16

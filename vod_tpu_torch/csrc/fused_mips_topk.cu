@@ -34,8 +34,17 @@
 //     ahead across the product and the selection, so the corpus streams
 //     without stopping).
 //   * "fma" (`topk_float_kernel`), f32 and every other bf16 call: f32 FMAs on
-//     CUDA cores (no TF32: the f32 contract is full f32) with k-slices of both
-//     tiles staged through shared memory, a 4 x 4 micro-tile per thread.
+//     CUDA cores (no TF32: the f32 contract is full f32), on the product core
+//     of `sm90.cuh` (namespace `simt`): 4 warps multiply (8 x 4 sums a
+//     thread) while 4 stage k-slices of rows at any alignment through a ring
+//     in shared memory. At k <= 64 the multiplying warps fold each tile into
+//     the lists; above, 4 warps of their own fold tile t while tile t + 1 is
+//     multiplied, the one score tile passing between them on named barriers.
+//     What the design answers: the CUDA-core operation bound (the
+//     multiplying warps' issue slots go to FMAs, memory latency stalls only
+//     the staging warps), and the selection at k = 128, which in the first
+//     port's body, run after each tile by every warp, took 40% of the time
+//     at B = 64 (12.07 ms against 7.22 ms at k = 1, PERF.md §6).
 //
 // Design of the selection, shared by both bodies:
 //   * A block owns 64 queries and one contiguous range of rows (a "split"),
@@ -77,12 +86,13 @@ using namespace sm90;
 // _TOPK_ROW_TILE, _WGMMA_MAX_D): change both sides together.
 constexpr int QT = 64;        // queries per block
 constexpr int RT = 64;        // rows per tile of the CUDA-core body
-constexpr int KT = 32;        // reduction slice staged in shared memory (elements)
-constexpr int THREADS = 256;  // CUDA cores: 16 x 16 threads, 4 x 4 scores each; tensor cores: two warpgroups
+constexpr int THREADS = 256;  // tensor-core body: two warpgroups (the CUDA-core body's are `fma_threads`)
 constexpr int WARPS = THREADS / 32;
 constexpr int KMAX = 128;     // the TPU kernel's _K_PAD: the widest list
 constexpr int MERGE_WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int FSP = RT + 4;   // score tile row stride of the CUDA-core body: rows of float4
+static_assert(simt::TILE == QT && simt::TILE == RT, "the product core's tile is the block's");
 // tensor-core body
 constexpr int MAX_STAGES = 16;             // cap on the TMA boxes in flight per block
 constexpr int KC = 64;                     // bf16 per TMA box row: 128 bytes, one swizzle span
@@ -91,9 +101,6 @@ constexpr int QBOX_BYTES = QT * KC * 2;    // 8 KB: a box of 64 queries x 64 bf1
 constexpr int BOX_BYTES = WRT * KC * 2;    // 16 KB: a ring box of 128 rows x 64 bf16
 constexpr int SP = WRT + 4;                // score tile row stride: 2-way conflicts on the float2 stores
 constexpr int MAX_CHUNKS = 14;             // D <= 896: the query tile fits beside the k = 128 lists
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // Insert (sc, id) into the warp's list ls/li of k entries sorted by (score
 // descending, id ascending). The caller guarantees sc > ls[k - 1] and that every
@@ -148,11 +155,13 @@ __device__ __forceinline__ void fold_tile(const float* S, int sp, float* Ls, int
   }
 }
 
-// Write the block's lists for its queries to split blockIdx.y of [splits, B, k].
+// Write the block's lists for its queries to split blockIdx.y of [splits, B, k]
+// (NT threads).
+template <int NT = THREADS>
 __device__ __forceinline__ void store_lists(const float* Ls, const int* Li, float* out_s, int* out_i,
                                             int B, int k, int kp, int q0) {
   const size_t base = (size_t)blockIdx.y * B * k;
-  for (int e = threadIdx.x; e < QT * k; e += THREADS) {
+  for (int e = threadIdx.x; e < QT * k; e += NT) {
     const int qq = e / k, slot = e % k;
     if (q0 + qq >= B) break;
     out_s[base + (size_t)(q0 + qq) * k + slot] = Ls[qq * kp + slot];
@@ -160,69 +169,104 @@ __device__ __forceinline__ void store_lists(const float* Ls, const int* Li, floa
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// Named barriers of the CUDA-core body, after the product core's ring
+// (simt::BAR_FREE up): the score tile is full (the multiplying warps stored a
+// tile), it is empty (the folding warps have folded it), and the
+// multiplying warps' own barrier where they fold themselves.
+constexpr int FMA_BAR_FULL = simt::BAR_FREE, FMA_BAR_EMPTY = simt::BAR_FREE + 1, FMA_BAR_MATH = simt::BAR_FREE + 2;
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_sync() { asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(COUNT) : "memory"); }
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_arrive() { asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "n"(COUNT) : "memory"); }
+
+// Warps that fold in the CUDA-core body: none where the lists hold at most 64
+// scores (the multiplying warps fold each tile, a few percent of its time),
+// 4 above: at k = 128 a split's first tiles insert every row, the insertions
+// are chains of shared-memory round trips, and folded by every warp after
+// each tile they took 40% of the time at B = 64 (PERF.md §6); the folding
+// warps fold tile t while the others multiply tile t + 1.
+__host__ __device__ constexpr int fold_warps(int k) { return k <= 64 ? 0 : 4; }
+template <int FOLDERS> __host__ __device__ constexpr int fma_threads() { return simt::CORE_THREADS + 32 * FOLDERS; }
+template <int FOLDERS> __host__ __device__ constexpr int fma_min_blocks() { return FOLDERS == 0 ? 3 : 2; }
+
+// The CUDA-core body on the product core (`sm90.cuh`, namespace `simt`):
+// warps 0-3 multiply the block's tiles in order (S = the tile's 64 x 64
+// sums), warps 4-7 stage their slices through the ring, and the lists take
+// each S in turn, from the multiplying warps themselves (FOLDERS = 0) or from
+// FOLDERS warps of their own that fold tile t while tile t + 1 is multiplied,
+// the one score tile passing between them on named barriers as in the
+// tensor-core body.
+template <typename T, int FOLDERS, bool ALIGNED>
+__global__ void __launch_bounds__(fma_threads<FOLDERS>(), fma_min_blocks<FOLDERS>())
 topk_float_kernel(const T* __restrict__ q, const T* __restrict__ v,
                   float* __restrict__ out_s, int* __restrict__ out_i,
                   int B, int D, int k, int kp, int n_real, long long rows_per_split) {
-  __shared__ float As[KT][QT + 1];
-  __shared__ float Bs[KT][RT + 1];
-  __shared__ float S[QT][RT + 1];
-  extern __shared__ float lists[];  // [QT][kp] scores, then [QT][kp] ids
-  float* Ls = lists;
-  int* Li = reinterpret_cast<int*>(lists + QT * kp);
+  constexpr int NT = fma_threads<FOLDERS>();
+  extern __shared__ float4 smem_fma[];
+  float* ring_base = reinterpret_cast<float*>(smem_fma);  // the product core's ring
+  float* S = ring_base + simt::STAGE_FLOATS;                // [QT][FSP]
+  float* Ls = S + QT * FSP;                                 // [QT][kp] scores, then [QT][kp] ids
+  int* Li = reinterpret_cast<int*>(Ls + QT * kp);
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q0 = blockIdx.x * QT;
   const long long row_begin = (long long)blockIdx.y * rows_per_split;
   const long long row_end = min((long long)n_real, row_begin + rows_per_split);
+  const int tiles = row_end > row_begin ? (int)((row_end - row_begin + RT - 1) / RT) : 0;
+  const int queries = min(QT, B - q0);
+  simt::Ring ring{ring_base, 0, tiles * simt::slices_of(D)};
 
-  for (int e = threadIdx.x; e < QT * kp; e += THREADS) { Ls[e] = -INFINITY; Li[e] = -1; }
+  for (int e = tid; e < QT * kp; e += NT) { Ls[e] = -INFINITY; Li[e] = -1; }
   __syncthreads();
 
-  for (long long r0 = row_begin; r0 < row_end; r0 += RT) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += KT) {
-      // stage q[q0 : q0+64, k0 : k0+32] and v[r0 : r0+64, k0 : k0+32], k-major
-      for (int e = threadIdx.x; e < QT * KT; e += THREADS) {
-        const int row = e / KT, kk = e % KT;
-        const int qb = q0 + row, kg = k0 + kk;
-        As[kk][row] = (qb < B && kg < D) ? to_f32(q[(size_t)qb * D + kg]) : 0.f;
-        const long long j = r0 + row;
-        Bs[kk][row] = (j < row_end && kg < D) ? to_f32(v[(size_t)j * D + kg]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KT; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  if (tid >= simt::THREADS && tid < simt::CORE_THREADS) {
+    // staging: the tile's queries, or its corpus rows
+    constexpr int CH = simt::Span<T>::CH;
+    const int first = simt::first_staged_row<T>(tid - simt::THREADS);
+    const int q_live = max(0, min(CH, B - q0 - first));
+    for (int t = 0; t < tiles; ++t) {
+      const long long j = row_begin + (long long)t * RT + first - QT;
+      const T* rows = first < QT ? q + (size_t)(q0 + first) * D : v + (size_t)j * D;
+      const int live = first < QT ? q_live : (int)max(0ll, min((long long)CH, row_end - j));
+      simt::stage_tile<T, ALIGNED>(rows, live, D, ring);
     }
+  } else if (tid < simt::THREADS) {
+    const int row0 = simt::row_of(tid, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const long long r0 = row_begin + (long long)t * RT;
+      float acc[simt::MQ][simt::MR];
+      simt::multiply_tile<T>(D, ring, acc);
+      if constexpr (FOLDERS > 0) {
+        if (t > 0) named_sync<FMA_BAR_EMPTY, simt::THREADS + 32 * FOLDERS>();  // tile t - 1 is folded
+      } else {
+        named_sync<FMA_BAR_MATH, simt::THREADS>();  // every multiplying warp has folded tile t - 1
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool real = r0 + tx + 16 * j < row_end;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) S[ty + 16 * i][tx + 16 * j] = real ? acc[i][j] : -INFINITY;
+      for (int i = 0; i < simt::MQ; ++i) {
+        float4 s4;
+        s4.x = r0 + row0 < row_end ? acc[i][0] : -INFINITY;
+        s4.y = r0 + row0 + 1 < row_end ? acc[i][1] : -INFINITY;
+        s4.z = r0 + row0 + 2 < row_end ? acc[i][2] : -INFINITY;
+        s4.w = r0 + row0 + 3 < row_end ? acc[i][3] : -INFINITY;
+        *reinterpret_cast<float4*>(S + simt::query_of(tid, i) * FSP + row0) = s4;
+      }
+      if constexpr (FOLDERS > 0) {
+        named_arrive<FMA_BAR_FULL, simt::THREADS + 32 * FOLDERS>();
+      } else {
+        named_sync<FMA_BAR_MATH, simt::THREADS>();
+        fold_tile<RT>(S, FSP, Ls, Li, k, kp, queries, r0, warp, simt::THREADS / 32, lane);
+      }
     }
-    __syncthreads();
-    fold_tile<RT>(&S[0][0], RT + 1, Ls, Li, k, kp, min(QT, B - q0), r0, warp, WARPS, lane);
-    __syncthreads();
+  } else {
+    for (int t = 0; t < tiles; ++t) {
+      named_sync<FMA_BAR_FULL, simt::THREADS + 32 * FOLDERS>();
+      fold_tile<RT>(S, FSP, Ls, Li, k, kp, queries, row_begin + (long long)t * RT, warp - simt::CORE_THREADS / 32,
+                    FOLDERS, lane);
+      if (t + 1 < tiles) named_arrive<FMA_BAR_EMPTY, simt::THREADS + 32 * FOLDERS>();
+    }
   }
-  store_lists(Ls, Li, out_s, out_i, B, k, kp, q0);
+  __syncthreads();
+  store_lists<NT>(Ls, Li, out_s, out_i, B, k, kp, q0);
 }
 
 // ---- tensor-core body (TMA, mbarriers and wgmma from sm90.cuh) --------------
@@ -384,16 +428,32 @@ merge_splits_kernel(const float* __restrict__ part_s, const int* __restrict__ pa
 int list_stride(int k) { return (k + 31) / 32 * 32; }
 int wgmma_chunks(int D) { return (D + KC - 1) / KC; }
 
-template <typename T> struct ListsTag {};
+template <typename T, int FOLDERS, bool ALIGNED> struct ListsTag {};
 struct WgmmaTag {};
 
-// The lists' dynamic shared memory (16-64 KB). With the 33 KB of static tiles
-// every k exceeds the 48 KB a block gets by default, so opt in (once per card,
+// Dynamic shared memory of the CUDA-core body: the product core's ring
+// (24.75 KB), the score tile (17 KB) and the lists (16-64 KB). Every k
+// exceeds the 48 KB a block gets by default, so opt in (once per card,
 // sm90.cuh).
+template <typename T, int FOLDERS, bool ALIGNED>
+cudaError_t allow_fma(int k, size_t* dyn) {
+  *dyn = (size_t)(simt::STAGE_FLOATS + QT * FSP) * sizeof(float) + (size_t)QT * list_stride(k) * (sizeof(float) + sizeof(int));
+  return allow_max_smem<ListsTag<T, FOLDERS, ALIGNED>>(topk_float_kernel<T, FOLDERS, ALIGNED>);
+}
+
+// How many blocks of the CUDA-core body an SM holds at this k (the same for
+// rows on and off the grid).
 template <typename T>
-cudaError_t allow_lists(int k, size_t* dyn) {
-  *dyn = (size_t)QT * list_stride(k) * (sizeof(float) + sizeof(int));
-  return allow_max_smem<ListsTag<T>>(topk_float_kernel<T>);
+cudaError_t fma_blocks_per_sm(int k, int* blocks) {
+  size_t dyn = 0;
+  cudaError_t err;
+  if (fold_warps(k) == 0) {
+    if ((err = allow_fma<T, 0, false>(k, &dyn)) == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, topk_float_kernel<T, 0, false>, fma_threads<0>(), dyn);
+  } else if ((err = allow_fma<T, 4, false>(k, &dyn)) == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, topk_float_kernel<T, 4, false>, fma_threads<4>(), dyn);
+  }
+  return err;
 }
 
 // The tensor-core body's ring depth and dynamic shared memory: the query
@@ -421,18 +481,31 @@ long long split_rows(int n_real, int splits, int tile) {
   return (tiles + splits - 1) / splits * tile;
 }
 
-template <typename T>
-cudaError_t launch_fma(const void* q, const void* v, void* part_s, void* part_i,
-                       int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
+template <typename T, int FOLDERS, bool ALIGNED>
+cudaError_t launch_fma_with(const void* q, const void* v, void* part_s, void* part_i,
+                            int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
   size_t dyn;
-  cudaError_t err = allow_lists<T>(k, &dyn);
+  cudaError_t err = allow_fma<T, FOLDERS, ALIGNED>(k, &dyn);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + QT - 1) / QT, splits);  // query tile fastest: the blocks of a split run together
-  topk_float_kernel<T><<<grid, THREADS, dyn, stream>>>(
+  topk_float_kernel<T, FOLDERS, ALIGNED><<<grid, fma_threads<FOLDERS>(), dyn, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(v),
       static_cast<float*>(part_s), static_cast<int*>(part_i), B, D, k, list_stride(k), n_real,
       split_rows(n_real, splits, RT));
   return cudaGetLastError();
+}
+
+// The body's variant: folding warps or not (by k), rows on the 16-byte grid
+// or not (both pointers and the row pitch).
+template <typename T>
+cudaError_t launch_fma(const void* q, const void* v, void* part_s, void* part_i,
+                       int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
+  const bool aligned = simt::on_grid(q, v, D * sizeof(T));
+  if (fold_warps(k) == 0)
+    return aligned ? launch_fma_with<T, 0, true>(q, v, part_s, part_i, B, D, k, n_real, splits, stream)
+                   : launch_fma_with<T, 0, false>(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
+  return aligned ? launch_fma_with<T, 4, true>(q, v, part_s, part_i, B, D, k, n_real, splits, stream)
+                 : launch_fma_with<T, 4, false>(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
 }
 
 cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_i,
@@ -465,8 +538,9 @@ int merge(cudaError_t err, void* part_s, void* part_i, void* out_s, void* out_i,
 }  // namespace
 
 // How many blocks of a body (0 = CUDA cores, 1 = tensor cores) an SM of the
-// current card holds at this dtype, D and k (shared memory decides it: the
-// CUDA-core body holds 4 at k <= 32 and 2 at k = 128, the tensor-core body 1),
+// current card holds at this dtype, D and k (registers and shared memory
+// decide it for the CUDA-core body, which takes no folding warps or 4 by k;
+// shared memory for the tensor-core body, 1),
 // or minus a CUDA error code. The wrapper sizes the splits so that every block
 // is resident at once: a second wave of a few blocks costs as much as the first.
 extern "C" int vod_fused_mips_topk_blocks_per_sm(int body, int dtype, int D, int k) {
@@ -474,10 +548,8 @@ extern "C" int vod_fused_mips_topk_blocks_per_sm(int body, int dtype, int D, int
   int blocks = 0, stages = 0;
   size_t dyn = 0;
   cudaError_t err = cudaErrorInvalidValue;
-  if (body == 0 && dtype == 0 && (err = allow_lists<float>(k, &dyn)) == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_float_kernel<float>, THREADS, dyn);
-  if (body == 0 && dtype == 1 && (err = allow_lists<__nv_bfloat16>(k, &dyn)) == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_float_kernel<__nv_bfloat16>, THREADS, dyn);
+  if (body == 0 && dtype == 0) err = fma_blocks_per_sm<float>(k, &blocks);
+  if (body == 0 && dtype == 1) err = fma_blocks_per_sm<__nv_bfloat16>(k, &blocks);
   if (body == 1 && dtype == 1 && (err = allow_wgmma(D, k, &stages, &dyn)) == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_wgmma_kernel, THREADS, dyn);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);

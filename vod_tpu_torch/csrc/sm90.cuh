@@ -2,7 +2,8 @@
 // bodies build on: shared-memory addresses, `mbarrier`s, TMA loads of
 // 128-byte-swizzled boxes, `wgmma` descriptors and instructions, the host
 // lookup of the driver's tensor-map encoder, and the host's once-per-card
-// set-up (the shared-memory opt-in of a kernel).
+// set-up (the shared-memory opt-in of a kernel); and, at its end, the
+// product core of both kernels' CUDA-core bodies (namespace `simt`).
 //
 // Included by `fused_mips_topk.cu` and `fused_mips_binned.cu`, each built into
 // its own library; `ops/cuda_build.py` hashes this header into the build key
@@ -12,6 +13,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums only; the encoder is reached through the runtime
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -249,3 +251,322 @@ cudaError_t allow_max_smem(K* kernel) {
 }
 
 }  // namespace sm90
+
+// ---- the CUDA-core product core (namespace simt), which both MIPS kernels'
+// "fma" bodies build on (`topk_float_kernel` in fused_mips_topk.cu,
+// `binned_float_kernel` in fused_mips_binned.cu). It computes tiles of 64
+// queries x 64 corpus rows of f32 sums q . v into registers, from f32 or
+// bf16 operands; each kernel keeps its own epilogue.
+//
+// What bounds it on the H100: 64 * 64 * D FMAs a tile, in f32 (no TF32: the
+// fma bodies take every f32 call, whose contract is full f32). An SM issues
+// one warp instruction a clock on each of its four sub-partitions, so every
+// instruction that is not an FMA takes an FMA's slot, and a warp that waits
+// on memory issues nothing. The design:
+//   * Two roles. Four multiplying warps (threads 0-127) only read shared
+//     memory and multiply; four staging warps (threads 128-255) only load,
+//     realign, widen and store. They meet on a ring of NST = 3 slices in
+//     shared memory, each slice with a "full" and an "empty" named barrier,
+//     so the staging warps run up to two slices ahead and memory latency
+//     stalls only them. (Staging inside the multiplying warps, one slice
+//     ahead, was slower at every fma shape, PERF.md §6: the loads came back
+//     late, and the realignment, which the compiler schedules early to free
+//     registers, waited on them.)
+//   * Registers. Each multiplying thread owns a micro-tile of 8 queries x 4
+//     rows (32 sums). A k step reads its operands from k-major shared tiles
+//     as three 16-byte vectors, 12 floats for 32 FMAs. Lane l of warp w
+//     takes queries 4 (l % 8) + {0..3} and 32 + 4 (l % 8) + {0..3}, rows
+//     4 (4 w + l / 8) + {0..3}: a warp's query vectors are 8 neighbours (128
+//     bytes) and its row vectors 4 (64 bytes, each shared by 8 lanes), so
+//     each load is one shared-memory wavefront. 8 x 8 would read 16 floats
+//     for 64 FMAs, but double the sums' registers, which hold the block to
+//     fewer warps an SM.
+//   * Slices. K goes in slices of KT = 16 elements, 128 rows a slice (the
+//     tile's 64 queries, then its 64 corpus rows). A row's span of a slice is
+//     CH 16-byte chunks (4 for f32, 2 for bf16), and each staging thread
+//     stages one chunk of CH consecutive rows: a warp's loads cover whole
+//     spans of 8 or 16 rows (one row a lane would touch 32 cache lines a
+//     load). It widens the chunks to f32 and stores them transposed
+//     (k-major) as vectors across its rows (16 bytes f32, 8 bytes bf16). The
+//     ring holds f32, not bf16: widening at staging costs one conversion per
+//     staged element, widening at use one per element per reading thread, 8
+//     times as many on the FMAs' issue slots.
+//   * Any alignment, without element-wise loads. A chunk is read as the
+//     aligned 16-byte word that holds its first byte, and the next one where
+//     the row is off the grid, and realigned in registers (the whole-word
+//     part of the shift by selects, the rest by `__funnelshift_r`): rows 2
+//     bytes off the grid, or D % 8 != 0 with a different offset on each row.
+//     A word is read only if it holds a byte of the row; elements at or past
+//     D are zeros. Where every row is on the grid (the kernels' ALIGNED
+//     variant, chosen on the host) a chunk is one word, nothing is realigned,
+//     and the staging warps keep two slices' loads in flight.
+//   * Masking. The kernel says how many of a staging thread's rows are real
+//     (a query below B; a corpus row below n_real, at a bin below the bins):
+//     the others are zeros, and the kernel's epilogue masks their sums.
+
+namespace simt {
+
+constexpr int TILE = 64;       // queries, and corpus rows or bins, of a tile
+constexpr int THREADS = 128;   // multiplying threads: the block's first 128
+constexpr int STAGERS = 128;   // staging threads: the next 128
+constexpr int CORE_THREADS = THREADS + STAGERS;
+constexpr int MQ = 8;          // queries of a thread's micro-tile
+constexpr int MR = 4;          // rows of a thread's micro-tile
+constexpr int KT = 16;         // elements of K a slice
+constexpr int NST = 3;         // slices in the ring
+// Named barriers: slice s of the ring is full (staged) at BAR_FULL + s and
+// empty (multiplied) at BAR_EMPTY + s. A kernel's own barriers take IDs from
+// BAR_FREE up (0 is __syncthreads').
+constexpr int BAR_FULL = 1, BAR_EMPTY = BAR_FULL + NST, BAR_FREE = BAR_EMPTY + NST;
+
+// A row's span of one slice: KT elements in CH chunks of 16 bytes.
+template <typename T>
+struct Span {
+  static constexpr int CH = KT * static_cast<int>(sizeof(T)) / 16;  // 4 (f32) or 2 (bf16)
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));      // elements of a chunk: 4 or 8
+};
+
+// Staging thread `st` (0-127) stages chunk st % CH of the CH consecutive
+// rows from first_staged_row(st) (of the tile's 128: queries, then corpus
+// rows), so that a quarter-warp's loads fall in two rows' spans.
+template <typename T>
+__device__ __forceinline__ int first_staged_row(int st) { return Span<T>::CH * (st / Span<T>::CH); }
+
+// Offset (floats) of row k of an operand's k-major tile: 64 floats a k row,
+// and 2 EPC more after each EPC rows. A quarter-warp's 16-byte stores (f32)
+// write the 4 chunks of 2 row groups, k rows EPC apart, at the same columns;
+// the padding puts them in different banks (a half-warp's 8-byte stores,
+// bf16, likewise). The loads of a k step read one k row and pay nothing.
+template <typename T>
+__host__ __device__ constexpr int k_row(int k) { return k * TILE + (k / Span<T>::EPC) * 2 * Span<T>::EPC; }
+constexpr int OPERAND_FLOATS = KT * TILE + 2 * KT;  // k_row(KT) for either type
+constexpr int SLICE_FLOATS = 2 * OPERAND_FLOATS;    // a slice of the ring: queries, then rows
+constexpr int STAGE_FLOATS = NST * SLICE_FLOATS;    // the ring: 24.75 KB
+
+__device__ __forceinline__ void bar_sync_id(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive_id(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Whether every row of q and v starts on the 16-byte grid: both pointers and
+// the row pitch are multiples of 16 bytes (a kernel then takes its ALIGNED
+// variant).
+inline bool on_grid(const void* q, const void* v, size_t pitch) {
+  return ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(v) | pitch) & 15) == 0;
+}
+
+// Where a staging thread's chunks lie: chunk c of row i at slice k0 starts at
+// byte base + i * pitch + k0 * sizeof(T); the first `live` rows are real;
+// `shifts` holds each row's offset from the 16-byte grid (4 bits a row),
+// which no slice changes (a slice is a multiple of 16 bytes).
+struct Rows {
+  uintptr_t base, pitch;
+  int live, shifts;
+};
+
+template <typename T>
+__device__ __forceinline__ Rows rows_of(const T* first, int live, int D, int c) {
+  Rows r;
+  r.base = reinterpret_cast<uintptr_t>(first) + 16 * c;
+  r.pitch = static_cast<uintptr_t>(D) * sizeof(T);
+  r.live = live;
+  r.shifts = 0;
+#pragma unroll
+  for (int i = 0; i < Span<T>::CH; ++i) r.shifts |= static_cast<int>((r.base + i * r.pitch) & 15) << (4 * i);
+  return r;
+}
+
+// The aligned words that cover a staging thread's chunk of each of its rows:
+// word 0 holds the chunk's first byte, word 1 the bytes after it (zeros on
+// the grid). ALIGNED: the kernel knows every row starts on the grid (both
+// pointers and the row pitch multiples of 16 bytes), so word 0 is the chunk
+// and there is no word 1.
+template <typename T, bool ALIGNED>
+struct Chunks {
+  static constexpr int W = ALIGNED ? 1 : 2;
+  uint4 w[Span<T>::CH][W];
+};
+
+// Load the words of slice k0 (zeros for rows that are not real). A word is
+// read only if it holds a byte of its row.
+template <typename T, bool ALIGNED>
+__device__ __forceinline__ void load_chunks(const Rows& r, int k0, int c, Chunks<T, ALIGNED>& x) {
+#pragma unroll
+  for (int i = 0; i < Span<T>::CH; ++i) {
+#pragma unroll
+    for (int w = 0; w < Chunks<T, ALIGNED>::W; ++w) x.w[i][w] = make_uint4(0u, 0u, 0u, 0u);
+    if (i < r.live) {
+      const uintptr_t row = r.base + i * r.pitch;  // chunk c at slice 0
+      const uintptr_t end = row - 16 * c + r.pitch;
+      const uintptr_t a = (row + static_cast<uintptr_t>(k0) * sizeof(T)) & ~static_cast<uintptr_t>(15);
+      if (a < end) x.w[i][0] = __ldg(reinterpret_cast<const uint4*>(a));
+      if constexpr (!ALIGNED) {
+        if (a + 16 < end && ((r.shifts >> (4 * i)) & 15) != 0) x.w[i][1] = __ldg(reinterpret_cast<const uint4*>(a + 16));
+      }
+    }
+  }
+}
+
+// The 16 bytes at byte offset `shift` of the 32 bytes lo:hi, as 4 words.
+__device__ __forceinline__ void realign(const uint4& lo, const uint4& hi, int shift, uint32_t (&r)[4]) {
+  if (shift == 0) {
+    r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
+    return;
+  }
+  const uint32_t c[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int q = shift >> 2, bits = (shift & 3) * 8;
+  uint32_t t[7];  // c shifted by (q & 1) words
+#pragma unroll
+  for (int j = 0; j < 7; ++j) t[j] = (q & 1) ? c[j + 1] : c[j];
+  uint32_t d[5];  // c shifted by q words
+#pragma unroll
+  for (int j = 0; j < 5; ++j) d[j] = (q & 2) ? t[j + 2] : t[j];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = __funnelshift_r(d[j], d[j + 1], bits);
+}
+
+// Realign the loaded chunks, widen them to f32 and store them k-major:
+// element e of the chunk, rows first .. first + CH - 1, go to
+// dst[k_row(c * EPC + e) + 0 .. CH - 1] as one vector; elements at or past
+// D are zeros.
+template <typename T, bool ALIGNED>
+__device__ __forceinline__ void store_chunks(const Chunks<T, ALIGNED>& x, int shifts, int D, int k0, int c,
+                                             float* dst) {
+  constexpr int CH = Span<T>::CH, EPC = Span<T>::EPC;
+  float e[CH][EPC];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    uint32_t r[4];
+    if constexpr (ALIGNED) {
+      r[0] = x.w[i][0].x; r[1] = x.w[i][0].y; r[2] = x.w[i][0].z; r[3] = x.w[i][0].w;
+    } else {
+      realign(x.w[i][0], x.w[i][1], (shifts >> (4 * i)) & 15, r);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (sizeof(T) == 4) {
+        e[i][j] = __uint_as_float(r[j]);
+      } else {  // bf16 -> f32 is a shift: the low element, then the high one
+        e[i][2 * j] = __uint_as_float(r[j] << 16);
+        e[i][2 * j + 1] = __uint_as_float(r[j] & 0xFFFF0000u);
+      }
+    }
+  }
+  const int valid = D - k0 - c * EPC;  // elements of the chunk below D
+  if (valid < EPC) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int j = 0; j < EPC; ++j) e[i][j] = j < valid ? e[i][j] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < EPC; ++j) {
+    float* at = dst + k_row<T>(c * EPC + j);
+    if constexpr (CH == 4) {
+      *reinterpret_cast<float4*>(at) = make_float4(e[0][j], e[1][j], e[2][j], e[3][j]);
+    } else {
+      *reinterpret_cast<float2*>(at) = make_float2(e[0][j], e[1][j]);
+    }
+  }
+}
+
+// 32 FMAs per k step of one slice: a and b are the slice's k-major query and
+// row tiles (k row kk at k_row(kk)).
+template <typename T>
+__device__ __forceinline__ void fma_slice(const float* a, const float* b, int qg, int rg, float (&acc)[MQ][MR]) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + k_row<T>(kk) + 4 * qg);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + k_row<T>(kk) + 32 + 4 * qg);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + k_row<T>(kk) + 4 * rg);
+    const float av[MQ] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[MR] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+    for (int i = 0; i < MQ; ++i)
+#pragma unroll
+      for (int j = 0; j < MR; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// The query of sum acc[i][.] and the row of sum acc[.][j] of multiplying
+// thread `tid`, within the tile.
+__device__ __forceinline__ int query_of(int tid, int i) {
+  return (i < 4 ? 0 : 32) + 4 * (tid % 8) + i % 4;
+}
+__device__ __forceinline__ int row_of(int tid, int j) { return 4 * (4 * (tid / 32) + (tid % 32) / 8) + j; }
+
+// The ring's position, which both roles advance in the same order: `slice`
+// counts the slices staged (or multiplied) so far, `total` the slices of the
+// block's whole walk (its tiles times slices a tile).
+struct Ring {
+  float* base;
+  int slice, total;
+};
+
+__device__ __forceinline__ int slices_of(int D) { return (D + KT - 1) / KT; }
+
+// One tile's slices into the ring, by staging thread st = threadIdx.x -
+// THREADS: its CH rows start at `rows` (rows D elements apart) and the first
+// `live` are real. A slice waits until the multiplying warps have emptied its
+// place in the ring. On the grid (one word a chunk, nothing to realign) the
+// loads of slice s + 1 are issued before slice s is stored, so that two
+// slices' loads are in flight; off the grid one is (two slices' words and
+// the realignment spill registers, and ran slower).
+template <typename T, bool ALIGNED>
+__device__ __forceinline__ void stage_tile(const T* rows, int live, int D, Ring& ring) {
+  using X = Chunks<T, ALIGNED>;
+  const int st = threadIdx.x - THREADS;
+  const int c = st % Span<T>::CH, first = first_staged_row<T>(st);
+  const Rows r = rows_of(rows, live, D, c);
+  float* mine = ring.base + (first / TILE) * OPERAND_FLOATS + first % TILE;  // my rows' columns, slice 0
+  const int slices = slices_of(D);
+  auto put = [&](const X& x, int s) {  // slice s of the tile into the ring
+    const int at = ring.slice % NST;
+    if (ring.slice >= NST) bar_sync_id(BAR_EMPTY + at, CORE_THREADS);
+    store_chunks(x, r.shifts, D, s * KT, c, mine + at * SLICE_FLOATS);
+    bar_arrive_id(BAR_FULL + at, CORE_THREADS);
+    ++ring.slice;
+  };
+  if constexpr (ALIGNED) {
+    X x0, x1;
+    load_chunks(r, 0, c, x0);
+    for (int s = 0; s < slices; s += 2) {
+      if (s + 1 < slices) load_chunks(r, (s + 1) * KT, c, x1);
+      put(x0, s);
+      if (s + 1 < slices) {
+        if (s + 2 < slices) load_chunks(r, (s + 2) * KT, c, x0);
+        put(x1, s + 1);
+      }
+    }
+  } else {
+    for (int s = 0; s < slices; ++s) {
+      X x;
+      load_chunks(r, s * KT, c, x);
+      put(x, s);
+    }
+  }
+}
+
+// One tile of sums, by multiplying thread tid < THREADS: acc[i][j] = sum over
+// k < D of q[query_of(i)][k] * v[row_of(j)][k], summed in f32 in increasing k.
+template <typename T>
+__device__ __forceinline__ void multiply_tile(int D, Ring& ring, float (&acc)[MQ][MR]) {
+  const int tid = threadIdx.x;
+  const int qg = tid % 8, rg = 4 * (tid / 32) + (tid % 32) / 8;
+#pragma unroll
+  for (int i = 0; i < MQ; ++i)
+#pragma unroll
+    for (int j = 0; j < MR; ++j) acc[i][j] = 0.f;
+  const int slices = slices_of(D);
+  for (int s = 0; s < slices; ++s, ++ring.slice) {
+    const int at = ring.slice % NST;
+    bar_sync_id(BAR_FULL + at, CORE_THREADS);
+    const float* base = ring.base + at * SLICE_FLOATS;
+    fma_slice<T>(base, base + OPERAND_FLOATS, qg, rg, acc);
+    if (ring.slice + NST < ring.total) bar_arrive_id(BAR_EMPTY + at, CORE_THREADS);
+  }
+}
+
+}  // namespace simt
