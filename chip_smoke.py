@@ -107,8 +107,9 @@ checked, none caught:
     (`PERIODIC_SPARSE`: BM25, max_postings 4096, k1 1.2, b 0.75) and its
     weight schedules (`PERIODIC_PARAMETERS`: dense linear from 0.0 over
     20,000 steps, sparse constant 1.0, through `TrainerState.parameters`),
-    2 periods of 3 optimizer steps: each period re-embeds the 2^19 sections
-    (2^20 before phase 16 was added) and rebuilds the PQ index; the BM25 index is built once before the
+    2 periods of 3 optimizer steps: each period re-embeds the 2^18 sections
+    (2^20 before phase 16 was added, 2^19 before the cut for the script's
+    time limit) and rebuilds the PQ index; the BM25 index is built once before the
     first period and searched in every one. The text is synthetic, from the
     seed (`TEXT`: a Zipf vocabulary of 100,000 words, sections of 40-80
     words, queries of 4-8 words of their first gold section and 0-2 random
@@ -340,11 +341,12 @@ checked, none caught:
     checked to launch neither kernel (JAX launches none there):
 13a. `compressed_search_rank` on each rank, at world size 1 under NCCL in
     this process, then on two gloo ranks of the card: phase 8a's corpus
-    cut to 2^19 x 768 (2^20 before phase 17) through the factory with
+    cut to 2^18 x 768 (2^20 before phase 17, 2^19 before the cut for the
+    script's time limit) through the factory with
     `sharded: true` (msmarco_pq_realm.yaml's 4-bit PQ with an int8 refine,
     the `ivf` preset, the `ivfpq` preset with its coarse k-means over the
-    ranks) and MaxSim at `maxsim_bench`'s widths over 2^19 documents (1M
-    before phase 17), 64 held-out queries, k = 10. Checked: an `all_reduce` (MAX) of
+    ranks) and MaxSim at `maxsim_bench`'s widths over 2^18 documents (1M
+    before phase 17, 2^19 before the cut), 64 held-out queries, k = 10. Checked: an `all_reduce` (MAX) of
     -inf on a CUDA tensor; the ranks' answers equal; IVF and untruncated
     IVF-PQ give the unsharded ids outside the score band; PQ and the
     preset's IVF-PQ reach the unsharded recall@10 less 0.01; `kmeans_sharded`
@@ -439,7 +441,7 @@ checked, none caught:
     sections/s beside the plain one's on the same harvested passages;
 17. the last two root scripts' ports (`REALTEXT`):
 17a. `real_text_1m_bench` (`realtext_phase`, its own main path) at its
-    widths over 2^18 passages harvested from the machine's site-packages, in
+    widths over 2^17 passages harvested from the machine's site-packages, in
     a fresh cache directory: finite numbers, the loss falling, each codec's
     recall@10 at its floor, stemmed BM25 above unstemmed on inflected
     queries, no kernel launch. Printed: the corpus fingerprint, each stage's
@@ -491,7 +493,10 @@ DATASHEETS = (
     ("NVL", (3.9e12, 835e12, 1670e12, 60e12)),
     ("H100", (3.35e12, 989e12, 1979e12, 67e12)),  # H100 SXM5
 )
-SHOOTOUT_ARGS = ["--n", str(1 << 20), "--d", "768", "--blk", "2048", "--nblocks", "8", "--k", "10"]
+# The shootout's blocks: 4 (8 before the cuts for the script's time limit,
+# below: the whole script read 1,260.2 s of its 1,200 s on an H100 80GB HBM3
+# at 700 W, every host-bound phase 2-36% slower than in the run before)
+SHOOTOUT_ARGS = ["--n", str(1 << 20), "--d", "768", "--blk", "2048", "--nblocks", "4", "--k", "10"]
 EXACT_RECALL_FLOOR = 0.999  # only bf16 near-ties between two f32 sum orders may differ
 # 1 - (k-1)/(2*bins) = 1 - 9/1024 = 0.991 expected at 512 bins; the floor leaves
 # room for the sampling spread of 256 queries
@@ -538,9 +543,11 @@ PERIODIC_PARAMETERS = dict(
     dense=dict(mode="linear", start=0.0, value=1.0, period=20000), sparse=dict(mode="constant", value=1.0),
 )
 # Cut for phase 16: 2^20 -> 2^19 sections (each period's re-embed took 62 s
-# of the 129.6 s run at 2^20 on an H100 80GB HBM3 at 700 W).
+# of the 129.6 s run at 2^20 on an H100 80GB HBM3 at 700 W); cut for the
+# script's time limit: 2^19 -> 2^18 (each period's re-embed took 31 s, the
+# BM25 build 23 s, at 2^19).
 PERIODIC = dict(
-    TRAIN, n=1 << 19, periods=2, steps=3, held_out=256, dense=PERIODIC_DENSE, coarse_batches=(32, 64),
+    TRAIN, n=1 << 18, periods=2, steps=3, held_out=256, dense=PERIODIC_DENSE, coarse_batches=(32, 64),
     coarse={
         "pq-preset": dict(codec="pq", n_subquantizers=32, use_opq=True, coarse_dim=64, n_candidates=4096,
                           kernel="fused", fused_bins=512),
@@ -757,13 +764,13 @@ MULTI_CLI = dict(CLI, held_out=0, max_length=200, max_steps=6, period=3, resume_
                  loss_rtol=1e-3, timeout=900)
 
 # Phase 13: the sharded compressed indexes and batch-wide training over a
-# data-parallel group. 13a: phase 8a's corpus cut to 2^19 x 768 unit rows
+# data-parallel group. 13a: phase 8a's corpus cut to 2^18 x 768 unit rows
 # around 4,096 centres, 64 held-out queries, k = 10, through the factory with
 # `sharded: true` over a "shard" axis of every rank: msmarco_pq_realm.yaml's
 # codec (`pq`: 4-bit PQ of 128 subquantizers, exhaustive ADC, int8 refine at
 # 128 PCA dims, k_factor 32), the `ivf` preset, the `ivfpq` preset (its
 # coarse k-means over the axis, `kmeans_sharded`), and MaxSim at
-# `maxsim_bench`'s widths (2^19 docs x 32 tokens x 128-d int8, 256
+# `maxsim_bench`'s widths (2^18 docs x 32 tokens x 128-d int8, 256
 # candidates a query); first at world size 1 under NCCL in this process,
 # then two gloo ranks on the one card. `tol`: the score band inside which
 # IVF and untruncated IVF-PQ may order ids otherwise (f32 sums of bf16 /
@@ -780,14 +787,15 @@ MULTI_CLI = dict(CLI, held_out=0, max_length=200, max_steps=6, period=3, resume_
 # `kmeans` run twice). Cut for phase 17: the corpus from 2^20 to 2^19 rows
 # and MaxSim's documents from 1,000,000 to 2^19 (the whole script read
 # 1,015.4 s before phase 17, which took 101.3 s alone, on an H100 80GB HBM3
-# at 700 W).
+# at 700 W); cut for the script's time limit: both 2^19 -> 2^18 (13 took
+# 243.1 s of the 1,260.2 s).
 COMPRESSED = dict(
-    n=1 << 19, d=768, centres=4096, noise=0.1, decay=64.0, b=64, k=10, seed=37, ranks=2, timeout=600,
+    n=1 << 18, d=768, centres=4096, noise=0.1, decay=64.0, b=64, k=10, seed=37, ranks=2, timeout=600,
     pq=dict(codec="pq", n_subquantizers=128, code_bits=4, coarse_dim=None, refine="int8", refine_dim=128,
             k_factor=32, train_size=1_000_000),
     ivf=dict(codec="ivf", nprobe=32),
     ivfpq=IVFPQ_PRESET,
-    maxsim=dict(n=1 << 19, lt=32, d=128, lq=8, n_candidates=256, n_topics=4096),
+    maxsim=dict(n=1 << 18, lt=32, d=128, lq=8, n_candidates=256, n_topics=4096),
     tol=1e-4, recall_slack=0.01, kmeans_rtol=1e-4, target_recall=0.9,
 )
 # 13b: configs/msmarco_pq_realm.yaml at its own widths (hidden 384, 6
@@ -920,13 +928,15 @@ SMALL_FLOORS = dict(
 
 # Phase 17: the last two root scripts' ports. 17a: `real_text_1m_bench` at
 # its widths (dim 384, the 4 x 256 encoder, batch 512, 300 steps, 2,048
-# queries) over 2^18 harvested passages (its default is 2^20, run by hand:
-# the harvest, vocabulary and encode of 2^20 take about 70 s of host time),
+# queries) over 2^17 harvested passages (its default is 2^20, run by hand:
+# the harvest, vocabulary and encode of 2^20 take about 70 s of host time;
+# 2^18 before the cut for the script's time limit, where 17a took 86.5 s),
 # in a fresh cache directory so that the encoder trains and embeds; each
-# codec's recall@10 at least its `recall_floors` entry, a few points under
-# the recall it reached in its first run (in brackets; 262,144 passages of
-# the card machine's site-packages, fingerprint b811966c..., on an H100 80GB
-# HBM3 at 700 W). 17b:
+# codec's recall@10 at least its `recall_floors` entry, about two points
+# under the recall it reached in its first run at 2^17 passages (in
+# brackets; the card machine's site-packages, fingerprint af80d73d..., on an
+# H100 80GB HBM3 at 700 W; at 2^18, fingerprint b811966c..., it read
+# 0.9903-0.9916, 0.9517-0.9522 and 0.9486-0.9505 over three runs). 17b:
 # `hybrid_sharded_bench` at the JAX script's full size (100,000 x 256,
 # 30,000 terms, B = 256) on two gloo ranks of the card.
 # Phase 3c: the select kernel alone on partials (splits, B, bins, k), and the
@@ -934,8 +944,8 @@ SMALL_FLOORS = dict(
 # `profile_reps`).
 SELECT_CASES = ((33, 32, 512, 100), (16, 64, 1024, 40), (4, 64, 4096, 160), (33, 4, 512, 100))
 NARROW = dict(reps=200, profile_reps=50)
-REALTEXT = dict(n=1 << 18, recall_floors={"int8": 0.97,  # [0.9903]
-                                          "pq96x4fs+ref": 0.93, "serving-direct": 0.92})  # [0.9517, 0.9486]
+REALTEXT = dict(n=1 << 17, recall_floors={"int8": 0.97,  # [0.9915]
+                                          "pq96x4fs+ref": 0.94, "serving-direct": 0.94})  # [0.9601, 0.9618]
 
 
 def _rows_at_least(rows: list, label: str, key: str, floors: dict) -> bool:
@@ -6542,6 +6552,7 @@ def main() -> None:
         ("bfloat16", vb_odd, qb, 64, 1024, "fma", N_KERNEL),
         ("bfloat16", vb_odd, qb, 2048, 512, "fma", N_KERNEL),
         ("int8", vi8_odd, qi8, 64, 512, "fma", N_KERNEL),
+        ("int8", vi8_odd, qi8, 2048, 512, "fma", N_KERNEL),
         ("float32", v32, q32, 64, 1024, "fma", N_KERNEL),
     ] + [
         (dt, vv, qq, b, bins, "wgmma", N_KERNEL - 77)
@@ -6585,12 +6596,25 @@ def main() -> None:
     check(ki[0, 0].item() == 7 and torch.equal(ki, ri) and torch.equal(ks, rs), "duplicate rows: tie not to lowest id")
     vi8[[7 + 512 * 3, 7 + 512 * 20]] = saved
     log(f"check edges: n_real={n_real} masked in bf16 and int8; duplicate rows tie to the lowest id")
+    # the int8 CUDA-core body at any D and byte offset: D = 33, rows 1 byte off the grid
+    g33 = torch.Generator(device=dev).manual_seed(33)
+    v33 = torch.empty(N_KERNEL * 33 + 1, dtype=torch.int8, device=dev)[1:].view(N_KERNEL, 33)
+    v33.copy_(torch.randint(-127, 128, (N_KERNEL, 33), generator=g33, device=dev, dtype=torch.int32).to(torch.int8))
+    q33 = torch.randint(-127, 128, (64, 33), generator=g33, device=dev, dtype=torch.int32).to(torch.int8)
+    check(_binned_body(torch.int8, 33, 512, (v33.data_ptr(), q33.data_ptr())) == "fma", "int8 D=33: not the fma body")
+    before = fused_mips_binned.body_launches["fma"]
+    ks, ki = fused_mips_binned(v33, q33, k=512, bins=512)
+    check(fused_mips_binned.body_launches["fma"] == before + 1, "int8 D=33: not launched on the fma body")
+    rs, ri = fused_mips_binned_reference(v33, q33, k=512, bins=512)
+    check(torch.equal(ks, rs) and torch.equal(ki, ri), "int8 D=33 one byte off the grid: kernel != plain")
+    log("check int8 D=33 rows 1 byte off the grid (fma): all 64x512 cells equal (ids and int32 scores)")
+    del v33, q33, ks, ki, rs, ri
 
     shapes = []
-    # the float CUDA-core bodies' path: the fma calls of the two timing loops
-    # (the int8 CUDA-core body counts on the same "fma" body, so the binned
-    # count is taken around its float calls)
-    fma_launches = dict(binned_float_kernel=0, topk_float_kernel=0)
+    # the CUDA-core bodies' path: the fma calls of the two timing loops (the
+    # binned float and int8 bodies count on the same "fma" body, so each is
+    # counted around its own calls)
+    fma_launches = dict(binned_float_kernel=0, binned_int8_kernel=0, topk_float_kernel=0)
     for dtype, vv, qq, b, bins, expect, n_real in binned_cases:
         if n_real != N_KERNEL:
             continue
@@ -6599,8 +6623,9 @@ def main() -> None:
         reps = 20 if b <= 64 else 3
         before = fused_mips_binned.body_launches["fma"]
         ms = time_ms(lambda: fused_mips_binned(vv, qs, k=K_POOL, bins=bins), reps)
-        if body == "fma" and dtype != "int8":
-            fma_launches["binned_float_kernel"] += fused_mips_binned.body_launches["fma"] - before
+        if body == "fma":
+            name = "binned_int8_kernel" if dtype == "int8" else "binned_float_kernel"
+            fma_launches[name] += fused_mips_binned.body_launches["fma"] - before
         plain_ms = time_ms(lambda: fused_mips_binned_reference(vv, qs, k=K_POOL, bins=bins), 2)
         # the library yardstick: exact top-k over one library product
         # (cuBLAS bf16 GEMM, or cuBLASLt int8 x int8 -> int32 through
@@ -6620,16 +6645,19 @@ def main() -> None:
             library_ms=library_ms, bound_ms=bound,
             bound_by="bytes" if nbytes / hbm >= ops / peak else "operations",
         ))
-        if body == "fma":  # the CUDA cores' own ceiling
+        if body == "fma" and dtype != "int8":  # the CUDA cores' own ceiling (int8 runs on `mma.sync`)
             shapes[-1]["cuda_core_bound_ms"] = max(nbytes / hbm, ops / peak_f32) * 1e3
         log(f"time {dtype} B={b} bins={bins} ({body}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
             f"bound {bound:.4f} ms ({shapes[-1]['bound_by']})"
-            + (f", CUDA-core bound {shapes[-1]['cuda_core_bound_ms']:.4f} ms" if body == "fma" else "") + f" [{card}]")
+            + (f", CUDA-core bound {shapes[-1]['cuda_core_bound_ms']:.4f} ms" if "cuda_core_bound_ms" in shapes[-1]
+               else "") + f" [{card}]")
     del vi8, qi8, vi8_odd, binned_cases
 
     # 3b. the exact kernel vs its plain version at the headline shape
     exact_cases = [("bfloat16", vb, qb, b, k, "wgmma") for b in BATCHES for k in EXACT_KS] + [
+        ("bfloat16", vb, qb, 64, 32, "wgmma"),
+        ("bfloat16", vb, qb, 64, 64, "wgmma"),
         ("float32", v32, q32, 64, 1, "fma"),
         ("float32", v32, q32, 64, 128, "fma"),
         ("bfloat16", vb_odd, qb, 64, 10, "fma"),
@@ -6709,6 +6737,18 @@ def main() -> None:
             + (f", CUDA-core bound {exact_shapes[-1]['cuda_core_bound_ms']:.4f} ms" if body == "fma" else "")
             + f" [{card}]")
     fma_launches["topk_float_kernel"] = fused_mips_topk.body_launches["fma"]
+    # the exact call's device split at k = 128, B = 64: the body, then the
+    # merge of its 132 splits' lists
+    _, merge_total, by_name = host_and_device_ms(lambda: fused_mips_topk(vb, qb[:64], k=128), 5)
+    merge_split = dict(
+        device_ms=merge_total,
+        topk_wgmma_kernel_ms=sum(ms for key, ms in by_name.items() if "topk_wgmma_kernel" in key),
+        merge_splits_kernel_ms=sum(ms for key, ms in by_name.items() if "merge_splits_kernel" in key),
+    )
+    merge_split["merge_share"] = merge_split["merge_splits_kernel_ms"] / max(merge_total, 1e-9)
+    log(f"device split exact bfloat16 B=64 k=128: topk_wgmma_kernel {merge_split['topk_wgmma_kernel_ms']:.4f} ms, "
+        f"merge_splits_kernel {merge_split['merge_splits_kernel_ms']:.4f} ms "
+        f"({100 * merge_split['merge_share']:.1f}% of {merge_total:.4f} ms) [{card}]")
     log(f"fma path (the timing loops' CUDA-core calls): launches {fma_launches}")
     check(all(n > 0 for n in fma_launches.values()), f"a CUDA-core body was never launched: {fma_launches}")
     phase3_s = time.perf_counter() - t3
@@ -7025,7 +7065,7 @@ def main() -> None:
     )
     log(f"phase 16 wall time: {phase16['wall_s']:.1f} s")
 
-    # 17. the last two root scripts' ports: real text at 2^18 passages (17a),
+    # 17. the last two root scripts' ports: real text at 2^17 passages (17a),
     # the sharded hybrid on two gloo ranks of the card (17b)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7099,21 +7139,26 @@ def main() -> None:
         body_ms={body: {f"{s['dtype']} B={s['B']} k={s['k']}": s["ms"] for s in exact_shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
         phase13_launches=phase13_launches, phase17_launches=phase17_launches,
+        merge_splits_at_k128=merge_split,
     )]
     # the two kernels' CUDA-core bodies, each at its headline fma shape, with
-    # the launches of their path (phases 3 and 3b's timing loops)
-    for name, rows, source, replaces, pick in (
+    # the launches of their path (phases 3 and 3b's timing loops); the int8
+    # body's cells equal the plain version's bit for bit
+    for name, rows, source, replaces, pick, err in (
         ("topk_float_kernel", exact_shapes, "vod_tpu_torch/csrc/fused_mips_topk.cu", "vod_tpu/ops/mips_pallas.py:57",
-         lambda r: r["dtype"] == "float32" and r["k"] == 128),
+         lambda r: r["dtype"] == "float32" and r["k"] == 128, fma_err),
         ("binned_float_kernel", shapes, "vod_tpu_torch/csrc/fused_mips_binned.cu", "vod_tpu/ops/mips_pallas.py:151",
-         lambda r: r["dtype"] == "bfloat16" and r["B"] == 64),
+         lambda r: r["dtype"] == "bfloat16" and r["B"] == 64, fma_err),
+        ("binned_int8_kernel", shapes, "vod_tpu_torch/csrc/fused_mips_binned.cu", "vod_tpu/ops/mips_pallas.py:151",
+         lambda r: r["dtype"] == "int8" and r["B"] == 64, 0.0),
     ):
-        fma_rows = [r for r in rows if r["body"] == "fma" and r["dtype"] != "int8"]
+        int8_body = name == "binned_int8_kernel"
+        fma_rows = [r for r in rows if r["body"] == "fma" and (r["dtype"] == "int8") == int8_body]
         head = next(r for r in fma_rows if pick(r))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=fma_launches[name],
-            max_abs_err=fma_err, **{key: head[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cuda_core_bound_ms")},
+            max_abs_err=err, **{key: head[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cuda_core_bound_ms") if key in head},
             shape=" ".join(f"{key}={head[key]}" for key in ("dtype", "B", "N", "D", "k", "bins") if key in head),
             shapes=fma_rows, body="fma", phase3_wall_s=phase3_s,
         ))

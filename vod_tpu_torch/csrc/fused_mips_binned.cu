@@ -55,14 +55,17 @@
 //     B = 2048 each of the 32 query tiles re-reads the corpus, and that
 //     traffic, which L2 serves only in part, sets the pace.
 //   * "fma" (`binned_float_kernel`, `binned_int8_kernel`), f32 and every other
-//     call: a block owns 64 queries x 64 bins and walks its strides. The float
+//     call: a block owns 64 queries x 64 bins and walks its strides. The name
+//     means "off the `wgmma` rule" (the body rule and its tests use it); for
+//     int8 the body runs on the tensor cores through `mma.sync`. The float
 //     body runs the product core of `sm90.cuh` (namespace `simt`: 4 warps
 //     multiply, 8 x 4 sums a thread, while 4 stage k-slices of rows at any
 //     alignment through a ring in shared memory) and each multiplying thread
 //     folds its sums into its own running cells in shared memory; the int8
-//     body stages k-slices in shared memory and sums with `__dp4a` (D % 4 ==
-//     0), a 4 x 4 micro-tile per thread (queries ty + 16 i, bins tx + 16 j),
-//     its running (score, id) cells in registers.
+//     body (any D, rows at any byte offset) stages realigned k-slices through
+//     a ring in shared memory and sums with `mma.sync` m16n8k32 (s8 in, s32
+//     accumulate) on 4 warps, 32 x 32 cells each, its running (score, id)
+//     cells in registers (design at the kernel).
 //
 // Shared by both bodies: the TPU grid walks the strides in order on one core;
 // GPU blocks run in parallel. So a third grid dimension splits the strides
@@ -126,7 +129,6 @@ using namespace sm90;
 constexpr int QT = 64;       // queries per block
 constexpr int BT = 64;       // bins per block of the CUDA-core body
 constexpr int KT = 32;       // reduction slice staged in shared memory (elements)
-constexpr int THREADS = 256; // int8 CUDA-core body: 16 x 16 threads, 4 x 4 cells each (the float one's: simt::THREADS)
 constexpr int INT8_NEG = -2147483647;  // -(2^31) + 1, the TPU kernel's _INT32_MIN
 static_assert(simt::TILE == QT && simt::TILE == BT, "the product core's tile is the block's");
 // tensor-core body
@@ -227,89 +229,310 @@ binned_float_kernel(const T* __restrict__ q, const T* __restrict__ v,
   }
 }
 
-// int8 path: int8 x int8 products summed exactly in int32 with __dp4a.
-// Requires D % 4 == 0 (checked by the wrapper) so that 4 int8 values pack into
-// one 32-bit word.
-__global__ void __launch_bounds__(THREADS)
+// int8 path: int8 x int8 products summed exactly in int32 on the tensor
+// cores through `mma.sync` m16n8k32 (s8 in, s32 accumulate), for rows of any
+// D at any byte offset (the calls off the `wgmma` rule). What bounds it on
+// the H100: the corpus read (N * D bytes) at B <= 64, the 2 * B * N * D
+// operations at B = 2048. The design:
+//   * Two roles, as in the float body's product core: 4 multiplying warps
+//     (threads 0-127), each 32 queries x 32 bins of the block's 64 x 64 (8
+//     `mma.sync` a 32-byte k step, their fragments read by `ldmatrix` from
+//     rows padded to 16 x odd bytes, so that the 8 rows of a matrix fall in
+//     8 different bank groups), and 4 staging warps (threads 128-255) that
+//     load, realign and store k-slices of KS = 128 bytes through a ring of
+//     NST slices in shared memory, on named barriers.
+//   * Staging at any byte offset, without byte loads: a thread reads the
+//     aligned 16-byte word that holds its chunk's first byte (and, off the
+//     grid, the next one), realigns it in registers (`simt::realign`) and
+//     zeroes the bytes at or past D; 8 lanes cover a row's 128 bytes, so a
+//     warp's loads are 4 rows' whole slices.
+//   * The query tile: where it and the ring fit in half the SM's shared
+//     memory (2 blocks an SM; D <= 1,152 on an H100), it is staged once and
+//     stays resident (QRES), the ring carries the corpus rows alone, and a
+//     staging thread issues the next slice's loads before it stores the
+//     current one; above, each slice carries the 64 queries and the 64 rows
+//     (which, forced at D = 768 with rows 4 bytes off and 512 bins, took
+//     1.34x as long at B = 64 and 1.46x at B = 2048 on an H100).
+//     What sets the pace (PERF.md §6): not the products (the call
+//     took as long with them left out), but the ring itself, a handoff of
+//     a few hundred instructions a slice on named barriers among 4 warps a
+//     sub-partition, which without loads, realignment or products still
+//     took about half the call, and the loads' latency. A third slice in
+//     flight, a 6-slice ring and an L2 prefetch of the next stride changed
+//     little; working a row's address out once a stride, not once a slice,
+//     took B = 2048 from 14.2 to 12.3 ms.
+//   * The fold: accumulator fragment (m, n, c) of a thread is the same
+//     (query, bin) cell at every stride, so after each stride the thread
+//     folds its 32 sums into running cells in registers with a strict `>`
+//     (rows at or past n_real and bins past `bins` masked), keeping the
+//     winning stride. Sums are exact int32 up to D of about 133,000.
+namespace i8 {
+constexpr int KS = 128;           // bytes of K a slice: 4 k steps of 32
+constexpr int PITCH = KS + 16;    // bytes between a slice's staged rows (16 x odd)
+constexpr int NST = 4;            // slices in the ring
+constexpr int MMA_THREADS = 128;  // the multiplying warps; the staging warps follow
+constexpr int THREADS = 256;
+// named barriers: slot s of the ring is full at BAR_FULL + s and empty at
+// BAR_EMPTY + s; the resident query tile is staged at BAR_QUERIES
+constexpr int BAR_FULL = 1, BAR_EMPTY = BAR_FULL + NST, BAR_QUERIES = BAR_EMPTY + NST;
+static_assert(BAR_QUERIES < 16, "16 named barriers");
+
+__host__ __device__ constexpr int slices_of(int D) { return (D + KS - 1) / KS; }
+// bytes between the resident query tile's rows (16 x odd, like PITCH)
+__host__ __device__ constexpr int qpitch(int D) { return slices_of(D) * KS + 16; }
+// rows of a ring slot: the corpus rows, or (not QRES) the queries, then the rows
+template <bool QRES>
+__host__ __device__ constexpr int slot_rows() { return QRES ? BT : QT + BT; }
+template <bool QRES>
+size_t smem_bytes(int D) { return (QRES ? (size_t)QT * qpitch(D) : 0) + (size_t)NST * slot_rows<QRES>() * PITCH; }
+
+// The aligned words that cover chunk c (bytes k0 + 16 c .. + 15) of the row
+// that starts at `row` (null: not a real row, zeros): the word that holds
+// the chunk's first byte and, off the grid, the next one. A word is read
+// only if it holds a byte of the row.
+struct Words {
+  uint4 lo, hi;
+};
+
+__device__ __forceinline__ Words load_words(const int8_t* row, int D, int k0, int c) {
+  Words w;
+  w.lo = make_uint4(0u, 0u, 0u, 0u);
+  w.hi = w.lo;
+  if (row == nullptr) return w;
+  const uintptr_t start = reinterpret_cast<uintptr_t>(row), end = start + static_cast<uintptr_t>(D);
+  const uintptr_t a = ((start + static_cast<uintptr_t>(k0)) & ~static_cast<uintptr_t>(15)) + 16u * c;
+  if (a < end) w.lo = __ldg(reinterpret_cast<const uint4*>(a));
+  if ((start & 15) != 0 && a + 16 < end) w.hi = __ldg(reinterpret_cast<const uint4*>(a + 16));
+  return w;
+}
+
+// The chunk realigned, its bytes at or past D zeroed, stored at dst.
+__device__ __forceinline__ void store_chunk(const Words& w, const int8_t* row, int D, int k0, int c,
+                                            unsigned char* dst) {
+  uint32_t r[4];
+  simt::realign(w.lo, w.hi, static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15), r);
+  const int valid = D - k0 - 16 * c;  // bytes of the chunk below D
+  if (valid < 16) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int keep = valid - 4 * j;  // bytes of word j below D
+      r[j] = keep >= 4 ? r[j] : keep <= 0 ? 0u : r[j] & ((1u << (8 * keep)) - 1u);
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// d[16 x 8] += a[16 x 32] b[8 x 32]^T, s8 in, s32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The staging warps: thread st = threadIdx.x - MMA_THREADS stages chunk
+// c = st % 8 of R rows of every slice, rows first + 4 i (i < R), first =
+// 4 R (st / 32) + (st % 32) / 8: 8 lanes cover a row's slice. A row's
+// address is worked out once a stride. QRES: the query tile is staged once,
+// then the ring takes the corpus rows, the next slice's loads in flight
+// while the current one is stored; else each slice takes the queries and
+// the rows, loaded and stored in turn.
+template <bool QRES>
+__device__ __forceinline__ void stage(const int8_t* q, const int8_t* v, unsigned char* qtile, unsigned char* ring,
+                                      int B, int D, int bins, int n_real, int q0, int bin0, int r_begin,
+                                      int strides) {
+  constexpr int R = slot_rows<QRES>() / 16;  // 4 or 8
+  const int st = threadIdx.x - MMA_THREADS, c = st % 8;
+  const int first = 4 * R * (st / 32) + (st % 32) / 8;
+  const int slices = slices_of(D), total = strides * slices;
+  auto query = [&](int i) -> const int8_t* { return q0 + i < B ? q + (size_t)(q0 + i) * D : nullptr; };
+  // this thread's rows of the ring slots at stride r (null: not real)
+  auto rows_at = [&](int r, const int8_t* (&rows)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = first + 4 * i;
+      if (!QRES && row < QT) {
+        rows[i] = query(row);
+      } else {
+        const int b = row - (QRES ? 0 : QT);
+        const long long j = (long long)r * bins + bin0 + b;
+        rows[i] = bin0 + b < bins && j < n_real ? v + (size_t)j * D : nullptr;
+      }
+    }
+  };
+  auto load = [&](const int8_t* const(&rows)[R], int k0, Words(&w)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) w[i] = load_words(rows[i], D, k0, c);
+  };
+  auto put = [&](int p, const int8_t* const(&rows)[R], int k0, const Words(&w)[R]) {
+    const int slot = p % NST;
+    if (p >= NST) simt::bar_sync_id(BAR_EMPTY + slot, THREADS);
+    unsigned char* base = ring + (size_t)slot * slot_rows<QRES>() * PITCH + 16 * c;
+#pragma unroll
+    for (int i = 0; i < R; ++i) store_chunk(w[i], rows[i], D, k0, c, base + (first + 4 * i) * PITCH);
+    simt::bar_arrive_id(BAR_FULL + slot, THREADS);
+  };
+  const int8_t *ra[R], *rb[R];  // the rows of the current stride, and of the next
+  if constexpr (QRES) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) ra[i] = query(first + 4 * i);
+    for (int s = 0; s < slices; ++s) {
+      Words w[R];
+      load(ra, s * KS, w);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        store_chunk(w[i], ra[i], D, s * KS, c, qtile + (size_t)(first + 4 * i) * qpitch(D) + s * KS + 16 * c);
+    }
+    simt::bar_arrive_id(BAR_QUERIES, THREADS);
+    Words w0[R], w1[R];
+    if (total > 0) {
+      rows_at(r_begin, ra);
+      load(ra, 0, w0);
+    }
+    for (int p = 0, s = 0, r = r_begin; p < total; ++p) {
+      const bool last = s + 1 == slices;  // the stride's last slice
+      if (p + 1 < total) {
+        if (last) {
+          rows_at(r + 1, rb);
+          load(rb, 0, w1);
+        } else {
+          load(ra, (s + 1) * KS, w1);
+        }
+      }
+      put(p, ra, s * KS, w0);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        w0[i] = w1[i];
+        if (last) ra[i] = rb[i];
+      }
+      s = last ? 0 : s + 1;
+      r += last ? 1 : 0;
+    }
+  } else {
+    for (int r = r_begin, p = 0; r < r_begin + strides; ++r) {
+      rows_at(r, ra);
+      for (int s = 0; s < slices; ++s, ++p) {
+        Words w[R];
+        load(ra, s * KS, w);
+        put(p, ra, s * KS, w);
+      }
+    }
+  }
+}
+}  // namespace i8
+
+// Block (bin tile x, query tile y, split z) walks the strides of its split
+// in increasing order; see the int8 path above.
+template <bool QRES>
+__global__ void __launch_bounds__(i8::THREADS, 2)
 binned_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
                    int* __restrict__ out_s, int* __restrict__ out_i,
                    int B, int D, int bins, int n_real, int strides_per_split, int n_strides) {
-  constexpr int KW = KT / 4;  // 32-bit words per staged slice
-  __shared__ int As[KW][QT + 1];
-  __shared__ int Bs[KW][BT + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  using namespace i8;
+  extern __shared__ __align__(16) unsigned char smem_i8[];
+  unsigned char* qtile = smem_i8;                                      // [QT][qpitch(D)] (QRES)
+  unsigned char* ring = smem_i8 + (QRES ? (size_t)QT * qpitch(D) : 0);  // [NST][slot_rows][PITCH]
   const int bin0 = blockIdx.x * BT, q0 = blockIdx.y * QT;
-  const int split = blockIdx.z;
-  const int r_begin = split * strides_per_split;
-  const int r_end = min(n_strides, r_begin + strides_per_split);
-  const int DW = D / 4;
-  const int* q32 = reinterpret_cast<const int*>(q);
-  const int* v32 = reinterpret_cast<const int*>(v);
-
-  int best[4][4];
-  int best_id[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) { best[i][j] = INT8_NEG; best_id[i][j] = -1; }
-
-  for (int r = r_begin; r < r_end; ++r) {
-    const long long row_base = (long long)r * bins + bin0;
-    int acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-    for (int w0 = 0; w0 < DW; w0 += KW) {
-      for (int e = threadIdx.x; e < QT * KW; e += THREADS) {
-        const int row = e / KW, ww = e % KW;
-        const int qb = q0 + row, wg = w0 + ww;
-        As[ww][row] = (qb < B && wg < DW) ? q32[(size_t)qb * DW + wg] : 0;
-        const int bin = bin0 + row;
-        const long long j = row_base + row;
-        Bs[ww][row] = (bin < bins && j < n_real && wg < DW) ? v32[(size_t)j * DW + wg] : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ww = 0; ww < KW; ++ww) {
-        int a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[ww][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[ww][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bin = bin0 + tx + 16 * j;
-      const long long row = row_base + tx + 16 * j;
-      if (bin < bins && row < n_real) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (acc[i][j] > best[i][j]) { best[i][j] = acc[i][j]; best_id[i][j] = (int)row; }
-      }
-    }
+  const int r_begin = blockIdx.z * strides_per_split;
+  const int strides = max(0, min(n_strides, r_begin + strides_per_split) - r_begin);
+  if (threadIdx.x >= MMA_THREADS) {
+    stage<QRES>(q, v, qtile, ring, B, D, bins, n_real, q0, bin0, r_begin, strides);
+    return;  // no block-wide barrier follows
   }
 
-  const size_t base = (size_t)split * B * bins;
+  // warp w: queries mq .. mq + 31, bins nb .. nb + 31 of the tile; fragment
+  // (m, n, c) of lane (g = lane / 4, t = lane % 4): query mq + 16 m + g +
+  // 8 (c / 2), bin nb + 8 n + 2 t + c % 2
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  const int mq = 32 * (warp / 2), nb = 32 * (warp % 2);
+  // the rows and 16-byte columns this lane names to `ldmatrix`: matrices
+  // (rows 0-7, k 0-15), (8-15, 0-15), (0-7, 16-31), (8-15, 16-31) of an
+  // m-tile give its a0-a3; (rows 0-7, k 0-15), (0-7, 16-31), (8-15, 0-15),
+  // (8-15, 16-31) of two n-tiles give their b0, b1
+  const int a_row = mq + lane % 8 + 8 * ((lane / 8) % 2), a_col = 16 * (lane / 16);
+  const int b_row = (QRES ? 0 : QT) + nb + lane % 8 + 8 * (lane / 16), b_col = 16 * ((lane / 8) % 2);
+  const int a_pitch = QRES ? qpitch(D) : PITCH;
+  int best[2][4][4], won[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qb = q0 + ty + 16 * i;
-    if (qb >= B) continue;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bin = bin0 + tx + 16 * j;
-      if (bin >= bins) continue;
-      out_s[base + (size_t)qb * bins + bin] = best[i][j];
-      out_i[base + (size_t)qb * bins + bin] = best_id[i][j];
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) { best[m][n][c] = INT8_NEG; won[m][n][c] = -1; }
+  if (QRES) simt::bar_sync_id(BAR_QUERIES, THREADS);
+  const int slices = slices_of(D), total = strides * slices;
+  int p = 0;
+  for (int s = 0; s < strides; ++s) {
+    int acc[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][n][c] = 0;
+    for (int ks = 0; ks < slices; ++ks, ++p) {
+      const int slot = p % NST;
+      simt::bar_sync_id(BAR_FULL + slot, THREADS);
+      const unsigned char* base = ring + (size_t)slot * slot_rows<QRES>() * PITCH;
+      const unsigned char* a = (QRES ? qtile + ks * KS : base) + (size_t)a_row * a_pitch + a_col;
+      const unsigned char* b = base + b_row * PITCH + b_col;
+      const int steps = min(KS / 32, (D - ks * KS + 31) / 32);  // k steps holding a byte below D
+#pragma unroll
+      for (int kk = 0; kk < KS / 32; ++kk) {
+        if (kk < steps) {
+          uint32_t a0[4], a1[4], b01[4], b23[4];
+          ldsm_x4(a0, a + 32 * kk);
+          ldsm_x4(a1, a + 16 * a_pitch + 32 * kk);  // m-tile 1: 16 rows down
+          ldsm_x4(b01, b + 32 * kk);
+          ldsm_x4(b23, b + 16 * PITCH + 32 * kk);   // n-tiles 2 and 3
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            mma_s8(acc[0][n], a0, b01[2 * n], b01[2 * n + 1]);
+            mma_s8(acc[1][n], a1, b01[2 * n], b01[2 * n + 1]);
+            mma_s8(acc[0][n + 2], a0, b23[2 * n], b23[2 * n + 1]);
+            mma_s8(acc[1][n + 2], a1, b23[2 * n], b23[2 * n + 1]);
+          }
+        }
+      }
+      if (p + NST < total) simt::bar_arrive_id(BAR_EMPTY + slot, THREADS);
     }
+    // fold the stride; rows at or past n_real and bins past `bins` never win
+    const int r = r_begin + s;
+    const long long row0 = (long long)r * bins + bin0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = nb + 8 * n + 2 * t + c % 2;
+        if (bin0 + col < bins && row0 + col < n_real) {
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            if (acc[m][n][c] > best[m][n][c]) { best[m][n][c] = acc[m][n][c]; won[m][n][c] = r; }
+        }
+      }
   }
+
+  const size_t base = (size_t)blockIdx.z * B * bins;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int qb = q0 + mq + 16 * m + g + 8 * (c / 2);
+      if (qb >= B) continue;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int bin = bin0 + nb + 8 * n + 2 * t + c % 2;
+        if (bin >= bins) continue;
+        out_s[base + (size_t)qb * bins + bin] = best[m][n][c];
+        out_i[base + (size_t)qb * bins + bin] = won[m][n][c] < 0 ? -1 : won[m][n][c] * bins + bin;
+      }
+    }
 }
 
 // ---- selection: the splits folded and k of the cells chosen ------------------
@@ -884,6 +1107,23 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
 // The float CUDA-core body's shared memory (56.75 KB) exceeds the 48 KB a
 // block gets by default: opt in once per card (sm90.cuh).
 template <typename T, bool ALIGNED> struct FloatTag {};
+template <bool QRES> struct Int8Tag {};
+
+// The int8 CUDA-core body's variant at this D (the query tile resident where
+// it and the ring fit in half the card's per-block opt-in, so that 2 blocks
+// share an SM: D <= 1,152 on an H100) and its dynamic shared memory, the
+// variant's opt-in set once per card (sm90.cuh).
+cudaError_t allow_int8(int D, bool* qres, size_t* dyn) {
+  if (D < 0) return cudaErrorInvalidValue;
+  int limit = 0;
+  const cudaError_t err = optin_smem(&limit);
+  if (err != cudaSuccess) return err;
+  *qres = i8::smem_bytes<true>(D) <= (size_t)limit / 2;
+  *dyn = *qres ? i8::smem_bytes<true>(D) : i8::smem_bytes<false>(D);
+  return *qres ? allow_max_smem<Int8Tag<true>>(binned_int8_kernel<true>)
+               : allow_max_smem<Int8Tag<false>>(binned_int8_kernel<false>);
+}
+
 template <typename T, bool ALIGNED>
 cudaError_t allow_float() { return allow_max_smem<FloatTag<T, ALIGNED>>(binned_float_kernel<T, ALIGNED>); }
 
@@ -918,6 +1158,7 @@ int then_select(cudaError_t err, int dtype, const void* part_s, const void* part
 extern "C" int vod_fused_mips_binned_blocks_per_sm(int body, int dtype, int D) {
   int blocks = 0, stages = 0;
   size_t dyn = 0;
+  bool qres = false;
   cudaError_t err = cudaErrorInvalidValue;
   if (body == 0 && dtype == 0 && (err = allow_float<float, false>()) == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_float_kernel<float, false>,
@@ -925,8 +1166,9 @@ extern "C" int vod_fused_mips_binned_blocks_per_sm(int body, int dtype, int D) {
   if (body == 0 && dtype == 1 && (err = allow_float<__nv_bfloat16, false>()) == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_float_kernel<__nv_bfloat16, false>,
                                                         simt::CORE_THREADS, FLOAT_SMEM);
-  if (body == 0 && dtype == 2)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_int8_kernel, THREADS, 0);
+  if (body == 0 && dtype == 2 && (err = allow_int8(D, &qres, &dyn)) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, qres ? binned_int8_kernel<true> : binned_int8_kernel<false>, i8::THREADS, dyn);
   if (body == 1 && dtype == 1 && (err = allow_wgmma<Bf16Body>(D, &stages, &dyn)) == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, binned_wgmma_kernel<Bf16Body>, WTHREADS + 32, dyn);
   if (body == 1 && dtype == 2 && (err = allow_wgmma<Int8Body>(D, &stages, &dyn)) == cudaSuccess)
@@ -958,11 +1200,16 @@ extern "C" int vod_fused_mips_binned_fma(int dtype, const void* q, const void* v
   } else if (dtype == 1) {
     err = launch_float<__nv_bfloat16>(q, v, part_s, part_i, B, D, bins, n_real, per_split, n_strides, grid, stream);
   } else if (dtype == 2) {
-    binned_int8_kernel<<<grid, THREADS, 0, stream>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
-        static_cast<int*>(part_s), static_cast<int*>(part_i),
-        B, D, bins, n_real, per_split, n_strides);
-    err = cudaGetLastError();
+    bool qres;
+    size_t dyn;
+    if ((err = allow_int8(D, &qres, &dyn)) == cudaSuccess) {
+      auto kernel = qres ? binned_int8_kernel<true> : binned_int8_kernel<false>;
+      kernel<<<grid, i8::THREADS, dyn, stream>>>(
+          static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
+          static_cast<int*>(part_s), static_cast<int*>(part_i),
+          B, D, bins, n_real, per_split, n_strides);
+      err = cudaGetLastError();
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

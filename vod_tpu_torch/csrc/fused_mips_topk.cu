@@ -24,15 +24,20 @@
 //     stays resident; the rows stream through a ring of TMA boxes of 128 rows
 //     x 64 bf16 (16 KB, 128-byte swizzle, the layout the `wgmma` descriptors
 //     name), completed on `mbarrier`s, as deep as the rest of shared memory
-//     allows (5 boxes at D = 768, k <= 32; 2 at k = 128). Warpgroup 0
-//     multiplies tile t + 1 while warpgroup 1 selects from tile t. The tensor
-//     maps' zero fill covers the ragged ends of B, N and D.
+//     allows (at D = 768: 5 boxes at k <= 32, 4 at k <= 64, 3 above).
+//     Warpgroup 0 multiplies tile t + 1 while 8 to 16 warps of their own
+//     select from tile t. The tensor maps' zero fill covers the ragged ends
+//     of B, N and D.
 //     What the design answers: the operation bound at B = 2048 (tensor cores;
 //     an m64n64k16 reads 4 KB of shared memory per 32 tensor-core cycles, all
 //     the SM's shared-memory bandwidth, an m64n128k16 6 KB per 64, so the
-//     rows are N and 128 wide), and the byte bound at B <= 64 (the loads run
+//     rows are N and 128 wide), the byte bound at B <= 64 (the loads run
 //     ahead across the product and the selection, so the corpus streams
-//     without stopping).
+//     without stopping), and the selection at wide k, which must keep up
+//     with the product: inserted one candidate at a time into lists in
+//     shared memory (the first port's design, still the CUDA-core body's),
+//     it took 2.5 ms of a B = 64, k = 128 call whose product takes 0.73
+//     (PERF.md §6), and its 64 KB of lists cut the ring to 2 boxes.
 //   * "fma" (`topk_float_kernel`), f32 and every other bf16 call: f32 FMAs on
 //     CUDA cores (no TF32: the f32 contract is full f32), on the product core
 //     of `sm90.cuh` (namespace `simt`): 4 warps multiply (8 x 4 sums a
@@ -46,20 +51,42 @@
 //     port's body, run after each tile by every warp, took 40% of the time
 //     at B = 64 (12.07 ms against 7.22 ms at k = 1, PERF.md §6).
 //
-// Design of the selection, shared by both bodies:
+// Design of the selection:
 //   * A block owns 64 queries and one contiguous range of rows (a "split"),
 //     which it walks in tiles of 64 rows (CUDA cores) or 128 rows (tensor
 //     cores) in increasing row order. Each tile's
 //     scores are written to a score tile S[query][row] in shared memory.
-//   * Each query keeps a list of k (score, id) pairs in dynamic shared memory,
-//     sorted by (score descending, id ascending); one warp serves a query at a
-//     time. A score enters only if it is strictly greater than the list's k-th
-//     score: a warp ballot over the tile picks the candidates, which are
-//     inserted one by one in increasing row order. A later row that ties never
-//     displaces an earlier one, and one that enters goes after every equal
-//     score, so ties keep the lowest id. After the first rows inserts are rare
-//     (about k ln(N / k) per query for rows in random order); adversarial data
-//     (rows sorted by score) is slow but still right.
+//   * Each query keeps a list sorted by (score descending, id ascending). A
+//     score is a candidate only if it is strictly greater than the list's
+//     k-th score; a warp ballot over the tile's row picks the candidates.
+//     Since every row of a tile lies above every row already in the lists,
+//     an equal score never displaces an earlier row, so ties keep the lowest
+//     id. After the first rows candidates are rare (about k ln(N / k) per
+//     query for rows in random order); adversarial data (rows sorted by
+//     score) is slow but still right.
+//   * CUDA-core body: the lists (k pairs) sit in dynamic shared memory, one
+//     warp serves a query at a time and inserts its candidates one by one in
+//     increasing row order, each after every equal score.
+//   * Tensor-core body: 8, 12 or 16 folding warps by k (`fold_warps_of`),
+//     each serving its queries in turn. A list keeps its k scores in shared
+//     memory, and its ids there too as 16-bit offsets where a split is short
+//     enough and they cost the ring no box, else in the block's own output
+//     row in device memory (`NarrowIds`, `WideIds`). A query's candidates
+//     are compacted, in row order, into the front of its row of the score
+//     tile and taken 32 at a time; each batch is merged by ranks (a pass
+//     over the batch counts, for each list pair and candidate, the
+//     candidates above it; a binary search of the list counts the list
+//     pairs at or above each candidate), every pair is written once to its
+//     new place, and the threshold (the k-th score) moves once a batch. A
+//     threshold left stale by a batch only admits candidates that the merge
+//     then drops. Tried and measured slower or spilling (PERF.md §6):
+//     lists in registers (8 queries x 128 pairs a warp spilled at 168
+//     registers, and `setmaxnreg` did not raise what ptxas allocated),
+//     bitonic sorts and merges of each batch and one-at-a-time inserts of a
+//     few candidates (chains of dependent shuffles), 32-bit ids in shared
+//     memory (2 boxes at k = 128), queries taken from a shared counter,
+//     ranks by ballots, and a batch a 32-row part in place of the offsets'
+//     buffer (4 boxes at k = 128, but more batches).
 //   * The TPU grid carries the buffer across corpus tiles in order on one core;
 //     GPU blocks run in parallel. So the rows are split across the grid's second
 //     dimension (at serving batch one query tile would leave most SMs idle),
@@ -86,8 +113,6 @@ using namespace sm90;
 // _TOPK_ROW_TILE, _WGMMA_MAX_D): change both sides together.
 constexpr int QT = 64;        // queries per block
 constexpr int RT = 64;        // rows per tile of the CUDA-core body
-constexpr int THREADS = 256;  // tensor-core body: two warpgroups (the CUDA-core body's are `fma_threads`)
-constexpr int WARPS = THREADS / 32;
 constexpr int KMAX = 128;     // the TPU kernel's _K_PAD: the widest list
 constexpr int MERGE_WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
@@ -100,7 +125,15 @@ constexpr int WRT = 128;                   // corpus rows per tile: the wgmma's 
 constexpr int QBOX_BYTES = QT * KC * 2;    // 8 KB: a box of 64 queries x 64 bf16
 constexpr int BOX_BYTES = WRT * KC * 2;    // 16 KB: a ring box of 128 rows x 64 bf16
 constexpr int SP = WRT + 4;                // score tile row stride: 2-way conflicts on the float2 stores
-constexpr int MAX_CHUNKS = 14;             // D <= 896: the query tile fits beside the k = 128 lists
+constexpr int MAX_CHUNKS = 14;             // D <= 896 (the query tile beside the score tile and a ring)
+// The tensor-core body's folding warps at list width 32 KP: 8 (k <= 32), 12
+// (k <= 64) or 16 (k <= 128, 4 queries each), after the multiplying
+// warpgroup. More folding warps fold faster (the fold waits on latency, not
+// on issue slots) but leave fewer registers a thread: at 640 threads, 96,
+// which slowed the product at B = 2048 by 7% (PERF.md §6), so the
+// narrow lists, whose fold is light, keep 8.
+__host__ __device__ constexpr int fold_warps_of(int kp) { return kp == 1 ? 8 : kp == 2 ? 12 : 16; }
+__host__ __device__ constexpr int wgmma_threads(int kp) { return 128 + 32 * fold_warps_of(kp); }
 
 // Insert (sc, id) into the warp's list ls/li of k entries sorted by (score
 // descending, id ascending). The caller guarantees sc > ls[k - 1] and that every
@@ -157,7 +190,7 @@ __device__ __forceinline__ void fold_tile(const float* S, int sp, float* Ls, int
 
 // Write the block's lists for its queries to split blockIdx.y of [splits, B, k]
 // (NT threads).
-template <int NT = THREADS>
+template <int NT>
 __device__ __forceinline__ void store_lists(const float* Ls, const int* Li, float* out_s, int* out_i,
                                             int B, int k, int kp, int q0) {
   const size_t base = (size_t)blockIdx.y * B * k;
@@ -272,41 +305,166 @@ topk_float_kernel(const T* __restrict__ q, const T* __restrict__ v,
 // ---- tensor-core body (TMA, mbarriers and wgmma from sm90.cuh) --------------
 
 // Dynamic shared memory of the tensor-core body: 1 KB to align the boxes,
-// the query tile, the ring, the score tile, the lists, the mbarriers.
-size_t wgmma_smem(int chunks, int kp, int stages) {
+// the query tile, the ring, the score tile, the lists' scores (32 KP a
+// query) and narrow ids, the mbarriers, the folding warps' candidate
+// offsets.
+size_t wgmma_smem(int chunks, int kp, bool narrow, int stages) {
   return 1024 + (size_t)chunks * QBOX_BYTES + (size_t)stages * BOX_BYTES + (size_t)QT * SP * sizeof(float) +
-         (size_t)QT * kp * (sizeof(float) + sizeof(int)) + (stages + 1) * sizeof(uint64_t);
+         (size_t)QT * 32 * kp * (sizeof(float) + (narrow ? sizeof(unsigned short) : 0)) +
+         (stages + 1) * sizeof(uint64_t) + fold_warps_of(kp) * WRT;
 }
 
-// Named barriers between the two warpgroups (0 is __syncthreads'): the score
-// tile is full (warpgroup 0 stored a tile), the score tile is empty
-// (warpgroup 1 has folded it).
+// Named barriers between the multiplying warpgroup and the folding ones (0 is
+// __syncthreads'): the score tile is full (warpgroup 0 stored a tile), the
+// score tile is empty (warpgroups 1 and 2 have folded it).
 constexpr int BAR_FULL = 1, BAR_EMPTY = 2;
-__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory"); }
-__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory"); }
+template <int NT>
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(NT) : "memory"); }
+template <int NT>
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(NT) : "memory"); }
+
+// Where the lists keep their ids. A split of at most 65,535 rows (B <= 448
+// at N = 2^20 on an H100) keeps them in shared memory as 16-bit offsets
+// from its first row, 0xFFFF for none (`NarrowIds`); a longer one in the
+// block's own output rows in device memory (`WideIds`), which only the block
+// touches until it ends: 64 lists of 128 32-bit ids in shared memory would
+// take the ring from 3 boxes to 1, and at B = 2048 the ring's depth sets the
+// pace, while at B = 64 the fold does, which waits on every read of device
+// memory (PERF.md §6).
+struct NarrowIds {
+  unsigned short* p;
+  long long base;
+  __device__ __forceinline__ int get(int e) const { return p[e] == 0xFFFFu ? -1 : static_cast<int>(base + p[e]); }
+  __device__ __forceinline__ void set(int e, int id) const {
+    p[e] = id < 0 ? 0xFFFFu : static_cast<unsigned short>(id - base);
+  }
+};
+struct WideIds {
+  int* p;
+  __device__ __forceinline__ int get(int e) const { return p[e]; }
+  __device__ __forceinline__ void set(int e, int id) const { p[e] = id; }
+};
+
+// Fold one query's row of the score tile (rows r0 .. r0 + WRT - 1) into its
+// list, by one warp. The list (k pairs, sorted by score descending, then id
+// ascending) keeps its scores in shared memory (lsm[e]) and its ids in `gid`
+// (`NarrowIds` or `WideIds`). The scores above the list's k-th (strict) are
+// the candidates: compacted in row order into the front of the row itself
+// (which only this warp reads), their row offsets in `offs`, they go in 32
+// at a time, and each batch is merged by ranks: a list pair moves down by
+// the candidates above it, a candidate lands after the candidates above it
+// and the list pairs at or above its score (every list id is below every
+// candidate's: the tiles, and the batches of a tile, come in row order), and
+// pairs ranked k or lower drop. The ranks come from a pass over the batch
+// (one shuffle and KP + 2 compares a candidate, independent of each other,
+// so unrolled) and a binary search of the list: a batch costs a few hundred
+// instructions without a long chain of dependent steps. The threshold moves
+// up once a batch; a candidate that a batch before it has pushed under the
+// threshold is dropped (a stale threshold only admits extra candidates).
+template <int KP, typename Ids>
+__device__ __forceinline__ void fold_row(float* row, unsigned char* offs, float* lsm, const Ids& gid, int k,
+                                         long long r0, int lane) {
+  float thr = lsm[k - 1];
+  float sc[WRT / 32];
+  unsigned take[WRT / 32];
+  int count = 0;
+#pragma unroll
+  for (int part = 0; part < WRT / 32; ++part) {
+    sc[part] = row[part * 32 + lane];
+    take[part] = __ballot_sync(FULL, sc[part] > thr);
+    count += __popc(take[part]);
+  }
+  if (count == 0) return;
+  __syncwarp();  // every lane has read its scores
+  int at = 0;
+#pragma unroll
+  for (int part = 0; part < WRT / 32; ++part) {
+    if ((take[part] >> lane) & 1u) {
+      const int n = at + __popc(take[part] & ((1u << lane) - 1u));
+      row[n] = sc[part];
+      offs[n] = static_cast<unsigned char>(part * 32 + lane);
+    }
+    at += __popc(take[part]);
+  }
+  __syncwarp();
+  for (int g0 = 0; g0 < count; g0 += 32) {
+    float cs = -INFINITY;
+    int ci = -1;
+    if (g0 + lane < count && row[g0 + lane] > thr) {
+      cs = row[g0 + lane];
+      ci = static_cast<int>(r0 + offs[g0 + lane]);
+    }
+    const unsigned live = __ballot_sync(FULL, ci >= 0);
+    if (live == 0u) continue;
+    float ls[KP];
+    int li[KP], up[KP];
+#pragma unroll
+    for (int r = 0; r < KP; ++r) {
+      const int e = r * 32 + lane;
+      ls[r] = e < k ? lsm[e] : -INFINITY;
+      li[r] = e < k ? gid.get(e) : -1;
+      up[r] = 0;
+    }
+    // the batch fills lanes 0 .. nb - 1 (a stale one holds -inf, which
+    // counts for no one); its iterations are independent, so unrolled
+    const int nb = 32 - __clz(live);
+    int rank = 0;  // the batch's candidates above this lane's
+#pragma unroll 4
+    for (int j = 0; j < nb; ++j) {
+      const float s = __shfl_sync(FULL, cs, j);
+#pragma unroll
+      for (int r = 0; r < KP; ++r) up[r] += s > ls[r] ? 1 : 0;
+      rank += s > cs || (s == cs && j < lane) ? 1 : 0;
+    }
+    int below = 0;  // the list's pairs at or above this lane's candidate (fewer than k)
+    if (ci >= 0) {
+#pragma unroll
+      for (int w = 16 * KP; w > 0; w >>= 1)
+        if (below + w <= k && lsm[below + w - 1] >= cs) below += w;
+    }
+    __syncwarp();  // every lane has read the list
+#pragma unroll
+    for (int r = 0; r < KP; ++r) {
+      const int e = r * 32 + lane;
+      if (e < k && e + up[r] < k) {
+        lsm[e + up[r]] = ls[r];
+        gid.set(e + up[r], li[r]);
+      }
+    }
+    if (ci >= 0 && rank + below < k) {
+      lsm[rank + below] = cs;
+      gid.set(rank + below, ci);
+    }
+    __syncwarp();  // orders the warp's shared and device memory writes before its next reads
+    thr = lsm[k - 1];
+  }
+}
 
 // Warpgroup 0 (warps 0-3) runs the product, S = Q_tile V_tileᵀ with the 64
 // queries as M and 128 corpus rows as N (`wgmma` m64n128k16: the queries'
 // A operand is read once per 128 rows), and its thread 0 issues every TMA
-// load. Warpgroup 1 (warps 4-7) folds tile t into the lists while warpgroup 0
-// multiplies tile t + 1; the one score tile passes between them on named
-// barriers. Ring box g (g = tile * chunks + chunk) sits in slot g % stages and
-// completes phase g / stages of that slot's barrier; a slot is reloaded once
-// the wgmma that read it has retired. The ring takes the rest of shared
+// load. The folding warps (`fold_warps_of(KP)`) fold tile t while warpgroup
+// 0 multiplies tile t + 1; the one score tile passes between them on named
+// barriers. Ring box g (g = tile * chunks + chunk) sits in slot g % stages
+// and completes phase g / stages of that slot's barrier; a slot is reloaded
+// once the wgmma that read it has retired. The ring takes the rest of shared
 // memory.
-__global__ void __launch_bounds__(THREADS, 1)
+template <int KP, bool NARROW>
+__global__ void __launch_bounds__(wgmma_threads(KP), 1)
 topk_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_v,
                   float* __restrict__ out_s, int* __restrict__ out_i,
-                  int B, int chunks, int stages, int k, int kp, int n_real, long long rows_per_split) {
+                  int B, int chunks, int stages, int k, int n_real, long long rows_per_split) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* qtile = base;                                     // [chunks][64 queries][64] bf16
   unsigned char* ring = qtile + chunks * QBOX_BYTES;               // [stages][128 rows][64] bf16
   float* S = reinterpret_cast<float*>(ring + stages * BOX_BYTES);  // [QT][SP]
-  float* Ls = S + QT * SP;
-  int* Li = reinterpret_cast<int*>(Ls + QT * kp);
-  uint64_t* full = reinterpret_cast<uint64_t*>(Li + QT * kp);      // [stages], then the query tile's
+  float* Ls = S + QT * SP;                                         // [QT][32 KP] the lists' scores
+  unsigned short* Lid = reinterpret_cast<unsigned short*>(Ls + QT * 32 * KP);  // [QT][32 KP] (NARROW) their ids
+  uint64_t* full = reinterpret_cast<uint64_t*>(Lid + (NARROW ? QT * 32 * KP : 0));  // [stages], the query tile's
   uint64_t* qbar = full + stages;
+  constexpr int NT = wgmma_threads(KP), FOLD_WARPS = fold_warps_of(KP);
+  unsigned char* offs = reinterpret_cast<unsigned char*>(qbar + 1);  // [FOLD_WARPS][WRT]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q0 = blockIdx.x * QT;
@@ -315,7 +473,10 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
   const int tiles = row_end > row_begin ? (int)((row_end - row_begin + WRT - 1) / WRT) : 0;
   const int total = tiles * chunks;  // ring boxes this block loads
 
-  for (int e = tid; e < QT * kp; e += THREADS) { Ls[e] = -INFINITY; Li[e] = -1; }
+  for (int e = tid; e < QT * 32 * KP; e += NT) {
+    Ls[e] = -INFINITY;
+    if (NARROW) Lid[e] = 0xFFFFu;
+  }
   if (tid == 0) {
     for (int s = 0; s <= stages; ++s) mbar_init(full + s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -361,7 +522,7 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
       fence_acc(acc);
       if (tid == 0)
         for (; issued < total && issued < (t + 1) * chunks + stages; ++issued) issue(issued);
-      if (t > 0) bar_sync(BAR_EMPTY);  // warpgroup 1 has folded tile t - 1
+      if (t > 0) bar_sync<NT>(BAR_EMPTY);  // the folding warps have folded tile t - 1
       // accumulator fragment i of thread (warp, lane): query 16 warp + lane / 4
       // + 8 ((i / 2) % 2), corpus row 8 (i / 4) + 2 (lane % 4) + i % 2
 #pragma unroll
@@ -371,17 +532,38 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
         *reinterpret_cast<float2*>(S + qq * SP + row) =
             make_float2(r0 + row < row_end ? acc[i] : -INFINITY, r0 + row + 1 < row_end ? acc[i + 1] : -INFINITY);
       }
-      bar_arrive(BAR_FULL);
+      bar_arrive<NT>(BAR_FULL);
     }
-  } else {
-    for (int t = 0; t < tiles; ++t) {
-      bar_sync(BAR_FULL);
-      fold_tile<WRT>(S, SP, Ls, Li, k, kp, min(QT, B - q0), row_begin + (long long)t * WRT, warp - 4, WARPS - 4, lane);
-      if (t + 1 < tiles) bar_arrive(BAR_EMPTY);
-    }
+    return;  // the folding warps write the lists; no block-wide barrier follows
   }
-  __syncthreads();
-  store_lists(Ls, Li, out_s, out_i, B, k, kp, q0);
+
+  // folding warp f serves queries f, f + FOLD_WARPS, ...; wide ids live in
+  // the block's output rows from the start, narrow ones go there at the end
+  const int f = warp - 4;
+  const int queries = min(QT, B - q0);
+  int* ids = out_i + (size_t)blockIdx.y * B * k + (size_t)q0 * k;
+  if (!NARROW) {
+    for (int qq = f; qq < queries; qq += FOLD_WARPS)
+      for (int e = lane; e < k; e += 32) ids[qq * k + e] = -1;
+    __syncwarp();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    bar_sync<NT>(BAR_FULL);
+    for (int qq = f; qq < queries; qq += FOLD_WARPS)
+      if constexpr (NARROW)
+        fold_row<KP>(S + qq * SP, offs + f * WRT, Ls + qq * 32 * KP, NarrowIds{Lid + qq * 32 * KP, row_begin}, k,
+                     row_begin + (long long)t * WRT, lane);
+      else
+        fold_row<KP>(S + qq * SP, offs + f * WRT, Ls + qq * 32 * KP, WideIds{ids + qq * k}, k,
+                     row_begin + (long long)t * WRT, lane);
+    if (t + 1 < tiles) bar_arrive<NT>(BAR_EMPTY);
+  }
+  float* scores = out_s + (size_t)blockIdx.y * B * k + (size_t)q0 * k;
+  for (int qq = f; qq < queries; qq += FOLD_WARPS)
+    for (int e = lane; e < k; e += 32) {
+      scores[qq * k + e] = Ls[qq * 32 * KP + e];
+      if (NARROW) ids[qq * k + e] = NarrowIds{Lid + qq * 32 * KP, row_begin}.get(e);
+    }
 }
 
 // Fold the splits' sorted partial lists [splits, B, k] in increasing split
@@ -429,7 +611,7 @@ int list_stride(int k) { return (k + 31) / 32 * 32; }
 int wgmma_chunks(int D) { return (D + KC - 1) / KC; }
 
 template <typename T, int FOLDERS, bool ALIGNED> struct ListsTag {};
-struct WgmmaTag {};
+template <int KP, bool NARROW> struct WgmmaTag {};
 
 // Dynamic shared memory of the CUDA-core body: the product core's ring
 // (24.75 KB), the score tile (17 KB) and the lists (16-64 KB). Every k
@@ -456,23 +638,47 @@ cudaError_t fma_blocks_per_sm(int k, int* blocks) {
   return err;
 }
 
-// The tensor-core body's ring depth and dynamic shared memory: the query
-// tile, score tile and lists, and as many 16 KB ring boxes as the rest of the
-// card's per-block limit holds, up to MAX_STAGES (at D = 768 on an H100: 5
-// boxes at k <= 32, 2 at k = 128; 226 KB either way). One block per SM. The
-// limit is read, and the kernel's opt-in set, once per card (sm90.cuh).
-cudaError_t allow_wgmma(int D, int k, int* stages, size_t* dyn) {
+// The tensor-core body's variant at this k: its lists' scores take 32 KP
+// floats a query in shared memory (KP = 1, 2 or 4).
+int list_regs(int k) { return k <= 32 ? 1 : k <= 64 ? 2 : 4; }
+
+using WgmmaKernel = decltype(&topk_wgmma_kernel<1, true>);
+
+template <int KP, bool NARROW>
+cudaError_t allow_variant(WgmmaKernel* kernel) {
+  *kernel = topk_wgmma_kernel<KP, NARROW>;
+  return allow_max_smem<WgmmaTag<KP, NARROW>>(topk_wgmma_kernel<KP, NARROW>);
+}
+
+// The tensor-core body's variant at this k and split length, and its ring
+// depth and dynamic shared memory: the query tile, the score tile, the
+// lists' scores (and narrow ids), the candidates' offsets, and as many 16 KB
+// ring boxes as the rest of the card's per-block limit holds, up to
+// MAX_STAGES (at D = 768 on an H100: 5 boxes at k <= 32, 4 at k <= 64, 3
+// above). One block per SM. The limit is read, and the variant's opt-in
+// set, once per card (sm90.cuh).
+cudaError_t allow_wgmma(int D, int k, long long rows_per_split, WgmmaKernel* kernel, int* stages, size_t* dyn) {
   // the refusal twin of `ops/mips.py:_topk_body`'s D rule
   if (D < 8 || D % 8 != 0 || wgmma_chunks(D) > MAX_CHUNKS) return cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t err = optin_smem(&limit);
   if (err != cudaSuccess) return err;
-  const size_t fixed = wgmma_smem(wgmma_chunks(D), list_stride(k), 0);
-  *stages = limit > (long long)fixed ? (int)((limit - fixed) / (BOX_BYTES + sizeof(uint64_t))) : 0;
-  *stages = min(*stages, MAX_STAGES);
+  auto depth = [&](bool narrow) {
+    const size_t fixed = wgmma_smem(wgmma_chunks(D), list_regs(k), narrow, 0);
+    const int boxes = limit > (long long)fixed ? (int)((limit - fixed) / (BOX_BYTES + sizeof(uint64_t))) : 0;
+    return min(boxes, MAX_STAGES);
+  };
+  // narrow ids where a split's row offsets fit in 16 bits and they cost the
+  // ring no box (at D = 768: k <= 64; at k = 128 the box is worth more)
+  const bool narrow = rows_per_split <= 65535 && depth(true) == depth(false);
+  *stages = depth(narrow);
   if (*stages < 1) return cudaErrorInvalidValue;
-  *dyn = wgmma_smem(wgmma_chunks(D), list_stride(k), *stages);
-  return allow_max_smem<WgmmaTag>(topk_wgmma_kernel);
+  *dyn = wgmma_smem(wgmma_chunks(D), list_regs(k), narrow, *stages);
+  switch (list_regs(k)) {
+    case 1: return narrow ? allow_variant<1, true>(kernel) : allow_variant<1, false>(kernel);
+    case 2: return narrow ? allow_variant<2, true>(kernel) : allow_variant<2, false>(kernel);
+    default: return narrow ? allow_variant<4, true>(kernel) : allow_variant<4, false>(kernel);
+  }
 }
 
 // Rows of each split: whole tiles of `tile` rows, the last split ragged (or empty).
@@ -512,7 +718,9 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
                          int B, int D, int k, int n_real, int splits, cudaStream_t stream) {
   size_t dyn;
   int stages;
-  cudaError_t err = allow_wgmma(D, k, &stages, &dyn);
+  WgmmaKernel kernel;
+  const long long rows_per_split = split_rows(n_real, splits, WRT);
+  cudaError_t err = allow_wgmma(D, k, rows_per_split, &kernel, &stages, &dyn);
   if (err != cudaSuccess) return err;
   CUtensorMap map_q, map_v;
   // boxes of KC = 64 bf16 (128 bytes)
@@ -520,9 +728,9 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
   if ((err = sw128_map(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, n_real, D, WRT)) != cudaSuccess)
     return err;  // rows past n_real are never read
   const dim3 grid((B + QT - 1) / QT, splits);  // query tile fastest: the blocks of a split share rows in L2
-  topk_wgmma_kernel<<<grid, THREADS, dyn, stream>>>(
+  kernel<<<grid, wgmma_threads(list_regs(k)), dyn, stream>>>(
       map_q, map_v, static_cast<float*>(part_s), static_cast<int*>(part_i), B, wgmma_chunks(D), stages, k,
-      list_stride(k), n_real, split_rows(n_real, splits, WRT));
+      n_real, rows_per_split);
   return cudaGetLastError();
 }
 
@@ -547,12 +755,25 @@ extern "C" int vod_fused_mips_topk_blocks_per_sm(int body, int dtype, int D, int
   if (k < 1 || k > KMAX) return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0, stages = 0;
   size_t dyn = 0;
+  WgmmaKernel kernel;
   cudaError_t err = cudaErrorInvalidValue;
   if (body == 0 && dtype == 0) err = fma_blocks_per_sm<float>(k, &blocks);
   if (body == 0 && dtype == 1) err = fma_blocks_per_sm<__nv_bfloat16>(k, &blocks);
-  if (body == 1 && dtype == 1 && (err = allow_wgmma(D, k, &stages, &dyn)) == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_wgmma_kernel, THREADS, dyn);
+  if (body == 1 && dtype == 1 && (err = allow_wgmma(D, k, WRT, &kernel, &stages, &dyn)) == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, wgmma_threads(list_regs(k)), dyn);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// The tensor-core body's ring depth (TMA boxes in flight) on the current card
+// for a call at this D and k over n_real rows in `splits` splits, or minus a
+// CUDA error code. A benchmark reads it.
+extern "C" int vod_fused_mips_topk_ring_stages(int D, int k, int n_real, int splits) {
+  if (k < 1 || k > KMAX || splits < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  int stages = 0;
+  size_t dyn = 0;
+  WgmmaKernel kernel;
+  const cudaError_t err = allow_wgmma(D, k, split_rows(n_real, splits, WRT), &kernel, &stages, &dyn);
+  return err == cudaSuccess ? stages : -static_cast<int>(err);
 }
 
 // The CUDA-core body. dtype: 0 = float32, 1 = bfloat16 (queries already cast

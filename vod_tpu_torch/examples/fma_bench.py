@@ -114,8 +114,13 @@ def compare(ks, ki, rs, ri, q, v, tol: float) -> tuple[float, int]:
 
 
 def run(device, *, n: int = 1 << 20, d: int = 768, reps: int = 20, wide_reps: int = 3, cases=CASES,
-        hbm: float = HBM, peaks: typ.Optional[dict] = None) -> list[dict]:
-    """Measure each case; see the module docstring."""
+        hbm: float = HBM, peaks: typ.Optional[dict] = None, inputs: typ.Optional[dict] = None,
+        library_inputs: typ.Optional[dict] = None, extra: typ.Optional[typ.Callable] = None) -> list[dict]:
+    """Measure each case; see the module docstring. `inputs` (default
+    `make_inputs(n, d)`) maps a case's corpus to its (rows, queries), and
+    `library_inputs` an int8 corpus to the (rows, queries) that the library
+    call reads in its place (cuBLASLt wants rows on the grid and D % 8 == 0).
+    `extra(row, v, q, call, reps)` adds a card row's own fields."""
     import torch
 
     from vod_tpu_torch.examples.narrow_call_bench import _events_ms
@@ -123,7 +128,8 @@ def run(device, *, n: int = 1 << 20, d: int = 768, reps: int = 20, wide_reps: in
 
     peaks = peaks or dict(bf16=PEAK_BF16, int8=PEAK_INT8, f32=PEAK_F32)
     mips.set_full_f32_matmul()
-    inputs = make_inputs(n, d, device)
+    inputs = inputs or make_inputs(n, d, device)
+    library_inputs = library_inputs or {}
     vb, qb = inputs["bf16"]
     tol = 2 * d * 2.0**-24 * qb.float().norm(dim=-1).max().item() * vb.float().norm(dim=-1).max().item()
     out = []
@@ -131,6 +137,7 @@ def run(device, *, n: int = 1 << 20, d: int = 768, reps: int = 20, wide_reps: in
         v, q = inputs[corpus]
         q = q[:b]
         qk = q.to(v.dtype)
+        d = int(v.shape[1])
         ptrs = (v.data_ptr(), qk.data_ptr())
         if kernel == "binned":
             body = mips._binned_body(v.dtype, d, width, ptrs)
@@ -167,7 +174,9 @@ def run(device, *, n: int = 1 << 20, d: int = 768, reps: int = 20, wide_reps: in
         row["plain_ms"] = _events_ms(plain, 2, device)
         if device.type == "cuda":
             if v.dtype == torch.int8:
-                row["library_ms"] = (_events_ms(lambda: torch.topk(torch._int_mm(qk, v.T), k, dim=-1), r, device)
+                lv, lq = library_inputs.get(corpus, (v, qk))
+                lq = lq[:b]
+                row["library_ms"] = (_events_ms(lambda: torch.topk(torch._int_mm(lq, lv.T), k, dim=-1), r, device)
                                      if b > 16 else None)
             else:
                 row["library_ms"] = _events_ms(lambda: torch.topk(qk @ v.T, k, dim=-1), r, device)
@@ -177,6 +186,8 @@ def run(device, *, n: int = 1 << 20, d: int = 768, reps: int = 20, wide_reps: in
         row["bound_ms"] = max(nbytes / hbm, ops / peak) * 1e3
         row["bound_by"] = "bytes" if nbytes / hbm >= ops / peak else "operations"
         row["cuda_core_bound_ms"] = max(nbytes / hbm, ops / peaks["f32"]) * 1e3
+        if device.type == "cuda" and extra is not None:
+            extra(row, v, q, call, r)
         out.append(row)
     return out
 

@@ -264,9 +264,9 @@ def _binned_body(dtype: torch.dtype, d: int, bins: int, ptrs: typ.Iterable[int])
     D % 8 == 0 and D <= 1536, or int8 with D % 16 == 0 and D <= 3072 (TMA
     needs 16-byte row strides; the resident query tile fits in shared memory),
     with bins % 128 == 0 (a block owns 128 bins) and 16-byte-aligned data
-    pointers `ptrs` (corpus and queries); "fma" (f32 FMAs, or `__dp4a` for
-    int8, on CUDA cores) for every other call, f32 included (`wgmma` has no
-    full-f32 mode)."""
+    pointers `ptrs` (corpus and queries); "fma" for every other call, f32
+    included (`wgmma` has no full-f32 mode): f32 FMAs on CUDA cores, or for
+    int8 `mma.sync` on the tensor cores, at any D and byte offset."""
     row_elems = {torch.bfloat16: 8, torch.int8: 16}.get(dtype)
     if (
         row_elems is not None
@@ -336,10 +336,7 @@ def _kernel_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the binned body that `_binned_body` names, then the select
     kernel, on the current stream; outputs `[B, k]`."""
-    d = int(queries.shape[1])
-    if int8 and (d % 4 or vectors.data_ptr() % 4 or queries.data_ptr() % 4):
-        raise ValueError("the int8 kernel needs D % 4 == 0 and 4-byte aligned rows")
-    b = int(queries.shape[0])
+    b, d = (int(x) for x in queries.shape)
     dev = vectors.device
     out_s, out_i = _outputs(b, k, torch.int32 if int8 else torch.float32, dev)
     if b == 0:
@@ -439,8 +436,9 @@ def fused_mips_binned(
     D % 16 == 0 and D <= 3072, at an effective bin count divisible by 128,
     with corpus and (cast) queries on 16-byte-aligned addresses, runs its tile
     product on the tensor cores (`binned_wgmma_kernel`); f32, and any other
-    call (a misaligned `storage_offset` included), on CUDA cores
-    (`binned_float_kernel`, `binned_int8_kernel`). A call that the rule gives
+    call (a misaligned `storage_offset` included), on the "fma" body: CUDA
+    cores for float (`binned_float_kernel`), `mma.sync` for int8 at any D
+    (`binned_int8_kernel`). A call that the rule gives
     to the tensor cores and that cannot build or launch there raises; it never
     runs on the other body. Every CUDA call then selects on the card
     (`select_kernel`, any bins and k): two launches a call, and one more to
