@@ -40,7 +40,15 @@ checked, none caught:
     `torch.topk(q @ Vᵀ, k)`, the bound, and for each fma row the CUDA-core
     bound. The fma calls of both timing loops are the CUDA-core bodies'
     path: their launch counts are zeroed before it and read after, and
-    phases 3 and 3b log their wall time;
+    phases 3 and 3b log their wall time. Then the split merge
+    (`merge_splits_kernel`) alone through `merge_splits`, bit for bit
+    against `merge_splits_reference`, on the lists the body wrote at B = 1
+    and 64, k = 128 (132 splits) and at the shootout's B = 2048, k = 10,
+    and on 500 seeded lists at B = 64, k = 128 (past shared memory: read in
+    place), timed beside its plain version, `torch.topk` of the same pairs
+    and its bound; and in one profiler session the device split of the
+    exact call (body, then merge) at B = 64 and 1, k = 128, and B = 64, k =
+    10, with the merge alone at each shape above;
  3c. the select kernel (`select_kernel`, launched by every CUDA call of
     `fused_mips_binned` after its body) alone through `merge_select` against
     `merge_select_reference`, bit for bit, on partials at the main paths'
@@ -1265,6 +1273,44 @@ def host_and_device_ms(fn, reps: int) -> tuple[float, float, dict]:
         if by_name:
             break
     return host_ms, sum(by_name.values()), by_name
+
+
+def device_split(groups: list, reps: int) -> dict:
+    """Device ms a call by kernel, for each group (label, fn, names) of one
+    `torch.profiler` session: each group's `fn` runs `reps` times in turn,
+    each call launching kernels whose names hold `names` in that order, and
+    the session's kernels, in the order they ran, are dealt back to the
+    groups (checked against the names). One session for all the groups: a
+    session costs seconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, fn, _ in groups:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that records no device event at all (seen on the card) is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _, fn, _ in groups:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        ran = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)), key=lambda e: e.time_range.start)
+        if ran:
+            break
+    check(len(ran) == reps * sum(len(names) for _, _, names in groups),
+          f"device split: {len(ran)} kernels for {[(label, names) for label, _, names in groups]} x {reps}")
+    out, at = {}, 0
+    for label, _, names in groups:
+        ms = dict.fromkeys(names, 0.0)
+        for i in range(reps * len(names)):
+            name = names[i % len(names)]
+            check(name in ran[at].name, f"device split {label}: {ran[at].name} where {name} was due")
+            ms[name] += ran[at].time_range.elapsed_us() / 1e3 / reps
+            at += 1
+        out[label] = ms
+    return out
 
 
 def profile_step(step_fn, engines, corpus, micro_batches, generator) -> dict:
@@ -6468,16 +6514,20 @@ def main() -> None:
     if len(sys.argv) == 5 and sys.argv[1] == "--rank-job":  # one rank of phase 12, 13 or 14, under torchrun
         rank_job(sys.argv[2], Path(sys.argv[3]), json.loads(sys.argv[4]))
         return
-    from vod_tpu_torch.examples import mips_kernel_bench
+    from vod_tpu_torch.examples import mips_kernel_bench, wide_k_bench
     from vod_tpu_torch.models import TransformerEncoderConfig, VodEncoder, VodPoolerConfig
     from vod_tpu_torch.ops import cuda_build
     from vod_tpu_torch.ops.mips import (
         _binned_body,
+        _exact_partials,
         _topk_body,
+        _topk_plan,
         fused_mips_binned,
         fused_mips_binned_reference,
         fused_mips_topk,
         fused_mips_topk_reference,
+        merge_splits,
+        merge_splits_reference,
     )
     from vod_tpu_torch.ops.pq import quantize_int8
     from vod_tpu_torch.search import HybridEngines, SearchQueries, build_dense_index, dense_search
@@ -6737,18 +6787,56 @@ def main() -> None:
             + (f", CUDA-core bound {exact_shapes[-1]['cuda_core_bound_ms']:.4f} ms" if body == "fma" else "")
             + f" [{card}]")
     fma_launches["topk_float_kernel"] = fused_mips_topk.body_launches["fma"]
-    # the exact call's device split at k = 128, B = 64: the body, then the
-    # merge of its 132 splits' lists
-    _, merge_total, by_name = host_and_device_ms(lambda: fused_mips_topk(vb, qb[:64], k=128), 5)
-    merge_split = dict(
-        device_ms=merge_total,
-        topk_wgmma_kernel_ms=sum(ms for key, ms in by_name.items() if "topk_wgmma_kernel" in key),
-        merge_splits_kernel_ms=sum(ms for key, ms in by_name.items() if "merge_splits_kernel" in key),
-    )
-    merge_split["merge_share"] = merge_split["merge_splits_kernel_ms"] / max(merge_total, 1e-9)
-    log(f"device split exact bfloat16 B=64 k=128: topk_wgmma_kernel {merge_split['topk_wgmma_kernel_ms']:.4f} ms, "
-        f"merge_splits_kernel {merge_split['merge_splits_kernel_ms']:.4f} ms "
-        f"({100 * merge_split['merge_share']:.1f}% of {merge_total:.4f} ms) [{card}]")
+    # the split merge (`merge_splits_kernel`) alone through `merge_splits`,
+    # bit for bit against its plain version (on a CPU copy): on the lists the
+    # body wrote at B = 1 and 64, k = 128 (132 splits) and at the shootout's
+    # B = 2048, k = 10, and on lists of 500 splits at B = 64, k = 128, past
+    # shared memory (read in place)
+    merge_cases = [(b, k, *_exact_partials(vb, qb[:b], k)) for b, k in ((1, 128), (64, 128), (2048, 10))]
+    merge_cases.append((64, 128, *wide_k_bench.merge_lists(500, 64, 128, dev)))
+    merge_rows = []
+    for b, k, ps, pi in merge_cases:
+        splits = int(ps.shape[0])
+        label = f"merge B={b} k={k} splits={splits}"
+        before = merge_splits.launches
+        ms_, mi_ = merge_splits(ps, pi, k)
+        check(merge_splits.launches == before + 1, f"{label}: merge_splits did not launch its kernel once")
+        rs, ri = merge_splits_reference(ps.cpu(), pi.cpu(), k)
+        check(torch.equal(ms_.cpu().view(torch.int32), rs.view(torch.int32)) and torch.equal(mi_.cpu(), ri),
+              f"{label}: merge_splits_kernel != its plain version")
+        pairs = ps.permute(1, 0, 2).reshape(b, splits * k)
+        # what any merge of these sorted lists must move: each split's scores
+        # down to its first loser, the winners' ids (32-byte sectors), [B, k] out
+        nbytes = wide_k_bench.merge_bound_bytes(ps, k)
+        merge_rows.append(dict(
+            label=label, B=b, k=k, splits=splits, max_abs_err=0.0,
+            plain_ms=time_ms(lambda: merge_splits_reference(ps, pi, k), 5),
+            library_ms=time_ms(lambda: torch.topk(pairs, k, dim=-1), 20),
+            bound_ms=nbytes / hbm * 1e3, bound_by="bytes",
+        ))
+    # the exact call's device split (the body, then the merge of its 132
+    # splits' lists) at B = 64 and 1, k = 128, and B = 64, k = 10, and the
+    # merge alone at each shape above: one profiler session
+    exact_groups = [(f"exact B={b} k={k}", functools.partial(fused_mips_topk, vb, qb[:b], k=k),
+                     ("topk_wgmma_kernel", "merge_splits_kernel")) for b, k in ((64, 128), (1, 128), (64, 10))]
+    split = device_split(exact_groups + [
+        (r["label"], functools.partial(merge_splits, ps, pi, r["k"]), ("merge_splits_kernel",))
+        for r, (_, _, ps, pi) in zip(merge_rows, merge_cases)], 5)
+    merge_split = {}
+    for label, _, _ in exact_groups:
+        body_ms, merge_ms = split[label]["topk_wgmma_kernel"], split[label]["merge_splits_kernel"]
+        merge_split[label] = dict(device_ms=body_ms + merge_ms, topk_wgmma_kernel_ms=body_ms,
+                                  merge_splits_kernel_ms=merge_ms, merge_share=merge_ms / max(body_ms + merge_ms, 1e-9))
+        log(f"device split {label}: topk_wgmma_kernel {body_ms:.4f} ms, merge_splits_kernel {merge_ms:.4f} ms "
+            f"({100 * merge_split[label]['merge_share']:.1f}% of {body_ms + merge_ms:.4f} ms) [{card}]")
+    for r in merge_rows:
+        r["ms"] = split[r["label"]]["merge_splits_kernel"]
+        log(f"check+time {r['label']}: equal to the plain version bit for bit; kernel {r['ms']:.4f} ms (device), "
+            f"plain {r['plain_ms']:.4f} ms, torch.topk of the same pairs {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms (bytes) [{card}]")
+    main_merge_splits = _topk_plan(vb, qb[:2048], 10, N_KERNEL).splits
+    check(main_merge_splits > 1, "the shootout's shape runs in one split: no merge on the main path")
+    del merge_cases, ps, pi, pairs, ms_, mi_, exact_groups  # the groups hold the corpus
     log(f"fma path (the timing loops' CUDA-core calls): launches {fma_launches}")
     check(all(n > 0 for n in fma_launches.values()), f"a CUDA-core body was never launched: {fma_launches}")
     phase3_s = time.perf_counter() - t3
@@ -7079,6 +7167,7 @@ def main() -> None:
     # 18. result lines
     main = next(s for s in shapes if s["dtype"] == "bfloat16" and s["B"] == 64 and s["bins"] == 1024
                 and s["body"] == "wgmma")
+    merge_main = next(r for r in merge_rows if r["B"] == 2048 and r["k"] == 10)
     exact_main = next(s for s in exact_shapes if s["dtype"] == "bfloat16" and s["B"] == 2048 and s["k"] == 10
                       and s["body"] == "wgmma")
     select_main = next({k: v for k, v in r.items()
@@ -7139,7 +7228,17 @@ def main() -> None:
         body_ms={body: {f"{s['dtype']} B={s['B']} k={s['k']}": s["ms"] for s in exact_shapes if s["body"] == body}
                  for body in ("wgmma", "fma")},
         phase13_launches=phase13_launches, phase17_launches=phase17_launches,
-        merge_splits_at_k128=merge_split,
+        merge_split=merge_split,
+    ), dict(
+        # launched by every exact call of more than one split after its body:
+        # the main path's launches are the wrapper's (the shootout's shape
+        # runs in `main_merge_splits` splits); the headline is that shape's,
+        # the merge alone on the lists its body wrote
+        name="merge_splits_kernel", route="cuda", source="vod_tpu_torch/csrc/fused_mips_topk.cu",
+        replaces="vod_tpu/ops/mips_pallas.py:57 (none of its own: the TPU grid carries one list)",
+        launches=shootout_launches["fused_mips_topk"], splits_on_main_path=main_merge_splits,
+        **{key: merge_main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        shape=merge_main["label"], shapes=merge_rows, merge_alone_launches=merge_splits.launches,
     )]
     # the two kernels' CUDA-core bodies, each at its headline fma shape, with
     # the launches of their path (phases 3 and 3b's timing loops); the int8

@@ -143,8 +143,6 @@ constexpr uint32_t NO_WINNER = 0xFFFFFFFFu;   // both halves 0xFFFF
 // selection; SELECT_SMEM_CELLS has a twin in `ops/mips.py` (_SELECT_SMEM_CELLS)
 constexpr int SELECT_SMEM_CELLS = 8192;       // bins (padded) whose cells and candidates stay in shared memory; more: the workspace
 constexpr int SELECT_THREADS = 1024;          // at most a block
-constexpr int RADIX = 256;                    // digits of an 8-bit radix pass
-constexpr int RANK_SORT_MAX = 256;            // k up to this: at most this many candidates, each placed by counting
 constexpr int SELECT_STAGE_BYTES = 80 * 1024; // the fold's stage of partial scores in shared memory
 
 // Float path (f32 or bf16 inputs, f32 accumulation): the product core of
@@ -537,53 +535,9 @@ binned_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
 
 // ---- selection: the splits folded and k of the cells chosen ------------------
 
-// The score's bits in an order-preserving form: a larger score gives a larger
-// key. NaN sorts above every number (as torch's descending sort puts it) and
-// -0 ties with +0.
-__device__ __forceinline__ uint32_t order_bits(int s) { return static_cast<uint32_t>(s) ^ 0x80000000u; }
-__device__ __forceinline__ uint32_t order_bits(float s) {
-  if (isnan(s)) return 0xFFFFFFFFu;
-  uint32_t u = __float_as_uint(s);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
 // A cell the wrapper gives id -1: `isfinite` fails (float) or the int8 sentinel.
 __device__ __forceinline__ bool no_id(float s) { return !isfinite(s); }
 __device__ __forceinline__ bool no_id(int s) { return s <= INT8_NEG; }
-
-// 4 bytes from device memory to shared memory, asynchronously (no register
-// holds them); `cp_async_wait_all` waits for the thread's copies.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// Inclusive sum over the warp's lanes up to this one.
-__device__ __forceinline__ int warp_scan(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xFFFFFFFFu, v, o);
-    if (lane >= o) v += t;
-  }
-  return v;
-}
-
-// The largest and smallest of a warp's values, in every lane.
-__device__ __forceinline__ void warp_max_min(uint32_t& hi, uint32_t& lo) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    hi = max(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, o));
-    lo = min(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, o));
-  }
-}
-
-struct SelectState {
-  uint32_t prefix;  // the threshold's bits found so far
-  int need;         // cells still to take among those matching the prefix
-  int above;        // cells above every value with the prefix
-  int count;        // cells matching the prefix
-  int done;         // 1 once the candidates are settled
-};
 
 // Block b: query b. Shared memory (GLOBAL false) or the workspace's row b
 // (GLOBAL true) holds each cell's order bits and winning split, and the
@@ -596,35 +550,26 @@ struct SelectState {
 //      holds no register; then each thread folds its cells over them in
 //      split order. The block's largest and smallest order bits come with
 //      it;
-//   2. radix passes over the order bits, 8 bits a pass from the highest bit
-//      in which the largest and smallest differ (the bits above it are
-//      common): a 256-digit histogram of the cells matching the prefix (a
-//      warp's lanes on its first lane's digit add in one shared atomic), and
-//      the digit that holds the k-th cell. The passes stop once that digit's
-//      cells are all needed, or (k <= RANK_SORT_MAX) once the cells above it
-//      and in it number at most RANK_SORT_MAX, all of which become
-//      candidates;
-//   3. gather, in cell order (each warp a run of cells, ballots within it
-//      and a block prefix of the runs' counts): the cells above the prefix,
+//   2. radix passes over the order bits (`sm90.cuh:radix::threshold`); for
+//      k <= RANK_SORT_MAX they stop once at most RANK_SORT_MAX cells lie at
+//      or above the k-th cell's digit, all of which become candidates;
+//   3. gather, in cell order (`radix::gather`): the cells above the prefix,
 //      and those matching it (all of them, or the first `need`: lowest cell
 //      first);
 //   4. order the candidates' keys (k <= RANK_SORT_MAX: each key's place is
-//      the count of keys above it, and places past k go nowhere; else a
-//      bitonic sort of k keys padded to a power of two) and write each
-//      winner's own score and id, read from its winning split.
+//      the count of keys above it, `radix::rank`, and places past k go
+//      nowhere; else a bitonic sort of k keys padded to a power of two) and
+//      write each winner's own score and id, read from its winning split.
 template <typename S, bool GLOBAL>
 __global__ void __launch_bounds__(SELECT_THREADS)
 select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* __restrict__ out_s,
               int* __restrict__ out_i, unsigned char* __restrict__ ws, int B, int bins, int splits, int k, int tile,
               int planes, int n_keys, int n_pad) {
   extern __shared__ __align__(16) unsigned char smem_sel[];
-  __shared__ uint32_t hist[2][RADIX];
-  __shared__ uint32_t warp_hi[32], warp_lo[32];
-  __shared__ int warp_up[32], warp_eq[32];
-  __shared__ SelectState st;
+  __shared__ radix::Scratch rs;
   __shared__ uint64_t staged;  // the stage's mbarrier (TMA copies)
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, T = blockDim.x, lane = tid % 32, warp = tid / 32, warps = T / 32;
+  const int tid = threadIdx.x, T = blockDim.x;
   unsigned long long* keys;  // the candidates' keys
   uint32_t *cbits, *cz;      // the cells: order bits (the running score while folding), winning split
   S* stage = reinterpret_cast<S*>(smem_sel);  // [planes][tile] partial scores
@@ -639,8 +584,8 @@ select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* _
     cbits = reinterpret_cast<uint32_t*>(rest + (size_t)n_keys * 8);
     cz = cbits + bins;
   }
-  for (int d = tid; d < RADIX; d += T) hist[0][d] = 0u;
-  if (k > RANK_SORT_MAX)
+  for (int d = tid; d < radix::RADIX; d += T) rs.hist[0][d] = 0u;
+  if (k > radix::RANK_SORT_MAX)
     for (int r = k + tid; r < n_keys; r += T) keys[r] = 0ull;  // the sort's padding: below every cell
   // rows of 16-byte multiples on 16-byte addresses go by TMA, else by 4-byte `cp.async`
   const bool bulk = reinterpret_cast<uintptr_t>(part_s) % 16 == 0 && bins % 4 == 0;
@@ -669,8 +614,8 @@ select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* _
         phase ^= 1u;
       } else {
         for (int z = 0; z < nz; ++z)
-          for (int i = tid; i < n; i += T) cp_async4(stage + z * n + i, ps + (size_t)(z0 + z) * plane + c0 + i);
-        cp_async_wait_all();
+          for (int i = tid; i < n; i += T) radix::cp_async4(stage + z * n + i, ps + (size_t)(z0 + z) * plane + c0 + i);
+        radix::cp_async_wait_all();
         __syncthreads();
       }
       for (int i = tid; i < n; i += T) {
@@ -685,7 +630,7 @@ select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* _
         if (z0 + nz < splits) {
           reinterpret_cast<S*>(cbits)[c0 + i] = best;
         } else {
-          const uint32_t x = order_bits(best);
+          const uint32_t x = radix::order_bits(best);
           cbits[c0 + i] = x;
           hi = max(hi, x);
           lo = min(lo, x);
@@ -694,165 +639,26 @@ select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* _
       if (z0 + nz < splits || c0 + n < bins) __syncthreads();  // the stage is filled again
     }
   }
-  warp_max_min(hi, lo);
-  if (lane == 0) {
-    warp_hi[warp] = hi;
-    warp_lo[warp] = lo;
-  }
-  __syncthreads();
-  hi = lane < warps ? warp_hi[lane] : 0u;  // every warp reduces the warps' values
-  lo = lane < warps ? warp_lo[lane] : 0xFFFFFFFFu;
-  warp_max_min(hi, lo);
+  radix::block_max_min(hi, lo, rs);
 
-  // 2. radix passes, from the highest bit in which the cells differ: the
-  // bits at and above `settled` are the prefix's
-  const int small = k <= RANK_SORT_MAX;
-  uint32_t prefix = hi;
-  int settled = 0, need = k, above = 0, count = bins;
-  if (hi != lo) {
-    settled = 32 - __clz(hi ^ lo);
-    prefix = settled > 31 ? 0u : hi & (0xFFFFFFFFu << settled);
-    for (int pass = 0;; ++pass) {
-      const int shift = max(0, settled - 8);
-      const uint32_t smask = settled > 31 ? 0u : 0xFFFFFFFFu << settled;
-      uint32_t* h = hist[pass & 1];
-      for (int i0 = 0; i0 < bins; i0 += T) {  // the same trip count in every warp
-        const int i = i0 + tid;
-        uint32_t x = 0u;
-        bool match = false;
-        if (i < bins) {
-          x = cbits[i];
-          match = (x & smask) == prefix;
-        }
-        // the first matching lane adds its digit's lanes at once (ties share
-        // a digit); each other lane adds itself
-        const uint32_t digit = (x >> shift) & (RADIX - 1);
-        const unsigned active = __ballot_sync(0xFFFFFFFFu, match);
-        if (active != 0u) {
-          const int first = __ffs(active) - 1;
-          const uint32_t lead = __shfl_sync(0xFFFFFFFFu, digit, first);
-          const unsigned same = __ballot_sync(0xFFFFFFFFu, match && digit == lead);
-          if (lane == first) atomicAdd(&h[lead], static_cast<uint32_t>(__popc(same)));
-          else if (match && digit != lead) atomicAdd(&h[digit], 1u);
-        }
-      }
-      __syncthreads();
-      if (warp == 0) {  // lane l: digits 255 - 8l down to 248 - 8l
-        uint32_t cnt[8], sum = 0u;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sum += cnt[j] = h[RADIX - 1 - 8 * lane - j];
-        uint32_t incl = sum;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const uint32_t v = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-          if (lane >= o) incl += v;
-        }
-        const uint32_t excl = incl - sum, want = static_cast<uint32_t>(need);
-        if (excl < want && want <= incl) {  // the lane whose digits hold the k-th cell
-          uint32_t up = excl, in = 0u;
-          int digit = 0;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            if (up + cnt[j] >= want) {
-              digit = RADIX - 1 - 8 * lane - j;
-              in = cnt[j];
-              break;
-            }
-            up += cnt[j];
-          }
-          const int now_above = above + static_cast<int>(up), now_need = need - static_cast<int>(up);
-          st.prefix = prefix | (static_cast<uint32_t>(digit) << shift);
-          st.above = now_above;
-          st.need = now_need;
-          st.count = static_cast<int>(in);
-          st.done = shift == 0 || static_cast<int>(in) == now_need ||
-                    (small && now_above + static_cast<int>(in) <= RANK_SORT_MAX);
-        }
-        for (int d = lane; d < RADIX; d += 32) hist[(pass + 1) & 1][d] = 0u;  // the next pass's
-      }
-      __syncthreads();
-      prefix = st.prefix;
-      need = st.need;
-      above = st.above;
-      count = st.count;
-      settled = shift;
-      if (st.done) break;
-    }
-  }
-
-  // 3. gather: the cells above the prefix, and those matching it (all where
-  // they fit the count-ordering, else the first `need`)
-  const uint32_t mask = 0xFFFFFFFFu << settled;
-  const int take = small && above + count <= RANK_SORT_MAX ? count : need;
-  const int m = above + take;  // candidates
-  // warp w: cells [w * 32 * per, (w + 1) * 32 * per), 32 a round; counted,
-  // then each warp's first rank from the counts of the warps before it
-  const int per = (bins + T - 1) / T, c_warp = warp * 32 * per;
-  const unsigned before = (1u << lane) - 1u;
-  int up = 0, eq = 0;
-  for (int r = 0; r < per; ++r) {
-    const int c = c_warp + 32 * r + lane;
-    const uint32_t x = c < bins ? cbits[c] & mask : 0u;
-    up += __popc(__ballot_sync(0xFFFFFFFFu, c < bins && x > prefix));
-    eq += __popc(__ballot_sync(0xFFFFFFFFu, c < bins && x == prefix));
-  }
-  if (lane == 0) {
-    warp_up[warp] = up;
-    warp_eq[warp] = eq;
-  }
-  __syncthreads();
-  const int wu = lane < warps ? warp_up[lane] : 0, we = lane < warps ? warp_eq[lane] : 0;
-  int up_rank = __shfl_sync(0xFFFFFFFFu, warp_scan(wu, lane) - wu, warp);
-  int eq_rank = __shfl_sync(0xFFFFFFFFu, warp_scan(we, lane) - we, warp);
-  for (int r = 0; r < per; ++r) {
-    const int c = c_warp + 32 * r + lane;
-    const uint32_t x = c < bins ? cbits[c] : 0u;
-    const bool is_up = c < bins && (x & mask) > prefix, is_eq = c < bins && (x & mask) == prefix;
-    const unsigned up_bits = __ballot_sync(0xFFFFFFFFu, is_up), eq_bits = __ballot_sync(0xFFFFFFFFu, is_eq);
-    const int slot = is_up ? up_rank + __popc(up_bits & before)
-                           : is_eq && eq_rank + __popc(eq_bits & before) < take
-                                 ? above + eq_rank + __popc(eq_bits & before) : -1;
-    if (slot >= 0)
-      keys[slot] = (static_cast<unsigned long long>(x) << 32) | (0xFFFFFFFFu - static_cast<uint32_t>(c));
-    up_rank += __popc(up_bits);
-    eq_rank += __popc(eq_bits);
-  }
-  __syncthreads();
+  // 2.-3. the threshold, then the candidates in cell order
+  const int small = k <= radix::RANK_SORT_MAX;
+  const int rank_max = small ? radix::RANK_SORT_MAX : 0;
+  auto bits = [cbits](int i) { return cbits[i]; };
+  const radix::Threshold t = radix::threshold(bits, bins, k, hi, lo, bins, rank_max, rs);
+  const int m = radix::gather(bits, bins, t, rank_max, keys, rs);
 
   // 4. each key's place in the output; a winner's own score and id are read
   // from its winning split
-  auto source = [&](unsigned long long key) {  // a key's cell, at its winning split
-    const int c = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
-    return (size_t)cz[c] * plane + (size_t)b * bins + c;
-  };
-  auto emit = [&](int place, S s, int id) {
+  auto emit = [&](int place, unsigned long long key) {
+    const int c = radix::cell_of(key);
+    const size_t o = (size_t)cz[c] * plane + (size_t)b * bins + c;
+    const S s = part_s[o];
     out_s[(size_t)b * k + place] = s;
-    out_i[(size_t)b * k + place] = no_id(s) ? -1 : id;
+    out_i[(size_t)b * k + place] = no_id(s) ? -1 : part_i[o];
   };
   if (small) {
-    // a key's place: the keys above it (no two keys tie), counted by `share`
-    // neighbouring lanes a key, four keys a step; only the k winners' scores
-    // and ids are read, and places past k go nowhere
-    int share = 1;
-    while (share < 32 && 2 * share * m <= T) share <<= 1;
-    for (int r0 = 0; r0 < m; r0 += T / share) {  // the same trip count in every warp
-      const int r = r0 + tid / share;
-      const unsigned long long key = r < m ? keys[r] : 0ull;
-      int place = 0, j = tid % share;
-      if (r < m) {
-        for (; j + 3 * share < m; j += 4 * share) {
-          const unsigned long long k0 = keys[j], k1 = keys[j + share], k2 = keys[j + 2 * share],
-                                   k3 = keys[j + 3 * share];
-          place += (k0 > key ? 1 : 0) + (k1 > key ? 1 : 0) + (k2 > key ? 1 : 0) + (k3 > key ? 1 : 0);
-        }
-        for (; j < m; j += share) place += keys[j] > key ? 1 : 0;
-      }
-      for (int o = share / 2; o > 0; o >>= 1) place += __shfl_xor_sync(0xFFFFFFFFu, place, o);
-      if (r < m && tid % share == 0 && place < k) {
-        const size_t o = source(key);
-        emit(place, part_s[o], part_i[o]);
-      }
-    }
+    radix::rank(keys, m, k, emit);
   } else {
     // bitonic sort of the n_keys (k padded) keys, descending: pair
     // (i, i + stride) runs descending where (i & size) == 0, so the last
@@ -864,18 +670,15 @@ select_kernel(const S* __restrict__ part_s, const int* __restrict__ part_i, S* _
       for (int stride = size >> 1; stride > 0; stride >>= 1) {
         if (wide || stride > 32) __syncthreads(); else __syncwarp();
         wide = stride > 32;
-        for (int t = tid; t < n_keys / 2; t += T) {
-          const int i = 2 * t - (t & (stride - 1));
+        for (int t2 = tid; t2 < n_keys / 2; t2 += T) {
+          const int i = 2 * t2 - (t2 & (stride - 1));
           const unsigned long long lo_key = keys[i], hi_key = keys[i + stride];
           if ((lo_key < hi_key) == ((i & size) == 0)) { keys[i] = hi_key; keys[i + stride] = lo_key; }
         }
       }
     }
     __syncthreads();
-    for (int r = tid; r < k; r += T) {
-      const size_t o = source(keys[r]);
-      emit(r, part_s[o], part_i[o]);
-    }
+    for (int r = tid; r < k; r += T) emit(r, keys[r]);
   }
 }
 
@@ -891,7 +694,7 @@ cudaError_t launch_select(const void* part_s, const void* part_i, void* out_s, v
   int n_pad = 1, kpad = 1;
   while (n_pad < bins) n_pad <<= 1;
   while (kpad < k) kpad <<= 1;
-  const int n_keys = k <= RANK_SORT_MAX ? RANK_SORT_MAX : kpad;  // candidates' room
+  const int n_keys = k <= radix::RANK_SORT_MAX ? radix::RANK_SORT_MAX : kpad;  // candidates' room
   const int threads = min(SELECT_THREADS, (bins + 31) / 32 * 32);  // a thread a cell, rounded up to warps
   // the fold's stage: `tile` cells of `planes` splits
   const int tile = min(bins, SELECT_SMEM_CELLS);

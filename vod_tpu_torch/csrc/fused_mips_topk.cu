@@ -91,8 +91,9 @@
 //     GPU blocks run in parallel. So the rows are split across the grid's second
 //     dimension (at serving batch one query tile would leave most SMs idle),
 //     into as many splits as fill every SM with resident blocks in one wave,
-//     each split writes a partial list [splits, B, k], and a merge kernel folds
-//     the splits in increasing order with the same insertion rule. Split z
+//     each split writes a partial list [splits, B, k], and a merge kernel
+//     (`merge_splits_kernel`, design at the kernel) selects the k best of a
+//     query's splits x k pairs, the lower split first on equal scores. Split z
 //     holds only rows below those of split z + 1, so the result equals one
 //     sequential pass over all rows.
 //   * Rows at or past n_real are never read.
@@ -114,7 +115,6 @@ using namespace sm90;
 constexpr int QT = 64;        // queries per block
 constexpr int RT = 64;        // rows per tile of the CUDA-core body
 constexpr int KMAX = 128;     // the TPU kernel's _K_PAD: the widest list
-constexpr int MERGE_WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int FSP = RT + 4;   // score tile row stride of the CUDA-core body: rows of float4
 static_assert(simt::TILE == QT && simt::TILE == RT, "the product core's tile is the block's");
@@ -566,45 +566,212 @@ topk_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
     }
 }
 
-// Fold the splits' sorted partial lists [splits, B, k] in increasing split
-// order into [B, k]: one warp per query, the same insertion rule. Split z's
-// ids all exceed those of the splits before it, and inside a split equal
-// scores come in increasing id order, so warp_insert's precondition holds.
-__global__ void __launch_bounds__(MERGE_WARPS * 32)
-merge_splits_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
-                    float* __restrict__ out_s, int* __restrict__ out_i, int B, int k, int splits) {
-  __shared__ float Ls[MERGE_WARPS][KMAX];
-  __shared__ int Li[MERGE_WARPS][KMAX];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int b = blockIdx.x * MERGE_WARPS + warp;
-  if (b >= B) return;  // the whole warp leaves; no block-wide barrier follows
-  float* ls = Ls[warp];
-  int* li = Li[warp];
-  for (int e = lane; e < k; e += 32) { ls[e] = part_s[(size_t)b * k + e]; li[e] = part_i[(size_t)b * k + e]; }
-  __syncwarp();
-  float thr = ls[k - 1];
-  for (int z = 1; z < splits; ++z) {
-    const float* ps = part_s + ((size_t)z * B + b) * k;
-    const int* pi = part_i + ((size_t)z * B + b) * k;
-    for (int e0 = 0; e0 < k; e0 += 32) {
-      const int e = e0 + lane;
-      const float sc = e < k ? ps[e] : -INFINITY;
-      const int id = e < k ? pi[e] : -1;
-      unsigned cand = __ballot_sync(FULL, sc > thr);
-      if (!cand) break;  // the list is sorted: nothing further down enters
-      while (cand) {
-        const int src = __ffs(cand) - 1;
-        cand &= cand - 1;
-        const float c = __shfl_sync(FULL, sc, src);
-        const int cid = __shfl_sync(FULL, id, src);
-        if (c > thr) {
-          warp_insert(ls, li, k, c, cid, lane);
-          thr = ls[k - 1];
-        }
-      }
-    }
+// ---- the merge of the splits' lists ---------------------------------------
+//
+// `merge_splits_kernel` replaces no TPU kernel: the TPU grid carries one list
+// across the corpus tiles in order on one core, and the card's blocks run
+// the splits in parallel, so their lists need a merge. Its contract: partial
+// lists [splits, B, k], each sorted by (score descending, id ascending),
+// split z's ids all above split z - 1's, empty slots (-inf, -1); out [B, k]
+// by (score descending, id ascending), id -1 where the score is -inf: what
+// one list carried over all the rows in order holds.
+//
+// What bounds it: the lists are sorted, so a merge must read only each
+// split's scores down to its first loser and the winners' ids (32-byte
+// sectors), and write [B, k] (`wide_k_bench.merge_bound_bytes`: about 0.5 MB,
+// 0.00015 ms at B = 64, k = 128, 132 splits, on an H100's 3.35 TB/s; 8 KB at
+// B = 1): far under the time of a launch, so the bound is latency, the
+// loads' round trips and the block's barriers, and at small B the card's
+// width. This design reads every score (it stages them all at once, which
+// costs one round trip) and only the winners' ids. The first port (one warp a query walking the
+// splits in order, inserting each candidate by a chain of shuffles and
+// shared-memory shifts) took 0.21 ms at B = 1 and 64, k = 128, on one warp of
+// one SM at B = 1 (PERF.md §6). The design:
+//   * one block a query. Its cells (split z, position j: cell z k + j; cell
+//     order is id order among equal scores) reach shared memory by
+//     `cp.async`, 16 bytes a copy where a split's row allows it, all in
+//     flight at once (TMA bulk copies of a split's row each, issued by one
+//     warp, took longer); past shared memory they are read in place
+//     (`STAGED` false);
+//   * the lists are sorted, so a bound comes cheap: with c = ceil(k /
+//     splits), the first c cells of every split are at least k cells, and
+//     their k-th largest (counted, or by `radix::threshold` past
+//     RANK_SORT_MAX of them) is at most the k-th largest of all. Each split's
+//     cells at or above it are a prefix, its length found by a binary
+//     search; with scores in random order their total is a few times k,
+//     against splits x k. Those cells go, in cell order, to a list in shared
+//     memory (more than MERGE_DENSE_MAX: all cells stay in play, still at or
+//     above the bound). The bound costs its own steps, so it runs only above
+//     MERGE_BOUND_CELLS cells a query;
+//   * then the selection of `sm90.cuh` (namespace `radix`), as
+//     `select_kernel` runs it: radix passes for the k-th largest among the
+//     cells in play, the candidates gathered in cell order (the first `need`
+//     of those equal to the threshold: the lowest ids), each candidate
+//     placed by counting the candidates above it; where the cells, or the
+//     cells in play, are already few enough to count, no pass at all; then
+//     the k winners' ids read from their splits;
+//   * two paces (PERF.md §6 has the variants' times). With few queries an SM
+//     a block's latency counts: 512 threads, and passes that stop at
+//     RANK_SORT_MAX candidates. With many (B = 2048) its instructions do:
+//     128 threads, and passes down to the k candidates themselves (counting
+//     is quadratic).
+constexpr int MERGE_THREADS = 1024;      // at most a block (read in place: all of them)
+constexpr int MERGE_DENSE_MAX = 2048;    // cells at or above the bound listed in shared memory
+constexpr int MERGE_BOUND_CELLS = 256;   // the bound runs above this many cells a query
+constexpr int MERGE_MANY_PER_SM = 2;     // queries an SM from which a block's instructions set the pace
+constexpr int MERGE_COUNT_MAX = 64;      // cells a query placed by counting alone, below the bound
+// the kernel's static shared memory, at most (its scratch, the candidates'
+// keys, slack for the compiler's own)
+constexpr size_t MERGE_STATIC_SMEM = sizeof(radix::Scratch) + 8 * radix::RANK_SORT_MAX + 1024;
+
+// A query's cells: cell z k + j is position j of split z; its score in
+// shared memory (STAGED: [splits][k]) or in the partials in place (`p` = the
+// query's row of split 0, `plane` = B k floats between splits).
+template <bool STAGED>
+struct MergeCells {
+  const float* p;
+  size_t plane;
+  int k;
+  __device__ __forceinline__ float score(int c) const {
+    if constexpr (STAGED) return p[c];
+    else return p[(size_t)(c / k) * plane + c % k];
   }
-  for (int e = lane; e < k; e += 32) { out_s[(size_t)b * k + e] = ls[e]; out_i[(size_t)b * k + e] = li[e]; }
+  __device__ __forceinline__ uint32_t bits(int c) const { return radix::order_bits(score(c)); }
+};
+
+template <bool STAGED>
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_splits_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i, float* __restrict__ out_s,
+                    int* __restrict__ out_i, int B, int k, int splits, int cap, int rank_max) {
+  extern __shared__ __align__(16) unsigned char smem_merge[];
+  __shared__ radix::Scratch rs;
+  __shared__ unsigned long long keys[radix::RANK_SORT_MAX];
+  __shared__ uint32_t ends[2];  // the bound's largest cell and its k-th
+  const int b = blockIdx.x, tid = threadIdx.x, T = blockDim.x, lane = tid % 32, warp = tid / 32,
+            warps = T / 32;
+  const int n = splits * k;
+  const bool bound = n > MERGE_BOUND_CELLS;
+  const size_t plane = (size_t)B * k;
+  const float* ps = part_s + (size_t)b * k;
+  float* sc = reinterpret_cast<float*>(smem_merge);  // STAGED: [splits][k] scores
+  uint32_t* dense = reinterpret_cast<uint32_t*>(smem_merge + (STAGED ? ((size_t)n * 4 + 15) / 16 * 16 : 0));  // [cap]
+  const MergeCells<STAGED> cells{STAGED ? sc : ps, plane, k};
+
+  for (int d = tid; d < radix::RADIX; d += T) rs.hist[0][d] = 0u;
+
+  // 1. stage: all of the query's scores in flight at once, 16 bytes a copy
+  // where a split's row is a multiple of 16 bytes on a 16-byte address
+  if constexpr (STAGED) {
+    if (k % 4 == 0 && reinterpret_cast<uintptr_t>(part_s) % 16 == 0) {
+      const int q4 = k / 4;  // 16-byte words a split
+      for (int w = tid; w < n / 4; w += T) radix::cp_async16(sc + 4 * w, ps + (size_t)(w / q4) * plane + 4 * (w % q4));
+    } else {
+      for (int i = tid; i < n; i += T) radix::cp_async4(sc + i, ps + (size_t)(i / k) * plane + i % k);
+    }
+    radix::cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // a winner's score, and its id read from its split
+  auto emit = [&](int place, int c) {
+    const float s = cells.score(c);
+    out_s[(size_t)b * k + place] = s;
+    out_i[(size_t)b * k + place] = s == -INFINITY ? -1 : part_i[(size_t)(c / k) * plane + (size_t)b * k + c % k];
+  };
+
+  if (!bound && n <= MERGE_COUNT_MAX) {  // a handful: each cell placed by counting
+    for (int i = tid; i < n; i += T) keys[i] = (static_cast<unsigned long long>(cells.bits(i)) << 32) | (0xFFFFFFFFu - i);
+    __syncthreads();
+    radix::rank(keys, n, k, [&](int place, unsigned long long key) { emit(place, radix::cell_of(key)); });
+    return;
+  }
+
+  // 2. the cells in play: all, or (the bound) each split's prefix at or above
+  // the k-th largest of the first c cells of every split
+  uint32_t hi = 0u, lo = 0xFFFFFFFFu;  // the largest cell; the least bits in play
+  int live = n;                        // cells at or above lo
+  bool listed = false;                 // the cells in play are dense[0, live)
+  if (bound) {
+    const int c = (k + splits - 1) / splits, m0 = splits * c;
+    auto head = [&](int i) { return cells.bits((i / c) * k + i % c); };
+    if (m0 == k) {  // the k-th largest is the least
+      for (int i = tid; i < m0; i += T) {
+        const uint32_t x = head(i);
+        hi = max(hi, x);
+        lo = min(lo, x);
+      }
+      radix::block_max_min(hi, lo, rs);
+    } else if (m0 <= rank_max) {  // a handful: each placed by counting, the first and the k-th kept
+      for (int i = tid; i < m0; i += T) keys[i] = (static_cast<unsigned long long>(head(i)) << 32) | (0xFFFFFFFFu - i);
+      __syncthreads();
+      radix::rank(keys, m0, k, [&](int place, unsigned long long key) {
+        if (place == 0) ends[0] = static_cast<uint32_t>(key >> 32);
+        if (place == k - 1) ends[1] = static_cast<uint32_t>(key >> 32);
+      });
+      __syncthreads();
+      hi = ends[0];
+      lo = ends[1];
+    } else {
+      for (int i = tid; i < m0; i += T) {
+        const uint32_t x = head(i);
+        hi = max(hi, x);
+        lo = min(lo, x);
+      }
+      radix::block_max_min(hi, lo, rs);
+      lo = radix::threshold(head, m0, k, hi, lo, m0, 0, rs).prefix;  // its low bits are zero: a lower bound
+      for (int d = tid; d < radix::RADIX; d += T) rs.hist[0][d] = 0u;  // for the next passes
+    }
+    // each thread's run of splits: the prefixes' lengths, then their offsets
+    const int per = (splits + T - 1) / T, z0 = min(splits, tid * per), z1 = min(splits, z0 + per);
+    auto prefix_len = [&](int z) {  // cells of split z at or above lo: the list is sorted
+      int len = 0;
+#pragma unroll
+      for (int w = KMAX; w > 0; w >>= 1)
+        if (len + w <= k && cells.bits(z * k + len + w - 1) >= lo) len += w;
+      return len;
+    };
+    int mine = 0;
+    for (int z = z0; z < z1; ++z) mine += prefix_len(z);
+    const int incl = radix::warp_scan(mine, lane);
+    if (lane == 31) rs.warp_up[warp] = incl;
+    __syncthreads();
+    const int wt = lane < warps ? rs.warp_up[lane] : 0, w_incl = radix::warp_scan(wt, lane);
+    live = __shfl_sync(FULL, w_incl, 31);
+    int at = __shfl_sync(FULL, w_incl - wt, warp) + incl - mine;
+    listed = live <= cap;
+    if (listed) {  // the cells in play, in cell order
+      const int first = at;
+      for (int z = z0; z < z1; ++z)
+        for (int j = 0, len = prefix_len(z); j < len; ++j, ++at) dense[at] = static_cast<uint32_t>(z * k + j);
+      if (live <= rank_max)  // a handful: all are candidates, keyed by their place in the list
+        for (int i = first; i < at; ++i)
+          keys[i] = (static_cast<unsigned long long>(cells.bits(dense[i])) << 32) | (0xFFFFFFFFu - i);
+    }
+    __syncthreads();  // the list is whole, and every warp has read rs.warp_up (`gather` writes it next)
+  } else {
+    for (int i = tid; i < n; i += T) {
+      const uint32_t x = cells.bits(i);
+      hi = max(hi, x);
+      lo = min(lo, x);
+    }
+    radix::block_max_min(hi, lo, rs);
+  }
+
+  // 3. the k-th largest in play, the candidates in cell order, each placed by
+  // the candidates above it
+  if (listed) {
+    int m = live;
+    if (live > rank_max) {
+      auto bits = [&](int i) { return cells.bits(dense[i]); };
+      m = radix::gather(bits, live, radix::threshold(bits, live, k, hi, lo, live, rank_max, rs), rank_max, keys, rs);
+    }
+    radix::rank(keys, m, k, [&](int place, unsigned long long key) { emit(place, dense[radix::cell_of(key)]); });
+  } else {
+    auto bits = [&](int i) { return cells.bits(i); };
+    const int m = radix::gather(bits, n, radix::threshold(bits, n, k, hi, lo, live, rank_max, rs), rank_max, keys,
+                                rs);
+    radix::rank(keys, m, k, [&](int place, unsigned long long key) { emit(place, radix::cell_of(key)); });
+  }
 }
 
 int list_stride(int k) { return (k + 31) / 32 * 32; }
@@ -734,13 +901,43 @@ cudaError_t launch_wgmma(const void* q, const void* v, void* part_s, void* part_
   return cudaGetLastError();
 }
 
+template <bool STAGED> struct MergeTag {};
+
+// The merge on `stream`: partials [splits, B, k] in, [B, k] out. The cells
+// sit in shared memory where they fit beside the list of cells in play (at
+// most 54,000 or so a query on an H100), else they are read in place.
+cudaError_t launch_merge(const void* part_s, const void* part_i, void* out_s, void* out_i, int B, int k, int splits,
+                         cudaStream_t stream) {
+  if (B < 1 || k < 1 || k > KMAX || splits < 1 || splits > 65535) return cudaErrorInvalidValue;
+  const int n = splits * k, cap = min(n, MERGE_DENSE_MAX);
+  int limit = 0, sms = 0;
+  cudaError_t err = optin_smem(&limit);
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const size_t staged = ((size_t)n * 4 + 15) / 16 * 16 + (size_t)cap * 4;
+  // few queries an SM: a block's latency sets the pace (more threads a
+  // block, radix passes that stop at RANK_SORT_MAX candidates); many: its
+  // instructions do (fewer threads, passes down to k candidates)
+  const bool few = B < MERGE_MANY_PER_SM * sms;
+  auto kernel = merge_splits_kernel<false>;
+  size_t dyn = (size_t)cap * 4;
+  int threads = MERGE_THREADS;
+  if (staged + MERGE_STATIC_SMEM <= (size_t)limit) {
+    if ((err = allow_max_smem<MergeTag<true>>(merge_splits_kernel<true>)) != cudaSuccess) return err;
+    kernel = merge_splits_kernel<true>;
+    dyn = staged;
+    threads = few ? 512 : 128;
+  }
+  kernel<<<B, threads, dyn, stream>>>(static_cast<const float*>(part_s), static_cast<const int*>(part_i),
+                                      static_cast<float*>(out_s), static_cast<int*>(out_i), B, k, splits, cap,
+                                      few ? radix::RANK_SORT_MAX : k);
+  return cudaGetLastError();
+}
+
 int merge(cudaError_t err, void* part_s, void* part_i, void* out_s, void* out_i, int B, int k, int splits,
           cudaStream_t stream) {
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  merge_splits_kernel<<<(B + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0, stream>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), B, k, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_merge(part_s, part_i, out_s, out_i, B, k, splits, stream));
 }
 
 }  // namespace
@@ -811,4 +1008,15 @@ extern "C" int vod_fused_mips_topk_wgmma(int dtype, const void* q, const void* v
   cudaError_t err = bind_thread();
   if (err == cudaSuccess) err = launch_wgmma(q, v, part_s, part_i, B, D, k, n_real, splits, stream);
   return merge(err, part_s, part_i, out_s, out_i, B, k, splits, stream);
+}
+
+// The merge alone, on partial lists [splits, B, k] that the caller made (the
+// wrapper `merge_splits`): scores f32, ids int32, contiguous; out [B, k].
+// Returns the CUDA error code of the launch (0 = success).
+extern "C" int vod_fused_mips_topk_merge(const void* part_s, const void* part_i, void* out_s, void* out_i, int B,
+                                         int k, int splits, void* stream_ptr) {
+  const cudaError_t err = bind_thread();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_merge(part_s, part_i, out_s, out_i, B, k, splits, static_cast<cudaStream_t>(stream_ptr)));
 }

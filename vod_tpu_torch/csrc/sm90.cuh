@@ -2,8 +2,9 @@
 // bodies build on: shared-memory addresses, `mbarrier`s, TMA loads of
 // 128-byte-swizzled boxes, `wgmma` descriptors and instructions, the host
 // lookup of the driver's tensor-map encoder, and the host's once-per-card
-// set-up (the shared-memory opt-in of a kernel); and, at its end, the
-// product core of both kernels' CUDA-core bodies (namespace `simt`).
+// set-up (the shared-memory opt-in of a kernel); then the product core of
+// both kernels' CUDA-core bodies (namespace `simt`); and, at its end, the
+// block-wide selection both kernels' selections share (namespace `radix`).
 //
 // Included by `fused_mips_topk.cu` and `fused_mips_binned.cu`, each built into
 // its own library; `ops/cuda_build.py` hashes this header into the build key
@@ -14,6 +15,7 @@
 #include <cuda.h>  // CUtensorMap and its enums only; the encoder is reached through the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -230,6 +232,19 @@ inline cudaError_t optin_smem(int* limit) {
   });
   int card = 0;
   if (err == cudaSuccess && cudaGetDevice(&card) == cudaSuccess) *limit = limits[card];
+  return err;
+}
+
+struct SmsTag {};
+
+// The current card's SMs, read once per card.
+inline cudaError_t sm_count(int* sms) {
+  static int counts[64];
+  const cudaError_t err = once_per_card<SmsTag>([](int card) {
+    return cudaDeviceGetAttribute(&counts[card], cudaDevAttrMultiProcessorCount, card);
+  });
+  int card = 0;
+  if (err == cudaSuccess && cudaGetDevice(&card) == cudaSuccess) *sms = counts[card];
   return err;
 }
 
@@ -570,3 +585,275 @@ __device__ __forceinline__ void multiply_tile(int D, Ring& ring, float (&acc)[MQ
 }
 
 }  // namespace simt
+
+// ---- the selection of a query's k largest cells (namespace radix), which
+// both MIPS kernels' selections build on: `select_kernel`
+// (`fused_mips_binned.cu`, k of a query's folded bins) and
+// `merge_splits_kernel` (`fused_mips_topk.cu`, k of a query's split lists).
+// One block serves one query. A cell is read through an accessor `bits(i)`
+// that gives its score's order bits (`order_bits`), so a kernel keeps its
+// cells where it likes: shared memory, device memory, or a list of cell
+// indices into either.
+//
+// The steps (each called by every thread of the block, blockDim.x a multiple
+// of 32; the block's barriers are inside):
+//   * `threshold`: radix passes over the order bits, 8 bits a pass from the
+//     highest bit in which the largest and the smallest cell differ (the
+//     bits above it are common): a 256-digit histogram of the cells matching
+//     the prefix (a warp's lanes on its first lane's digit add in one shared
+//     atomic), and the digit that holds the k-th cell. The passes stop once
+//     that digit's cells are all needed, or once the cells above it and in
+//     it number at most `rank_max`, all of which become candidates;
+//   * `gather`: in cell order (each warp a run of cells, ballots within it
+//     and a block prefix of the runs' counts), the cells above the prefix
+//     and those matching it (all of them, or the first `need`: lowest cell
+//     first), as 64-bit keys: the order bits above the complemented cell
+//     index, so that no two keys tie and a lower cell ranks first among
+//     equal scores;
+//   * `rank`: each key's place is the count of keys above it; the caller
+//     emits the places below k.
+
+namespace radix {
+
+constexpr int RADIX = 256;          // digits of an 8-bit radix pass
+constexpr int RANK_SORT_MAX = 256;  // candidates that `rank` places by counting
+
+// The score's bits in an order-preserving form: a larger score gives a larger
+// key. NaN sorts above every number (as torch's descending sort puts it) and
+// -0 ties with +0.
+__device__ __forceinline__ uint32_t order_bits(int s) { return static_cast<uint32_t>(s) ^ 0x80000000u; }
+__device__ __forceinline__ uint32_t order_bits(float s) {
+  if (isnan(s)) return 0xFFFFFFFFu;
+  uint32_t u = __float_as_uint(s);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// 4 bytes from device memory to shared memory, asynchronously (no register
+// holds them); `cp_async_wait_all` waits for the thread's copies.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(sm90::smem_addr(dst)), "l"(src) : "memory");
+}
+// 16 bytes, both addresses 16-byte aligned, the same way (L2 only).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(sm90::smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Inclusive sum over the warp's lanes up to this one.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+// The largest and smallest of a warp's values, in every lane.
+__device__ __forceinline__ void warp_max_min(uint32_t& hi, uint32_t& lo) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    hi = max(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, o));
+    lo = min(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, o));
+  }
+}
+
+struct SelectState {
+  uint32_t prefix;  // the threshold's bits found so far
+  int need;         // cells still to take among those matching the prefix
+  int above;        // cells above every value with the prefix
+  int count;        // cells matching the prefix
+  int done;         // 1 once the candidates are settled
+};
+
+// The block's shared scratch of the steps (a kernel declares one).
+struct Scratch {
+  uint32_t hist[2][RADIX];  // hist[0] must be zero when `threshold` starts
+  uint32_t warp_hi[32], warp_lo[32];
+  int warp_up[32], warp_eq[32];
+  SelectState st;
+};
+
+// Every thread's (hi, lo) reduced to the block's largest and smallest, in
+// every thread.
+__device__ __forceinline__ void block_max_min(uint32_t& hi, uint32_t& lo, Scratch& s) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  warp_max_min(hi, lo);
+  if (lane == 0) {
+    s.warp_hi[warp] = hi;
+    s.warp_lo[warp] = lo;
+  }
+  __syncthreads();
+  hi = lane < warps ? s.warp_hi[lane] : 0u;  // every warp reduces the warps' values
+  lo = lane < warps ? s.warp_lo[lane] : 0xFFFFFFFFu;
+  warp_max_min(hi, lo);
+}
+
+// Where the k-th cell lies: the bits at and above `settled` are `prefix`'s;
+// `above` cells lie above every value with the prefix, `count` match it, and
+// `need` of those are still to take.
+struct Threshold {
+  uint32_t prefix;
+  int settled, need, above, count;
+};
+
+// Radix passes over the n cells' order bits (`bits(i)`, i < n) for the k-th
+// largest. Every cell is at most `hi`; `live` cells are at least `lo` (at
+// least k of them), and where hi == lo those are the cells matching it. The
+// passes stop once the k-th cell's digit holds exactly the cells still
+// needed, or once the cells above it and in it number at most `rank_max`.
+template <typename Bits>
+__device__ __forceinline__ Threshold threshold(const Bits& bits, int n, int k, uint32_t hi, uint32_t lo, int live,
+                                               int rank_max, Scratch& s) {
+  const int tid = threadIdx.x, T = blockDim.x, lane = tid % 32, warp = tid / 32;
+  uint32_t prefix = hi;
+  int settled = 0, need = k, above = 0, count = live;
+  if (hi != lo) {
+    settled = 32 - __clz(hi ^ lo);
+    prefix = settled > 31 ? 0u : hi & (0xFFFFFFFFu << settled);
+    for (int pass = 0;; ++pass) {
+      const int shift = max(0, settled - 8);
+      const uint32_t smask = settled > 31 ? 0u : 0xFFFFFFFFu << settled;
+      uint32_t* h = s.hist[pass & 1];
+      for (int i0 = 0; i0 < n; i0 += T) {  // the same trip count in every warp
+        const int i = i0 + tid;
+        uint32_t x = 0u;
+        bool match = false;
+        if (i < n) {
+          x = bits(i);
+          match = (x & smask) == prefix;
+        }
+        // the first matching lane adds its digit's lanes at once (ties share
+        // a digit); each other lane adds itself
+        const uint32_t digit = (x >> shift) & (RADIX - 1);
+        const unsigned active = __ballot_sync(0xFFFFFFFFu, match);
+        if (active != 0u) {
+          const int first = __ffs(active) - 1;
+          const uint32_t lead = __shfl_sync(0xFFFFFFFFu, digit, first);
+          const unsigned same = __ballot_sync(0xFFFFFFFFu, match && digit == lead);
+          if (lane == first) atomicAdd(&h[lead], static_cast<uint32_t>(__popc(same)));
+          else if (match && digit != lead) atomicAdd(&h[digit], 1u);
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {  // lane l: digits 255 - 8l down to 248 - 8l
+        uint32_t cnt[8], sum = 0u;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += cnt[j] = h[RADIX - 1 - 8 * lane - j];
+        uint32_t incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const uint32_t v = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const uint32_t excl = incl - sum, want = static_cast<uint32_t>(need);
+        if (excl < want && want <= incl) {  // the lane whose digits hold the k-th cell
+          uint32_t up = excl, in = 0u;
+          int digit = 0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (up + cnt[j] >= want) {
+              digit = RADIX - 1 - 8 * lane - j;
+              in = cnt[j];
+              break;
+            }
+            up += cnt[j];
+          }
+          const int now_above = above + static_cast<int>(up), now_need = need - static_cast<int>(up);
+          s.st.prefix = prefix | (static_cast<uint32_t>(digit) << shift);
+          s.st.above = now_above;
+          s.st.need = now_need;
+          s.st.count = static_cast<int>(in);
+          s.st.done = shift == 0 || static_cast<int>(in) == now_need || now_above + static_cast<int>(in) <= rank_max;
+        }
+        for (int d = lane; d < RADIX; d += 32) s.hist[(pass + 1) & 1][d] = 0u;  // the next pass's
+      }
+      __syncthreads();
+      prefix = s.st.prefix;
+      need = s.st.need;
+      above = s.st.above;
+      count = s.st.count;
+      settled = shift;
+      if (s.st.done) break;
+    }
+  }
+  return Threshold{prefix, settled, need, above, count};
+}
+
+// The candidates in cell order into keys[0, m), returned m: the cells above
+// the prefix, and those matching it (all where the cells above and in it
+// number at most `rank_max`, else the first `need`). Ends on a barrier.
+template <typename Bits>
+__device__ __forceinline__ int gather(const Bits& bits, int n, const Threshold& t, int rank_max,
+                                      unsigned long long* keys, Scratch& s) {
+  const int tid = threadIdx.x, T = blockDim.x, lane = tid % 32, warp = tid / 32, warps = T / 32;
+  const uint32_t mask = 0xFFFFFFFFu << t.settled;  // settled <= 24 after a pass, or 0
+  const int take = t.above + t.count <= rank_max ? t.count : t.need;
+  // warp w: cells [w * 32 * per, (w + 1) * 32 * per), 32 a round; counted,
+  // then each warp's first rank from the counts of the warps before it
+  const int per = (n + T - 1) / T, c_warp = warp * 32 * per;
+  const unsigned before = (1u << lane) - 1u;
+  int up = 0, eq = 0;
+  for (int r = 0; r < per; ++r) {
+    const int c = c_warp + 32 * r + lane;
+    const uint32_t x = c < n ? bits(c) & mask : 0u;
+    up += __popc(__ballot_sync(0xFFFFFFFFu, c < n && x > t.prefix));
+    eq += __popc(__ballot_sync(0xFFFFFFFFu, c < n && x == t.prefix));
+  }
+  if (lane == 0) {
+    s.warp_up[warp] = up;
+    s.warp_eq[warp] = eq;
+  }
+  __syncthreads();
+  const int wu = lane < warps ? s.warp_up[lane] : 0, we = lane < warps ? s.warp_eq[lane] : 0;
+  int up_rank = __shfl_sync(0xFFFFFFFFu, warp_scan(wu, lane) - wu, warp);
+  int eq_rank = __shfl_sync(0xFFFFFFFFu, warp_scan(we, lane) - we, warp);
+  for (int r = 0; r < per; ++r) {
+    const int c = c_warp + 32 * r + lane;
+    const uint32_t x = c < n ? bits(c) : 0u;
+    const bool is_up = c < n && (x & mask) > t.prefix, is_eq = c < n && (x & mask) == t.prefix;
+    const unsigned up_bits = __ballot_sync(0xFFFFFFFFu, is_up), eq_bits = __ballot_sync(0xFFFFFFFFu, is_eq);
+    const int slot = is_up ? up_rank + __popc(up_bits & before)
+                           : is_eq && eq_rank + __popc(eq_bits & before) < take
+                                 ? t.above + eq_rank + __popc(eq_bits & before) : -1;
+    if (slot >= 0)
+      keys[slot] = (static_cast<unsigned long long>(x) << 32) | (0xFFFFFFFFu - static_cast<uint32_t>(c));
+    up_rank += __popc(up_bits);
+    eq_rank += __popc(eq_bits);
+  }
+  __syncthreads();
+  return t.above + take;
+}
+
+// The cell a key names.
+__device__ __forceinline__ int cell_of(unsigned long long key) {
+  return static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
+}
+
+// Each of the m keys' place among them (no two tie), counted by `share`
+// neighbouring lanes a key, four keys a step; `emit(place, key)` for the
+// places below k, places past k go nowhere. m <= RANK_SORT_MAX.
+template <typename Emit>
+__device__ __forceinline__ void rank(const unsigned long long* keys, int m, int k, const Emit& emit) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  int share = 1;
+  while (share < 32 && 2 * share * m <= T) share <<= 1;
+  for (int r0 = 0; r0 < m; r0 += T / share) {  // the same trip count in every warp
+    const int r = r0 + tid / share;
+    const unsigned long long key = r < m ? keys[r] : 0ull;
+    int place = 0, j = tid % share;
+    if (r < m) {
+      for (; j + 3 * share < m; j += 4 * share) {
+        const unsigned long long k0 = keys[j], k1 = keys[j + share], k2 = keys[j + 2 * share],
+                                 k3 = keys[j + 3 * share];
+        place += (k0 > key ? 1 : 0) + (k1 > key ? 1 : 0) + (k2 > key ? 1 : 0) + (k3 > key ? 1 : 0);
+      }
+      for (; j < m; j += share) place += keys[j] > key ? 1 : 0;
+    }
+    for (int o = share / 2; o > 0; o >>= 1) place += __shfl_xor_sync(0xFFFFFFFFu, place, o);
+    if (r < m && tid % share == 0 && place < k) emit(place, key);
+  }
+}
+
+}  // namespace radix

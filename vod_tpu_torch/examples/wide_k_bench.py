@@ -3,6 +3,7 @@ kernel beside their yardsticks, on one NVIDIA GPU.
 
     python -m vod_tpu_torch.examples.wide_k_bench
     python -m vod_tpu_torch.examples.wide_k_bench --device cpu --n 4096 --d 48   # the plain path
+    python -m vod_tpu_torch.examples.wide_k_bench --merge-only   # the split merge alone
 
 `CASES` holds the exact bf16 calls on the tensor-core body ("wgmma") at
 B = 64 and k = 10, 32, 64 and 128, at B = 1 and 2048 at k = 128 and at
@@ -20,17 +21,29 @@ For each case it measures:
   launches,         queries zero-padded to D = 40 (cuBLASLt needs D % 8 ==
   max_abs_err       0; the padding adds zeros to every sum);
   device            exact calls: device ms by kernel from `torch.profiler`
-                    over 5 calls (`topk_wgmma_kernel`, `merge_splits_kernel`);
+                    over 5 calls (2 at B = 2048): `topk_wgmma_kernel`,
+                    `merge_splits_kernel`;
   stages            exact calls: the tensor-core body's ring depth for the
                     call, from the library (`vod_fused_mips_topk_ring_stages`);
-  merge             exact calls with more than one split: the split merge's
-                    own yardsticks on partial lists of the call's shape
-                    ([splits, B, k], sorted, ids rising by split): its plain
-                    version (a stable descending sort of each query's
-                    splits x k pairs in split order, the first k kept),
-                    `torch.topk` of the same pairs, both between CUDA
-                    events, and its bound (each partial pair read once,
-                    [B, k] written once, over the memory rate).
+  merge             exact calls with more than one split: the split merge
+                    (`merge_splits_kernel`) alone through `merge_splits`, on
+                    the partial lists [splits, B, k] that the call's own body
+                    wrote (`mips._exact_partials`: one launch of the call):
+                    checked bit for bit against its plain version; device ms
+                    from `torch.profiler` over `--reps` calls (`ms`); wall ms
+                    between CUDA events; its plain version (a stable
+                    descending sort of each query's splits x k pairs in split
+                    order, the first k kept) and `torch.topk` of the same
+                    pairs between CUDA events, the latter's device ms too;
+                    and its bound (`merge_bound_bytes`): the bytes that any
+                    merge of these sorted lists must move, over the memory
+                    rate: for each query and split its scores down to the
+                    first that does not win (at least its head), the
+                    winners' ids, in whole 32-byte sectors, and [B, k]
+                    written once.
+
+With `--merge-only` it measures the merge alone, as above, on seeded lists
+(`merge_lists`) at each shape of `MERGE_SHAPES`, and nothing else.
 
 On the CPU (`--device cpu`) the wrappers run their plain versions: `ms` is a
 CPU time of the plain path, and nothing else is timed. Prints one JSON line
@@ -62,6 +75,11 @@ CASES = (
     ("binned int8 D=36 B=64 512 bins", "binned", "int8_d36", 64, 512, "fma"),
 )
 D_SMALL, D_PADDED = 36, 40
+# (B, k, splits) of `--merge-only`: the exact cases' shapes (132 splits at
+# B <= 64 and 4 at B = 2048 on the tensor-core body over 2^20 rows, 396 on
+# the CUDA-core body) and one past shared memory (read in place)
+MERGE_SHAPES = ((1, 10, 132), (1, 128, 132), (64, 1, 132), (64, 10, 132), (64, 64, 132), (64, 128, 132), (64, 128, 396),
+                (2048, 10, 4), (2048, 64, 4), (2048, 128, 4), (64, 128, 500))
 
 
 def int8_rows(n: int, d: int, device, seed: int):
@@ -109,22 +127,70 @@ def ring_stages(v, k: int, splits: int) -> int:
     return int(fn(int(v.shape[1]), k, int(v.shape[0]), splits))
 
 
-def merge_yardsticks(b: int, k: int, splits: int, reps: int, device, hbm: float = HBM) -> dict:
-    """The split merge's plain version and library call, timed on seeded
-    partial lists [splits, B, k] of the call's shape; see the module
-    docstring."""
+def merge_lists(splits: int, b: int, k: int, device):
+    """Seeded partial lists [splits, B, k] (scores, ids) in the exact kernel's
+    contract: each sorted by score descending, ids rising along a list and
+    from split to split."""
     import torch
 
-    from vod_tpu_torch.examples.narrow_call_bench import _events_ms
+    g = torch.Generator(device=device).manual_seed(splits + b + k)
+    s = torch.randn((splits, b, k), generator=g, device=device).sort(dim=-1, descending=True).values
+    z = torch.arange(splits, device=device, dtype=torch.int32).view(-1, 1, 1)
+    return s.contiguous(), (z * k + torch.arange(k, device=device, dtype=torch.int32)).expand(splits, b, k).contiguous()
+
+
+def merge_bound_bytes(part_s, k: int) -> int:
+    """The bytes that any merge of these sorted lists [splits, B, k] must move:
+    the 32-byte sectors that hold, for each query and split, its scores down
+    to the first that does not win (the head where none wins), and those
+    that hold the winners' ids (neighbouring lists share a sector); then the
+    [B, k] scores and ids written."""
+    import torch
+
     from vod_tpu_torch.ops.numpy_ops import topk_lowest_first
 
-    g = torch.Generator(device=device).manual_seed(splits + b + k)
-    parts = torch.randn((splits, b, k), generator=g, device=device).sort(dim=-1, descending=True).values
-    pairs = parts.permute(1, 0, 2).reshape(b, splits * k)  # each query's pairs in split order
-    nbytes = splits * b * k * 8 + b * k * 8
-    return dict(splits=splits, plain_ms=_events_ms(lambda: topk_lowest_first(pairs, k), reps, device),
-                library_ms=_events_ms(lambda: torch.topk(pairs, k, dim=-1), reps, device),
-                bound_ms=nbytes / hbm * 1e3, bound_by="bytes")
+    splits, b, _ = (int(x) for x in part_s.shape)
+    top, pos = topk_lowest_first(part_s.permute(1, 0, 2).reshape(b, splits * k), k)
+    win = torch.zeros((b, splits * k), dtype=torch.bool, device=part_s.device)
+    win.scatter_(1, pos, ~torch.isneginf(top))  # a -inf slot is no winner: its id is -1
+    win = win.view(b, splits, k).permute(1, 0, 2)  # [splits, B, k], as the partials lie
+    read = torch.arange(k, device=part_s.device) <= win.sum(-1, keepdim=True)
+
+    def sectors(cells) -> int:  # the sectors of a partials array that hold a marked 4-byte cell
+        return int(torch.unique(torch.nonzero(cells.reshape(-1)).squeeze(1) // 8).numel())
+
+    return 32 * (sectors(read) + sectors(win)) + b * k * 8
+
+
+def merge_yardsticks(part_s, part_i, k: int, reps: int, device, hbm: float = HBM) -> dict:
+    """The split merge alone on partial lists [splits, B, k], beside its plain
+    version and `torch.topk` of the same pairs; see the module docstring."""
+    import torch
+
+    from vod_tpu_torch.examples.narrow_call_bench import _events_ms, device_profile
+    from vod_tpu_torch.ops import mips
+
+    splits, b, _ = (int(x) for x in part_s.shape)
+    got_s, got_i = mips.merge_splits(part_s, part_i, k)
+    want_s, want_i = mips.merge_splits_reference(part_s, part_i, k)
+    if not (torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)) and torch.equal(got_i, want_i)):
+        raise AssertionError(f"merge_splits_kernel != plain at B={b} k={k} splits={splits}")
+    pairs = part_s.permute(1, 0, 2).reshape(b, splits * k)  # each query's pairs in split order
+    merge = lambda: mips.merge_splits(part_s, part_i, k)  # noqa: E731
+    library = lambda: torch.topk(pairs, k, dim=-1)  # noqa: E731
+    return dict(splits=splits, ms=round(device_profile(merge, reps)[0], 5), wall_ms=_events_ms(merge, reps, device),
+                plain_ms=_events_ms(lambda: mips.merge_splits_reference(part_s, part_i, k), reps, device),
+                library_ms=_events_ms(library, reps, device),
+                library_device_ms=round(device_profile(library, reps)[0], 5),
+                bound_ms=merge_bound_bytes(part_s, k) / hbm * 1e3, bound_by="bytes",
+                reads="each split's scores down to its first loser, the winners' ids (32-byte sectors)")
+
+
+def merge_only(device, reps: int, hbm: float = HBM) -> list[dict]:
+    """The merge alone at each shape of `MERGE_SHAPES`, on seeded lists."""
+    return [dict(label=f"merge B={b} k={k} splits={splits}", B=b, k=k,
+                 **merge_yardsticks(*merge_lists(splits, b, k, device), k, reps, device, hbm))
+            for b, k, splits in MERGE_SHAPES]
 
 
 def kernel_ms(by_name: dict, name: str) -> float:
@@ -147,7 +213,7 @@ def exact_extras(row: dict, v, q, call, reps: int, hbm: float = HBM) -> None:
     splits = mips._topk_plan(v, q.to(v.dtype), k, int(v.shape[0])).splits
     row["stages"] = ring_stages(v, k, splits)
     if splits > 1:
-        row["merge"] = merge_yardsticks(b, k, splits, reps, v.device, hbm)
+        row["merge"] = merge_yardsticks(*mips._exact_partials(v, q, k), k, reps, v.device, hbm)
 
 
 def run(device, *, n: int = 1 << 20, d: int = 768, reps: int = 20, wide_reps: int = 3, cases=CASES,
@@ -165,6 +231,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--d", type=int, default=768)
     ap.add_argument("--reps", type=int, default=20, help="timed calls a case at B <= 64 (3 at B = 2048)")
+    ap.add_argument("--merge-only", action="store_true", help="the split merge alone at MERGE_SHAPES (a card)")
     return ap
 
 
@@ -174,7 +241,9 @@ def main(argv: typ.Optional[list[str]] = None) -> list[dict]:
     from vod_tpu_torch.examples.synthetic import device_of
 
     device = device_of(args.device)
-    rows = run(device, n=args.n, d=args.d, reps=args.reps)
+    if args.merge_only and device.type != "cuda":
+        raise SystemExit("--merge-only times the merge kernel: it needs a CUDA device")
+    rows = merge_only(device, args.reps) if args.merge_only else run(device, n=args.n, d=args.d, reps=args.reps)
     for row in rows:
         print(json.dumps(row), flush=True)
     print(json.dumps({"card": card_name(device)}), flush=True)

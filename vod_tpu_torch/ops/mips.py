@@ -12,7 +12,9 @@ then `select_kernel`. Expected recall@k is about 1 - (k-1)/(2*bins).
 `fused_mips_topk` (exact): the k highest scores per query, by (score
 descending, row id ascending), from the CUDA kernel `csrc/fused_mips_topk.cu`,
 whose tile product runs on the tensor cores or on CUDA cores by a fixed rule
-on dtype and shape (`_topk_body`).
+on dtype and shape (`_topk_body`), each split of the rows into a list of its
+own, then `merge_splits_kernel` over the splits' lists (alone:
+`merge_splits`).
 
 Each wrapper launches its kernel for a CUDA tensor and raises if it cannot; for
 a CPU tensor it runs its `*_reference`, the plain PyTorch version of the same
@@ -177,6 +179,7 @@ _ARGTYPES = {  # every C entry's arguments; the stream comes last
     "vod_fused_mips_binned_select": [_INT] + [_PTR] * 5 + [_INT] * 4 + [_PTR],
     "vod_fused_mips_topk_fma": [_INT] + [_PTR] * 6 + [_INT] * 5 + [_PTR],
     "vod_fused_mips_topk_wgmma": [_INT] + [_PTR] * 6 + [_INT] * 5 + [_PTR],
+    "vod_fused_mips_topk_merge": [_PTR] * 4 + [_INT] * 3 + [_PTR],
 }
 
 
@@ -543,22 +546,40 @@ def _topk_plan(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int
     return _plan(key, build)
 
 
-def _kernel_exact(vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _kernel_exact(
+    vectors: torch.Tensor, queries: torch.Tensor, k: int, n_real: int
+) -> tuple[torch.Tensor, torch.Tensor, typ.Optional[torch.Tensor]]:
     """Launch the exact kernel on the body `_topk_body` names (and its merge of
-    the splits) on the current stream; outputs `[B, k]`."""
+    the splits) on the current stream; returns the outputs `[B, k]` and the
+    workspace that holds the body's partial lists (`_exact_partials` reads
+    them), None where one split writes the result itself."""
     b, d = (int(x) for x in queries.shape)
     dev = vectors.device
     out_s, out_i = _outputs(b, k, torch.float32, dev)
     if b == 0:
-        return out_s, out_i
+        return out_s, out_i, None
     plan = _topk_plan(vectors, queries, k, n_real)
+    ws = None
     if plan.splits > 1:
         ws, part_s, part_i, _ = _workspace(dev, plan, b, k)
-    else:  # one split writes the result itself
+    else:
         part_s, part_i = out_s.data_ptr(), out_i.data_ptr()
     _launch(fused_mips_topk, plan, dev, _DTYPE_CODES[vectors.dtype], queries.data_ptr(), vectors.data_ptr(),
             part_s, part_i, out_s.data_ptr(), out_i.data_ptr(), b, d, k, n_real, plan.splits)
-    return out_s, out_i
+    return out_s, out_i, ws
+
+
+def _exact_partials(vectors: torch.Tensor, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial lists `[splits, B, k]` (float32 scores, int32 ids) that one
+    CUDA `fused_mips_topk` call over all of `vectors` writes before its merge,
+    for a benchmark of `merge_splits`. One launch of the call, counted as
+    such; raises where the call runs in one split (no merge)."""
+    b = int(queries.shape[0])
+    _, _, ws = _kernel_exact(vectors, queries.to(vectors.dtype).contiguous(), k, int(vectors.shape[0]))
+    if ws is None:
+        raise ValueError(f"the exact call at B={b}, k={k} runs in one split: it has no partial lists")
+    cells = ws.numel() // 2  # scores, then ids: an exact plan has no select cells
+    return ws[:cells].view(torch.float32).view(-1, b, k), ws[cells:].view(-1, b, k)
 
 
 def exact_topk_reference(
@@ -581,6 +602,59 @@ def exact_topk_reference(
         top_s, pos = topk_lowest_first(torch.cat([top_s, s], dim=-1), k)
         top_i = torch.gather(torch.cat([top_i, rows], dim=-1), -1, pos)
     return top_s, torch.where(torch.isfinite(top_s), top_i, -1)
+
+
+def merge_splits_reference(
+    part_s: torch.Tensor, part_i: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `merge_splits_kernel`: each query's splits x k pairs
+    in split order, the k highest by a stable descending selection (so the
+    lower split, whose ids are the lower, wins a tie), id -1 where the score
+    is -inf. The tests and the card script hold the kernel against it; the
+    main path never runs it."""
+    splits, b, width = (int(x) for x in part_s.shape)
+    pairs_s = part_s.permute(1, 0, 2).reshape(b, splits * width)
+    top_s, pos = topk_lowest_first(pairs_s, k)
+    top_i = torch.gather(part_i.permute(1, 0, 2).reshape(b, splits * width), -1, pos)
+    return top_s, torch.where(torch.isneginf(top_s), -1, top_i)
+
+
+def merge_splits(part_s: torch.Tensor, part_i: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`merge_splits_kernel` alone, on partial lists that the caller made:
+    float32 scores `[splits, B, k]` and int32 ids of the same shape,
+    contiguous, each list sorted by (score descending, id ascending), split
+    z's ids above split z - 1's, empty slots (-inf, -1); returns `[B, k]`
+    scores and ids, as `merge_splits_reference`. On a CUDA tensor this
+    launches the kernel or raises, counted on `merge_splits.launches`; on a
+    CPU tensor it runs the plain version. `fused_mips_topk` launches the same
+    kernel itself."""
+    if part_s.ndim != 3 or part_s.shape != part_i.shape or part_i.dtype != torch.int32:
+        raise ValueError(f"expected [splits, B, k] scores and int32 ids, got {tuple(part_s.shape)} and "
+                         f"{tuple(part_i.shape)} {part_i.dtype}")
+    if part_s.dtype != torch.float32:
+        raise TypeError(f"merge_splits takes float32 scores, got {part_s.dtype}")
+    splits, b, width = (int(x) for x in part_s.shape)
+    if width != k or not 1 <= k <= _K_MAX or not 1 <= splits <= 65535:
+        raise ValueError(f"need lists of k in [1, {_K_MAX}] and 1 to 65,535 splits, got k={k}, "
+                         f"shape {tuple(part_s.shape)}")
+    dev = part_s.device
+    if dev.type == "cpu":
+        return merge_splits_reference(part_s, part_i, k)
+    if dev.type != "cuda" or part_i.device != dev:
+        raise ValueError(f"merge_splits runs on cuda or cpu, with both tensors on one device, not {dev}")
+    if not (part_s.is_contiguous() and part_i.is_contiguous()):
+        raise ValueError("merge_splits needs contiguous partials")
+    out_s, out_i = _outputs(b, k, torch.float32, dev)
+    if b == 0:
+        return out_s, out_i
+    plan = _plan(("merge_splits", dev.index), lambda: _Plan(
+        _entry("fused_mips_topk", "vod_fused_mips_topk_merge"), "", 0, 0))
+    _launch(merge_splits, plan, dev, part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, k,
+            splits)
+    return out_s, out_i
+
+
+merge_splits.launches = 0
 
 
 def fused_mips_topk(
@@ -621,7 +695,7 @@ def fused_mips_topk(
     n_real = _check_topk(vectors, queries, k, tile, qblock, n_real)
     q = queries.to(vectors.dtype).contiguous()
     if vectors.device.type == "cuda":
-        return _kernel_exact(vectors, q, k, n_real)
+        return _kernel_exact(vectors, q, k, n_real)[:2]
     if vectors.device.type == "cpu":
         return exact_topk_reference(vectors, q, k, n_real)
     raise ValueError(f"fused_mips_topk runs on cuda or cpu, not {vectors.device}")
